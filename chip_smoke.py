@@ -9,18 +9,39 @@ before the last line:
 1. device  -- requires CUDA; prints the card's name and power limit as
               nvidia-smi reports them, torch's CUDA and the nvcc version.
 2. build   -- builds every kernel from swindet_tpu_torch/csrc with nvcc.
-3. kernels -- holds each kernel against its plain PyTorch version on the
-              card at the shapes of the main path, in bf16 and fp32, and
-              times both with CUDA events.
-4. main    -- Mask R-CNN Swin-T (full width, seeded weights, bf16, RPN
-              nms_pre = max_per_img = 1000) through init_detector and
-              inference_detector on 3 synthetic 800x1333 images after one
-              warm-up; every kernel's launch count must rise.
+3. kernels -- holds each of the eight kernels against its plain PyTorch
+              version on the card at the shapes of the main paths, in bf16
+              and fp32, times both with CUDA events, times the one PyTorch
+              call that computes the same function where there is one
+              (library_ms), and computes each kernel's bound from the
+              bytes and operations of its inputs.
+4. main    -- serving: Mask R-CNN Swin-T (full width, seeded weights,
+              bf16, RPN nms_pre = max_per_img = 1000) through
+              init_detector and inference_detector on 3 synthetic
+              800x1333 images after one warm-up; every inference kernel's
+              launch count must rise and no training kernel may launch.
 5. check   -- the same detector at fp32 on a small canvas, on the card
               (kernels) and on the CPU (plain versions), must agree.
+6. train   -- training: the same detector in bf16 with the config's
+              train_cfg, drop_path_rate 0.1, AdamW with the Swin
+              paramwise_cfg and the schedule_1x warm-up, through
+              make_train_step on a batch of 2 synthetic 800x1333 images
+              (canvas 800x1344) whose painted rectangles are the ground
+              truth: 1 warm-up step, 5 timed steps, one validation pass
+              (simple_test) of the trained model on the batch, then 2
+              profiled steps. Over the timed steps every kernel but the
+              inference attention kernel must launch, and that one must
+              not; the validation pass, counted on its own, must launch
+              the inference kernels and no training kernel.
+7. train-check -- forward_train and its gradients in fp32 on a 224x320
+              canvas, on the card and on the CPU, with the same weights,
+              batch and sampler keys, must agree; a bf16 control run on
+              the card is held to the same CPU run and logged.
 
-Then one JSON line of per-kernel results and, last, one JSON line with
-the device. It imports neither jax nor the JAX package.
+Then one JSON line of per-kernel results (``launches``: the serving
+and the training runs' counts, each from its own reset, summed; each
+also apart), the card's name and power limit, and, last, one JSON line
+with the device. It imports neither jax nor the JAX package.
 """
 from __future__ import annotations
 
@@ -32,15 +53,29 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from swindet_tpu_torch import inference_detector, init_detector
-from swindet_tpu_torch.ops import (KERNEL_WRAPPERS, build, conv3x3,
+from swindet_tpu_torch.engine import (build_lr_schedule, build_optimizer,
+                                      make_train_step)
+from swindet_tpu_torch.ops import (INFERENCE_KERNELS, KERNEL_WRAPPERS,
+                                   TRAINING_KERNELS, build, conv3x3,
+                                   conv3x3_dw, conv3x3_dw_reference,
                                    conv3x3_reference, launch_counts,
                                    layer_norm, layer_norm_reference,
-                                   multilevel_roi_align, reset_launch_counts,
-                                   roi_align, window_attention_reference,
+                                   multilevel_roi_align,
+                                   multilevel_roi_align_backward,
+                                   reset_launch_counts, roi_align,
+                                   roi_align_bwd, window_attention_bwd,
+                                   window_attention_bwd_reference,
+                                   window_attention_fwd_p,
+                                   window_attention_fwd_p_reference,
+                                   window_attention_reference,
                                    window_attention_v3)
+from swindet_tpu_torch.ops.roi_align import _flat_layout, _taps, map_roi_levels
 from swindet_tpu_torch.models.backbones.swin import shifted_window_attn_mask
+from swindet_tpu_torch.models.dense_heads import rpn_head as rpn_head_module
+from swindet_tpu_torch.utils import Config
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(
@@ -60,6 +95,18 @@ KERNELS = {
     'roi_align': dict(
         source='swindet_tpu_torch/csrc/roi_align.cu',
         replaces='swindet_tpu/ops/roi_align_pallas.py:92'),
+    'window_attention_fwd_p': dict(
+        source='swindet_tpu_torch/csrc/window_attention.cu',
+        replaces='swindet_tpu/ops/window_attention_v3.py:209'),
+    'window_attention_bwd': dict(
+        source='swindet_tpu_torch/csrc/window_attention.cu',
+        replaces='swindet_tpu/ops/window_attention_v3.py:119'),
+    'conv3x3_dw': dict(
+        source='swindet_tpu_torch/csrc/conv3x3.cu',
+        replaces='swindet_tpu/ops/conv3x3.py:112'),
+    'roi_align_bwd': dict(
+        source='swindet_tpu_torch/csrc/roi_align.cu',
+        replaces='swindet_tpu/ops/roi_align_pallas.py:411'),
 }
 # |kernel - plain| <= ATOL + RTOL * |plain|: fp32 differs by summation
 # order only; bf16 outputs are each rounded once from fp32 on both sides,
@@ -70,7 +117,24 @@ TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 # 1.8e-4 on level-0 rois at x ~ 290 cells, where one ulp is 3e-5 cells
 # and N(0, 1) feature maps change by up to ~6 per cell)
 TOL_ROI_FP32 = (1e-3, 1e-4)
+# The backward kernels sum over windows, pixels or rois across blocks, by
+# fp32 atomics in an order that changes from run to run, and their
+# entries cancel (a sum of ~1e5 signed products can be near zero while
+# each product is not): |kernel - plain| <= TOL_SUM * max|plain| per
+# output, a little looser than the forwards' elementwise tolerance. bf16
+# outputs add one bf16 rounding (2^-8); RoIAlign's fp32 adds the one-ulp
+# sample coordinates above.
+TOL_SUM = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+TOL_SUM_ROI_FP32 = 1e-3
 FPN_SHAPES = ((200, 336), (100, 168), (50, 84), (25, 42))
+# H100 SXM data-sheet rates (dense bf16 tensor cores, HBM3)
+PEAK_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+IMG_MEAN = np.array([123.675, 116.28, 103.53], np.float32)
+IMG_STD = np.array([58.395, 57.12, 57.375], np.float32)
+# COCO train2017 (118,287 images) at the config's 16 images per batch,
+# for the schedule's epoch boundaries
+ITERS_PER_EPOCH = 7393
 
 
 def log(phase: str, msg: str) -> None:
@@ -123,36 +187,78 @@ def phase_build() -> None:
 
 
 # ------------------------------------------------------------- phase 3
-def _compare(name, dtype, kernel_fn, plain_fn, shape_note):
-    got = kernel_fn()
-    want = plain_fn()
+def _tensors(out):
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(nbytes, flops):
+    """Least time (ms) of the work on the card: its bytes over the memory
+    rate or its operations over the bf16 tensor-core rate, whichever is
+    larger, and which it was."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def _compare(name, dtype, kernel_fn, plain_fn, shape_note, work=None,
+             library_fn=None, summed=False):
+    """Hold kernel_fn() against plain_fn() (each a tensor or a tuple of
+    them), time both and, if given, library_fn; ``work`` (bytes, flops)
+    gives the bound. ``summed`` picks the scale-relative TOL_SUM check of
+    the backward kernels."""
+    got = _tensors(kernel_fn())
+    want = _tensors(plain_fn())
     torch.cuda.synchronize()
-    if got.shape != want.shape or got.dtype != want.dtype:
-        raise AssertionError(f'{name} {dtype}: kernel gives {got.shape} '
-                             f'{got.dtype}, plain {want.shape} {want.dtype}')
-    g, w = got.float(), want.float()
-    if not torch.isfinite(g).all():
-        raise AssertionError(f'{name} {dtype}: non-finite kernel output')
-    err = (g - w).abs()
-    atol, rtol = TOL_ROI_FP32 if (name, dtype) == (
-        'roi_align', torch.float32) else TOL[dtype]
-    excess = (err - (atol + rtol * w.abs())).max().item()
-    max_err = err.max().item()
-    if excess > 0:
-        raise AssertionError(f'{name} {dtype} {shape_note}: max |d| = '
-                             f'{max_err:.3g} over atol {atol} + rtol {rtol}')
+    max_err = 0.0
+    for g, w in zip(got, want, strict=True):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f'{name} {dtype}: kernel gives {g.shape} '
+                                 f'{g.dtype}, plain {w.shape} {w.dtype}')
+        g, w, odt = g.float(), w.float(), g.dtype
+        if not torch.isfinite(g).all():
+            raise AssertionError(f'{name} {dtype}: non-finite kernel output')
+        err = (g - w).abs()
+        if summed:
+            tol = TOL_SUM_ROI_FP32 if (name, odt) == (
+                'roi_align_bwd', torch.float32) else TOL_SUM[odt]
+            limit = tol * w.abs().max().item()
+            excess = err.max().item() - limit
+            rule = f'{tol} x max|plain| = {limit:.3g}'
+        else:
+            atol, rtol = TOL_ROI_FP32 if (name, odt) == (
+                'roi_align', torch.float32) else TOL[odt]
+            excess = (err - (atol + rtol * w.abs())).max().item()
+            rule = f'atol {atol} + rtol {rtol}'
+        if excess > 0:
+            raise AssertionError(f'{name} {dtype} {shape_note}: max |d| = '
+                                 f'{err.max().item():.3g} over {rule}')
+        max_err = max(max_err, err.max().item())
     ms = cuda_ms(kernel_fn, iters=20)
     plain_ms = cuda_ms(plain_fn)
+    r = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, shape=shape_note,
+             library_ms=None if library_fn is None else cuda_ms(library_fn,
+                                                                 iters=20))
+    if work is not None:
+        r['bound_ms'], r['bound_by'] = bound(*work)
     log('kernels', f'{name} {str(dtype)[6:]} {shape_note}: max|d| '
-                   f'{max_err:.3g} (atol {atol}, rtol {rtol}); kernel '
-                   f'{ms:.4f} ms, plain {plain_ms:.4f} ms')
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+                   f'{max_err:.3g}; kernel {ms:.4f} ms, plain '
+                   f'{plain_ms:.4f} ms'
+                   + ('' if library_fn is None else
+                      f', library {r["library_ms"]:.4f} ms')
+                   + ('' if work is None else
+                      f', bound {r["bound_ms"]:.4f} ms ({r["bound_by"]})'))
+    return r
 
 
-def _rois(gen, n, img_h=800, img_w=1344):
+def _rois(gen, n, img_h=800, img_w=1344, batch=1):
     """Proposal-like rois over an 800x1344 canvas: log-uniform sizes of
-    8-800 px, aspect ratios 1/3-3, clipped to the image."""
-    u = torch.rand(n, 4, generator=gen)
+    8-800 px, aspect ratios 1/3-3, clipped to the image, spread over
+    ``batch`` images."""
+    u = torch.rand(n, 5, generator=gen)
     size = 8.0 * 100.0 ** u[:, 0]
     aspect = 3.0 ** (2 * u[:, 1] - 1)
     w, h = size * aspect.sqrt(), size / aspect.sqrt()
@@ -160,7 +266,45 @@ def _rois(gen, n, img_h=800, img_w=1344):
     boxes = torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], 1)
     boxes[:, 0::2] = boxes[:, 0::2].clamp(0, img_w)
     boxes[:, 1::2] = boxes[:, 1::2].clamp(0, img_h)
-    return torch.cat([torch.zeros(n, 1), boxes], 1).cuda().contiguous()
+    b = (u[:, 4] * batch).floor().clamp(max=batch - 1)
+    return torch.cat([b[:, None], boxes], 1).cuda().contiguous()
+
+
+def _attn_flops(b_, n, c, matmuls):
+    """``matmuls`` N x N x hd products per (window, head), 2 flops each."""
+    return 2.0 * matmuls * b_ * n * n * c
+
+
+def _roi_work(shapes, rois, strides, out_size):
+    """What the RoIAlign of ``rois`` needs on these inputs: the distinct
+    feature rows (of C values) that the bilinear taps of its samples read,
+    and the number of samples, both over the samples that lie inside the
+    map and belong to the adaptive grid of their bin. ``shapes``: (H, W)
+    per level."""
+    offsets, total = _flat_layout(shapes)
+    lvl = map_roi_levels(rois, len(shapes))
+    rows, samples = [], 0
+    for s in range(0, rois.shape[0], 64):
+        idx, _, valid, wgt = _taps(rois[s:s + 64], lvl[s:s + 64], shapes,
+                                   offsets, strides, total, out_size, 0)
+        r = wgt.shape[2]
+        used = valid & (wgt.expand(-1, out_size, r, out_size, r)
+                        .reshape(valid.shape) > 0)
+        samples += int(used.sum())
+        rows += [i[used].unique() for i in idx]
+    return torch.cat(rows).unique().numel(), samples
+
+
+def _sdpa_inputs(qkv, bias, mask, nh):
+    """q, k, v (B_, nH, N, hd) views of the packed qkv and the additive
+    bias + mask in qkv's dtype, for the library yardstick."""
+    b_, n, c3 = qkv.shape
+    q, k, v = qkv.view(b_, n, 3, nh, c3 // 3 // nh).permute(2, 0, 3, 1, 4)
+    add = bias[None].expand(b_, -1, -1, -1)
+    if mask is not None:
+        add = (add.reshape(b_ // mask.shape[0], mask.shape[0], nh, n, n)
+               + mask[None, :, None]).reshape(b_, nh, n, n)
+    return q, k, v, add.to(qkv.dtype).contiguous()
 
 
 def phase_kernels():
@@ -171,13 +315,17 @@ def phase_kernels():
         return (torch.randn(*shape, generator=gen) * scale).to(dev)
 
     results = {}
+    strides = (4, 8, 16, 32)
     for dtype in (torch.bfloat16, torch.float32):
+        el = torch.finfo(dtype).bits // 8
         # LayerNorm: patch-embed / stage-1 norms, 200 x 336 tokens x 96
         x = (randn(1, 200, 336, 96) * 2 + 0.5).to(dtype)
         w, b = randn(96), randn(96)
+        wd, bd = w.to(dtype), b.to(dtype)
         r = _compare('layer_norm', dtype, lambda: layer_norm(x, w, b),
-                     lambda: layer_norm_reference(x, w, b),
-                     '(67200, 96)')
+                     lambda: layer_norm_reference(x, w, b), '(67200, 96)',
+                     work=(2 * _nbytes(x) + _nbytes(w, b), 8.0 * x.numel()),
+                     library_fn=lambda: F.layer_norm(x, (96,), wd, bd))
         x = randn(1050, 768).to(dtype)
         w, b = randn(768), randn(768)
         _compare('layer_norm', dtype, lambda: layer_norm(x, w, b),
@@ -189,63 +337,158 @@ def phase_kernels():
         bias = randn(3, 49, 49, scale=0.5)
         mask = torch.from_numpy(
             shifted_window_attn_mask(203, 336, 7, 3)).to(dev)
+        q, k, v, add = _sdpa_inputs(qkv, bias, mask, 3)
         r = _compare('window_attention_v3', dtype,
                      lambda: window_attention_v3(qkv, bias, mask, 3),
                      lambda: window_attention_reference(qkv, bias, mask, 3),
-                     '(1392, 49, 3x96) shifted')
-        qkv = randn(24, 49, 2304).to(dtype)
-        bias = randn(24, 49, 49, scale=0.5)
+                     '(1392, 49, 3x96) shifted',
+                     work=(_nbytes(qkv, bias, mask) + _nbytes(qkv) // 3,
+                           _attn_flops(1392, 49, 96, 2)),
+                     library_fn=lambda: F.scaled_dot_product_attention(
+                         q, k, v, attn_mask=add))
+        qkv4 = randn(24, 49, 2304).to(dtype)
+        bias4 = randn(24, 49, 49, scale=0.5)
         _compare('window_attention_v3', dtype,
-                 lambda: window_attention_v3(qkv, bias, None, 24),
-                 lambda: window_attention_reference(qkv, bias, None, 24),
+                 lambda: window_attention_v3(qkv4, bias4, None, 24),
+                 lambda: window_attention_reference(qkv4, bias4, None, 24),
                  '(24, 49, 3x768)')
         results.setdefault('window_attention_v3', {})[dtype] = r
+
+        # the training forward and the backward: stage 1 of a batch of 2
+        qkv2 = randn(2784, 49, 288).to(dtype)
+        p_bytes = 3 * 2784 * 49 * 49 * 4
+        r = _compare('window_attention_fwd_p', dtype,
+                     lambda: window_attention_fwd_p(qkv2, bias, mask, 3),
+                     lambda: window_attention_fwd_p_reference(qkv2, bias,
+                                                              mask, 3),
+                     '(2784, 49, 3x96) shifted',
+                     work=(_nbytes(qkv2, bias, mask) + _nbytes(qkv2) // 3
+                           + p_bytes, _attn_flops(2784, 49, 96, 2)))
+        _compare('window_attention_fwd_p', dtype,
+                 lambda: window_attention_fwd_p(qkv4, bias4, None, 24),
+                 lambda: window_attention_fwd_p_reference(qkv4, bias4, None,
+                                                          24),
+                 '(48 -> 24, 49, 3x768)')
+        results.setdefault('window_attention_fwd_p', {})[dtype] = r
+
+        _, p = window_attention_fwd_p_reference(qkv2, bias, mask, 3)
+        g = randn(2784, 49, 96).to(dtype)
+        r = _compare('window_attention_bwd', dtype,
+                     lambda: window_attention_bwd(qkv2, p, g, 3),
+                     lambda: window_attention_bwd_reference(qkv2, p, g, 3),
+                     '(2784, 49, 3x96)', summed=True,
+                     work=(2 * _nbytes(qkv2) + _nbytes(p, g)
+                           + 3 * 49 * 49 * 4, _attn_flops(2784, 49, 96, 5)))
+        _, p4 = window_attention_fwd_p_reference(qkv4, bias4, None, 24)
+        g4 = randn(24, 49, 768).to(dtype)
+        _compare('window_attention_bwd', dtype,
+                 lambda: window_attention_bwd(qkv4, p4, g4, 24),
+                 lambda: window_attention_bwd_reference(qkv4, p4, g4, 24),
+                 '(24, 49, 3x768)', summed=True)
+        results.setdefault('window_attention_bwd', {})[dtype] = r
+        del p, p4
 
         # 3x3 conv: FPN P2 output conv; mask-head conv with ReLU
         x = randn(1, 200, 336, 256).to(dtype)
         cw = randn(3, 3, 256, 256, scale=0.02).to(dtype)
         cb = randn(256)
+        x_nchw, w_oihw = x.permute(0, 3, 1, 2), cw.permute(3, 2, 0, 1)
+        cbd = cb.to(dtype)
         r = _compare('conv3x3', dtype, lambda: conv3x3(x, cw, cb),
                      lambda: conv3x3_reference(x, cw, cb),
-                     '(1, 200, 336, 256->256)')
-        x = randn(100, 14, 14, 256).to(dtype)
-        _compare('conv3x3', dtype, lambda: conv3x3(x, cw, cb, True),
-                 lambda: conv3x3_reference(x, cw, cb, True),
+                     '(1, 200, 336, 256->256)',
+                     work=(2 * _nbytes(x) + _nbytes(cw, cb),
+                           2.0 * 9 * 256 * 256 * 67200),
+                     library_fn=lambda: F.conv2d(x_nchw, w_oihw, cbd,
+                                                 padding=1))
+        xm = randn(100, 14, 14, 256).to(dtype)
+        _compare('conv3x3', dtype, lambda: conv3x3(xm, cw, cb, True),
+                 lambda: conv3x3_reference(xm, cw, cb, True),
                  '(100, 14, 14, 256->256) relu')
         results.setdefault('conv3x3', {})[dtype] = r
+
+        # its filter gradient: FPN P2 of a batch of 2; mask head, 256 rois
+        x2 = randn(2, 200, 336, 256).to(dtype)
+        g2 = randn(2, 200, 336, 256, scale=0.1).to(dtype)
+        x2_nchw, g2_nchw = x2.permute(0, 3, 1, 2), g2.permute(0, 3, 1, 2)
+        r = _compare('conv3x3_dw', dtype, lambda: conv3x3_dw(x2, g2),
+                     lambda: conv3x3_dw_reference(x2, g2),
+                     '(2, 200, 336, 256->256)', summed=True,
+                     work=(_nbytes(x2, g2) + 9 * 256 * 256 * 4,
+                           2.0 * 9 * 256 * 256 * 134400),
+                     library_fn=lambda: torch.nn.grad.conv2d_weight(
+                         x2_nchw, (256, 256, 3, 3), g2_nchw, padding=1))
+        xm2 = randn(256, 14, 14, 256).to(dtype)
+        gm2 = randn(256, 14, 14, 256, scale=0.1).to(dtype)
+        _compare('conv3x3_dw', dtype, lambda: conv3x3_dw(xm2, gm2),
+                 lambda: conv3x3_dw_reference(xm2, gm2),
+                 '(256, 14, 14, 256->256)', summed=True)
+        results.setdefault('conv3x3_dw', {})[dtype] = r
+        del x2, g2, x2_nchw, g2_nchw
 
         # RoIAlign: bbox 1000 rois x 7x7, mask 100 rois x 14x14, 4 levels
         feats = [randn(1, h, w, 256).to(dtype) for h, w in FPN_SHAPES]
         rois = _rois(gen, 1000)
-        strides = (4, 8, 16, 32)
+        touched, samples = _roi_work(FPN_SHAPES, rois, strides, 7)
         r = _compare('roi_align', dtype,
                      lambda: roi_align(feats, rois, strides, 7),
                      lambda: multilevel_roi_align(feats, rois, strides, 7),
-                     '1000 rois 7x7x256')
+                     '1000 rois 7x7x256',
+                     work=(touched * 256 * el + _nbytes(rois)
+                           + 1000 * 49 * 256 * el,
+                           samples * 256 * 4 * 2.0))
         rois = _rois(gen, 100)
         _compare('roi_align', dtype,
                  lambda: roi_align(feats, rois, strides, 14),
                  lambda: multilevel_roi_align(feats, rois, strides, 14),
                  '100 rois 14x14x256')
         results.setdefault('roi_align', {})[dtype] = r
+
+        # its backward: bbox 2 x 512 rois, mask 2 x 128 rois, batch 2
+        shapes = [(2, h, w, 256) for h, w in FPN_SHAPES]
+        level_bytes = sum(np.prod(s) for s in shapes) * el
+        rois = _rois(gen, 1024, batch=2)
+        g = randn(1024, 7, 7, 256).to(dtype)
+        _, samples = _roi_work(FPN_SHAPES, rois, strides, 7)
+        r = _compare('roi_align_bwd', dtype,
+                     lambda: roi_align_bwd(shapes, dtype, rois, g, strides,
+                                           7),
+                     lambda: multilevel_roi_align_backward(
+                         shapes, dtype, rois, g, strides, 7),
+                     '1024 rois 7x7x256, batch 2', summed=True,
+                     work=(_nbytes(g, rois) + level_bytes,
+                           samples * 256 * 4 * 2.0))
+        rois = _rois(gen, 256, batch=2)
+        g = randn(256, 14, 14, 256).to(dtype)
+        _compare('roi_align_bwd', dtype,
+                 lambda: roi_align_bwd(shapes, dtype, rois, g, strides, 14),
+                 lambda: multilevel_roi_align_backward(
+                     shapes, dtype, rois, g, strides, 14),
+                 '256 rois 14x14x256, batch 2', summed=True)
+        results.setdefault('roi_align_bwd', {})[dtype] = r
+        torch.cuda.empty_cache()
     return results
 
 
 # ------------------------------------------------------------- phase 4
-def synthetic_images(n, h=800, w=1333, seed=0):
+def synthetic_images(n, h=800, w=1333, seed=0, with_boxes=False):
     """Seeded noise with painted rectangles (bench.py's input recipe), as
-    BGR uint8 images."""
+    BGR uint8 images; with ``with_boxes`` also each image's rectangles
+    (16, 4) as x1, y1, x2, y2."""
     rs = np.random.RandomState(seed)
-    imgs = []
+    imgs, boxes = [], []
     for _ in range(n):
         raw = rs.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        rects = []
         for _ in range(16):
             y0, x0 = rs.randint(0, h - 64), rs.randint(0, w - 64)
             bh, bw = rs.randint(24, 256), rs.randint(24, 256)
             raw[y0:min(y0 + bh, h), x0:min(x0 + bw, w)] = \
                 rs.randint(0, 256, 3)
+            rects.append((x0, y0, min(x0 + bw, w), min(y0 + bh, h)))
         imgs.append(raw)
-    return imgs
+        boxes.append(np.array(rects, np.float32))
+    return (imgs, boxes) if with_boxes else imgs
 
 
 def _check_result(res, h, w):
@@ -295,10 +538,17 @@ def phase_main():
                 + ', '.join(f'{t:.4f}' for t in lat)
                 + f'; detections per image: {counts}')
     log('main', f'kernel launches over the 3 requests: {launches}')
-    idle = [k for k, v in launches.items() if v == 0]
+    idle = [fn.__name__ for fn in INFERENCE_KERNELS
+            if launches[fn.__name__] == 0]
     if idle:
         raise AssertionError(f'kernels not launched on the main path: '
                              f'{idle}')
+    # serving must not pay for the training forward's softmax writes
+    trained = [fn.__name__ for fn in TRAINING_KERNELS
+               if launches[fn.__name__]]
+    if trained:
+        raise AssertionError(f'training kernels launched while serving: '
+                             f'{trained}')
     return launches, lat
 
 
@@ -349,27 +599,383 @@ def phase_check(device: str = 'cuda'):
                  f'{box_err:.3g} px, mask max|d| {mask_err:.3g}')
 
 
+# ------------------------------------------------------------- phase 6
+TRAIN_GRADS = (
+    'backbone.patch_embed.proj.weight',
+    'backbone.layers.0.blocks.0.attn.qkv.weight',
+    'backbone.layers.0.blocks.0.attn.relative_position_bias_table',
+    'neck.fpn_convs.0.conv.weight',
+    'rpn_head.rpn_conv.weight',
+    'roi_head.bbox_head.fc_cls.weight',
+    'roi_head.mask_head.convs.0.conv.weight',
+)
+
+
+def synthetic_train_batch(n=2, seed=0, canvas=(800, 1344)):
+    """The keys of make_train_step's batch on the card: n synthetic
+    800x1333 images (normalized, RGB, padded onto ``canvas``) whose 16
+    painted rectangles are the ground truth -- boxes, bitmap masks and
+    seeded labels."""
+    imgs, rects = synthetic_images(n, seed=seed, with_boxes=True)
+    h, w = imgs[0].shape[:2]
+    rs = np.random.RandomState(seed + 100)
+    img = np.zeros((n, *canvas, 3), np.float32)
+    masks = np.zeros((n, 16, *canvas), np.uint8)
+    for i, (raw, boxes) in enumerate(zip(imgs, rects)):
+        img[i, :h, :w] = (raw[..., ::-1] - IMG_MEAN) / IMG_STD
+        for j, (x1, y1, x2, y2) in enumerate(boxes.astype(int)):
+            masks[i, j, y1:y2, x1:x2] = 1
+    batch = dict(img=img, img_shapes=np.array([[h, w]] * n, np.int32),
+                 pad_shapes=np.array([canvas] * n, np.int32),
+                 gt_bboxes=np.stack(rects), gt_valid=np.ones((n, 16), bool),
+                 gt_labels=rs.randint(0, 80, (n, 16)), gt_masks=masks)
+    return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+
+def _check_log(log, what):
+    bad = {k: v for k, v in log.items() if not np.isfinite(v)}
+    if bad:
+        raise AssertionError(f'{what}: non-finite {bad}')
+
+
+def _profile_steps(step, batch, gen, step_ms, n=2):
+    """Device time by kernel over ``n`` more steps (torch.profiler), per
+    step, and the card's busy share of an unprofiled step (``step_ms``,
+    the median of the timed steps): the profiler slows the host, not the
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            _check_log(step(batch, gen), 'profiled step')
+        torch.cuda.synchronize()
+    rows = [(e.key, e.device_time_total / 1e3 / n, e.count // n)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, 'is_user_annotation', False)
+            and e.device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    log('train', f'profile: {busy:.1f} ms of kernel time per step, '
+                 f'{len(rows)} kernels; against the {step_ms:.1f} ms '
+                 f'median unprofiled step the card is busy '
+                 f'{busy / step_ms:.3f} of the time')
+    # one stream runs one kernel at a time: a share over 1 would mean
+    # device time counted twice
+    if busy > step_ms:
+        raise AssertionError(f'profiled kernel time {busy:.1f} ms exceeds '
+                             f'the {step_ms:.1f} ms step')
+    ours = [r for r in rows if 'swindet' in r[0]]
+    log('train', f'  hand-written kernels: '
+                 f'{sum(r[1] for r in ours):.1f} ms per step')
+    for key, ms, count in ours + [r for r in rows if r not in ours][:12]:
+        log('train', f'  {ms:9.3f} ms/step  {count:5d} launches/step  '
+                     f'{key[:110]}')
+
+
+def phase_train():
+    """Full-width Mask R-CNN Swin-T training steps in bf16 on the card."""
+    cfg = Config.fromfile(CONFIG)
+    model = init_detector(cfg, device='cuda', seed=0)
+    opt = build_optimizer(model, dict(cfg.optimizer))
+    schedule = build_lr_schedule(dict(cfg.lr_config), cfg.optimizer['lr'],
+                                 ITERS_PER_EPOCH)
+    step = make_train_step(model, opt, schedule,
+                           dict(cfg.optimizer_config).get('grad_clip'))
+    log('train', f'{type(model).__name__} compute {model.dtype}, '
+                 f'drop_path_rate {cfg.model.backbone.drop_path_rate}, '
+                 f'{cfg.optimizer["type"]} groups '
+                 f'{[(g["weight_decay"], len(g["params"])) for g in opt.param_groups]}')
+    batch = synthetic_train_batch()
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    before = [p.detach().clone() for p in model.parameters()]
+    t0 = time.perf_counter()
+    _check_log(step(batch, gen), 'warm-up step')
+    torch.cuda.synchronize()
+    log('train', f'warm-up step {time.perf_counter() - t0:.3f} s')
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        out = step(batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        _check_log(out, 'timed step')
+    steps = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log('train', 'per-step ms: ' + ', '.join(f'{t:.1f}' for t in times)
+                 + f'; peak memory {peak / 2 ** 30:.2f} GiB')
+    log('train', 'last step: ' + ', '.join(f'{k} {v:.4f}'
+                                           for k, v in out.items()))
+    log('train', f'kernel launches over the 5 timed steps: {steps}')
+    # with a gradient wanted the attention forward is the softmax-saving
+    # kernel, never the inference one; every other kernel runs
+    idle = [fn.__name__ for fn in KERNEL_WRAPPERS
+            if fn is not window_attention_v3 and steps[fn.__name__] == 0]
+    if idle:
+        raise AssertionError(f'kernels not launched in training: {idle}')
+    if steps['window_attention_v3']:
+        raise AssertionError('the inference attention kernel ran in a '
+                             'training step')
+    still = sum(torch.equal(a, p.detach())
+                for a, p in zip(before, model.parameters()))
+    if still:
+        raise AssertionError(f'{still} parameter tensors did not change')
+    del before
+    # a validation pass of the trained model, counted on its own: eval
+    # mode must go back to the inference kernels
+    reset_launch_counts()
+    with torch.inference_mode():
+        model.eval()
+        res = model.simple_test(batch['img'], batch['img_shapes'],
+                                torch.ones((2, 4), device='cuda'))
+        model.train()
+    if not torch.isfinite(res['dets']).all():
+        raise AssertionError('validation pass: non-finite detections')
+    val = launch_counts()
+    log('train', f'kernel launches of one validation pass (simple_test on '
+                 f'the batch): {val}')
+    wrong = [fn.__name__ for fn in INFERENCE_KERNELS
+             if val[fn.__name__] == 0] + [
+        fn.__name__ for fn in TRAINING_KERNELS if val[fn.__name__]]
+    if wrong:
+        raise AssertionError(f'validation pass: kernels idle or launched '
+                             f'against their mode: {wrong}')
+    _profile_steps(step, batch, gen, float(np.median(times)))
+    return steps, times, peak
+
+
+# ------------------------------------------------------------- phase 7
+def train_check_batch(b=2, h=224, w=320, g=4, seed=2):
+    """Gt boxes at fractional coordinates with filled-ellipse masks, so no
+    mask-target sample sits on the 0.5 threshold."""
+    rs = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w] + 0.5
+    boxes = np.zeros((b, g, 4), np.float32)
+    masks = np.zeros((b, g, h, w), np.uint8)
+    for i in range(b):
+        cx, cy = rs.uniform(0.2, 0.8, g) * w, rs.uniform(0.2, 0.8, g) * h
+        bw, bh = rs.uniform(24, 120, g), rs.uniform(24, 100, g)
+        boxes[i] = np.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2,
+                             cy + bh / 2], -1)
+        for j in range(g):
+            masks[i, j] = (((xx - cx[j]) / (bw[j] / 2)) ** 2
+                           + ((yy - cy[j]) / (bh[j] / 2)) ** 2) <= 1
+    return dict(img=rs.randn(b, h, w, 3).astype(np.float32),
+                img_shapes=np.array([[h, w]] * b, np.int32),
+                pad_shapes=np.array([[h, w]] * b, np.int32),
+                gt_bboxes=boxes, gt_valid=np.ones((b, g), bool),
+                gt_labels=rs.randint(0, 80, (b, g)), gt_masks=masks)
+
+
+LOSS_PARTS = {'rpn': ('loss_rpn_cls', 'loss_rpn_bbox'),
+              'bbox': ('loss_cls', 'loss_bbox'), 'mask': ('loss_mask',)}
+# Limits of the fp32 card-vs-CPU training check, each between the sound
+# run's reading and a bf16 control run's (H100, 224x320): the losses read
+# at most 2.0e-7 relative (fp32 sums in another order; the forward kernels
+# are deterministic), the control at least 2.0e-5. Gradients, as max |d|
+# over the largest entry, for each group of loss terms on its own. The
+# RPN group reads at most 2.4e-6 (control 3.2e-2 and up). The bbox and
+# mask groups read up to 1.8e-3 (control 2.1e-2 and up): a few ReLU units
+# of the RoI heads (2 of the bbox head's 2.1M, 60 of the mask head's 51M)
+# sit within fp32 rounding of zero and pass their gradient on one side
+# only, and every positive roi's units carry gradient. The RPN conv has 3
+# such units too, but its losses send gradient only to the pixels of the
+# 256 anchors sampled per image.
+TOL_TRAIN_LOSS = 2e-6
+TOL_TRAIN_GRAD = {'rpn': 1e-4, 'bbox': 6e-3, 'mask': 6e-3}
+
+
+def _record(model):
+    """Keep, to count where two runs of forward_train differ, the bbox
+    labels and mask targets that the RoI head computes and which units
+    each ReLU of the heads lets through: the RPN conv's, the bbox head's
+    shared fcs' and the mask head's four convs'. Returns what it keeps and
+    a function that undoes the recording."""
+    seen = {k: [] for k in ('labels', 'mask_targets', 'relu_rpn',
+                            'relu_bbox', 'relu_mask')}
+    for key, head in (('labels', model.roi_head.bbox_head),
+                      ('mask_targets', model.roi_head.mask_head)):
+        def record(*args, _fn=head.get_targets, _key=key, **kw):
+            out = _fn(*args, **kw)
+            seen[_key].append((out[0] if isinstance(out, tuple) else out)
+                              .detach().cpu())
+            return out
+        head.get_targets = record
+
+    def keep(key):
+        return lambda mod, args, out: seen[key].append(
+            (out > 0).flatten().cpu())
+    hooks = [m.register_forward_hook(keep('relu_bbox'))
+             for m in model.roi_head.bbox_head.shared_fcs]
+    hooks += [m.register_forward_hook(keep('relu_mask'))
+              for m in model.roi_head.mask_head.convs]
+    conv_nhwc = rpn_head_module.conv_nhwc
+
+    def rpn_conv(x, conv, relu, *args):
+        out = conv_nhwc(x, conv, relu, *args)
+        if relu:
+            seen['relu_rpn'].append((out > 0).flatten().cpu())
+        return out
+    rpn_head_module.conv_nhwc = rpn_conv
+
+    def undo():
+        for h in hooks:
+            h.remove()
+        rpn_head_module.conv_nhwc = conv_nhwc
+        for head in (model.roi_head.bbox_head, model.roi_head.mask_head):
+            del head.get_targets
+    return seen, undo
+
+
+def _train_grads(model, batch, keys, dev):
+    """forward_train on ``dev``: its losses, the gradients of TRAIN_GRADS
+    from each group of LOSS_PARTS on its own (zeros where a group does not
+    reach a parameter), and what :func:`_record` keeps."""
+    seen, undo = _record(model)
+    model.train()
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    tk = {name: [tuple(torch.from_numpy(k).to(dev) for k in pair)
+                 for pair in per_image] for name, per_image in keys.items()}
+    try:
+        losses = model.forward_train(
+            tb['img'], tb['img_shapes'], tb['pad_shapes'], tb['gt_bboxes'],
+            tb['gt_valid'], tb['gt_labels'], tb['gt_masks'],
+            sampler_keys=tk)
+    finally:
+        undo()
+    params = dict(model.named_parameters())
+    ps = [params[n] for n in TRAIN_GRADS]
+    grads = {}
+    for i, (part, names) in enumerate(LOSS_PARTS.items()):
+        gs = torch.autograd.grad(sum(losses[k] for k in names), ps,
+                                 retain_graph=i + 1 < len(LOSS_PARTS),
+                                 allow_unused=True)
+        grads[part] = {n: (torch.zeros_like(p) if g is None else g)
+                       .detach().cpu() for n, p, g in zip(TRAIN_GRADS, ps, gs)}
+    return ({k: float(v.detach()) for k, v in losses.items()}, grads,
+            {k: torch.cat(v) for k, v in seen.items()})
+
+
+def _train_errors(want, got):
+    """Relative loss |d| per loss term; per part and parameter the
+    gradient's max |d| over its largest entry (None where the part does
+    not reach the parameter); and the targets and ReLU units that
+    differ."""
+    (l_w, g_w, t_w), (l_g, g_g, t_g) = want, got
+    loss = {k: abs(l_g[k] - v) / max(abs(v), 1e-30) for k, v in l_w.items()}
+    grad = {part: {n: None if not g_w[part][n].abs().max() else
+                   ((g_g[part][n] - g_w[part][n]).abs().max()
+                    / g_w[part][n].abs().max()).item()
+                   for n in TRAIN_GRADS} for part in LOSS_PARTS}
+    flips = {k: int((t_g[k] != t_w[k]).sum()) for k in t_w}
+    return loss, grad, flips
+
+
+def _log_errors(what, loss, grad, flips):
+    log('train-check', f'{what}: relative loss |d| '
+        + ', '.join(f'{k} {v:.3g}' for k, v in loss.items())
+        + f'; targets and ReLU units that differ {flips}')
+    for n in TRAIN_GRADS:
+        log('train-check', f'  grad |d| / max {n}: ' + ', '.join(
+            f'{part} ' + ('-' if grad[part][n] is None
+                          else f'{grad[part][n]:.3g}') for part in LOSS_PARTS))
+
+
+def _check_train(loss, grad, what):
+    """The names of the readings over their limits (TOL_TRAIN_*)."""
+    over = [k for k, v in loss.items() if not v <= TOL_TRAIN_LOSS]
+    for part, errs in grad.items():
+        over += [f'grad {n} of the {part} losses' for n, v in errs.items()
+                 if v is not None and not v <= TOL_TRAIN_GRAD[part]]
+    log('train-check', f'{what}: {len(over)} readings over their limits')
+    return over
+
+
+def phase_train_check(device: str = 'cuda'):
+    """forward_train of the full-width detector in fp32 on a 224x320
+    canvas, on the card (kernels) and on the CPU (plain versions): same
+    seeded weights with rpn_cls and fc_cls scaled to std 1 (no top-k, NMS
+    or IoU boundary within fp32 noise), same batch, same sampler keys,
+    no stochastic depth. The losses and the listed gradients of each
+    group of loss terms must agree within TOL_TRAIN_*. A control run of
+    the same detector in bf16 on the card, held to the same CPU run, must
+    exceed the loss limit and each group's gradient limit: the check
+    tells a card run that lost precision from a sound one."""
+    opts = {'bf16': False, 'model.backbone.drop_path_rate': 0.0}
+    cpu = init_detector(CONFIG, device='cpu', cfg_options=opts, seed=1)
+    with torch.no_grad():
+        cpu.rpn_head.rpn_cls.weight.mul_(100.0)
+        cpu.roi_head.bbox_head.fc_cls.weight.mul_(100.0)
+    gpu = init_detector(CONFIG, device='cpu', cfg_options=opts, seed=1)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu = gpu.to(device)
+    ctl = init_detector(CONFIG, device='cpu', seed=1, cfg_options={
+        'model.backbone.drop_path_rate': 0.0})
+    ctl.load_state_dict(cpu.state_dict())
+    ctl = ctl.to(device)
+    batch = train_check_batch()
+    h, w = batch['img'].shape[1:3]
+    n_rpn = 3 * sum(-(-h // s) * -(-w // s) for s in (4, 8, 16, 32, 64))
+    n_rcnn = batch['gt_bboxes'].shape[1] + \
+        cpu.cfg.model.train_cfg.rpn_proposal.max_per_img
+    rs = np.random.RandomState(7)
+    keys = {name: [tuple(rs.rand(n).astype(np.float32) for _ in range(2))
+                   for _ in range(batch['img'].shape[0])]
+            for name, n in (('rpn', n_rpn), ('rcnn', n_rcnn))}
+    ref = _train_grads(cpu, batch, keys, 'cpu')
+    sound = _train_errors(ref, _train_grads(gpu, batch, keys, device))
+    _log_errors(f'{h}x{w} fp32 card vs CPU', *sound)
+    control = _train_errors(ref, _train_grads(ctl, batch, keys, device))
+    _log_errors(f'{h}x{w} control, bf16 card vs fp32 CPU', *control)
+    for name in TRAIN_GRADS:
+        if all(sound[1][part][name] is None for part in LOSS_PARTS):
+            raise AssertionError(f'grad {name}: zero on the CPU')
+    over = _check_train(*sound[:2], 'fp32 card vs CPU')
+    if over:
+        raise AssertionError(f'card vs CPU over the limits: {over}')
+    over = _check_train(*control[:2], 'control')
+    missed = [part for part in LOSS_PARTS
+              if not any(f'of the {part} losses' in o for o in over)]
+    if missed or not any(k in over for k in control[0] if 'loss' in k):
+        raise AssertionError(f'the bf16 control passes the loss limit or '
+                             f'the gradient limit of {missed}')
+
+
 def main() -> int:
-    phase_device()
+    smi = phase_device()
     phase_build()
     kernels = phase_kernels()
-    launches, _ = phase_main()
+    serve_launches, _ = phase_main()
     phase_check()
+    train_launches, _, _ = phase_train()
+    phase_train_check()
     rows = []
     for fn in KERNEL_WRAPPERS:
         name = fn.__name__
         bf16, fp32 = kernels[name][torch.bfloat16], kernels[name][
             torch.float32]
-        rows.append(dict(name=name, route='cuda', **KERNELS[name],
-                         launches=launches[name], dtype='bfloat16',
-                         max_abs_err=bf16['max_abs_err'], ms=bf16['ms'],
-                         plain_ms=bf16['plain_ms'],
-                         fp32_max_abs_err=fp32['max_abs_err'],
-                         fp32_ms=fp32['ms'], fp32_plain_ms=fp32['plain_ms']))
+        rows.append(dict(
+            name=name, route='cuda', **KERNELS[name],
+            launches=serve_launches[name] + train_launches[name],
+            serve_launches=serve_launches[name],
+            train_launches=train_launches[name], dtype='bfloat16',
+            shape=bf16['shape'], max_abs_err=bf16['max_abs_err'],
+            ms=bf16['ms'], plain_ms=bf16['plain_ms'],
+            bound_ms=bf16['bound_ms'], bound_by=bf16['bound_by'],
+            library_ms=bf16['library_ms'],
+            fp32_max_abs_err=fp32['max_abs_err'], fp32_ms=fp32['ms'],
+            fp32_plain_ms=fp32['plain_ms'],
+            fp32_library_ms=fp32['library_ms']))
     print(json.dumps({'kernels': rows}), flush=True)
+    print(smi, flush=True)
+    # the run uses one card, cuda:0, whatever the host exposes
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
-        'count': torch.cuda.device_count()}}), flush=True)
+        'count': 1}}), flush=True)
     return 0
 
 

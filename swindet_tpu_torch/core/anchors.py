@@ -1,6 +1,6 @@
-"""Grid anchors (counterpart of ``swindet_tpu/core/anchors.py:19``;
-reference mmdet/core/anchor/anchor_generator.py:10). Only what
-``grid_anchors`` needs at test time is ported."""
+"""Grid anchors (counterpart of ``swindet_tpu/core/anchors.py``:
+``AnchorGenerator`` :19 with ``valid_flags`` :115, ``anchor_inside_flags``
+:175; reference mmdet/core/anchor/anchor_generator.py:10)."""
 from __future__ import annotations
 
 from typing import Dict, List, Sequence, Tuple
@@ -43,7 +43,8 @@ class AnchorGenerator:
     def grid_anchors(self, featmap_sizes: Sequence[Tuple[int, int]],
                      device='cpu') -> List[torch.Tensor]:
         """Per level (H*W*A, 4) fp32 anchors, row-major over the grid
-        with the base-anchor index fastest. Cached per sizes and device."""
+        with the base-anchor index fastest. Cached per sizes and device,
+        made outside inference mode so that training may reuse them."""
         key = (tuple(tuple(s) for s in featmap_sizes), str(device))
         if key not in self._grid_cache:
             out = []
@@ -55,6 +56,40 @@ class AnchorGenerator:
                                    sx.ravel(), sy.ravel()], axis=-1)
                 anchors = (self.base_anchors[lvl][None]
                            + shifts[:, None]).reshape(-1, 4)
-                out.append(torch.from_numpy(anchors).to(device))
+                with torch.inference_mode(False):
+                    out.append(torch.from_numpy(anchors).to(device))
             self._grid_cache[key] = out
         return self._grid_cache[key]
+
+    def valid_flags(self, featmap_sizes: Sequence[Tuple[int, int]],
+                    pad_shape: torch.Tensor) -> List[torch.Tensor]:
+        """Per level (H*W*A,) bool flags of the anchors whose grid cell
+        lies inside the valid region ``pad_shape`` (H, W) (a tensor, so
+        the flags stay on the device) of the padded canvas."""
+        out = []
+        dev = pad_shape.device
+        for lvl, (fh, fw) in enumerate(featmap_sizes):
+            sw, sh = self.strides[lvl]
+            vh = torch.clamp((pad_shape[0] + sh - 1) // sh, max=fh)
+            vw = torch.clamp((pad_shape[1] + sw - 1) // sw, max=fw)
+            vx = torch.arange(fw, device=dev) < vw
+            vy = torch.arange(fh, device=dev) < vh
+            valid = (vy[:, None] & vx[None, :]).reshape(-1)
+            out.append(valid.repeat_interleave(self.num_base_anchors[lvl]))
+        return out
+
+
+def anchor_inside_flags(flat_anchors: torch.Tensor, valid_flags: torch.Tensor,
+                        img_shape: torch.Tensor,
+                        allowed_border: int = 0) -> torch.Tensor:
+    """Border filtering (reference anchor/utils.py:20): with
+    ``allowed_border`` >= 0, anchors must also lie within the image
+    (H, W) grown by that margin."""
+    if allowed_border < 0:
+        return valid_flags
+    h, w = img_shape[0], img_shape[1]
+    return (valid_flags
+            & (flat_anchors[:, 0] >= -allowed_border)
+            & (flat_anchors[:, 1] >= -allowed_border)
+            & (flat_anchors[:, 2] < w + allowed_border)
+            & (flat_anchors[:, 3] < h + allowed_border))

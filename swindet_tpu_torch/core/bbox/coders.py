@@ -1,5 +1,5 @@
-"""Box decoding (counterpart of ``swindet_tpu/core/bbox/coders.py``:
-``delta2bbox`` :49, ``DeltaXYWHBBoxCoder`` :126; decode only)."""
+"""Box coding (counterpart of ``swindet_tpu/core/bbox/coders.py``:
+``bbox2delta`` :21, ``delta2bbox`` :49, ``DeltaXYWHBBoxCoder`` :126)."""
 from __future__ import annotations
 
 import math
@@ -8,6 +8,26 @@ from typing import Optional, Sequence
 import torch
 
 from ...registries import BBOX_CODERS
+
+
+def bbox2delta(proposals: torch.Tensor, gt: torch.Tensor,
+               means: Sequence[float] = (0., 0., 0., 0.),
+               stds: Sequence[float] = (1., 1., 1., 1.),
+               eps: float = 1e-6) -> torch.Tensor:
+    """Encode gt boxes as (dx, dy, dw, dh) deltas w.r.t. proposals, both
+    (..., 4); widths and heights are clamped at ``eps``."""
+    px = (proposals[..., 0] + proposals[..., 2]) * 0.5
+    py = (proposals[..., 1] + proposals[..., 3]) * 0.5
+    pw = (proposals[..., 2] - proposals[..., 0]).clamp(min=eps)
+    ph = (proposals[..., 3] - proposals[..., 1]).clamp(min=eps)
+    gx = (gt[..., 0] + gt[..., 2]) * 0.5
+    gy = (gt[..., 1] + gt[..., 3]) * 0.5
+    gw = gt[..., 2] - gt[..., 0]
+    gh = gt[..., 3] - gt[..., 1]
+    deltas = torch.stack([(gx - px) / pw, (gy - py) / ph,
+                          torch.log(gw.clamp(min=eps) / pw),
+                          torch.log(gh.clamp(min=eps) / ph)], dim=-1)
+    return (deltas - deltas.new_tensor(means)) / deltas.new_tensor(stds)
 
 
 def delta2bbox(rois: torch.Tensor, deltas: torch.Tensor,
@@ -54,14 +74,17 @@ def delta2bbox(rois: torch.Tensor, deltas: torch.Tensor,
 
 @BBOX_CODERS.register_module()
 class DeltaXYWHBBoxCoder:
-    """(dx, dy, dw, dh) coder with mean / std normalisation, decode only
-    (reference delta_xywh_bbox_coder.py:10)."""
+    """(dx, dy, dw, dh) coder with mean / std normalisation (reference
+    delta_xywh_bbox_coder.py:10)."""
 
     def __init__(self, target_means=(0., 0., 0., 0.),
                  target_stds=(1., 1., 1., 1.), clip_border: bool = True):
         self.means = tuple(target_means)
         self.stds = tuple(target_stds)
         self.clip_border = clip_border
+
+    def encode(self, bboxes, gt_bboxes):
+        return bbox2delta(bboxes, gt_bboxes, self.means, self.stds)
 
     def decode(self, bboxes, pred_bboxes, max_shape=None,
                wh_ratio_clip=16 / 1000):

@@ -20,6 +20,27 @@
 // (bf16 x bf16 fits a 24-bit mantissa), as the TPU kernel accumulates them.
 // This first version runs on the CUDA cores; the tensor cores (wgmma) are
 // the obvious next step.
+//
+// Filter gradient (the backward's dw; its dx is the forward above applied
+// to g with the weight rotated by 180 degrees):
+//   dw[dy, dx, c, o] = sum over pixels (b, y, x) of
+//                      in[b, y+dy-1, x+dx-1, c] * g[b, y, x, o]
+// with zeros outside the image, in fp32.
+//
+// Replaces: swindet_tpu/ops/conv3x3.py · _dw_kernel (via _conv3x3_dw,
+// pallas_call at :157), called from conv3x3_bwd_pallas (:196).
+//
+// Bound: arithmetic, as the forward: a GEMM of M = C by N = Co per tap
+// with K = B*H*W pixels (134,400 at FPN P2 of a 2 x 800x1344 batch). The
+// TPU kernel accumulates the whole (3, 3, C, Co) block across its
+// sequential grid (:130-139). Design: split K. A block owns a 64 x 64
+// (C, Co) tile of one tap over one chunk of pixels, stages 16 pixels of
+// the shifted input and of g per step in shared memory (threads load four
+// consecutive channels of one pixel, so each pixel row is one coalesced
+// read), accumulates a 4 x 4 register tile per thread in fp32, and adds it
+// to the zeroed fp32 dw with one atomicAdd per entry. The host picks the
+// chunk count so that about eight blocks per SM are in flight; the order
+// of the chunks' atomics varies, so dw varies in its last bits.
 #include "common.cuh"
 
 namespace swindet {
@@ -123,7 +144,130 @@ static void launch(const void* x, const void* w, const float* bias, void* out,
       static_cast<T*>(out), batch, height, width, cin, cout, relu);
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kConvThreads)
+conv3x3_dw_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                  float* __restrict__ dw, int batch, int height, int width,
+                  int cin, int cout, int64_t chunk) {
+  __shared__ __align__(16) float As[kBK][kBM];   // [pixel][input channel]
+  __shared__ __align__(16) float Bs[kBK][kBN];   // [pixel][output channel]
+
+  const int tid = threadIdx.x;
+  const int c_tiles = (cin + kBM - 1) / kBM;
+  const int tap = blockIdx.x / c_tiles;
+  const int c0 = (blockIdx.x % c_tiles) * kBM;
+  const int o0 = blockIdx.y * kBN;
+  const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+  const int64_t m_total = (int64_t)batch * height * width;
+  const int64_t p_begin = (int64_t)blockIdx.z * chunk;
+  const int64_t p_end =
+      p_begin + chunk < m_total ? p_begin + chunk : m_total;
+
+  // this thread's load slot: one pixel, four consecutive channels
+  const int l_p = tid >> 4;          // 0..15
+  const int l_c = (tid & 15) * 4;    // 0..60
+  const int ty = tid >> 4, tx = tid & 15;
+  float acc[4][4] = {};
+
+  for (int64_t p0 = p_begin; p0 < p_end; p0 += kBK) {
+    const int64_t pm = p0 + l_p;
+    float a[4] = {0.f, 0.f, 0.f, 0.f};
+    float b[4] = {0.f, 0.f, 0.f, 0.f};
+    if (pm < p_end) {
+      const int px = (int)(pm % width);
+      const int64_t t = pm / width;
+      const int py = (int)(t % height);
+      const int64_t pb = t / height;
+      const int yy = py + dy, xx = px + dx;
+      if (yy >= 0 && yy < height && xx >= 0 && xx < width) {
+        const T* src = x + ((pb * height + yy) * width + xx) * cin;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int ci = c0 + l_c + i;
+          if (ci < cin) a[i] = to_f32(src[ci]);
+        }
+      }
+      const T* gsrc = g + pm * cout;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int oj = o0 + l_c + j;
+        if (oj < cout) b[j] = to_f32(gsrc[oj]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      As[l_p][l_c + i] = a[i];
+      Bs[l_p][l_c + i] = b[i];
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      const float4 a4 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
+      const float4 b4 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
+      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+      const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int ci = c0 + ty * 4 + i;
+    if (ci >= cin) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int oj = o0 + tx * 4 + j;
+      if (oj < cout)
+        atomicAdd(&dw[((size_t)tap * cin + ci) * cout + oj], acc[i][j]);
+    }
+  }
+}
+
+template <typename T>
+static void launch_dw(const void* x, const void* g, float* dw, int batch,
+                      int height, int width, int cin, int cout,
+                      cudaStream_t stream) {
+  const int64_t m_total = (int64_t)batch * height * width;
+  const int c_tiles = (cin + kBM - 1) / kBM;
+  const int o_tiles = (cout + kBN - 1) / kBN;
+  const int64_t tiles = 9LL * c_tiles * o_tiles;
+  // about 8 blocks per SM over 132 SMs, and at least 64 pixels a chunk
+  const int64_t want = (8 * 132 + tiles - 1) / tiles;
+  const int64_t most = (m_total + 63) / 64;
+  const int64_t chunks = want < 1 ? 1 : (want > most ? most : want);
+  int64_t chunk = (m_total + chunks - 1) / chunks;
+  chunk = (chunk + kBK - 1) / kBK * kBK;
+  dim3 grid((unsigned)(9 * c_tiles), (unsigned)o_tiles,
+            (unsigned)((m_total + chunk - 1) / chunk));
+  conv3x3_dw_kernel<T><<<grid, kConvThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g), dw, batch, height,
+      width, cin, cout, chunk);
+}
+
 }  // namespace swindet
+
+// x (B, H, W, C) and g (B, H, W, Co) in `dtype`; adds the filter gradient
+// into dw (3, 3, C, Co) fp32, which the caller zeroes.
+SWINDET_EXPORT int swindet_conv3x3_dw(const void* x, const void* g, float* dw,
+                                      int batch, int height, int width,
+                                      int cin, int cout, int dtype,
+                                      void* stream) {
+  using namespace swindet;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((int64_t)batch * height * width == 0) return (int)cudaSuccess;
+  if (dtype == kBFloat16)
+    launch_dw<__nv_bfloat16>(x, g, dw, batch, height, width, cin, cout, s);
+  else if (dtype == kFloat32)
+    launch_dw<float>(x, g, dw, batch, height, width, cin, cout, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
 
 // x (B, H, W, C) and w (3, 3, C, Co) in `dtype`, bias (Co,) fp32, out
 // (B, H, W, Co) in `dtype`. Requires C % 16 == 0.

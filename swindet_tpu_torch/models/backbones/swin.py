@@ -3,10 +3,14 @@
 mmdet/models/backbones/swin_transformer.py:449).
 
 NHWC throughout. Every norm goes through the LayerNorm kernel and every
-block's attention through the window-attention kernel (plain versions on
-the CPU). Pad + cyclic shift + window partition is one index gather with
-the table of :func:`window_gather_indices`, and its inverse another, as in
-the JAX package. The ``state_dict`` uses the reference's key names
+block's attention through the window-attention kernels (plain versions on
+the CPU), forward and, in training, backward. Pad + cyclic shift + window
+partition is one index gather with the table of
+:func:`window_gather_indices`, and its inverse another, as in the JAX
+package; plain autograd differentiates both gathers. In training mode
+(``model.train()``) the blocks drop their residual branches per sample
+(stochastic depth) with draws from the generator passed to ``forward``.
+The ``state_dict`` uses the reference's key names
 (``layers.0.blocks.1.attn.qkv.weight``, ...).
 """
 from __future__ import annotations
@@ -21,8 +25,8 @@ import torch.nn.functional as F
 
 from ..layers import (DropPath, Linear, Mlp, lecun_normal_, resolve_dtype,
                       trunc_normal_)
-from ...ops.layer_norm import layer_norm
-from ...ops.window_attention_v3 import window_attention_v3
+from ...ops.layer_norm import layer_norm_op
+from ...ops.window_attention_v3 import window_attention_op
 from ...registries import BACKBONES
 
 
@@ -93,15 +97,18 @@ def shifted_window_attn_mask(hp: int, wp: int, ws: int,
 def _window_tables(h: int, w: int, ws: int, shift: int,
                    device: torch.device):
     """Device copies of the gather tables and shift mask of one block
-    geometry: (idx, valid or None, inv_idx, mask or None)."""
+    geometry: (idx, valid or None, inv_idx, mask or None). Made outside
+    inference mode, so that a training step may reuse tables first made
+    while serving."""
     idx, valid, inv_idx = window_gather_indices(h, w, ws, shift)
     hp = (h + ws - 1) // ws * ws
     wp = (w + ws - 1) // ws * ws
     mask = shifted_window_attn_mask(hp, wp, ws, shift)
-    return (torch.from_numpy(idx).to(device),
-            None if valid.all() else torch.from_numpy(valid).to(device),
-            torch.from_numpy(inv_idx).to(device),
-            None if mask is None else torch.from_numpy(mask).to(device))
+    with torch.inference_mode(False):
+        return (torch.from_numpy(idx).to(device),
+                None if valid.all() else torch.from_numpy(valid).to(device),
+                torch.from_numpy(inv_idx).to(device),
+                None if mask is None else torch.from_numpy(mask).to(device))
 
 
 class LayerNorm(nn.LayerNorm):
@@ -113,8 +120,8 @@ class LayerNorm(nn.LayerNorm):
         self.compute_dtype = resolve_dtype(dtype)
 
     def forward(self, x):
-        return layer_norm(x.to(self.compute_dtype).contiguous(), self.weight,
-                          self.bias, self.eps)
+        return layer_norm_op(x.to(self.compute_dtype).contiguous(),
+                             self.weight, self.bias, self.eps)
 
 
 class PatchEmbed(nn.Module):
@@ -167,7 +174,7 @@ class WindowAttention(nn.Module):
             self.relative_position_index].view(n, n, self.num_heads)
         bias = bias.permute(2, 0, 1).float().contiguous()
         qkv = self.qkv(x).contiguous()
-        out = window_attention_v3(qkv, bias, mask, self.num_heads)
+        out = window_attention_op(qkv, bias, mask, self.num_heads)
         return self.proj(out)
 
     def init_weights(self, gen):
@@ -193,7 +200,7 @@ class SwinBlock(nn.Module):
         self.norm2 = LayerNorm(dim, dtype)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype)
 
-    def forward(self, x):
+    def forward(self, x, gen: Optional[torch.Generator] = None):
         b, h, w, c = x.shape
         ws = self.window_size
         idx, valid, inv_idx, mask = _window_tables(h, w, ws, self.shift_size,
@@ -203,8 +210,8 @@ class SwinBlock(nn.Module):
             y = y * valid.to(y.dtype)[None, :, None]
         attn = self.attn(y.reshape(-1, ws * ws, c), mask).reshape(b, -1, c)
         y = attn[:, inv_idx].reshape(b, h, w, c)
-        x = x + self.drop_path(y)
-        return x + self.drop_path(self.mlp(self.norm2(x)))
+        x = x + self.drop_path(y, gen)
+        return x + self.drop_path(self.mlp(self.norm2(x)), gen)
 
     def init_weights(self, gen):
         self.attn.init_weights(gen)
@@ -246,9 +253,9 @@ class BasicLayer(nn.Module):
             for j in range(depth)])
         self.downsample = PatchMerging(dim, dtype) if downsample else None
 
-    def forward(self, x):
+    def forward(self, x, gen: Optional[torch.Generator] = None):
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, gen)
         out = x
         if self.downsample is not None:
             x = self.downsample(x)
@@ -293,8 +300,9 @@ class SwinTransformer(nn.Module):
             self.add_module(f'norm{i}',
                             LayerNorm(int(embed_dim * 2 ** i), dtype))
 
-    def forward(self, x):
-        """x: (B, H, W, 3) -> tuple of NHWC stage features."""
+    def forward(self, x, gen: Optional[torch.Generator] = None):
+        """x: (B, H, W, 3) -> tuple of NHWC stage features. ``gen`` draws
+        the stochastic-depth masks in training mode."""
         ps = self.patch_size
         _, h, w, _ = x.shape
         if h % ps or w % ps:
@@ -302,7 +310,7 @@ class SwinTransformer(nn.Module):
         x = self.patch_embed(x)
         outs = []
         for i, layer in enumerate(self.layers):
-            out, x = layer(x)
+            out, x = layer(x, gen)
             if i in self.out_indices:
                 outs.append(getattr(self, f'norm{i}')(out))
         return tuple(outs)

@@ -1,8 +1,9 @@
 """Model builders over the port's registries."""
 from __future__ import annotations
 
-from ..registries import (ANCHOR_GENERATORS, BACKBONES, BBOX_CODERS,
-                          DETECTORS, HEADS, NECKS, ROI_EXTRACTORS)
+from ..registries import (ANCHOR_GENERATORS, BACKBONES, BBOX_ASSIGNERS,
+                          BBOX_CODERS, BBOX_SAMPLERS, DETECTORS, HEADS,
+                          LOSSES, NECKS, ROI_EXTRACTORS)
 from ..utils.registry import build_from_cfg
 
 
@@ -32,3 +33,15 @@ def build_anchor_generator(cfg):
 
 def build_bbox_coder(cfg):
     return build_from_cfg(cfg, BBOX_CODERS)
+
+
+def build_assigner(cfg):
+    return build_from_cfg(cfg, BBOX_ASSIGNERS)
+
+
+def build_sampler(cfg):
+    return build_from_cfg(cfg, BBOX_SAMPLERS)
+
+
+def build_loss(cfg):
+    return build_from_cfg(cfg, LOSSES)

@@ -1,21 +1,28 @@
-"""RPN head, test time (counterpart of
-``swindet_tpu/models/dense_heads/rpn_head.py:22`` with the anchor handling
-of ``anchor_head.py``; reference mmdet/models/dense_heads/rpn_head.py:17).
+"""RPN head (counterpart of ``swindet_tpu/models/dense_heads/rpn_head.py:22``
+with the anchor handling, targets and loss of ``anchor_head.py``
+(``_target_single`` :105, ``get_targets`` :164, ``loss`` :176); reference
+mmdet/models/dense_heads/rpn_head.py:17).
 
 3x3 conv + ReLU (the conv3x3 kernel with fused ReLU at 256 channels), then
 1x1 cls / reg convs. Proposals: per-level top ``nms_pre`` scores, delta
 decode clipped to the image, min-size mask, level-offset batched NMS into
-a fixed ``max_per_img`` slots with a validity mask.
+a fixed ``max_per_img`` slots with a validity mask. Targets: the full
+anchor set of each image is assigned and sampled into fixed slots, which
+are scattered back onto the anchors (filler slots land in one spare row
+that is dropped), so every shape is static and no count leaves the
+device.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn as nn
 
-from ..builder import build_anchor_generator, build_bbox_coder
+from ..builder import (build_anchor_generator, build_assigner,
+                       build_bbox_coder, build_loss, build_sampler)
 from ..layers import conv_nhwc, init_conv, resolve_dtype
+from ...core.anchors import anchor_inside_flags
 from ...core.nms import batched_nms, fast_topk
 from ...registries import HEADS
 
@@ -38,6 +45,19 @@ class RPNHead(nn.Module):
         self.bbox_coder = build_bbox_coder(dict(
             bbox_coder or dict(type='DeltaXYWHBBoxCoder')))
         self.test_cfg = test_cfg
+        self.train_cfg = train_cfg
+        self.num_classes = num_classes
+        cfg_cls = dict(loss_cls or dict(type='CrossEntropyLoss',
+                                        use_sigmoid=True, loss_weight=1.0))
+        if not cfg_cls.get('use_sigmoid', False):
+            raise NotImplementedError('RPNHead: only the sigmoid '
+                                      'classifier is ported')
+        self.loss_cls = build_loss(cfg_cls)
+        self.loss_bbox = build_loss(dict(loss_bbox or dict(type='L1Loss',
+                                                           loss_weight=1.0)))
+        if train_cfg:
+            self.assigner = build_assigner(dict(train_cfg['assigner']))
+            self.sampler = build_sampler(dict(train_cfg['sampler']))
         self.compute_dtype = resolve_dtype(dtype)
         self.rpn_conv = nn.Conv2d(in_channels, feat_channels, 3, padding=1)
         self.rpn_cls = nn.Conv2d(feat_channels, self.num_base_priors, 1)
@@ -93,3 +113,77 @@ class RPNHead(nn.Module):
                           torch.cat(ids, 1), cfg['nms']['iou_threshold'],
                           max_per_img, valid=torch.cat(valid, 1))
         return res.dets[..., :4], res.dets[..., 4], res.valid
+
+    def _target_single(self, flat_anchors, featmap_sizes, gt_bboxes,
+                       gt_valid, img_shape, pad_shape, gen, keys):
+        """Targets of one image on the full anchor set: labels (0 for a
+        positive, 1 background), label weights, box targets and weights,
+        and the sampled positive and negative counts."""
+        cfg = self.train_cfg
+        valid = torch.cat(self.prior_generator.valid_flags(featmap_sizes,
+                                                           pad_shape))
+        inside = anchor_inside_flags(flat_anchors, valid, img_shape,
+                                     cfg.get('allowed_border', -1))
+        assign = self.assigner.assign(flat_anchors, gt_bboxes, gt_valid,
+                                      None, bbox_valid=inside)
+        samp = self.sampler.sample(assign, flat_anchors, gt_bboxes,
+                                   gt_valid, None, bbox_valid=inside,
+                                   gen=gen, keys=keys)
+        n = flat_anchors.shape[0]
+        dev = flat_anchors.device
+        bg = self.num_classes
+        rows = samp.inds.long().clamp(max=n)        # fillers -> spare row n
+        pos, sel = samp.is_pos, samp.valid
+        pos_weight = cfg.get('pos_weight', -1)
+        pw = 1.0 if pos_weight <= 0 else float(pos_weight)
+
+        def scatter(fill, values):
+            out = torch.full((n + 1,) + values.shape[1:], fill,
+                             dtype=values.dtype, device=dev)
+            out[rows] = values
+            return out[:n]
+
+        labels = scatter(bg, torch.where(pos, 0, bg))
+        label_weights = scatter(0.0, torch.where(pos, pw, 1.0) * sel)
+        bt = self.bbox_coder.encode(samp.bboxes, samp.pos_gt_bboxes)
+        bbox_targets = scatter(0.0, torch.where(pos[:, None], bt, 0.0))
+        bbox_weights = scatter(0.0, pos[:, None].float().expand(-1, 4))
+        return (labels, label_weights, bbox_targets, bbox_weights,
+                samp.num_pos, samp.num_neg)
+
+    def get_targets(self, featmap_sizes, gt_bboxes, gt_valid, img_shapes,
+                    pad_shapes, gen=None, keys=None):
+        """Batched targets, stacked over images. ``keys``: per image the
+        sampler's (keys_pos, keys_neg), or None to draw them from
+        ``gen``."""
+        anchors = self.prior_generator.grid_anchors(featmap_sizes,
+                                                    gt_bboxes.device)
+        flat = torch.cat(anchors)
+        per_image = [self._target_single(
+            flat, featmap_sizes, gt_bboxes[i], gt_valid[i], img_shapes[i],
+            pad_shapes[i], gen, None if keys is None else keys[i])
+            for i in range(gt_bboxes.shape[0])]
+        return [torch.stack(t) for t in zip(*per_image)]
+
+    def loss(self, cls_scores, bbox_preds, gt_bboxes, gt_valid, img_shapes,
+             pad_shapes, gen: Optional[torch.Generator] = None,
+             keys: Optional[Sequence] = None) -> Dict[str, torch.Tensor]:
+        """RPN losses (reference anchor_head.py:426), averaged over the
+        sampled anchors with the reference's per-image ``max(count, 1)``
+        clamp (:185-190)."""
+        featmap_sizes = [tuple(s.shape[1:3]) for s in cls_scores]
+        labels, label_weights, bbox_targets, bbox_weights, num_pos, \
+            num_neg = self.get_targets(featmap_sizes, gt_bboxes, gt_valid,
+                                       img_shapes, pad_shapes, gen, keys)
+        num_total = (num_pos.clamp(min=1) + num_neg.clamp(min=1)).sum() \
+            .float()
+        b = gt_bboxes.shape[0]
+        cls_flat = torch.cat([s.reshape(b, -1, 1) for s in cls_scores], 1)
+        box_flat = torch.cat([p.reshape(b, -1, 4) for p in bbox_preds], 1)
+        return dict(
+            loss_rpn_cls=self.loss_cls(cls_flat, labels,
+                                       weight=label_weights,
+                                       avg_factor=num_total),
+            loss_rpn_bbox=self.loss_bbox(box_flat, bbox_targets,
+                                         weight=bbox_weights,
+                                         avg_factor=num_total))

@@ -1,13 +1,14 @@
-"""Two-stage detector, test time (counterpart of
-``swindet_tpu/models/detectors/two_stage.py``: ``simple_test`` :127,
-``MaskRCNN`` :171; reference mmdet/models/detectors/two_stage.py:10).
+"""Two-stage detector (counterpart of
+``swindet_tpu/models/detectors/two_stage.py``: ``forward_train`` :92,
+``simple_test`` :127, ``MaskRCNN`` :171; reference
+mmdet/models/detectors/two_stage.py:10).
 
 The ``state_dict`` uses mmdet's key names (``backbone.``, ``neck.``,
 ``rpn_head.``, ``roi_head.``), so a released ``.pth`` loads as it is.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -35,11 +36,15 @@ class TwoStageDetector(nn.Module):
 
         self.backbone = build_backbone(with_dtype(backbone))
         self.neck = build_neck(with_dtype(neck))
+        train_cfg = dict(train_cfg) if train_cfg else {}
         self.rpn_head = build_head(with_dtype(dict(
-            rpn_head, test_cfg=dict(test_cfg)['rpn'])))
+            rpn_head, test_cfg=dict(test_cfg)['rpn'],
+            train_cfg=train_cfg.get('rpn'))))
         self.roi_head = build_head(with_dtype(dict(
-            roi_head, test_cfg=dict(test_cfg)['rcnn'])))
+            roi_head, test_cfg=dict(test_cfg)['rcnn'],
+            train_cfg=train_cfg.get('rcnn'))))
         self.test_cfg = test_cfg
+        self.train_cfg = train_cfg
 
     def init_weights(self, seed: int = 0) -> None:
         """Seeded random weights with the JAX package's init schemes."""
@@ -48,9 +53,40 @@ class TwoStageDetector(nn.Module):
                      self.roi_head):
             part.init_weights(gen)
 
-    def extract_feat(self, img: torch.Tensor):
-        """img (B, H, W, 3) NHWC -> FPN levels (B, H_l, W_l, C)."""
-        return self.neck(self.backbone(img))
+    def extract_feat(self, img: torch.Tensor,
+                     gen: Optional[torch.Generator] = None):
+        """img (B, H, W, 3) NHWC -> FPN levels (B, H_l, W_l, C); ``gen``
+        draws the backbone's stochastic depth in training mode."""
+        return self.neck(self.backbone(img, gen))
+
+    def forward_train(self, img: torch.Tensor, img_shapes: torch.Tensor,
+                      pad_shapes: torch.Tensor, gt_bboxes: torch.Tensor,
+                      gt_valid: torch.Tensor, gt_labels: torch.Tensor,
+                      gt_masks: Optional[torch.Tensor] = None,
+                      gen: Optional[torch.Generator] = None,
+                      sampler_keys: Optional[Dict[str, Sequence]] = None
+                      ) -> Dict[str, torch.Tensor]:
+        """The loss dict of one batch. img (B, H, W, 3); img / pad_shapes
+        (B, 2); gt_bboxes (B, G, 4); gt_valid (B, G); gt_labels (B, G);
+        gt_masks (B, G, H, W) or None. ``gen`` (on the data's device)
+        draws stochastic depth and the samplers' keys; ``sampler_keys``
+        {'rpn': ..., 'rcnn': ...} gives the keys per image instead."""
+        keys = sampler_keys or {}
+        feats = self.extract_feat(img, gen)
+        cls_scores, bbox_preds = self.rpn_head(feats)
+        losses = self.rpn_head.loss(cls_scores, bbox_preds, gt_bboxes,
+                                    gt_valid, img_shapes, pad_shapes, gen,
+                                    keys.get('rpn'))
+        proposal_cfg = dict(self.train_cfg.get('rpn_proposal',
+                                               dict(self.test_cfg)['rpn']))
+        with torch.no_grad():
+            proposals, _, prop_valid = self.rpn_head.get_proposals(
+                [s.detach() for s in cls_scores],
+                [p.detach() for p in bbox_preds], img_shapes, proposal_cfg)
+        losses.update(self.roi_head.forward_train(
+            feats, proposals, prop_valid, gt_bboxes, gt_valid, gt_labels,
+            gt_masks, gen, keys.get('rcnn')))
+        return losses
 
     def simple_test(self, img: torch.Tensor, img_shapes: torch.Tensor,
                     scale_factors: torch.Tensor,

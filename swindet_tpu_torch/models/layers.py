@@ -15,7 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.conv3x3 import conv3x3, hwio
+from ..ops.conv3x3 import conv3x3_op, hwio
 
 # flax's lecun_normal truncates at 2 std and rescales by this factor
 _TRUNC_STD = 0.87962566103423978
@@ -77,15 +77,24 @@ class Linear(nn.Linear):
 
 
 class DropPath(nn.Module):
-    """Stochastic depth; the identity at inference, which is all this
-    port runs."""
+    """Per-sample stochastic depth (``swindet_tpu/models/layers.py:48``):
+    in training each sample's branch is kept with probability 1 - p and
+    scaled by 1 / (1 - p), by a Bernoulli draw from ``gen``, a
+    ``torch.Generator`` on the data's device; the identity in eval mode."""
 
     def __init__(self, drop_prob: float = 0.0):
         super().__init__()
         self.drop_prob = drop_prob
 
-    def forward(self, x):
-        return x
+    def forward(self, x, gen: Optional[torch.Generator] = None):
+        if self.drop_prob == 0.0 or not self.training:
+            return x
+        if gen is None:
+            raise ValueError('DropPath: training needs a torch.Generator')
+        keep = 1.0 - self.drop_prob
+        u = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1), generator=gen,
+                       device=x.device)
+        return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
 class Mlp(nn.Module):
@@ -108,7 +117,7 @@ class Mlp(nn.Module):
 class ConvModule(nn.Module):
     """conv (+ ReLU) over NHWC with an mmcv ``ConvModule`` state_dict
     (``conv.weight`` OIHW, ``conv.bias``). Norm layers are not used on the
-    inference path of this port and are refused.
+    Swin detectors' path and are refused.
 
     A 3x3 / stride 1 / padding 1 conv with bias and no or ReLU activation,
     whose channel counts are multiples of 128, goes through the conv3x3
@@ -161,8 +170,8 @@ def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, relu: bool,
     """Apply ``conv`` (OIHW weights) to an NHWC tensor in ``dtype``."""
     x = x.to(dtype)
     if use_kernel:
-        return conv3x3(x.contiguous(), hwio(conv.weight.to(dtype)),
-                       conv.bias.float(), relu)
+        return conv3x3_op(x.contiguous(), hwio(conv.weight.to(dtype)),
+                          conv.bias.float(), relu)
     w = conv.weight
     if w.shape[2:] == (1, 1) and conv.stride == (1, 1):
         out = F.linear(x, w[:, :, 0, 0].to(dtype), conv.bias.to(dtype))

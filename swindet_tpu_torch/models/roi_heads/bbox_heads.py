@@ -1,7 +1,8 @@
-"""Shared2FC bbox head, test time (counterpart of
+"""Shared2FC bbox head (counterpart of
 ``swindet_tpu/models/roi_heads/bbox_heads.py``: ``ConvFCBBoxHead`` :24,
-``get_bboxes`` :160, ``Shared2FCBBoxHead`` :203; reference
-convfc_bbox_head.py:9,177).
+``get_targets`` :97, ``loss`` :118, ``get_bboxes`` :160,
+``Shared2FCBBoxHead`` :203; reference convfc_bbox_head.py:9,177,
+bbox_head.py:151,219).
 
 The first FC flattens the roi features channel-first, as mmdet does, so
 an mmdet ``.pth`` loads as it is.
@@ -13,8 +14,9 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from ..builder import build_bbox_coder
+from ..builder import build_bbox_coder, build_loss
 from ..layers import Linear, normal_, resolve_dtype, xavier_uniform_
+from ..losses import accuracy
 from ...core.nms import multiclass_nms
 from ...registries import HEADS
 
@@ -41,6 +43,10 @@ class ConvFCBBoxHead(nn.Module):
             bbox_coder or dict(type='DeltaXYWHBBoxCoder',
                                target_means=[0., 0., 0., 0.],
                                target_stds=[0.1, 0.1, 0.2, 0.2])))
+        self.loss_cls = build_loss(dict(loss_cls or dict(
+            type='CrossEntropyLoss', use_sigmoid=False, loss_weight=1.0)))
+        self.loss_bbox = build_loss(dict(loss_bbox or dict(
+            type='L1Loss', loss_weight=1.0)))
         dims = [in_channels * roi_feat_size ** 2] \
             + [fc_out_channels] * num_shared_fcs
         self.shared_fcs = nn.ModuleList([
@@ -66,6 +72,43 @@ class ConvFCBBoxHead(nn.Module):
         for fc, std in ((self.fc_cls, 0.01), (self.fc_reg, 0.001)):
             normal_(fc.weight, std, gen)
             nn.init.zeros_(fc.bias)
+
+    def get_targets(self, samp, rcnn_cfg: dict):
+        """Slot targets of one image's (or a stacked batch's) sampling
+        result: labels (background ``num_classes`` outside positives),
+        label weights (0 on filler slots), box targets and weights."""
+        bg = self.num_classes
+        labels = torch.where(samp.is_pos, samp.pos_gt_labels.long().clamp(
+            min=0), bg)
+        labels = torch.where(samp.valid, labels, bg)
+        pos_weight = rcnn_cfg.get('pos_weight', -1)
+        pw = 1.0 if pos_weight <= 0 else float(pos_weight)
+        label_weights = torch.where(samp.is_pos, pw, 1.0) * samp.valid
+        bt = self.bbox_coder.encode(samp.bboxes, samp.pos_gt_bboxes)
+        pos = samp.is_pos[..., None]
+        return (labels, label_weights, torch.where(pos, bt, 0.0),
+                pos.float().expand_as(bt))
+
+    def loss(self, cls_score, bbox_pred, labels, label_weights,
+             bbox_targets, bbox_weights):
+        """Losses over the flattened (B * num) slots; both averaged over
+        the sampled slots (the count of non-zero label weights), as the
+        reference averages over the sampled rois."""
+        avg = (label_weights > 0).float().sum().clamp(min=1.0)
+        losses = dict(
+            loss_cls=self.loss_cls(cls_score, labels, weight=label_weights,
+                                   avg_factor=avg),
+            acc=accuracy(cls_score, labels, mask=label_weights))
+        pred = bbox_pred
+        if not self.reg_class_agnostic:
+            k = pred.shape[-1] // 4
+            safe = labels.clamp(0, k - 1)
+            pred = pred.reshape(-1, k, 4).gather(
+                1, safe[:, None, None].expand(-1, 1, 4))[:, 0]
+        losses['loss_bbox'] = self.loss_bbox(pred, bbox_targets,
+                                             weight=bbox_weights,
+                                             avg_factor=avg)
+        return losses
 
     def get_bboxes(self, rois, cls_score, bbox_pred, img_shapes,
                    scale_factors, rescale: bool, cfg: dict, roi_valid=None):

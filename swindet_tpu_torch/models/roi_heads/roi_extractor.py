@@ -1,14 +1,15 @@
 """SingleRoIExtractor (counterpart of
 ``swindet_tpu/models/roi_heads/roi_extractor.py:24``; reference
 mmdet/models/roi_heads/roi_extractors/single_level_roi_extractor.py:9):
-FPN level routing and RoIAlign through the RoIAlign kernel."""
+FPN level routing and RoIAlign through the RoIAlign kernels (forward, and
+backward into the features in training)."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
 import torch
 
-from ...ops.roi_align import roi_align
+from ...ops.roi_align import roi_align_op
 from ...registries import ROI_EXTRACTORS
 
 
@@ -34,7 +35,7 @@ class SingleRoIExtractor:
                  roi_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
         """feats: per-level NHWC; rois (R, 5) with the batch column.
         Returns (R, out, out, C) in the features' dtype."""
-        return roi_align([f.contiguous() for f in feats[:self.num_inputs]],
-                         rois.float().contiguous(), self.featmap_strides,
-                         self.out_size, self.sampling_ratio,
-                         self.finest_scale, roi_valid=roi_valid)
+        return roi_align_op([f.contiguous() for f in feats[:self.num_inputs]],
+                            rois.float().contiguous(), self.featmap_strides,
+                            self.out_size, self.sampling_ratio,
+                            self.finest_scale, roi_valid=roi_valid)

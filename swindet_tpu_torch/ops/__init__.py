@@ -1,15 +1,28 @@
 """Operators with hand-written Hopper kernels, each beside its plain
 PyTorch version. A wrapper takes the plain version for a CPU tensor and
 launches its kernel (or raises) for a CUDA tensor; ``wrapper.launches``
-counts its kernel's launches."""
-from .conv3x3 import conv3x3, conv3x3_reference
-from .layer_norm import layer_norm, layer_norm_reference
-from .roi_align import multilevel_roi_align, roi_align
-from .window_attention_v3 import (window_attention_reference,
+counts its kernel's launches. The ``*_op`` functions are the
+differentiable entry points the models call."""
+from .conv3x3 import (conv3x3, conv3x3_dw, conv3x3_dw_reference, conv3x3_op,
+                      conv3x3_reference)
+from .layer_norm import layer_norm, layer_norm_op, layer_norm_reference
+from .roi_align import (multilevel_roi_align, multilevel_roi_align_backward,
+                        roi_align, roi_align_bwd, roi_align_op)
+from .window_attention_v3 import (window_attention_bwd,
+                                  window_attention_bwd_reference,
+                                  window_attention_fwd_p,
+                                  window_attention_fwd_p_reference,
+                                  window_attention_op,
+                                  window_attention_reference,
                                   window_attention_v3)
 
 # the kernel wrappers of the inference path, in the order of the model
-KERNEL_WRAPPERS = (layer_norm, window_attention_v3, conv3x3, roi_align)
+INFERENCE_KERNELS = (layer_norm, window_attention_v3, conv3x3, roi_align)
+# and those the training step adds: the forward that saves the softmax and
+# the three backward kernels
+TRAINING_KERNELS = (window_attention_fwd_p, window_attention_bwd,
+                    conv3x3_dw, roi_align_bwd)
+KERNEL_WRAPPERS = INFERENCE_KERNELS + TRAINING_KERNELS
 
 
 def reset_launch_counts() -> None:

@@ -3,8 +3,14 @@
 Counterpart of ``swindet_tpu/ops/conv3x3.py``. :func:`conv3x3` runs the
 hand-written implicit-GEMM kernel (``csrc/conv3x3.cu``, replacing the
 Pallas ``_conv_kernel``) on a CUDA tensor and the plain version
-:func:`conv3x3_reference` on a CPU tensor. Weights are HWIO as in the JAX
-package; :func:`hwio` turns a torch OIHW weight into that layout.
+:func:`conv3x3_reference` on a CPU tensor; :func:`conv3x3_dw` runs the
+filter-gradient kernel (replacing ``_dw_kernel``) or its plain version
+:func:`conv3x3_dw_reference`. :func:`conv3x3_op` is the differentiable
+entry point (``conv3x3`` with ``_c3_fwd`` / ``conv3x3_bwd_pallas``,
+:183-226): dx is the forward kernel applied to g with the weight rotated by
+180 degrees, dw the filter-gradient kernel, db the sum of g. Weights are
+HWIO as in the JAX package; :func:`hwio` turns a torch OIHW weight into
+that layout.
 """
 from __future__ import annotations
 
@@ -19,6 +25,9 @@ _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p)
+_DW_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 CHANNEL_MULTIPLE = 16
 
 
@@ -73,3 +82,79 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 conv3x3.launches = 0
+
+
+def conv3x3_dw_reference(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain version of the filter gradient of a 3x3 SAME conv: x
+    (B, H, W, C) and g (B, H, W, Co) -> (3, 3, C, Co) fp32, each tap the
+    fp32 product of the shifted, zero-padded input with g over every
+    pixel."""
+    b, h, w, c = x.shape
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    gf = g.float().reshape(-1, g.shape[-1])
+    taps = [xp[:, dy:dy + h, dx:dx + w].reshape(-1, c).t() @ gf
+            for dy in range(3) for dx in range(3)]
+    return torch.stack(taps).view(3, 3, c, g.shape[-1])
+
+
+def conv3x3_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Filter gradient (3, 3, C, Co) fp32 of x (B, H, W, C) and g
+    (B, H, W, Co) of one dtype."""
+    if x.device.type == 'cpu':
+        return conv3x3_dw_reference(x, g)
+    if x.device.type != 'cuda':
+        raise ValueError(f'conv3x3_dw: unsupported device {x.device}')
+    code = build.dtype_code(x, 'conv3x3_dw')
+    bs, h, wd, c = x.shape
+    co = g.shape[-1]
+    if g.dtype != x.dtype or tuple(g.shape) != (bs, h, wd, co):
+        raise ValueError(f'conv3x3_dw: g {tuple(g.shape)} {g.dtype} does not '
+                         f'match ({bs}, {h}, {wd}, Co) {x.dtype}')
+    for name, t in (('x', x), ('g', g)):
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f'conv3x3_dw: {name} must be contiguous on '
+                             f'{x.device}')
+    dw = torch.zeros((3, 3, c, co), dtype=torch.float32, device=x.device)
+    fn = build.bind('conv3x3', 'swindet_conv3x3_dw', _DW_ARGTYPES)
+    with torch.cuda.device(x.device):
+        status = fn(x.data_ptr(), g.data_ptr(), dw.data_ptr(), bs, h, wd, c,
+                    co, code, build.stream_ptr(x.device))
+    build.check_launch('conv3x3_dw', status)
+    conv3x3_dw.launches += 1
+    return dw
+
+
+conv3x3_dw.launches = 0
+
+
+class Conv3x3Function(torch.autograd.Function):
+    """``conv3x3`` with ``_c3_fwd`` / ``conv3x3_bwd_pallas``: the output
+    is saved only where the ReLU mask needs it. dx comes out in x's dtype,
+    dw in fp32 cast to w's dtype, db in b's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, relu):
+        out = conv3x3(x, w, b, relu)
+        ctx.save_for_backward(x, w, b, out if relu else None)
+        ctx.relu = relu
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, b, out = ctx.saved_tensors
+        g = g.contiguous()
+        if ctx.relu:
+            g = g * (out > 0).to(g.dtype)
+        # rot180 and (C, Co) -> (Co, C): dx is a SAME conv of g with wt
+        wt = w.flip(0, 1).transpose(2, 3).contiguous().to(g.dtype)
+        zero = torch.zeros(x.shape[-1], dtype=torch.float32, device=g.device)
+        dx = conv3x3(g, wt, zero)
+        dw = conv3x3_dw(x, g).to(w.dtype)
+        db = g.float().sum((0, 1, 2)).to(b.dtype)
+        return dx.to(x.dtype), dw, db, None
+
+
+def conv3x3_op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               relu: bool = False) -> torch.Tensor:
+    """Differentiable :func:`conv3x3`."""
+    return Conv3x3Function.apply(x, w, b, relu)

@@ -3,7 +3,11 @@
 Counterpart of ``swindet_tpu/ops/layer_norm.py``. :func:`layer_norm` runs
 the hand-written kernel (``csrc/layer_norm.cu``, replacing the Pallas
 ``_ln_kernel``) on a CUDA tensor and the plain version
-:func:`layer_norm_reference` on a CPU tensor.
+:func:`layer_norm_reference` on a CPU tensor. :func:`layer_norm_op` is the
+differentiable entry point: the forward is :func:`layer_norm`, and the
+backward recomputes through :func:`layer_norm_reference` in plain torch,
+as ``_ln_vjp_bwd`` (:58) does in lax; the JAX package has no Pallas
+LayerNorm backward.
 """
 from __future__ import annotations
 
@@ -58,3 +62,27 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 
 layer_norm.launches = 0
+
+
+class LayerNormFunction(torch.autograd.Function):
+    """``_ln_vjp``: the kernel forward; the backward differentiates the
+    plain version at the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.eps = eps
+        return layer_norm(x, weight, bias, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y = layer_norm_reference(*saved, ctx.eps)
+        return (*torch.autograd.grad(y, saved, g), None)
+
+
+def layer_norm_op(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """Differentiable :func:`layer_norm`."""
+    return LayerNormFunction.apply(x, weight, bias, eps)

@@ -2,10 +2,15 @@
 
 Counterpart of ``swindet_tpu/ops/roi_align.py`` (the contract, ported here
 as the plain version :func:`multilevel_roi_align`) and of
-``swindet_tpu/ops/roi_align_pallas.py`` (the TPU kernel, replaced by
-``csrc/roi_align.cu``). :func:`roi_align` runs the kernel on CUDA tensors
-and the plain version on CPU tensors; both route rois to FPN levels with
-:func:`map_roi_levels`.
+``swindet_tpu/ops/roi_align_pallas.py`` (the TPU kernels, replaced by
+``csrc/roi_align.cu``). :func:`roi_align` runs the forward kernel on CUDA
+tensors and the plain version on CPU tensors; :func:`roi_align_bwd` runs
+the backward kernel (replacing ``_roi_align_bwd_kernel``) or its plain
+version :func:`multilevel_roi_align_backward`, the exact gradient of the
+contract for every roi. Both route rois to FPN levels with
+:func:`map_roi_levels`. :func:`roi_align_op` is the differentiable entry
+point (``_rap_vjp``): feature gradients for every level, none for the
+rois, which are detached proposals throughout (:558-561).
 
 ``sampling_ratio=0`` is mmcv's adaptive grid, ``ceil(extent / out_size)``
 samples per bin and axis, capped at :data:`SR0_GMAX` as in the JAX
@@ -14,7 +19,7 @@ package.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -30,6 +35,9 @@ _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+# swindet_roi_align_bwd takes the same arguments, with the level gradient
+# buffers in place of the features and grad_out in place of out
+_BWD_ARGTYPES = _ARGTYPES
 
 
 def adaptive_grid(extent: torch.Tensor, out_size: int, g_max: int):
@@ -53,13 +61,23 @@ def map_roi_levels(rois: torch.Tensor, num_levels: int,
     return lvl.clamp(0, num_levels - 1).long()
 
 
-def _align_chunk(feat_flat, rois, lvl, shapes, offsets, strides, total,
-                 out_size, sampling_ratio):
+def _level_tables(shapes, offsets, strides, lvl, dev):
+    """Per-roi level height, width, flat row offset and 1 / stride."""
+    def table(vals):
+        return torch.tensor([float(v) for v in vals], device=dev)[lvl]
+    return (table(s[0] for s in shapes), table(s[1] for s in shapes),
+            table(offsets), 1.0 / table(strides))
+
+
+def _taps(rois, lvl, shapes, offsets, strides, total, out_size,
+          sampling_ratio):
+    """Sampling geometry of a chunk of rois: the flat feature rows of the
+    four bilinear taps of every sample and their weights (each (R, P, P),
+    P = out_size * samples per bin), the mask of samples inside the map
+    (R, P, P) and the bin weights (R, out, r, out, r)."""
     dev = rois.device
-    lvl_h = torch.tensor([float(s[0]) for s in shapes], device=dev)[lvl]
-    lvl_w = torch.tensor([float(s[1]) for s in shapes], device=dev)[lvl]
-    lvl_off = torch.tensor([float(o) for o in offsets], device=dev)[lvl]
-    scale = 1.0 / torch.tensor([float(s) for s in strides], device=dev)[lvl]
+    lvl_h, lvl_w, lvl_off, scale = _level_tables(shapes, offsets, strides,
+                                                 lvl, dev)
     base = rois[:, 0] * float(total) + lvl_off
 
     x1 = rois[:, 1] * scale - 0.5
@@ -104,19 +122,57 @@ def _align_chunk(feat_flat, rois, lvl, shapes, offsets, strides, total,
     hx = 1.0 - lx
     off = base[:, None, None]
 
-    def tap(ty, tx):
-        idx = (off + ty * w + tx).long()
-        return feat_flat[idx].float()                  # (R, P, P, C)
+    def row(ty, tx):
+        return (off + ty * w + tx).long()
 
-    vals = (tap(y0, x0) * (hy * hx)[..., None]
-            + tap(y0, x1i) * (hy * lx)[..., None]
-            + tap(y1i, x0) * (ly * hx)[..., None]
-            + tap(y1i, x1i) * (ly * lx)[..., None])
-    vals = torch.where(valid[..., None], vals, 0.0)
-    c = feat_flat.shape[-1]
-    vals = vals.view(n, out_size, r, out_size, r, c)
+    idx = (row(y0, x0), row(y0, x1i), row(y1i, x0), row(y1i, x1i))
+    wts = (hy * hx, hy * lx, ly * hx, ly * lx)
     wgt = w_y[:, None, :, None, None] * w_x[:, None, None, None, :]
+    return idx, wts, valid, wgt
+
+
+def _align_chunk(feat_flat, rois, lvl, shapes, offsets, strides, total,
+                 out_size, sampling_ratio):
+    idx, wts, valid, wgt = _taps(rois, lvl, shapes, offsets, strides, total,
+                                 out_size, sampling_ratio)
+    vals = sum(feat_flat[i].float() * t[..., None]      # (R, P, P, C)
+               for i, t in zip(idx, wts))
+    vals = torch.where(valid[..., None], vals, 0.0)
+    n, c = rois.shape[0], feat_flat.shape[-1]
+    r = wgt.shape[2]
+    vals = vals.view(n, out_size, r, out_size, r, c)
     return (vals * wgt[..., None]).sum(dim=(2, 4))
+
+
+def _align_chunk_bwd(grad_flat, g, rois, lvl, shapes, offsets, strides,
+                     total, out_size, sampling_ratio):
+    """Adds the feature gradient of a chunk of rois into grad_flat
+    (B * total, C) fp32."""
+    idx, wts, valid, wgt = _taps(rois, lvl, shapes, offsets, strides, total,
+                                 out_size, sampling_ratio)
+    n, c = rois.shape[0], grad_flat.shape[-1]
+    r = wgt.shape[2]
+    gs = g.float()[:, :, None, :, None, :] * wgt[..., None]
+    gs = gs.reshape(n, out_size * r, out_size * r, c)
+    gs = torch.where(valid[..., None], gs, 0.0)
+    for i, t in zip(idx, wts):
+        grad_flat.index_add_(0, i.reshape(-1),
+                             (gs * t[..., None]).reshape(-1, c))
+
+
+def _flat_layout(shapes):
+    """Flat row offsets of the levels and their total rows per image."""
+    offsets, acc = [], 0
+    for h, w in shapes:
+        offsets.append(acc)
+        acc += h * w
+    return offsets, acc
+
+
+def _plain_chunk(out_size: int, sampling_ratio: int, c: int) -> int:
+    """Rois per chunk of the plain versions."""
+    r = sampling_ratio if sampling_ratio > 0 else SR0_GMAX
+    return max(1, _PLAIN_CHUNK_ELEMS // ((out_size * r) ** 2 * c))
 
 
 def multilevel_roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor,
@@ -130,18 +186,12 @@ def multilevel_roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor,
     num_levels = len(feats)
     b, c = feats[0].shape[0], feats[0].shape[-1]
     shapes = [(f.shape[1], f.shape[2]) for f in feats]
-    offsets, acc = [], 0
-    for h, w in shapes:
-        offsets.append(acc)
-        acc += h * w
-    total = acc
+    offsets, total = _flat_layout(shapes)
     feat_flat = torch.cat([f.reshape(b, -1, c) for f in feats], dim=1) \
         .reshape(b * total, c)
     rois = rois.float()
     lvl = map_roi_levels(rois, num_levels, finest_scale)
-    r = sampling_ratio if sampling_ratio > 0 else SR0_GMAX
-    per_roi = (out_size * r) ** 2 * c
-    chunk = max(1, _PLAIN_CHUNK_ELEMS // per_roi)
+    chunk = _plain_chunk(out_size, sampling_ratio, c)
     outs = [_align_chunk(feat_flat, rois[s:s + chunk], lvl[s:s + chunk],
                          shapes, offsets, strides, total, out_size,
                          sampling_ratio)
@@ -207,3 +257,125 @@ def roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor,
 
 
 roi_align.launches = 0
+
+
+def multilevel_roi_align_backward(feat_shapes: Sequence[Sequence[int]],
+                                  dtype: torch.dtype, rois: torch.Tensor,
+                                  g: torch.Tensor, strides: Sequence[int],
+                                  out_size: int, sampling_ratio: int = 0,
+                                  finest_scale: int = 56,
+                                  roi_valid: Optional[torch.Tensor] = None
+                                  ) -> List[torch.Tensor]:
+    """Plain version of the backward: the gradient of
+    :func:`multilevel_roi_align` with respect to each feature level
+    (shapes ``feat_shapes``, (B, H_l, W_l, C)), given the output gradient
+    g (R, out_size, out_size, C). Accumulated in fp32 and returned in
+    ``dtype``; invalid rois contribute nothing."""
+    b, c = feat_shapes[0][0], feat_shapes[0][-1]
+    shapes = [(s[1], s[2]) for s in feat_shapes]
+    offsets, total = _flat_layout(shapes)
+    rois = rois.float()
+    lvl = map_roi_levels(rois, len(shapes), finest_scale)
+    if roi_valid is not None:
+        g = torch.where(roi_valid[:, None, None, None], g.float(), 0.0)
+    grad_flat = torch.zeros((b * total, c), dtype=torch.float32,
+                            device=g.device)
+    chunk = _plain_chunk(out_size, sampling_ratio, c)
+    for s in range(0, rois.shape[0], chunk):
+        _align_chunk_bwd(grad_flat, g[s:s + chunk], rois[s:s + chunk],
+                         lvl[s:s + chunk], shapes, offsets, strides, total,
+                         out_size, sampling_ratio)
+    per_image = grad_flat.view(b, total, c)
+    return [per_image[:, o:o + h * w].reshape(b, h, w, c).to(dtype)
+            for o, (h, w) in zip(offsets, shapes)]
+
+
+def roi_align_bwd(feat_shapes: Sequence[Sequence[int]], dtype: torch.dtype,
+                  rois: torch.Tensor, g: torch.Tensor,
+                  strides: Sequence[int], out_size: int,
+                  sampling_ratio: int = 0, finest_scale: int = 56,
+                  roi_valid: Optional[torch.Tensor] = None
+                  ) -> List[torch.Tensor]:
+    """Backward of :func:`roi_align` with the arguments of
+    :func:`multilevel_roi_align_backward`: the kernel for CUDA tensors,
+    the plain version for CPU tensors."""
+    if rois.device.type == 'cpu':
+        return multilevel_roi_align_backward(
+            feat_shapes, dtype, rois, g, strides, out_size, sampling_ratio,
+            finest_scale, roi_valid)
+    if rois.device.type != 'cuda':
+        raise ValueError(f'roi_align_bwd: unsupported device {rois.device}')
+    dev = rois.device
+    code = build.dtype_code(g, 'roi_align_bwd')
+    nl = len(feat_shapes)
+    b, c = feat_shapes[0][0], feat_shapes[0][-1]
+    n = rois.shape[0]
+    if any(len(s) != 4 or s[0] != b or s[-1] != c for s in feat_shapes) \
+            or len(strides) != nl:
+        raise ValueError('roi_align_bwd: levels must be (B, H, W, C) with '
+                         'one stride each')
+    if rois.dtype != torch.float32 or rois.dim() != 2 \
+            or rois.shape[1] != 5 or not rois.is_contiguous():
+        raise ValueError('roi_align_bwd: rois must be a contiguous fp32 '
+                         '(R, 5) tensor')
+    if g.dtype != dtype or tuple(g.shape) != (n, out_size, out_size, c) \
+            or g.device != dev or not g.is_contiguous():
+        raise ValueError(f'roi_align_bwd: g must be a contiguous {dtype} '
+                         f'({n}, {out_size}, {out_size}, {c}) tensor on '
+                         f'{dev}')
+    if roi_valid is not None:
+        if roi_valid.shape != (n,) or roi_valid.device != dev:
+            raise ValueError(f'roi_align_bwd: roi_valid must be ({n},) on '
+                             f'{dev}')
+        roi_valid = roi_valid.to(torch.uint8).contiguous()
+    lvl = map_roi_levels(rois, nl, finest_scale).to(torch.int32)
+    grads = [torch.zeros(tuple(s), dtype=torch.float32, device=dev)
+             for s in feat_shapes]
+    ptrs = (ctypes.c_void_p * nl)(*[t.data_ptr() for t in grads])
+    heights = (ctypes.c_int * nl)(*[s[1] for s in feat_shapes])
+    widths = (ctypes.c_int * nl)(*[s[2] for s in feat_shapes])
+    scales = (ctypes.c_float * nl)(*[1.0 / s for s in strides])
+    fn = build.bind('roi_align', 'swindet_roi_align_bwd', _BWD_ARGTYPES)
+    with torch.cuda.device(dev):
+        status = fn(ptrs, heights, widths, scales, nl, b, rois.data_ptr(),
+                    lvl.data_ptr(),
+                    None if roi_valid is None else roi_valid.data_ptr(),
+                    g.data_ptr(), n, c, out_size, sampling_ratio, SR0_GMAX,
+                    code, build.stream_ptr(dev))
+    build.check_launch('roi_align_bwd', status)
+    roi_align_bwd.launches += 1
+    return [t.to(dtype) for t in grads]
+
+
+roi_align_bwd.launches = 0
+
+
+class RoIAlignFunction(torch.autograd.Function):
+    """``_rap_vjp``: gradients for every feature level, in the features'
+    dtype; none for the rois or the validity mask."""
+
+    @staticmethod
+    def forward(ctx, rois, roi_valid, strides, out_size, sampling_ratio,
+                finest_scale, *feats):
+        ctx.save_for_backward(rois, roi_valid)
+        ctx.args = (tuple(tuple(f.shape) for f in feats), feats[0].dtype,
+                    strides, out_size, sampling_ratio, finest_scale)
+        return roi_align(feats, rois, strides, out_size, sampling_ratio,
+                         finest_scale, roi_valid)
+
+    @staticmethod
+    def backward(ctx, g):
+        rois, roi_valid = ctx.saved_tensors
+        shapes, dtype, strides, out_size, ratio, finest = ctx.args
+        grads = roi_align_bwd(shapes, dtype, rois, g.contiguous(), strides,
+                              out_size, ratio, finest, roi_valid)
+        return (None,) * 6 + tuple(grads)
+
+
+def roi_align_op(feats: Sequence[torch.Tensor], rois: torch.Tensor,
+                 strides: Sequence[int], out_size: int,
+                 sampling_ratio: int = 0, finest_scale: int = 56,
+                 roi_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Differentiable :func:`roi_align` in the features."""
+    return RoIAlignFunction.apply(rois, roi_valid, tuple(strides), out_size,
+                                  sampling_ratio, finest_scale, *feats)

@@ -9,4 +9,7 @@ ROI_EXTRACTORS = Registry('roi_extractor')
 DETECTORS = Registry('detector')
 ANCHOR_GENERATORS = Registry('anchor_generator')
 BBOX_CODERS = Registry('bbox_coder')
+BBOX_ASSIGNERS = Registry('bbox_assigner')
+BBOX_SAMPLERS = Registry('bbox_sampler')
+LOSSES = Registry('loss')
 PIPELINES = Registry('pipeline')

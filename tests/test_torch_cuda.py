@@ -7,14 +7,26 @@ a CUDA device and run on the card with
 
 Tolerances: fp32 at 1e-4 (summation order; RoIAlign 1e-3 for one-ulp
 sample coordinates, see chip_smoke.py), bf16 at 2e-2 (one rounding of
-the output on each side).
+the output on each side). The backward kernels sum across blocks by fp32
+atomics in a changing order and their entries cancel, so they are held
+to a fraction of each output's largest entry (chip_smoke.py TOL_SUM).
 """
 import pytest
 import torch
 
-from swindet_tpu_torch.ops import (conv3x3, conv3x3_reference, layer_norm,
+from swindet_tpu_torch.ops import (conv3x3, conv3x3_dw, conv3x3_dw_reference,
+                                   conv3x3_op, conv3x3_reference,
+                                   launch_counts, layer_norm, layer_norm_op,
                                    layer_norm_reference,
-                                   multilevel_roi_align, roi_align,
+                                   multilevel_roi_align,
+                                   multilevel_roi_align_backward,
+                                   reset_launch_counts, roi_align,
+                                   roi_align_bwd, roi_align_op,
+                                   window_attention_bwd,
+                                   window_attention_bwd_reference,
+                                   window_attention_fwd_p,
+                                   window_attention_fwd_p_reference,
+                                   window_attention_op,
                                    window_attention_reference,
                                    window_attention_v3)
 from swindet_tpu_torch.models.backbones.swin import shifted_window_attn_mask
@@ -113,3 +125,117 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError):
         window_attention_v3(_randn(gen, 2, 81, 96), _randn(gen, 1, 81, 81),
                             None, 1)
+
+
+def _close_summed(got, want, dtype, tol32=1e-4):
+    tol = tol32 if dtype == torch.float32 else 1e-2
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item(), err
+
+
+def _attn_case(gen, dtype, n, c, nh, shift, b_=6):
+    ws = int(n ** 0.5)
+    mask = None
+    if shift:
+        mask = torch.from_numpy(shifted_window_attn_mask(
+            2 * ws, 3 * ws, ws, ws // 2)).cuda()
+        b_ = 2 * mask.shape[0]
+    qkv = _randn(gen, b_, n, 3 * c, dtype=dtype)
+    bias = _randn(gen, nh, n, n, scale=0.5)
+    return qkv, bias, mask
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('n,c,nh,shift', [(49, 96, 3, True),
+                                          (49, 64, 1, False),
+                                          (16, 48, 3, False)])
+def test_window_attention_fwd_p_and_bwd(gen, dtype, n, c, nh, shift):
+    qkv, bias, mask = _attn_case(gen, dtype, n, c, nh, shift, b_=19)
+    out, p = window_attention_fwd_p(qkv, bias, mask, nh)
+    want_out, want_p = window_attention_fwd_p_reference(qkv, bias, mask, nh)
+    _close(out, want_out, dtype)
+    _close(p, want_p, torch.float32)
+    g = _randn(gen, *out.shape, dtype=dtype)
+    got = window_attention_bwd(qkv, want_p, g, nh)
+    want = window_attention_bwd_reference(qkv, want_p, g, nh)
+    _close_summed(got[0], want[0], dtype)
+    _close_summed(got[1], want[1], torch.float32)
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('shape', [(2, 5, 9, 24, 40), (3, 14, 14, 128, 128),
+                                   (1, 1, 70, 32, 200)])
+def test_conv3x3_dw(gen, dtype, shape):
+    b, h, w, c, co = shape
+    x = _randn(gen, b, h, w, c, dtype=dtype)
+    g = _randn(gen, b, h, w, co, dtype=dtype)
+    _close_summed(conv3x3_dw(x, g), conv3x3_dw_reference(x, g),
+                  torch.float32)
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('out_size,ratio', [(7, 0), (14, 0), (7, 2)])
+def test_roi_align_bwd(gen, dtype, out_size, ratio):
+    shapes = [(2, h, w, 48) for h, w in ((40, 56), (20, 28), (10, 14),
+                                          (5, 7))]
+    rois = torch.tensor([
+        [0, 0, 0, 30, 30], [1, 100, 60, 180, 150], [0, 10, 5, 220, 158],
+        [1, 200, 140, 260, 200], [0, 50, 0, 52, 160], [1, 3, 3, 3, 3],
+        [0, 0, 0, 224, 160], [0, 12, 8, 40, 36]],
+        dtype=torch.float32).cuda()
+    valid = torch.tensor([1, 1, 1, 1, 1, 1, 0, 1], dtype=torch.bool).cuda()
+    g = _randn(gen, 8, out_size, out_size, 48, dtype=dtype)
+    strides = (4, 8, 16, 32)
+    got = roi_align_bwd(shapes, dtype, rois, g, strides, out_size, ratio,
+                        roi_valid=valid)
+    want = multilevel_roi_align_backward(shapes, dtype, rois, g, strides,
+                                         out_size, ratio, roi_valid=valid)
+    for a, b in zip(got, want):
+        _close_summed(a, b, dtype, tol32=1e-3)
+
+
+def test_autograd_ops_on_the_card_match_the_cpu(gen):
+    """Each differentiable op's gradients, fp32, kernels on the card
+    against the plain versions on the CPU."""
+    def grads(fn, inputs, consts):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        out = fn(*leaves, *consts)
+        out.backward(torch.linspace(-1, 1, out.numel(), device=out.device)
+                     .view(out.shape))
+        return [t.grad for t in leaves]
+
+    qkv, bias, mask = _attn_case(gen, torch.float32, 49, 96, 3, True)
+    x = _randn(gen, 2, 9, 11, 128)
+    w, b = _randn(gen, 3, 3, 128, 128, scale=0.05), _randn(gen, 128)
+    feats = [_randn(gen, 2, h, w_, 32) for h, w_ in ((40, 56), (20, 28),
+                                                     (10, 14), (5, 7))]
+    rois = torch.tensor([[0, 0, 0, 30, 30], [1, 100, 60, 180, 150],
+                         [0, 10, 5, 220, 158]], dtype=torch.float32).cuda()
+    cases = [
+        (lambda a, bb, m: window_attention_op(a, bb, m, 3), (qkv, bias),
+         (mask,)),
+        (lambda a, ww, bb: conv3x3_op(a, ww, bb, True), (x, w, b), ()),
+        (layer_norm_op, (x, b, b), ()),
+        (lambda f0, f1, f2, f3, r: roi_align_op([f0, f1, f2, f3], r,
+                                                (4, 8, 16, 32), 7),
+         feats, (rois,)),
+    ]
+    reset_launch_counts()
+    for fn, inputs, consts in cases:
+        on_card = grads(fn, inputs, consts)
+        on_cpu = grads(fn, [t.cpu() for t in inputs],
+                       [t.cpu() for t in consts])
+        for a, c in zip(on_card, on_cpu):
+            _close_summed(a.cpu(), c, torch.float32, tol32=1e-3)
+    counts = launch_counts()
+    # with a gradient wanted, attention runs the softmax-saving forward
+    assert counts.pop('window_attention_v3') == 0
+    assert all(v > 0 for v in counts.values()), counts
+    # serving keeps to the inference kernel
+    reset_launch_counts()
+    with torch.inference_mode():
+        window_attention_op(qkv, bias, mask, 3)
+    assert launch_counts()['window_attention_fwd_p'] == 0
+    assert launch_counts()['window_attention_v3'] == 1
