@@ -9,17 +9,20 @@ before the last line:
 1. device  -- requires CUDA; prints the card's name and power limit as
               nvidia-smi reports them, torch's CUDA and the nvcc version.
 2. build   -- builds every kernel from swindet_tpu_torch/csrc with nvcc.
-3. kernels -- holds each of the eight kernels against its plain PyTorch
+3. kernels -- holds each of the eleven kernels against its plain PyTorch
               version on the card at the shapes of the main paths, in bf16
-              and fp32, times both with CUDA events, times the one PyTorch
-              call that computes the same function where there is one
-              (library_ms), and computes each kernel's bound from the
-              bytes and operations of its inputs.
+              and fp32 (NMS: fp32 boxes, exact equality), times both with
+              CUDA events, times the one PyTorch call that computes the
+              same function where there is one (library_ms; for the fused
+              MLP the unfused F.linear -> F.gelu -> F.linear chain and its
+              backward as unfused_ms), and computes each kernel's bound
+              from the bytes and operations of its inputs.
 4. main    -- serving: Mask R-CNN Swin-T (full width, seeded weights,
               bf16, RPN nms_pre = max_per_img = 1000) through
               init_detector and inference_detector on 3 synthetic
               800x1333 images after one warm-up; every inference kernel's
-              launch count must rise and no training kernel may launch.
+              launch count must rise (NMS twice a request: RPN and
+              multiclass) and no training kernel may launch.
 5. check   -- the same detector at fp32 on a small canvas, on the card
               (kernels) and on the CPU (plain versions), must agree.
 6. train   -- training: the same detector in bf16 with the config's
@@ -27,24 +30,35 @@ before the last line:
               paramwise_cfg and the schedule_1x warm-up, through
               make_train_step on a batch of 2 synthetic 800x1333 images
               (canvas 800x1344) whose painted rectangles are the ground
-              truth: 1 warm-up step, 5 timed steps, one validation pass
+              truth: 1 warm-up step, 5 timed steps, one step whose NMS
+              runs under torch.cuda.set_sync_debug_mode('error') (it
+              reads nothing on the host), one validation pass
               (simple_test) of the trained model on the batch, then 2
-              profiled steps. Over the timed steps every kernel but the
-              inference attention kernel must launch, and that one must
-              not; the validation pass, counted on its own, must launch
-              the inference kernels and no training kernel.
+              profiled steps. Over the timed steps every kernel of the
+              configuration but the inference attention kernel must
+              launch (NMS once a step), and that one must not; the
+              validation pass, counted on its own, must launch the
+              inference kernels and no training kernel.
 7. train-check -- forward_train and its gradients in fp32 on a 224x320
               canvas, on the card and on the CPU, with the same weights,
               batch and sampler keys, must agree; a bf16 control run on
               the card is held to the same CPU run and logged.
+8. fused   -- phases 4 to 7 again in the fused-MLP configuration, the JAX
+              package's switch SWINDET_FUSED_MLP=1: the token MLPs of
+              stages 1-3 (10 blocks) run the fused kernels, stage 4 stays
+              unfused. Serving launches the fused forward 10 times a
+              request; training the forward and the backward 10 times a
+              step. The card-vs-CPU checks hold the same limits.
 
 Then one JSON line of per-kernel results (``launches``: the serving
-and the training runs' counts, each from its own reset, summed; each
-also apart), the card's name and power limit, and, last, one JSON line
-with the device. It imports neither jax nor the JAX package.
+and the training runs' counts of both configurations, each from its own
+reset, summed; each also apart), the card's name and power limit, and,
+last, one JSON line with the device. It imports neither jax nor the JAX
+package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -58,13 +72,16 @@ import torch.nn.functional as F
 from swindet_tpu_torch import inference_detector, init_detector
 from swindet_tpu_torch.engine import (build_lr_schedule, build_optimizer,
                                       make_train_step)
-from swindet_tpu_torch.ops import (INFERENCE_KERNELS, KERNEL_WRAPPERS,
-                                   TRAINING_KERNELS, build, conv3x3,
-                                   conv3x3_dw, conv3x3_dw_reference,
-                                   conv3x3_reference, launch_counts,
+from swindet_tpu_torch.ops import (FUSED_MLP_KERNELS, INFERENCE_KERNELS,
+                                   KERNEL_WRAPPERS, TRAINING_KERNELS, build,
+                                   conv3x3, conv3x3_dw, conv3x3_dw_reference,
+                                   conv3x3_reference, fused_mlp,
+                                   fused_mlp_bwd, fused_mlp_bwd_reference,
+                                   fused_mlp_reference, launch_counts,
                                    layer_norm, layer_norm_reference,
                                    multilevel_roi_align,
                                    multilevel_roi_align_backward,
+                                   nms_sorted, nms_sorted_reference,
                                    reset_launch_counts, roi_align,
                                    roi_align_bwd, window_attention_bwd,
                                    window_attention_bwd_reference,
@@ -107,6 +124,15 @@ KERNELS = {
     'roi_align_bwd': dict(
         source='swindet_tpu_torch/csrc/roi_align.cu',
         replaces='swindet_tpu/ops/roi_align_pallas.py:411'),
+    'nms_sorted': dict(
+        source='swindet_tpu_torch/csrc/nms.cu',
+        replaces='swindet_tpu/ops/nms_pallas.py:38'),
+    'fused_mlp': dict(
+        source='swindet_tpu_torch/csrc/fused_mlp.cu',
+        replaces='swindet_tpu/ops/fused_mlp.py:78'),
+    'fused_mlp_bwd': dict(
+        source='swindet_tpu_torch/csrc/fused_mlp.cu',
+        replaces='swindet_tpu/ops/fused_mlp.py:115'),
 }
 # |kernel - plain| <= ATOL + RTOL * |plain|: fp32 differs by summation
 # order only; bf16 outputs are each rounded once from fp32 on both sides,
@@ -126,10 +152,25 @@ TOL_ROI_FP32 = (1e-3, 1e-4)
 # sample coordinates above.
 TOL_SUM = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 TOL_SUM_ROI_FP32 = 1e-3
+# The fused MLP forward is held elementwise to TOL: its fp32 sums run in
+# another order than the plain version's matmuls, its erf may contract
+# into fused multiply-adds (a few fp32 ulps), and in bf16 a rounding of
+# the hidden activation may land one bf16 unit apart. Its backward sums
+# over rows (the weight gradients by fp32 atomics, in a changing order)
+# from terms rounded to bf16 in a bf16 run, so it is held per output to
+# TOL_SUM of the largest entry. NMS must equal its plain version exactly
+# (count, indices and detections): its IoU rounds as the plain version's.
 FPN_SHAPES = ((200, 336), (100, 168), (50, 84), (25, 42))
-# H100 SXM data-sheet rates (dense bf16 tensor cores, HBM3)
+# H100 SXM data-sheet rates (dense bf16 tensor cores, fp32 outside the
+# tensor cores, HBM3)
 PEAK_FLOPS = 989e12
+PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+# operations of one IoU of the NMS kernel: two areas (2 subtractions, 2
+# clamps, 1 product each), the intersection (2 min, 2 max, 2
+# subtractions, 2 clamps, 1 product), the union (an addition, a
+# subtraction, a clamp), a division and a comparison
+NMS_OPS_PER_IOU = 24
 IMG_MEAN = np.array([123.675, 116.28, 103.53], np.float32)
 IMG_STD = np.array([58.395, 57.12, 57.375], np.float32)
 # COCO train2017 (118,287 images) at the config's 16 images per batch,
@@ -195,21 +236,21 @@ def _nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak=PEAK_FLOPS):
     """Least time (ms) of the work on the card: its bytes over the memory
-    rate or its operations over the bf16 tensor-core rate, whichever is
-    larger, and which it was."""
+    rate or its operations over their peak rate (the bf16 tensor-core rate
+    unless given), whichever is larger, and which it was."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
 def _compare(name, dtype, kernel_fn, plain_fn, shape_note, work=None,
-             library_fn=None, summed=False):
+             library_fn=None, summed=False, exact=False):
     """Hold kernel_fn() against plain_fn() (each a tensor or a tuple of
-    them), time both and, if given, library_fn; ``work`` (bytes, flops)
-    gives the bound. ``summed`` picks the scale-relative TOL_SUM check of
-    the backward kernels."""
+    them), time both and, if given, library_fn; ``work`` (bytes, flops[,
+    peak]) gives the bound. ``summed`` picks the scale-relative TOL_SUM
+    check of the backward kernels, ``exact`` equality."""
     got = _tensors(kernel_fn())
     want = _tensors(plain_fn())
     torch.cuda.synchronize()
@@ -222,7 +263,10 @@ def _compare(name, dtype, kernel_fn, plain_fn, shape_note, work=None,
         if not torch.isfinite(g).all():
             raise AssertionError(f'{name} {dtype}: non-finite kernel output')
         err = (g - w).abs()
-        if summed:
+        if exact:
+            excess = 0.0 if torch.equal(g, w) else 1.0
+            rule = 'equality'
+        elif summed:
             tol = TOL_SUM_ROI_FP32 if (name, odt) == (
                 'roi_align_bwd', torch.float32) else TOL_SUM[odt]
             limit = tol * w.abs().max().item()
@@ -293,6 +337,65 @@ def _roi_work(shapes, rois, strides, out_size):
         samples += int(used.sum())
         rows += [i[used].unique() for i in idx]
     return torch.cat(rows).unique().numel(), samples
+
+
+def _nms_inputs(gen, b, n, groups):
+    """Score-sorted NMS candidates as batched_nms hands them to the
+    kernel: proposal-like boxes over an 800x1344 canvas, each shifted by
+    its group's offset (RPN level or class) times (max coordinate + 1),
+    uniform scores, 5 % of them invalid; sorted by a stable sort on the
+    negated score."""
+    boxes = _rois(gen, b * n).cpu()[:, 1:].reshape(b, n, 4)
+    ids = torch.randint(0, groups, (b, n), generator=gen).float()
+    boxes = boxes + (ids * (boxes.amax(dim=(1, 2))[:, None] + 1.0))[..., None]
+    valid = torch.rand(b, n, generator=gen) > 0.05
+    score = torch.where(valid, torch.rand(b, n, generator=gen), -torch.inf)
+    order = torch.sort(-score, dim=1, stable=True).indices
+    boxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
+    return [t.cuda().contiguous() for t in (
+        boxes, torch.gather(score, 1, order), torch.gather(valid, 1, order),
+        order)]
+
+
+def _nms_work(args, out):
+    """Bytes and fp32 operations that these candidates need: each input
+    read once and each output written once; the IoUs of every kept box
+    with the candidates after it (what the greedy scan must look at)."""
+    boxes, _, _, order = args
+    dets, inds, count = out
+    n = order.shape[1]
+    inv = torch.argsort(order, dim=1)
+    pairs = 0
+    for b in range(order.shape[0]):
+        pos = inv[b][inds[b, :int(count[b])]]
+        pairs += int((n - 1 - pos).sum())
+    return (_nbytes(*args) + _nbytes(*out), NMS_OPS_PER_IOU * pairs,
+            PEAK_FP32)
+
+
+def _mlp_inputs(randn, rows, c, dtype):
+    """x (rows, C) and the weights of a Swin token MLP (H = 4C) in dtype,
+    fp32 biases, and the output gradient."""
+    h = 4 * c
+    return (randn(rows, c).to(dtype), randn(h, c, scale=c ** -0.5).to(dtype),
+            randn(h, scale=0.1), randn(c, h, scale=h ** -0.5).to(dtype),
+            randn(c, scale=0.1), randn(rows, c).to(dtype))
+
+
+def _unfused_mlp(x, w1, b1, w2, b2):
+    """The unfused chain in x's dtype (cuBLAS GEMMs, the hidden in device
+    memory): the yardstick of the fused kernels."""
+    return F.linear(F.gelu(F.linear(x, w1, b1.to(x.dtype))), w2,
+                    b2.to(x.dtype))
+
+
+def _unfused_mlp_bwd(x, w1, b1, w2, b2, g):
+    """A function that runs the backward of the unfused chain's graph
+    (built once here), the yardstick of the fused backward."""
+    leaves = [t.detach().clone().requires_grad_() for t in (x, w1, b1, w2,
+                                                           b2)]
+    out = _unfused_mlp(*leaves)
+    return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
 
 
 def _sdpa_inputs(qkv, bias, mask, nh):
@@ -466,6 +569,58 @@ def phase_kernels():
                      shapes, dtype, rois, g, strides, 14),
                  '256 rois 14x14x256, batch 2', summed=True)
         results.setdefault('roi_align_bwd', {})[dtype] = r
+        del g
+
+        # fused MLP: stages 1 and 3 of one image, and of a batch of 2 for
+        # the backward
+        for rows, c, main in ((67200, 96, True), (4200, 384, False)):
+            x, w1, b1, w2, b2, _ = _mlp_inputs(randn, rows, c, dtype)
+            mlp = (x, w1, b1, w2, b2)
+            r = _compare('fused_mlp', dtype, lambda: fused_mlp(*mlp),
+                         lambda: fused_mlp_reference(*mlp),
+                         f'({rows}, {c}) H {4 * c}',
+                         work=(_nbytes(*mlp) + _nbytes(x),
+                               4.0 * rows * c * 4 * c))
+            r['unfused_ms'] = cuda_ms(lambda: _unfused_mlp(*mlp), iters=20)
+            log('kernels', f'  unfused F.linear -> F.gelu -> F.linear '
+                           f'{r["unfused_ms"]:.4f} ms')
+            if main:
+                results.setdefault('fused_mlp', {})[dtype] = r
+        for rows, c, main in ((134400, 96, True), (8400, 384, False)):
+            x, w1, b1, w2, b2, g = _mlp_inputs(randn, rows, c, dtype)
+            bwd = (x, w1, b1, w2, g)
+            r = _compare('fused_mlp_bwd', dtype, lambda: fused_mlp_bwd(*bwd),
+                         lambda: fused_mlp_bwd_reference(*bwd),
+                         f'({rows}, {c}) H {4 * c}', summed=True,
+                         work=(_nbytes(*bwd) + _nbytes(x)
+                               + 4 * (2 * 4 * c * c + 5 * c),
+                               10.0 * rows * c * 4 * c))
+            r['unfused_ms'] = cuda_ms(_unfused_mlp_bwd(x, w1, b1, w2, b2, g),
+                                      iters=20)
+            log('kernels', f'  unfused backward (autograd of the chain) '
+                           f'{r["unfused_ms"]:.4f} ms')
+            if main:
+                results.setdefault('fused_mlp_bwd', {})[dtype] = r
+        del x, g, mlp, bwd
+
+        # NMS on fp32 boxes (the same in both configurations): RPN when
+        # serving and in a training step, the bbox head's multiclass NMS
+        if dtype == torch.float32:
+            for b, n, groups, thr, max_out, note in (
+                    (2, 8819, 5, 0.7, 1000, 'RPN train'),
+                    (1, 4819, 5, 0.7, 1000, 'RPN serve'),
+                    (1, 2048, 80, 0.5, 100, 'multiclass')):
+                args = _nms_inputs(gen, b, n, groups)
+                out = nms_sorted_reference(*args, thr, max_out)
+                r = _compare('nms_sorted', dtype,
+                             lambda: nms_sorted(*args, thr, max_out),
+                             lambda: nms_sorted_reference(*args, thr,
+                                                          max_out),
+                             f'B {b} N {n} IoU {thr} max {max_out} ({note}, '
+                             f'{[int(k) for k in out[2]]} kept)',
+                             work=_nms_work(args, out), exact=True)
+                results.setdefault('nms_sorted', {}).setdefault(dtype, r)
+            del args, out
         torch.cuda.empty_cache()
     return results
 
@@ -510,19 +665,39 @@ def _check_result(res, h, w):
     return n
 
 
-def phase_main():
+@contextlib.contextmanager
+def fused_mlp_config():
+    """The fused-MLP configuration: the JAX package's switch
+    SWINDET_FUSED_MLP=1, which every Mlp built inside reads."""
+    os.environ['SWINDET_FUSED_MLP'] = '1'
+    try:
+        yield
+    finally:
+        del os.environ['SWINDET_FUSED_MLP']
+
+
+def _fused_blocks(model):
+    """How many token MLPs of the model run fused."""
+    return sum(bool(getattr(m, 'fused', False)) for m in model.modules())
+
+
+def phase_main(phase='main', fused=False):
     opts = {'model.test_cfg.rpn.nms_pre': 1000,
             'model.test_cfg.rpn.max_per_img': 1000}
     t0 = time.perf_counter()
     model = init_detector(CONFIG, device='cuda', cfg_options=opts, seed=0)
-    log('main', f'init_detector: {type(model).__name__} '
-                f'{sum(p.numel() for p in model.parameters())} params, '
-                f'compute {model.dtype}, {time.perf_counter() - t0:.1f} s')
+    blocks = _fused_blocks(model)
+    log(phase, f'init_detector: {type(model).__name__} '
+               f'{sum(p.numel() for p in model.parameters())} params, '
+               f'compute {model.dtype}, {blocks} fused token MLPs, '
+               f'{time.perf_counter() - t0:.1f} s')
+    if blocks != (10 if fused else 0):
+        raise AssertionError(f'{blocks} fused token MLPs')
     imgs = synthetic_images(3)
     t0 = time.perf_counter()
     _check_result(inference_detector(model, imgs[0]), 800, 1333)
     torch.cuda.synchronize()
-    log('main', f'warm-up request {time.perf_counter() - t0:.3f} s')
+    log(phase, f'warm-up request {time.perf_counter() - t0:.3f} s')
 
     reset_launch_counts()
     lat = []
@@ -534,26 +709,34 @@ def phase_main():
         lat.append(time.perf_counter() - t0)
         counts.append(_check_result(res, 800, 1333))
     launches = launch_counts()
-    log('main', 'per-image latency (s): '
-                + ', '.join(f'{t:.4f}' for t in lat)
-                + f'; detections per image: {counts}')
-    log('main', f'kernel launches over the 3 requests: {launches}')
+    log(phase, 'per-image latency (s): '
+               + ', '.join(f'{t:.4f}' for t in lat)
+               + f'; detections per image: {counts}')
+    log(phase, f'kernel launches over the 3 requests: {launches}')
     idle = [fn.__name__ for fn in INFERENCE_KERNELS
             if launches[fn.__name__] == 0]
     if idle:
         raise AssertionError(f'kernels not launched on the main path: '
                              f'{idle}')
     # serving must not pay for the training forward's softmax writes
-    trained = [fn.__name__ for fn in TRAINING_KERNELS
+    trained = [fn.__name__ for fn in TRAINING_KERNELS + (fused_mlp_bwd,)
                if launches[fn.__name__]]
     if trained:
         raise AssertionError(f'training kernels launched while serving: '
                              f'{trained}')
+    # NMS twice a request (RPN proposals, multiclass NMS); the fused
+    # forward once per fused block
+    want = {'nms_sorted': 2 * len(imgs),
+            'fused_mlp': (10 if fused else 0) * len(imgs)}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f'launches {got}, expected {want}')
     return launches, lat
 
 
 # ------------------------------------------------------------- phase 5
-def phase_check(device: str = 'cuda'):
+def phase_check(device: str = 'cuda', phase: str = 'check',
+                fused: bool = False):
     """fp32 Swin-T Mask R-CNN on a 224x320 canvas, on the card (kernels)
     and on the CPU (plain versions), same seeded weights; rpn_cls and
     fc_cls are scaled to std 1 so no top-k or NMS boundary sits within
@@ -571,7 +754,10 @@ def phase_check(device: str = 'cuda'):
     img = rs.randn(1, 224, 320, 3).astype(np.float32)
     shapes = np.array([[224, 320]], np.int32)
     sf = np.ones((1, 4), np.float32)
+    if _fused_blocks(gpu) != (10 if fused else 0):
+        raise AssertionError(f'{_fused_blocks(gpu)} fused token MLPs')
     outs = []
+    reset_launch_counts()
     for model, dev in ((cpu, 'cpu'), (gpu, device)):
         args = [torch.from_numpy(a).to(dev) for a in (img, shapes, sf)]
         with torch.inference_mode():
@@ -580,6 +766,8 @@ def phase_check(device: str = 'cuda'):
         outs.append(([f.cpu() for f in feats],
                      {k: v.cpu() for k, v in out.items()}))
     (f_cpu, o_cpu), (f_gpu, o_gpu) = outs
+    if device == 'cuda' and bool(fused_mlp.launches) != fused:
+        raise AssertionError(f'{fused_mlp.launches} fused MLP launches')
     feat_err = max((a - b).abs().max().item() / max(a.abs().max().item(), 1)
                    for a, b in zip(f_cpu, f_gpu))
     if feat_err > 1e-3:
@@ -594,7 +782,7 @@ def phase_check(device: str = 'cuda'):
     if n == 0 or box_err > 1e-2 or mask_err > 1e-3:
         raise AssertionError(f'{n} dets, box max|d| {box_err:.3g} (1e-2), '
                              f'mask max|d| {mask_err:.3g} (1e-3)')
-    log('check', f'224x320 fp32 card vs CPU: features rel max|d| '
+    log(phase, f'224x320 fp32 card vs CPU: features rel max|d| '
                  f'{feat_err:.3g}, {n} dets equal, box max|d| '
                  f'{box_err:.3g} px, mask max|d| {mask_err:.3g}')
 
@@ -638,7 +826,7 @@ def _check_log(log, what):
         raise AssertionError(f'{what}: non-finite {bad}')
 
 
-def _profile_steps(step, batch, gen, step_ms, n=2):
+def _profile_steps(step, batch, gen, step_ms, phase, n=2):
     """Device time by kernel over ``n`` more steps (torch.profiler), per
     step, and the card's busy share of an unprofiled step (``step_ms``,
     the median of the timed steps): the profiler slows the host, not the
@@ -657,7 +845,7 @@ def _profile_steps(step, batch, gen, step_ms, n=2):
             and e.device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    log('train', f'profile: {busy:.1f} ms of kernel time per step, '
+    log(phase, f'profile: {busy:.1f} ms of kernel time per step, '
                  f'{len(rows)} kernels; against the {step_ms:.1f} ms '
                  f'median unprofiled step the card is busy '
                  f'{busy / step_ms:.3f} of the time')
@@ -667,14 +855,36 @@ def _profile_steps(step, batch, gen, step_ms, n=2):
         raise AssertionError(f'profiled kernel time {busy:.1f} ms exceeds '
                              f'the {step_ms:.1f} ms step')
     ours = [r for r in rows if 'swindet' in r[0]]
-    log('train', f'  hand-written kernels: '
+    log(phase, f'  hand-written kernels: '
                  f'{sum(r[1] for r in ours):.1f} ms per step')
     for key, ms, count in ours + [r for r in rows if r not in ours][:12]:
-        log('train', f'  {ms:9.3f} ms/step  {count:5d} launches/step  '
+        log(phase, f'  {ms:9.3f} ms/step  {count:5d} launches/step  '
                      f'{key[:110]}')
 
 
-def phase_train():
+@contextlib.contextmanager
+def nms_without_host_reads():
+    """Run the RPN's batched_nms (the NMS of the training step) under
+    torch.cuda.set_sync_debug_mode('error'): a host read or a synchronising
+    copy inside it raises. Yields the list of its calls."""
+    batched_nms = rpn_head_module.batched_nms
+    calls = []
+
+    def strict(*args, **kw):
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            calls.append(batched_nms(*args, **kw))
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+        return calls[-1]
+    rpn_head_module.batched_nms = strict
+    try:
+        yield calls
+    finally:
+        rpn_head_module.batched_nms = batched_nms
+
+
+def phase_train(phase='train', fused=False):
     """Full-width Mask R-CNN Swin-T training steps in bf16 on the card."""
     cfg = Config.fromfile(CONFIG)
     model = init_detector(cfg, device='cuda', seed=0)
@@ -683,17 +893,18 @@ def phase_train():
                                  ITERS_PER_EPOCH)
     step = make_train_step(model, opt, schedule,
                            dict(cfg.optimizer_config).get('grad_clip'))
-    log('train', f'{type(model).__name__} compute {model.dtype}, '
-                 f'drop_path_rate {cfg.model.backbone.drop_path_rate}, '
-                 f'{cfg.optimizer["type"]} groups '
-                 f'{[(g["weight_decay"], len(g["params"])) for g in opt.param_groups]}')
+    log(phase, f'{type(model).__name__} compute {model.dtype}, '
+               f'drop_path_rate {cfg.model.backbone.drop_path_rate}, '
+               f'{_fused_blocks(model)} fused token MLPs, '
+               f'{cfg.optimizer["type"]} groups '
+               f'{[(g["weight_decay"], len(g["params"])) for g in opt.param_groups]}')
     batch = synthetic_train_batch()
     gen = torch.Generator(device='cuda').manual_seed(0)
     before = [p.detach().clone() for p in model.parameters()]
     t0 = time.perf_counter()
     _check_log(step(batch, gen), 'warm-up step')
     torch.cuda.synchronize()
-    log('train', f'warm-up step {time.perf_counter() - t0:.3f} s')
+    log(phase, f'warm-up step {time.perf_counter() - t0:.3f} s')
 
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -706,25 +917,40 @@ def phase_train():
         _check_log(out, 'timed step')
     steps = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    log('train', 'per-step ms: ' + ', '.join(f'{t:.1f}' for t in times)
-                 + f'; peak memory {peak / 2 ** 30:.2f} GiB')
-    log('train', 'last step: ' + ', '.join(f'{k} {v:.4f}'
-                                           for k, v in out.items()))
-    log('train', f'kernel launches over the 5 timed steps: {steps}')
+    log(phase, 'per-step ms: ' + ', '.join(f'{t:.1f}' for t in times)
+               + f'; peak memory {peak / 2 ** 30:.2f} GiB')
+    log(phase, 'last step: ' + ', '.join(f'{k} {v:.4f}'
+                                         for k, v in out.items()))
+    log(phase, f'kernel launches over the 5 timed steps: {steps}')
     # with a gradient wanted the attention forward is the softmax-saving
-    # kernel, never the inference one; every other kernel runs
+    # kernel, never the inference one; every other kernel of the
+    # configuration runs
     idle = [fn.__name__ for fn in KERNEL_WRAPPERS
-            if fn is not window_attention_v3 and steps[fn.__name__] == 0]
+            if fn is not window_attention_v3 and steps[fn.__name__] == 0
+            and (fused or fn not in FUSED_MLP_KERNELS)]
     if idle:
         raise AssertionError(f'kernels not launched in training: {idle}')
     if steps['window_attention_v3']:
         raise AssertionError('the inference attention kernel ran in a '
                              'training step')
+    # NMS once a step (the RPN proposals); the fused forward and backward
+    # once per fused block
+    want = {'nms_sorted': 5, 'fused_mlp': 50 if fused else 0,
+            'fused_mlp_bwd': 50 if fused else 0}
+    got = {k: steps[k] for k in want}
+    if got != want:
+        raise AssertionError(f'launches {got}, expected {want}')
     still = sum(torch.equal(a, p.detach())
                 for a, p in zip(before, model.parameters()))
     if still:
         raise AssertionError(f'{still} parameter tensors did not change')
     del before
+    with nms_without_host_reads() as calls:
+        _check_log(step(batch, gen), 'step without host reads in NMS')
+    if len(calls) != 1:
+        raise AssertionError(f'{len(calls)} NMS calls in a step')
+    log(phase, "one more step with its NMS under torch.cuda."
+               "set_sync_debug_mode('error'): no host read")
     # a validation pass of the trained model, counted on its own: eval
     # mode must go back to the inference kernels
     reset_launch_counts()
@@ -736,15 +962,16 @@ def phase_train():
     if not torch.isfinite(res['dets']).all():
         raise AssertionError('validation pass: non-finite detections')
     val = launch_counts()
-    log('train', f'kernel launches of one validation pass (simple_test on '
-                 f'the batch): {val}')
+    log(phase, f'kernel launches of one validation pass (simple_test on '
+               f'the batch): {val}')
     wrong = [fn.__name__ for fn in INFERENCE_KERNELS
              if val[fn.__name__] == 0] + [
-        fn.__name__ for fn in TRAINING_KERNELS if val[fn.__name__]]
+        fn.__name__ for fn in TRAINING_KERNELS + (fused_mlp_bwd,)
+        if val[fn.__name__]]
     if wrong:
         raise AssertionError(f'validation pass: kernels idle or launched '
                              f'against their mode: {wrong}')
-    _profile_steps(step, batch, gen, float(np.median(times)))
+    _profile_steps(step, batch, gen, float(np.median(times)), phase)
     return steps, times, peak
 
 
@@ -895,7 +1122,7 @@ def _check_train(loss, grad, what):
     return over
 
 
-def phase_train_check(device: str = 'cuda'):
+def phase_train_check(device: str = 'cuda', fused: bool = False):
     """forward_train of the full-width detector in fp32 on a 224x320
     canvas, on the card (kernels) and on the CPU (plain versions): same
     seeded weights with rpn_cls and fc_cls scaled to std 1 (no top-k, NMS
@@ -917,6 +1144,8 @@ def phase_train_check(device: str = 'cuda'):
         'model.backbone.drop_path_rate': 0.0})
     ctl.load_state_dict(cpu.state_dict())
     ctl = ctl.to(device)
+    if _fused_blocks(gpu) != (10 if fused else 0):
+        raise AssertionError(f'{_fused_blocks(gpu)} fused token MLPs')
     batch = train_check_batch()
     h, w = batch['img'].shape[1:3]
     n_rpn = 3 * sum(-(-h // s) * -(-w // s) for s in (4, 8, 16, 32, 64))
@@ -946,27 +1175,49 @@ def phase_train_check(device: str = 'cuda'):
 
 
 def main() -> int:
+    # the default configuration is the config as it stands
+    os.environ.pop('SWINDET_FUSED_MLP', None)
     smi = phase_device()
     phase_build()
     kernels = phase_kernels()
-    serve_launches, _ = phase_main()
+    serve, lat = phase_main()
     phase_check()
-    train_launches, _, _ = phase_train()
+    train, times, peak = phase_train()
     phase_train_check()
+    with fused_mlp_config():
+        log('fused', 'phases 4-7 again with SWINDET_FUSED_MLP=1')
+        fused_serve, fused_lat = phase_main('fused-main', fused=True)
+        phase_check(phase='fused-check', fused=True)
+        fused_train, fused_times, fused_peak = phase_train('fused-train',
+                                                           fused=True)
+        log('fused', 'train-check with SWINDET_FUSED_MLP=1')
+        phase_train_check(fused=True)
+    for what, default, fused in (
+            ('request latency (s)', lat, fused_lat),
+            ('training step (ms)', times, fused_times)):
+        log('fused', f'{what}, median of the timed runs: default '
+                     f'{np.median(default):.4f}, fused MLP '
+                     f'{np.median(fused):.4f}')
+    log('fused', f'training peak memory: default {peak / 2 ** 30:.2f} GiB, '
+                 f'fused MLP {fused_peak / 2 ** 30:.2f} GiB')
     rows = []
     for fn in KERNEL_WRAPPERS:
         name = fn.__name__
-        bf16, fp32 = kernels[name][torch.bfloat16], kernels[name][
-            torch.float32]
+        # NMS takes fp32 boxes in both configurations
+        fp32 = kernels[name][torch.float32]
+        main_row = kernels[name].get(torch.bfloat16, fp32)
+        counts = dict(serve_launches=serve[name], train_launches=train[name],
+                      fused_serve_launches=fused_serve[name],
+                      fused_train_launches=fused_train[name])
         rows.append(dict(
             name=name, route='cuda', **KERNELS[name],
-            launches=serve_launches[name] + train_launches[name],
-            serve_launches=serve_launches[name],
-            train_launches=train_launches[name], dtype='bfloat16',
-            shape=bf16['shape'], max_abs_err=bf16['max_abs_err'],
-            ms=bf16['ms'], plain_ms=bf16['plain_ms'],
-            bound_ms=bf16['bound_ms'], bound_by=bf16['bound_by'],
-            library_ms=bf16['library_ms'],
+            launches=sum(counts.values()), **counts,
+            dtype='float32' if main_row is fp32 else 'bfloat16',
+            shape=main_row['shape'], max_abs_err=main_row['max_abs_err'],
+            ms=main_row['ms'], plain_ms=main_row['plain_ms'],
+            bound_ms=main_row['bound_ms'], bound_by=main_row['bound_by'],
+            library_ms=main_row['library_ms'],
+            unfused_ms=main_row.get('unfused_ms'),
             fp32_max_abs_err=fp32['max_abs_err'], fp32_ms=fp32['ms'],
             fp32_plain_ms=fp32['plain_ms'],
             fp32_library_ms=fp32['library_ms']))

@@ -7,15 +7,10 @@ stable sort on the negated score (``jnp.argsort``) and lower index first
 among equal scores (``lax.top_k``). Every output is a fixed number of
 slots plus a validity mask.
 
-On the device the greedy scan is resolved without a host round trip per
-box: the IoU-over-threshold matrix of the score-sorted candidates is
-built once, and the keep mask is the fixpoint of
-``alive = init & ~any_j(alive[j] & over[j, i], j < i)``, reached by
-Jacobi sweeps (a matrix-vector product each) in as many sweeps as the
-longest chain of suppressions; the host reads one flag per burst of
-sweeps to see whether the fixpoint is reached. This is plain tensor code,
-as the JAX package's default NMS is; the hand-written NMS kernel is the
-next slice's.
+The greedy scan itself is ``ops/nms.py:nms_sorted``: the hand-written
+kernel on the card, the plain IoU matrix and Jacobi sweeps on the CPU.
+The stable sort that fixes the tie order stays here, outside the kernel,
+as the JAX package sorts before ``nms_pallas_sorted``.
 """
 from __future__ import annotations
 
@@ -23,8 +18,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-# Jacobi sweeps between two host checks for the fixpoint
-SWEEPS_PER_CHECK = 16
+from ..ops.nms import nms_sorted
 
 
 class NMSResult(NamedTuple):
@@ -47,37 +41,6 @@ def fast_topk(scores: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def pairwise_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(..., M, 4) x (..., K, 4) -> (..., M, K) IoU; degenerate boxes 0."""
-    area_a = (a[..., 2] - a[..., 0]).clamp(min=0) \
-        * (a[..., 3] - a[..., 1]).clamp(min=0)
-    area_b = (b[..., 2] - b[..., 0]).clamp(min=0) \
-        * (b[..., 3] - b[..., 1]).clamp(min=0)
-    lt = torch.maximum(a[..., :, None, :2], b[..., None, :, :2])
-    rb = torch.minimum(a[..., :, None, 2:], b[..., None, :, 2:])
-    wh = (rb - lt).clamp(min=0)
-    inter = wh[..., 0] * wh[..., 1]
-    union = area_a[..., :, None] + area_b[..., None, :] - inter
-    return inter / union.clamp(min=1e-10)
-
-
-def greedy_keep(over: torch.Tensor, init: torch.Tensor) -> torch.Tensor:
-    """Keep mask of greedy NMS in sorted order. over (B, N, N) bool, true
-    where box j may suppress box i (j < i and IoU over threshold); init
-    (B, N) the candidates. Returns (B, N) bool."""
-    n = init.shape[-1]
-    over_f = over.float()
-    alive = init
-    for start in range(0, n + 1, SWEEPS_PER_CHECK):
-        for _ in range(SWEEPS_PER_CHECK):
-            prev = alive
-            hit = torch.bmm(alive.float()[:, None, :], over_f)[:, 0] > 0
-            alive = init & ~hit
-        if torch.equal(alive, prev):
-            break
-    return alive
-
-
 def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
         max_out: int, valid: Optional[torch.Tensor] = None) -> NMSResult:
     """Greedy NMS of boxes (B, N, 4) by scores (B, N) among ``valid``
@@ -92,25 +55,9 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     boxes_s = torch.gather(boxes, 1, order[..., None].expand(b, n, 4))
     score_s = torch.gather(score, 1, order)
     valid_s = torch.gather(valid, 1, order)
-
-    ar = torch.arange(n, device=dev)
-    over = (pairwise_iou(boxes_s, boxes_s) > iou_threshold) \
-        & (ar[:, None] < ar[None, :])
-    keep = greedy_keep(over, valid_s)
-
-    # kept slots first, in score order
-    pos = torch.sort((~keep).to(torch.uint8), dim=1, stable=True).indices
-    if n >= max_out:
-        pos = pos[:, :max_out]
-    else:
-        pos = torch.cat([pos, pos.new_zeros((b, max_out - n))], dim=1)
-    out_valid = torch.arange(max_out, device=dev)[None] \
-        < keep.sum(1, keepdim=True)
-    kept_boxes = torch.gather(boxes_s, 1, pos[..., None].expand(-1, -1, 4))
-    kept_scores = torch.gather(score_s, 1, pos)
-    dets = torch.cat([kept_boxes, kept_scores[..., None]], dim=-1)
-    dets = torch.where(out_valid[..., None], dets, 0.0)
-    inds = torch.where(out_valid, torch.gather(order, 1, pos), 0)
+    dets, inds, count = nms_sorted(boxes_s, score_s, valid_s, order,
+                                   iou_threshold, max_out)
+    out_valid = torch.arange(max_out, device=dev)[None] < count[:, None]
     return NMSResult(dets=dets, inds=inds, valid=out_valid)
 
 

@@ -9,6 +9,7 @@ with a ``torch.Generator``.
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -16,7 +17,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.conv3x3 import conv3x3_op, hwio
+from ..ops.fused_mlp import fused_mlp_op
 
+# the JAX package's width guard of the fused MLP (layers.py:103-107)
+FUSED_MLP_MAX_BYTES = 12 * 2 ** 20
 # flax's lecun_normal truncates at 2 std and rescales by this factor
 _TRUNC_STD = 0.87962566103423978
 
@@ -98,16 +102,34 @@ class DropPath(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 -> exact-erf GELU -> fc2 (reference swin_transformer.py:20)."""
+    """fc1 -> exact-erf GELU -> fc2 (reference swin_transformer.py:20).
+
+    ``fused`` runs the three as one op whose hidden never leaves the chip
+    (``ops/fused_mlp.py``), as ``swindet_tpu/models/layers.py:98-112``
+    does; None reads the JAX package's switch, ``SWINDET_FUSED_MLP=1``,
+    once here. The JAX package's width guard holds either way, so both
+    packages fuse the same layers: a layer whose fp32 weight gradients
+    (2 C H 4 bytes) exceed 12 MiB (Swin-T's stage 4) stays unfused."""
 
     def __init__(self, in_features: int, hidden_features: int,
-                 out_features: int, dtype=torch.float32):
+                 out_features: int, dtype=torch.float32,
+                 fused: Optional[bool] = None):
         super().__init__()
         self.fc1 = Linear(in_features, hidden_features, dtype=dtype)
         self.fc2 = Linear(hidden_features, out_features, dtype=dtype)
+        if fused is None:
+            fused = os.environ.get('SWINDET_FUSED_MLP') == '1'
+        self.fused = fused and \
+            2 * in_features * hidden_features * 4 <= FUSED_MLP_MAX_BYTES
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate='none'))
+        if not self.fused:
+            return self.fc2(F.gelu(self.fc1(x), approximate='none'))
+        d = self.fc1.compute_dtype
+        out = fused_mlp_op(x.to(d).reshape(-1, x.shape[-1]).contiguous(),
+                           self.fc1.weight.to(d), self.fc1.bias.float(),
+                           self.fc2.weight.to(d), self.fc2.bias.float())
+        return out.reshape(*x.shape[:-1], out.shape[-1])
 
     def init_weights(self, gen):
         self.fc1.init_trunc_normal(gen)

@@ -5,7 +5,10 @@ counts its kernel's launches. The ``*_op`` functions are the
 differentiable entry points the models call."""
 from .conv3x3 import (conv3x3, conv3x3_dw, conv3x3_dw_reference, conv3x3_op,
                       conv3x3_reference)
+from .fused_mlp import (fused_mlp, fused_mlp_bwd, fused_mlp_bwd_reference,
+                        fused_mlp_op, fused_mlp_reference)
 from .layer_norm import layer_norm, layer_norm_op, layer_norm_reference
+from .nms import nms_sorted, nms_sorted_reference
 from .roi_align import (multilevel_roi_align, multilevel_roi_align_backward,
                         roi_align, roi_align_bwd, roi_align_op)
 from .window_attention_v3 import (window_attention_bwd,
@@ -16,13 +19,18 @@ from .window_attention_v3 import (window_attention_bwd,
                                   window_attention_reference,
                                   window_attention_v3)
 
-# the kernel wrappers of the inference path, in the order of the model
-INFERENCE_KERNELS = (layer_norm, window_attention_v3, conv3x3, roi_align)
+# the kernel wrappers of the inference path, in the order of the model;
+# serving runs these
+INFERENCE_KERNELS = (layer_norm, window_attention_v3, conv3x3, roi_align,
+                     nms_sorted)
 # and those the training step adds: the forward that saves the softmax and
 # the three backward kernels
 TRAINING_KERNELS = (window_attention_fwd_p, window_attention_bwd,
                     conv3x3_dw, roi_align_bwd)
-KERNEL_WRAPPERS = INFERENCE_KERNELS + TRAINING_KERNELS
+# the fused-MLP configuration's (SWINDET_FUSED_MLP=1): serving runs the
+# forward, training both
+FUSED_MLP_KERNELS = (fused_mlp, fused_mlp_bwd)
+KERNEL_WRAPPERS = INFERENCE_KERNELS + TRAINING_KERNELS + FUSED_MLP_KERNELS
 
 
 def reset_launch_counts() -> None:

@@ -25,7 +25,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
-KERNELS = ('layer_norm', 'window_attention', 'conv3x3', 'roi_align')
+KERNELS = ('layer_norm', 'window_attention', 'conv3x3', 'roi_align', 'nms',
+           'fused_mlp')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-lineinfo', '-shared', '-Xcompiler', '-fPIC')
 

@@ -22,8 +22,8 @@ from swindet_tpu_torch.core.anchors import AnchorGenerator
 from swindet_tpu_torch.core.bbox import bbox2result, delta2bbox
 from swindet_tpu_torch.core.masks import paste_masks
 from swindet_tpu_torch.core.nms import (batched_nms, fast_topk,
-                                        greedy_keep, multiclass_nms, nms,
-                                        pairwise_iou)
+                                        multiclass_nms, nms)
+from swindet_tpu_torch.ops.nms import greedy_keep, pairwise_iou
 from swindet_tpu_torch.datasets.pipelines import (imresize_bilinear,
                                                   rescale_size)
 

@@ -10,16 +10,20 @@ sample coordinates, see chip_smoke.py), bf16 at 2e-2 (one rounding of
 the output on each side). The backward kernels sum across blocks by fp32
 atomics in a changing order and their entries cancel, so they are held
 to a fraction of each output's largest entry (chip_smoke.py TOL_SUM).
+The NMS kernel must equal its plain version exactly.
 """
 import pytest
 import torch
 
 from swindet_tpu_torch.ops import (conv3x3, conv3x3_dw, conv3x3_dw_reference,
-                                   conv3x3_op, conv3x3_reference,
+                                   conv3x3_op, conv3x3_reference, fused_mlp,
+                                   fused_mlp_bwd, fused_mlp_bwd_reference,
+                                   fused_mlp_op, fused_mlp_reference,
                                    launch_counts, layer_norm, layer_norm_op,
                                    layer_norm_reference,
                                    multilevel_roi_align,
                                    multilevel_roi_align_backward,
+                                   nms_sorted, nms_sorted_reference,
                                    reset_launch_counts, roi_align,
                                    roi_align_bwd, roi_align_op,
                                    window_attention_bwd,
@@ -125,6 +129,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError):
         window_attention_v3(_randn(gen, 2, 81, 96), _randn(gen, 1, 81, 81),
                             None, 1)
+    boxes = _randn(gen, 1, 10, 4)
+    with pytest.raises(ValueError):
+        nms_sorted(boxes, _randn(gen, 1, 10), torch.ones(1, 10).cuda(),
+                   torch.arange(10).cuda()[None], 0.5, 5)
+    w1, b1, w2, b2 = (_randn(gen, 96, 24), _randn(gen, 96),
+                      _randn(gen, 24, 96), _randn(gen, 24))
+    with pytest.raises(ValueError):
+        fused_mlp(x.view(-1, 24), w1, b1.bfloat16(), w2, b2)
+    with pytest.raises(ValueError):
+        fused_mlp(x, w1, b1, w2, b2)
 
 
 def _close_summed(got, want, dtype, tol32=1e-4):
@@ -222,6 +236,9 @@ def test_autograd_ops_on_the_card_match_the_cpu(gen):
                                                 (4, 8, 16, 32), 7),
          feats, (rois,)),
     ]
+    w1, b1 = _randn(gen, 512, 128, scale=0.1), _randn(gen, 512)
+    w2, b2 = _randn(gen, 128, 512, scale=0.05), _randn(gen, 128)
+    cases.append((fused_mlp_op, (x.view(-1, 128), w1, b1, w2, b2), ()))
     reset_launch_counts()
     for fn, inputs, consts in cases:
         on_card = grads(fn, inputs, consts)
@@ -230,8 +247,10 @@ def test_autograd_ops_on_the_card_match_the_cpu(gen):
         for a, c in zip(on_card, on_cpu):
             _close_summed(a.cpu(), c, torch.float32, tol32=1e-3)
     counts = launch_counts()
-    # with a gradient wanted, attention runs the softmax-saving forward
+    # with a gradient wanted, attention runs the softmax-saving forward;
+    # NMS is no differentiable op
     assert counts.pop('window_attention_v3') == 0
+    assert counts.pop('nms_sorted') == 0
     assert all(v > 0 for v in counts.values()), counts
     # serving keeps to the inference kernel
     reset_launch_counts()
@@ -239,3 +258,54 @@ def test_autograd_ops_on_the_card_match_the_cpu(gen):
         window_attention_op(qkv, bias, mask, 3)
     assert launch_counts()['window_attention_fwd_p'] == 0
     assert launch_counts()['window_attention_v3'] == 1
+
+
+def _nms_case(gen, b, n, offset, valid_share=0.9):
+    """Score-sorted proposal-like boxes over a 200 x 300 canvas, with
+    batched_nms's class offsets where ``offset``."""
+    u = torch.rand(b, n, 5, generator=gen)
+    wh = 4 + 80 * u[..., 2:4]
+    xy = u[..., :2] * torch.tensor([300.0, 200.0])
+    boxes = torch.cat([xy, xy + wh], -1)
+    if offset:
+        boxes = boxes + (torch.randint(0, 80, (b, n, 1), generator=gen)
+                         * 385.0)
+    valid = torch.rand(b, n, generator=gen) < valid_share
+    score = torch.where(valid, u[..., 4], -torch.inf)
+    order = torch.sort(-score, dim=1, stable=True).indices
+    take = lambda t: torch.gather(t, 1, order if t.ndim == 2 else
+                                  order[..., None].expand(-1, -1, 4))
+    return [t.cuda().contiguous() for t in (take(boxes), take(score),
+                                            take(valid), order)]
+
+
+@pytest.mark.parametrize('b,n,thr,max_out,offset', [
+    (1, 300, 0.5, 100, False), (2, 1000, 0.7, 1000, True),
+    (1, 4819, 0.7, 1000, True), (3, 65, 0.3, 8, False), (1, 1, 0.5, 4, False),
+    (2, 2048, 0.5, 100, True)])
+def test_nms_sorted(gen, b, n, thr, max_out, offset):
+    args = _nms_case(gen, b, n, offset)
+    got = nms_sorted(*args, thr, max_out)
+    want = nms_sorted_reference(*args, thr, max_out)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('r,c,h', [(100, 96, 384), (37, 48, 200),
+                                   (130, 384, 1536), (64, 192, 768)])
+def test_fused_mlp_fwd_and_bwd(gen, dtype, r, c, h):
+    x = _randn(gen, r, c, dtype=dtype)
+    w1 = _randn(gen, h, c, dtype=dtype, scale=c ** -0.5)
+    w2 = _randn(gen, c, h, dtype=dtype, scale=h ** -0.5)
+    b1, b2 = _randn(gen, h, scale=0.1), _randn(gen, c, scale=0.1)
+    _close(fused_mlp(x, w1, b1, w2, b2),
+           fused_mlp_reference(x, w1, b1, w2, b2), dtype)
+    g = _randn(gen, r, c, dtype=dtype)
+    got = fused_mlp_bwd(x, w1, b1, w2, g)
+    want = fused_mlp_bwd_reference(x, w1, b1, w2, g)
+    # dx and the fp32 weight gradients: sums of products of rounded
+    # terms, over rows by atomics for the weights
+    for a, w in zip(got, want):
+        _close_summed(a, w, dtype)

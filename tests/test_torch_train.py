@@ -1,7 +1,9 @@
 """The port's training slice as a whole: ``forward_train`` of the tiny
 Mask R-CNN against the JAX package's on the same numpy weights, batch and
 sampler keys (fp32, CPU), its losses and the gradients of a fixed list of
-parameters, then one ``make_train_step`` step.
+parameters, then one ``make_train_step`` step. The comparison runs twice:
+as configured, and with the JAX package's fused-MLP switch
+``SWINDET_FUSED_MLP=1`` set on both sides.
 
 Sampler keys: the JAX samplers draw from a JAX PRNG and the port's from a
 ``torch.Generator``, which give different numbers, so both sides get the
@@ -30,6 +32,7 @@ from swindet_tpu_torch.checkpoint import state_dict_from_jax
 from swindet_tpu_torch.engine import (build_lr_schedule, build_optimizer,
                                       make_train_step)
 from swindet_tpu_torch.models import build_detector
+from swindet_tpu_torch.models.layers import Mlp
 
 H, W = 64, 96
 GRAD_PARAMS = (
@@ -40,6 +43,13 @@ GRAD_PARAMS = (
     'rpn_head.rpn_conv.weight',
     'roi_head.bbox_head.fc_cls.weight',
     'roi_head.mask_head.convs.0.conv.weight',
+)
+# and the fused MLP's parameters, whose gradients come from its backward
+FUSED_MLP_GRAD_PARAMS = (
+    'backbone.layers.0.blocks.0.mlp.fc1.weight',
+    'backbone.layers.0.blocks.0.mlp.fc1.bias',
+    'backbone.layers.3.blocks.0.mlp.fc2.weight',
+    'backbone.layers.3.blocks.0.mlp.fc2.bias',
 )
 
 
@@ -78,8 +88,9 @@ def sampler_keys(n_rpn, n_rcnn, seed=5):
             for n in (n_rpn, n_rcnn)}
 
 
-@pytest.fixture(scope='module')
-def slice_run():
+def _slice_run():
+    """Both sides' losses and gradients of forward_train, each model built
+    (and the JAX side traced) under the environment of the caller."""
     cfg = tiny_maskrcnn_cfg()
     jm, params = jax_detector_params(cfg, seed=0)
     batch = make_batch()
@@ -128,8 +139,35 @@ def slice_run():
                 want_grads=want_grads, got_grads=got_grads)
 
 
-def test_forward_train_losses_match_jax(slice_run):
-    want, got = slice_run['want'], slice_run['got']
+@pytest.fixture(scope='module')
+def slice_run():
+    mp = pytest.MonkeyPatch()
+    mp.delenv('SWINDET_FUSED_MLP', raising=False)
+    try:
+        return _slice_run()
+    finally:
+        mp.undo()
+
+
+@pytest.fixture(scope='module')
+def fused_slice_run():
+    """The same with the JAX package's switch SWINDET_FUSED_MLP=1 on both
+    sides: every Swin block's MLP goes through the fused op (the port's
+    autograd Function and the plain backward kernel version; the JAX
+    package's fused reference path, traced afresh)."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv('SWINDET_FUSED_MLP', '1')
+    try:
+        run = _slice_run()
+    finally:
+        mp.undo()
+    mlps = [m for m in run['port'].modules() if isinstance(m, Mlp)]
+    assert len(mlps) == 4 and all(m.fused for m in mlps)
+    return run
+
+
+def _check_losses(run):
+    want, got = run['want'], run['got']
     assert set(got) | {'loss'} == set(want)
     assert want['loss_mask'] > 0 and want['loss_rpn_bbox'] > 0
     for name, value in got.items():
@@ -138,14 +176,31 @@ def test_forward_train_losses_match_jax(slice_run):
                                    err_msg=name)
 
 
-@pytest.mark.parametrize('name', GRAD_PARAMS)
-def test_forward_train_grads_match_jax(slice_run, name):
-    got = slice_run['got_grads'][name].grad.numpy()
-    want = slice_run['want_grads'][name].numpy()
+def _check_grad(run, name):
+    got = run['got_grads'][name].grad.numpy()
+    want = run['want_grads'][name].numpy()
     assert got.shape == want.shape
     scale = np.abs(want).max()
     assert scale > 0
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-3 * scale)
+
+
+def test_forward_train_losses_match_jax(slice_run):
+    _check_losses(slice_run)
+
+
+@pytest.mark.parametrize('name', GRAD_PARAMS)
+def test_forward_train_grads_match_jax(slice_run, name):
+    _check_grad(slice_run, name)
+
+
+def test_forward_train_losses_match_jax_fused_mlp(fused_slice_run):
+    _check_losses(fused_slice_run)
+
+
+@pytest.mark.parametrize('name', GRAD_PARAMS + FUSED_MLP_GRAD_PARAMS)
+def test_forward_train_grads_match_jax_fused_mlp(fused_slice_run, name):
+    _check_grad(fused_slice_run, name)
 
 
 def test_train_step_moves_the_parameters(slice_run):
