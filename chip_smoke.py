@@ -9,14 +9,17 @@ before the last line:
 1. device  -- requires CUDA; prints the card's name and power limit as
               nvidia-smi reports them, torch's CUDA and the nvcc version.
 2. build   -- builds every kernel from swindet_tpu_torch/csrc with nvcc.
-3. kernels -- holds each of the eleven kernels against its plain PyTorch
-              version on the card at the shapes of the main paths, in bf16
-              and fp32 (NMS: fp32 boxes, exact equality), times both with
-              CUDA events, times the one PyTorch call that computes the
-              same function where there is one (library_ms; for the fused
-              MLP the unfused F.linear -> F.gelu -> F.linear chain and its
-              backward as unfused_ms), and computes each kernel's bound
-              from the bytes and operations of its inputs.
+3. kernels -- holds each of the fifteen kernels against its plain
+              PyTorch version on the card at the shapes of the main paths,
+              in bf16 and fp32 (NMS: fp32 boxes, exact equality), times
+              both with CUDA events, times the one PyTorch call that
+              computes the same function where there is one (library_ms;
+              for the fused MLP and the v4 attention the unfused chain --
+              F.linear -> F.gelu -> F.linear, F.linear -> SDPA -> F.linear
+              -- and its autograd backward as unfused_ms), and computes
+              each kernel's bound from the bytes and operations of its
+              inputs. The v1 and full-map attention kernels, which no
+              model path runs (as in the JAX package), run only here.
 4. main    -- serving: Mask R-CNN Swin-T (full width, seeded weights,
               bf16, RPN nms_pre = max_per_img = 1000) through
               init_detector and inference_detector on 3 synthetic
@@ -49,10 +52,17 @@ before the last line:
               unfused. Serving launches the fused forward 10 times a
               request; training the forward and the backward 10 times a
               step. The card-vs-CPU checks hold the same limits.
+9. wattn-v4 -- phases 4 to 7 again in the v4 window-attention
+              configuration, the JAX package's switch SWINDET_WATTN_V4=1:
+              every Swin block's qkv projection, attention and output
+              projection run as one kernel. Serving launches the v4
+              forward 12 times a request, training the forward and the
+              backward 12 times a step, and none of the v3 attention
+              kernels runs. The card-vs-CPU checks hold the same limits.
 
 Then one JSON line of per-kernel results (``launches``: the serving
-and the training runs' counts of both configurations, each from its own
-reset, summed; each also apart), the card's name and power limit, and,
+and the training runs' counts of the three configurations, each from its
+own reset, summed; each also apart), the card's name and power limit, and,
 last, one JSON line with the device. It imports neither jax nor the JAX
 package.
 """
@@ -73,7 +83,8 @@ from swindet_tpu_torch import inference_detector, init_detector
 from swindet_tpu_torch.engine import (build_lr_schedule, build_optimizer,
                                       make_train_step)
 from swindet_tpu_torch.ops import (FUSED_MLP_KERNELS, INFERENCE_KERNELS,
-                                   KERNEL_WRAPPERS, TRAINING_KERNELS, build,
+                                   KERNEL_WRAPPERS, OP_ONLY_KERNELS,
+                                   TRAINING_KERNELS, WATTN_V4_KERNELS, build,
                                    conv3x3, conv3x3_dw, conv3x3_dw_reference,
                                    conv3x3_reference, fused_mlp,
                                    fused_mlp_bwd, fused_mlp_bwd_reference,
@@ -83,14 +94,20 @@ from swindet_tpu_torch.ops import (FUSED_MLP_KERNELS, INFERENCE_KERNELS,
                                    multilevel_roi_align_backward,
                                    nms_sorted, nms_sorted_reference,
                                    reset_launch_counts, roi_align,
-                                   roi_align_bwd, window_attention_bwd,
+                                   roi_align_bwd, swin_attention_reference,
+                                   swin_window_attention, window_attention,
+                                   window_attention_bwd,
                                    window_attention_bwd_reference,
                                    window_attention_fwd_p,
                                    window_attention_fwd_p_reference,
                                    window_attention_reference,
-                                   window_attention_v3)
+                                   window_attention_v3, window_attention_v4,
+                                   window_attention_v4_bwd,
+                                   window_attention_v4_bwd_reference,
+                                   window_attention_v4_reference)
 from swindet_tpu_torch.ops.roi_align import _flat_layout, _taps, map_roi_levels
-from swindet_tpu_torch.models.backbones.swin import shifted_window_attn_mask
+from swindet_tpu_torch.models.backbones.swin import (WindowAttention,
+                                                     shifted_window_attn_mask)
 from swindet_tpu_torch.models.dense_heads import rpn_head as rpn_head_module
 from swindet_tpu_torch.utils import Config
 
@@ -133,6 +150,18 @@ KERNELS = {
     'fused_mlp_bwd': dict(
         source='swindet_tpu_torch/csrc/fused_mlp.cu',
         replaces='swindet_tpu/ops/fused_mlp.py:115'),
+    'window_attention_v4': dict(
+        source='swindet_tpu_torch/csrc/window_attention_v4.cu',
+        replaces='swindet_tpu/ops/window_attention_v4.py:74'),
+    'window_attention_v4_bwd': dict(
+        source='swindet_tpu_torch/csrc/window_attention_v4.cu',
+        replaces='swindet_tpu/ops/window_attention_v4.py:141'),
+    'window_attention': dict(
+        source='swindet_tpu_torch/csrc/window_attention.cu',
+        replaces='swindet_tpu/ops/window_attention.py:30'),
+    'swin_window_attention': dict(
+        source='swindet_tpu_torch/csrc/window_attention.cu',
+        replaces='swindet_tpu/ops/swin_attention.py:46'),
 }
 # |kernel - plain| <= ATOL + RTOL * |plain|: fp32 differs by summation
 # order only; bf16 outputs are each rounded once from fp32 on both sides,
@@ -160,6 +189,13 @@ TOL_SUM_ROI_FP32 = 1e-3
 # from terms rounded to bf16 in a bf16 run, so it is held per output to
 # TOL_SUM of the largest entry. NMS must equal its plain version exactly
 # (count, indices and detections): its IoU rounds as the plain version's.
+# The v4 attention forward keeps qkv, P and the attention output in fp32
+# and rounds once, at the output, where its plain version (the JAX
+# package's non-TPU path) rounds qkv and the attention output too: it is
+# held elementwise to TOL against the plain version computed in fp32 on
+# the same inputs and rounded once to the compute dtype. Its backward's
+# plain version computes in fp32 as the kernels do, so it is held to
+# TOL_SUM in both types.
 FPN_SHAPES = ((200, 336), (100, 168), (50, 84), (25, 42))
 # H100 SXM data-sheet rates (dense bf16 tensor cores, fp32 outside the
 # tensor cores, HBM3)
@@ -267,8 +303,9 @@ def _compare(name, dtype, kernel_fn, plain_fn, shape_note, work=None,
             excess = 0.0 if torch.equal(g, w) else 1.0
             rule = 'equality'
         elif summed:
-            tol = TOL_SUM_ROI_FP32 if (name, odt) == (
-                'roi_align_bwd', torch.float32) else TOL_SUM[odt]
+            tol = TOL_SUM_ROI_FP32 if (
+                name, odt) == ('roi_align_bwd', torch.float32) \
+                else TOL_SUM[odt]
             limit = tol * w.abs().max().item()
             excess = err.max().item() - limit
             rule = f'{tol} x max|plain| = {limit:.3g}'
@@ -408,6 +445,50 @@ def _sdpa_inputs(qkv, bias, mask, nh):
         add = (add.reshape(b_ // mask.shape[0], mask.shape[0], nh, n, n)
                + mask[None, :, None]).reshape(b_, nh, n, n)
     return q, k, v, add.to(qkv.dtype).contiguous()
+
+
+def _v4_inputs(randn, b_, c, dtype):
+    """x (B_, 49, C) in dtype, the fp32 projections of a Swin block (nn.Linear
+    layout) and an output gradient in dtype."""
+    return (randn(b_, 49, c).to(dtype), randn(3 * c, c, scale=c ** -0.5),
+            randn(3 * c, scale=0.1), randn(c, c, scale=c ** -0.5),
+            randn(c, scale=0.1), randn(b_, 49, c).to(dtype))
+
+
+def _unfused_v4(x, wqkv, bqkv, bias, mask, wproj, bproj, nh):
+    """The unfused chain in x's dtype: F.linear -> SDPA with the additive
+    bias and mask -> F.linear (cuBLAS and a library attention, qkv and the
+    attention output in device memory): the yardstick of the v4 kernels.
+    The weights are cast beforehand, outside the timed call."""
+    b_, n, c = x.shape
+    q, k, v, add = _sdpa_inputs(F.linear(x, wqkv, bqkv), bias, mask, nh)
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=add)
+    return F.linear(out.transpose(1, 2).reshape(b_, n, c), wproj, bproj)
+
+
+def _unfused_v4_bwd(x, wqkv, bqkv, bias, mask, wproj, bproj, nh, g):
+    """A function that runs the backward of the unfused chain's graph
+    (built once here), the yardstick of the v4 backward."""
+    d = x.dtype
+    leaves = [t.detach().to(d).clone().requires_grad_()
+              for t in (x, wqkv, bqkv, wproj, bproj)]
+    bias = bias.detach().clone().requires_grad_()
+    out = _unfused_v4(leaves[0], leaves[1], leaves[2], bias, mask,
+                      leaves[3], leaves[4], nh)
+    return lambda: torch.autograd.grad(out, leaves + [bias], g,
+                                       retain_graph=True)
+
+
+def _v4_flops(b_, c, backward=False):
+    """Operations of the v4 function on B_ windows of 49 tokens: the qkv
+    and output projections (8 N C^2 a window) and the two attention
+    products; the backward recomputes qkv, P and the attention output and
+    adds d(attn), dWproj, dWqkv and dx (22 N C^2 in all) and the four
+    products of the attention backward."""
+    rows = b_ * 49
+    if backward:
+        return 22.0 * rows * c * c + _attn_flops(b_, 49, c, 6)
+    return 8.0 * rows * c * c + _attn_flops(b_, 49, c, 2)
 
 
 def phase_kernels():
@@ -603,6 +684,81 @@ def phase_kernels():
                 results.setdefault('fused_mlp_bwd', {})[dtype] = r
         del x, g, mlp, bwd
 
+        # v4 attention (qkv projection, attention, output projection in one
+        # kernel), bound by the fp32 CUDA-core rate: its weights and every
+        # intermediate are fp32. Serving: stage 1 of one image, shifted,
+        # and stage 4; training: the same of a batch of 2.
+        mask = torch.from_numpy(
+            shifted_window_attn_mask(203, 336, 7, 3)).to(dev)
+        for b_, c, nh, m, main in ((1392, 96, 3, mask, True),
+                                   (24, 768, 24, None, False)):
+            x, wqkv, bqkv, wproj, bproj, _ = _v4_inputs(randn, b_, c, dtype)
+            bias = randn(nh, 49, 49, scale=0.5)
+            v4 = (x, wqkv, bqkv, bias, m, wproj, bproj, nh)
+            r = _compare('window_attention_v4', dtype,
+                         lambda: window_attention_v4(*v4),
+                         lambda: window_attention_v4_reference(
+                             x.float(), *v4[1:]).to(dtype),
+                         f'({b_}, 49, {c}) {nh} heads'
+                         + (' shifted' if m is not None else ''),
+                         work=(2 * _nbytes(x) + _nbytes(wqkv, bqkv, bias,
+                                                        wproj, bproj)
+                               + (0 if m is None else _nbytes(m)),
+                               _v4_flops(b_, c), PEAK_FP32))
+            cast = [t.to(dtype) for t in (wqkv, bqkv, wproj, bproj)]
+            r['unfused_ms'] = cuda_ms(lambda: _unfused_v4(
+                x, cast[0], cast[1], bias, m, cast[2], cast[3], nh), iters=20)
+            log('kernels', f'  unfused F.linear -> SDPA -> F.linear '
+                           f'{r["unfused_ms"]:.4f} ms')
+            if main:
+                results.setdefault('window_attention_v4', {})[dtype] = r
+        for b_, c, nh, m, main in ((2784, 96, 3, mask, True),
+                                   (48, 768, 24, None, False)):
+            x, wqkv, bqkv, wproj, bproj, g = _v4_inputs(randn, b_, c, dtype)
+            bias = randn(nh, 49, 49, scale=0.5)
+            bwd = (x, wqkv, bqkv, bias, m, wproj, g, nh)
+            r = _compare('window_attention_v4_bwd', dtype,
+                         lambda: window_attention_v4_bwd(*bwd),
+                         lambda: window_attention_v4_bwd_reference(*bwd),
+                         f'({b_}, 49, {c}) {nh} heads'
+                         + (' shifted' if m is not None else ''),
+                         summed=True,
+                         work=(3 * _nbytes(x) + 2 * _nbytes(
+                             wqkv, bqkv, bias, wproj, bproj)
+                               + (0 if m is None else _nbytes(m)),
+                               _v4_flops(b_, c, backward=True), PEAK_FP32))
+            r['unfused_ms'] = cuda_ms(_unfused_v4_bwd(
+                x, wqkv, bqkv, bias, m, wproj, bproj, nh, g), iters=20)
+            log('kernels', f'  unfused backward (autograd of the chain) '
+                           f'{r["unfused_ms"]:.4f} ms')
+            if main:
+                results.setdefault('window_attention_v4_bwd', {})[dtype] = r
+        del x, g, v4, bwd
+
+        # the v1 attention over head-major q, k, v and the full-map
+        # shifted attention, which no model path runs: stage 1 of one image
+        qkv = randn(1392, 49, 288).to(dtype)
+        bias = randn(3, 49, 49, scale=0.5)
+        q, k, v, add = _sdpa_inputs(qkv, bias, mask, 3)
+        results.setdefault('window_attention', {})[dtype] = _compare(
+            'window_attention', dtype,
+            lambda: window_attention(qkv, bias, mask, 3),
+            lambda: window_attention_reference(qkv, bias, mask, 3),
+            '(1392, 49, 3x96) shifted',
+            work=(_nbytes(qkv, bias, mask) + _nbytes(qkv) // 3,
+                  _attn_flops(1392, 49, 96, 2)),
+            library_fn=lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=add))
+        qmap = qkv.view(1, 203, 336, 288)
+        results.setdefault('swin_window_attention', {})[dtype] = _compare(
+            'swin_window_attention', dtype,
+            lambda: swin_window_attention(qmap, bias, 7, 3, 3),
+            lambda: swin_attention_reference(qmap, bias, 7, 3, 3),
+            '(1, 203, 336, 3x96) shift 3',
+            work=(_nbytes(qmap, bias) + _nbytes(qmap) // 3,
+                  _attn_flops(1392, 49, 96, 2)))
+        del qkv, qmap, q, k, v, add
+
         # NMS on fp32 boxes (the same in both configurations): RPN when
         # serving and in a training step, the bbox head's multiclass NMS
         if dtype == torch.float32:
@@ -666,14 +822,15 @@ def _check_result(res, h, w):
 
 
 @contextlib.contextmanager
-def fused_mlp_config():
-    """The fused-MLP configuration: the JAX package's switch
-    SWINDET_FUSED_MLP=1, which every Mlp built inside reads."""
-    os.environ['SWINDET_FUSED_MLP'] = '1'
+def env_switch(name):
+    """A configuration of the JAX package's switches: ``name``=1
+    (SWINDET_FUSED_MLP, read by every Mlp built inside, or
+    SWINDET_WATTN_V4, read by every WindowAttention)."""
+    os.environ[name] = '1'
     try:
         yield
     finally:
-        del os.environ['SWINDET_FUSED_MLP']
+        del os.environ[name]
 
 
 def _fused_blocks(model):
@@ -681,18 +838,42 @@ def _fused_blocks(model):
     return sum(bool(getattr(m, 'fused', False)) for m in model.modules())
 
 
-def phase_main(phase='main', fused=False):
+def _check_blocks(model, fused, v4):
+    """Swin-T's configuration as built: 10 fused token MLPs (stages 1-3)
+    with the fused-MLP switch, 12 v4 attention blocks with the v4 switch,
+    none otherwise."""
+    v4_blocks = sum(m.v4 for m in model.modules()
+                    if isinstance(m, WindowAttention))
+    got = (_fused_blocks(model), v4_blocks)
+    if got != (10 if fused else 0, 12 if v4 else 0):
+        raise AssertionError(f'{got[0]} fused token MLPs, {got[1]} v4 '
+                             f'attention blocks')
+    return got
+
+
+def _serving_kernels(v4):
+    """The kernels a request must launch: the inference kernels, with the
+    v4 forward in place of the v3 one in the v4 configuration."""
+    return tuple(window_attention_v4 if v4 and fn is window_attention_v3
+                 else fn for fn in INFERENCE_KERNELS)
+
+
+# kernels that serving and a validation pass must not launch
+NOT_SERVING = TRAINING_KERNELS + (fused_mlp_bwd, window_attention_v4_bwd) \
+    + OP_ONLY_KERNELS
+
+
+def phase_main(phase='main', fused=False, v4=False):
     opts = {'model.test_cfg.rpn.nms_pre': 1000,
             'model.test_cfg.rpn.max_per_img': 1000}
     t0 = time.perf_counter()
     model = init_detector(CONFIG, device='cuda', cfg_options=opts, seed=0)
-    blocks = _fused_blocks(model)
+    blocks, v4_blocks = _check_blocks(model, fused, v4)
     log(phase, f'init_detector: {type(model).__name__} '
                f'{sum(p.numel() for p in model.parameters())} params, '
                f'compute {model.dtype}, {blocks} fused token MLPs, '
+               f'{v4_blocks} v4 attention blocks, '
                f'{time.perf_counter() - t0:.1f} s')
-    if blocks != (10 if fused else 0):
-        raise AssertionError(f'{blocks} fused token MLPs')
     imgs = synthetic_images(3)
     t0 = time.perf_counter()
     _check_result(inference_detector(model, imgs[0]), 800, 1333)
@@ -713,21 +894,23 @@ def phase_main(phase='main', fused=False):
                + ', '.join(f'{t:.4f}' for t in lat)
                + f'; detections per image: {counts}')
     log(phase, f'kernel launches over the 3 requests: {launches}')
-    idle = [fn.__name__ for fn in INFERENCE_KERNELS
+    idle = [fn.__name__ for fn in _serving_kernels(v4)
             if launches[fn.__name__] == 0]
     if idle:
         raise AssertionError(f'kernels not launched on the main path: '
                              f'{idle}')
     # serving must not pay for the training forward's softmax writes
-    trained = [fn.__name__ for fn in TRAINING_KERNELS + (fused_mlp_bwd,)
-               if launches[fn.__name__]]
+    trained = [fn.__name__ for fn in NOT_SERVING if launches[fn.__name__]]
     if trained:
         raise AssertionError(f'training kernels launched while serving: '
                              f'{trained}')
     # NMS twice a request (RPN proposals, multiclass NMS); the fused
-    # forward once per fused block
+    # forward once per fused block; the attention forward, v3 or v4, once
+    # per Swin block
     want = {'nms_sorted': 2 * len(imgs),
-            'fused_mlp': (10 if fused else 0) * len(imgs)}
+            'fused_mlp': (10 if fused else 0) * len(imgs),
+            'window_attention_v3': (0 if v4 else 12) * len(imgs),
+            'window_attention_v4': (12 if v4 else 0) * len(imgs)}
     got = {k: launches[k] for k in want}
     if got != want:
         raise AssertionError(f'launches {got}, expected {want}')
@@ -736,7 +919,7 @@ def phase_main(phase='main', fused=False):
 
 # ------------------------------------------------------------- phase 5
 def phase_check(device: str = 'cuda', phase: str = 'check',
-                fused: bool = False):
+                fused: bool = False, v4: bool = False):
     """fp32 Swin-T Mask R-CNN on a 224x320 canvas, on the card (kernels)
     and on the CPU (plain versions), same seeded weights; rpn_cls and
     fc_cls are scaled to std 1 so no top-k or NMS boundary sits within
@@ -754,8 +937,7 @@ def phase_check(device: str = 'cuda', phase: str = 'check',
     img = rs.randn(1, 224, 320, 3).astype(np.float32)
     shapes = np.array([[224, 320]], np.int32)
     sf = np.ones((1, 4), np.float32)
-    if _fused_blocks(gpu) != (10 if fused else 0):
-        raise AssertionError(f'{_fused_blocks(gpu)} fused token MLPs')
+    _check_blocks(gpu, fused, v4)
     outs = []
     reset_launch_counts()
     for model, dev in ((cpu, 'cpu'), (gpu, device)):
@@ -766,8 +948,12 @@ def phase_check(device: str = 'cuda', phase: str = 'check',
         outs.append(([f.cpu() for f in feats],
                      {k: v.cpu() for k, v in out.items()}))
     (f_cpu, o_cpu), (f_gpu, o_gpu) = outs
-    if device == 'cuda' and bool(fused_mlp.launches) != fused:
-        raise AssertionError(f'{fused_mlp.launches} fused MLP launches')
+    if device == 'cuda' and (
+            bool(fused_mlp.launches) != fused
+            or bool(window_attention_v4.launches) != v4
+            or bool(window_attention_v3.launches) == v4):
+        raise AssertionError(f'launches against the configuration: '
+                             f'{launch_counts()}')
     feat_err = max((a - b).abs().max().item() / max(a.abs().max().item(), 1)
                    for a, b in zip(f_cpu, f_gpu))
     if feat_err > 1e-3:
@@ -829,8 +1015,8 @@ def _check_log(log, what):
 def _profile_steps(step, batch, gen, step_ms, phase, n=2):
     """Device time by kernel over ``n`` more steps (torch.profiler), per
     step, and the card's busy share of an unprofiled step (``step_ms``,
-    the median of the timed steps): the profiler slows the host, not the
-    kernels."""
+    the median of the timed steps), which it returns: the profiler slows
+    the host, not the kernels."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -860,6 +1046,7 @@ def _profile_steps(step, batch, gen, step_ms, phase, n=2):
     for key, ms, count in ours + [r for r in rows if r not in ours][:12]:
         log(phase, f'  {ms:9.3f} ms/step  {count:5d} launches/step  '
                      f'{key[:110]}')
+    return busy / step_ms
 
 
 @contextlib.contextmanager
@@ -884,7 +1071,7 @@ def nms_without_host_reads():
         rpn_head_module.batched_nms = batched_nms
 
 
-def phase_train(phase='train', fused=False):
+def phase_train(phase='train', fused=False, v4=False):
     """Full-width Mask R-CNN Swin-T training steps in bf16 on the card."""
     cfg = Config.fromfile(CONFIG)
     model = init_detector(cfg, device='cuda', seed=0)
@@ -893,9 +1080,10 @@ def phase_train(phase='train', fused=False):
                                  ITERS_PER_EPOCH)
     step = make_train_step(model, opt, schedule,
                            dict(cfg.optimizer_config).get('grad_clip'))
+    blocks, v4_blocks = _check_blocks(model, fused, v4)
     log(phase, f'{type(model).__name__} compute {model.dtype}, '
                f'drop_path_rate {cfg.model.backbone.drop_path_rate}, '
-               f'{_fused_blocks(model)} fused token MLPs, '
+               f'{blocks} fused token MLPs, {v4_blocks} v4 attention blocks, '
                f'{cfg.optimizer["type"]} groups '
                f'{[(g["weight_decay"], len(g["params"])) for g in opt.param_groups]}')
     batch = synthetic_train_batch()
@@ -923,20 +1111,27 @@ def phase_train(phase='train', fused=False):
                                          for k, v in out.items()))
     log(phase, f'kernel launches over the 5 timed steps: {steps}')
     # with a gradient wanted the attention forward is the softmax-saving
-    # kernel, never the inference one; every other kernel of the
-    # configuration runs
+    # kernel, never the inference one, or in the v4 configuration the v4
+    # forward and backward in place of all three; every other kernel of
+    # the configuration runs
+    v3_training = (window_attention_fwd_p, window_attention_bwd)
     idle = [fn.__name__ for fn in KERNEL_WRAPPERS
-            if fn is not window_attention_v3 and steps[fn.__name__] == 0
-            and (fused or fn not in FUSED_MLP_KERNELS)]
+            if fn is not window_attention_v3 and fn not in OP_ONLY_KERNELS
+            and steps[fn.__name__] == 0
+            and (fused or fn not in FUSED_MLP_KERNELS)
+            and (fn not in (v3_training if v4 else WATTN_V4_KERNELS))]
     if idle:
         raise AssertionError(f'kernels not launched in training: {idle}')
-    if steps['window_attention_v3']:
-        raise AssertionError('the inference attention kernel ran in a '
-                             'training step')
     # NMS once a step (the RPN proposals); the fused forward and backward
-    # once per fused block
+    # once per fused block; the attention forward and backward once per
+    # Swin block
+    attn = 0 if v4 else 60
     want = {'nms_sorted': 5, 'fused_mlp': 50 if fused else 0,
-            'fused_mlp_bwd': 50 if fused else 0}
+            'fused_mlp_bwd': 50 if fused else 0, 'window_attention_v3': 0,
+            'window_attention_fwd_p': attn, 'window_attention_bwd': attn,
+            'window_attention_v4': 60 - attn,
+            'window_attention_v4_bwd': 60 - attn,
+            'window_attention': 0, 'swin_window_attention': 0}
     got = {k: steps[k] for k in want}
     if got != want:
         raise AssertionError(f'launches {got}, expected {want}')
@@ -964,15 +1159,14 @@ def phase_train(phase='train', fused=False):
     val = launch_counts()
     log(phase, f'kernel launches of one validation pass (simple_test on '
                f'the batch): {val}')
-    wrong = [fn.__name__ for fn in INFERENCE_KERNELS
+    wrong = [fn.__name__ for fn in _serving_kernels(v4)
              if val[fn.__name__] == 0] + [
-        fn.__name__ for fn in TRAINING_KERNELS + (fused_mlp_bwd,)
-        if val[fn.__name__]]
+        fn.__name__ for fn in NOT_SERVING if val[fn.__name__]]
     if wrong:
         raise AssertionError(f'validation pass: kernels idle or launched '
                              f'against their mode: {wrong}')
-    _profile_steps(step, batch, gen, float(np.median(times)), phase)
-    return steps, times, peak
+    busy = _profile_steps(step, batch, gen, float(np.median(times)), phase)
+    return steps, times, peak, busy
 
 
 # ------------------------------------------------------------- phase 7
@@ -1122,7 +1316,8 @@ def _check_train(loss, grad, what):
     return over
 
 
-def phase_train_check(device: str = 'cuda', fused: bool = False):
+def phase_train_check(device: str = 'cuda', fused: bool = False,
+                      v4: bool = False):
     """forward_train of the full-width detector in fp32 on a 224x320
     canvas, on the card (kernels) and on the CPU (plain versions): same
     seeded weights with rpn_cls and fc_cls scaled to std 1 (no top-k, NMS
@@ -1144,8 +1339,8 @@ def phase_train_check(device: str = 'cuda', fused: bool = False):
         'model.backbone.drop_path_rate': 0.0})
     ctl.load_state_dict(cpu.state_dict())
     ctl = ctl.to(device)
-    if _fused_blocks(gpu) != (10 if fused else 0):
-        raise AssertionError(f'{_fused_blocks(gpu)} fused token MLPs')
+    _check_blocks(gpu, fused, v4)
+    _check_blocks(ctl, fused, v4)
     batch = train_check_batch()
     h, w = batch['img'].shape[1:3]
     n_rpn = 3 * sum(-(-h // s) * -(-w // s) for s in (4, 8, 16, 32, 64))
@@ -1156,7 +1351,11 @@ def phase_train_check(device: str = 'cuda', fused: bool = False):
                    for _ in range(batch['img'].shape[0])]
             for name, n in (('rpn', n_rpn), ('rcnn', n_rcnn))}
     ref = _train_grads(cpu, batch, keys, 'cpu')
+    reset_launch_counts()
     sound = _train_errors(ref, _train_grads(gpu, batch, keys, device))
+    if device == 'cuda' and bool(window_attention_v4_bwd.launches) != v4:
+        raise AssertionError(f'launches against the configuration: '
+                             f'{launch_counts()}')
     _log_errors(f'{h}x{w} fp32 card vs CPU', *sound)
     control = _train_errors(ref, _train_grads(ctl, batch, keys, device))
     _log_errors(f'{h}x{w} control, bf16 card vs fp32 CPU', *control)
@@ -1174,41 +1373,52 @@ def phase_train_check(device: str = 'cuda', fused: bool = False):
                              f'the gradient limit of {missed}')
 
 
+def _run_config(name, **flags):
+    """Phases 4-7 in one configuration: serving launches and request
+    latencies, training launches, step times, peak memory and busy
+    share."""
+    phase = '' if not flags else f'{name}-'
+    serve, lat = phase_main(f'{phase}main', **flags)
+    phase_check(phase=f'{phase}check', **flags)
+    train, times, peak, busy = phase_train(f'{phase}train', **flags)
+    phase_train_check(**flags)
+    return dict(serve=serve, lat=lat, train=train, times=times, peak=peak,
+                busy=busy)
+
+
 def main() -> int:
     # the default configuration is the config as it stands
     os.environ.pop('SWINDET_FUSED_MLP', None)
+    os.environ.pop('SWINDET_WATTN_V4', None)
     smi = phase_device()
     phase_build()
     kernels = phase_kernels()
-    serve, lat = phase_main()
-    phase_check()
-    train, times, peak = phase_train()
-    phase_train_check()
-    with fused_mlp_config():
-        log('fused', 'phases 4-7 again with SWINDET_FUSED_MLP=1')
-        fused_serve, fused_lat = phase_main('fused-main', fused=True)
-        phase_check(phase='fused-check', fused=True)
-        fused_train, fused_times, fused_peak = phase_train('fused-train',
-                                                           fused=True)
-        log('fused', 'train-check with SWINDET_FUSED_MLP=1')
-        phase_train_check(fused=True)
-    for what, default, fused in (
-            ('request latency (s)', lat, fused_lat),
-            ('training step (ms)', times, fused_times)):
-        log('fused', f'{what}, median of the timed runs: default '
-                     f'{np.median(default):.4f}, fused MLP '
-                     f'{np.median(fused):.4f}')
-    log('fused', f'training peak memory: default {peak / 2 ** 30:.2f} GiB, '
-                 f'fused MLP {fused_peak / 2 ** 30:.2f} GiB')
+    runs = {'default': _run_config('default')}
+    for key, name, switch, flag in (
+            ('fused', 'fused', 'SWINDET_FUSED_MLP', 'fused'),
+            ('wattn_v4', 'wattn-v4', 'SWINDET_WATTN_V4', 'v4')):
+        log(name, f'phases 4-7 again with {switch}=1')
+        with env_switch(switch):
+            runs[key] = _run_config(name, **{flag: True})
+    for what, key, fmt in (('request latency (s)', 'lat', '.4f'),
+                           ('training step (ms)', 'times', '.1f')):
+        log('configs', f'{what}, median of the timed runs: ' + ', '.join(
+            f'{c} {np.median(r[key]):{fmt}}' for c, r in runs.items()))
+    log('configs', 'training peak memory (GiB): ' + ', '.join(
+        f'{c} {r["peak"] / 2 ** 30:.2f}' for c, r in runs.items()))
+    log('configs', 'training busy share: ' + ', '.join(
+        f'{c} {r["busy"]:.3f}' for c, r in runs.items()))
     rows = []
     for fn in KERNEL_WRAPPERS:
         name = fn.__name__
         # NMS takes fp32 boxes in both configurations
         fp32 = kernels[name][torch.float32]
         main_row = kernels[name].get(torch.bfloat16, fp32)
-        counts = dict(serve_launches=serve[name], train_launches=train[name],
-                      fused_serve_launches=fused_serve[name],
-                      fused_train_launches=fused_train[name])
+        counts = {}
+        for c, r in runs.items():
+            pre = '' if c == 'default' else f'{c}_'
+            counts[f'{pre}serve_launches'] = r['serve'][name]
+            counts[f'{pre}train_launches'] = r['train'][name]
         rows.append(dict(
             name=name, route='cuda', **KERNELS[name],
             launches=sum(counts.values()), **counts,

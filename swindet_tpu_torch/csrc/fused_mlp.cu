@@ -44,16 +44,14 @@
 // so the weight gradients vary in their last bits.
 #include <algorithm>
 
-#include "common.cuh"
+#include "tile_gemm.cuh"
 
 namespace swindet {
 
-constexpr int kMlpThreads = 256;
-constexpr int kKS = 16;      // depth of one K slice staged in shared memory
+constexpr int kMlpThreads = kGemmThreads;
 constexpr int kTileRows = 64;
 constexpr int kChunk = 64;   // hidden chunk of the forward and of dx
 constexpr int kDwChunk = 32; // hidden chunk of the weight gradients
-constexpr int kStage = kKS * (64 + 1);
 
 // XLA's fp32 erf (ErfImpl32): x P(x^2) / Q(x^2) on x clamped to
 // +-erfinv(1 - 2^-23)
@@ -83,62 +81,6 @@ __device__ __forceinline__ float gelu_grad(float h) {
   const float cdf = 0.5f * (1.0f + erf_xla(h * 0.7071067811865476f));
   const float pdf = 0.3989422804014327f * expf(-0.5f * h * h);
   return cdf + h * pdf;
-}
-
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return to_f32(from_f32<T>(v));
-}
-
-// This thread's micro tile of a BM x BN block tile: rows tm .. tm+TM-1,
-// columns tn .. tn+TN-1.
-template <int BM, int BN, int TM, int TN>
-struct Micro {
-  static_assert((BM / TM) * (BN / TN) == kMlpThreads, "one tile per thread");
-  int tm, tn;
-  __device__ Micro()
-      : tm((threadIdx.x / (BN / TN)) * TM),
-        tn((threadIdx.x % (BN / TN)) * TN) {}
-};
-
-// acc[i][j] += sum_{k < K} A(tm + i, k) * B(tn + j, k) for this thread's
-// micro tile. fa(m, k) and fb(n, k) return the operands as fp32 (zero
-// outside the matrices); K is staged through As and Bs (kStage floats
-// each) in slices of kKS. With A_MFAST, neighbouring threads load
-// neighbouring m of one k (a source that is contiguous along m);
-// otherwise neighbouring k of one m. The same for B.
-template <int BM, int BN, int TM, int TN, bool A_MFAST, bool B_MFAST,
-          typename FA, typename FB>
-__device__ __forceinline__ void tile_gemm(float (&acc)[TM][TN], int K,
-                                          FA fa, FB fb, float* As,
-                                          float* Bs) {
-  const Micro<BM, BN, TM, TN> mt;
-  for (int k0 = 0; k0 < K; k0 += kKS) {
-    for (int e = threadIdx.x; e < BM * kKS; e += kMlpThreads) {
-      const int m = A_MFAST ? e % BM : e / kKS;
-      const int k = A_MFAST ? e / BM : e % kKS;
-      As[k * (BM + 1) + m] = k0 + k < K ? fa(m, k0 + k) : 0.f;
-    }
-    for (int e = threadIdx.x; e < BN * kKS; e += kMlpThreads) {
-      const int n = B_MFAST ? e % BN : e / kKS;
-      const int k = B_MFAST ? e / BN : e % kKS;
-      Bs[k * (BN + 1) + n] = k0 + k < K ? fb(n, k0 + k) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kKS; ++k) {
-      float av[TM], bv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) av[i] = As[k * (BM + 1) + mt.tm + i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) bv[j] = Bs[k * (BN + 1) + mt.tn + j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
 }
 
 // ----------------------------------------------------------------- forward

@@ -4,8 +4,9 @@ mmdet/models/backbones/swin_transformer.py:449).
 
 NHWC throughout. Every norm goes through the LayerNorm kernel and every
 block's attention through the window-attention kernels (plain versions on
-the CPU), forward and, in training, backward. Pad + cyclic shift + window
-partition is one index gather with the table of
+the CPU), forward and, in training, backward; with ``SWINDET_WATTN_V4=1``
+through the kernels that fold in the qkv and output projections. Pad +
+cyclic shift + window partition is one index gather with the table of
 :func:`window_gather_indices`, and its inverse another, as in the JAX
 package; plain autograd differentiates both gathers. In training mode
 (``model.train()``) the blocks drop their residual branches per sample
@@ -16,6 +17,7 @@ The ``state_dict`` uses the reference's key names
 from __future__ import annotations
 
 import functools
+import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -26,7 +28,9 @@ import torch.nn.functional as F
 from ..layers import (DropPath, Linear, Mlp, lecun_normal_, resolve_dtype,
                       trunc_normal_)
 from ...ops.layer_norm import layer_norm_op
+from ...ops.swin_attention import shifted_window_attn_mask
 from ...ops.window_attention_v3 import window_attention_op
+from ...ops.window_attention_v4 import window_attention_v4_op
 from ...registries import BACKBONES
 
 
@@ -71,26 +75,6 @@ def window_gather_indices(h: int, w: int, ws: int, shift: int):
     tok = (rri % ws) * ws + ccj % ws
     inv_idx = (wi * (ws * ws) + tok).reshape(-1).astype(np.int64)
     return idx, valid_flat, inv_idx
-
-
-@functools.lru_cache(maxsize=256)
-def shifted_window_attn_mask(hp: int, wp: int, ws: int,
-                             shift: int) -> Optional[np.ndarray]:
-    """Additive (-100 / 0) mask (nW, N, N) for shifted windows, None when
-    there is no shift (reference: swin_transformer.py:370-389)."""
-    if shift == 0:
-        return None
-    img_mask = np.zeros((1, hp, wp, 1), np.float32)
-    slices = (slice(0, -ws), slice(-ws, -shift), slice(-shift, None))
-    cnt = 0
-    for hs in slices:
-        for wsl in slices:
-            img_mask[:, hs, wsl, :] = cnt
-            cnt += 1
-    x = img_mask.reshape(1, hp // ws, ws, wp // ws, ws, 1)
-    x = x.transpose(0, 1, 3, 2, 4, 5).reshape(-1, ws * ws)
-    diff = x[:, None, :] - x[:, :, None]
-    return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
 
 
 @functools.lru_cache(maxsize=64)
@@ -152,11 +136,21 @@ class PatchEmbed(nn.Module):
 
 class WindowAttention(nn.Module):
     """W-MSA with relative position bias (reference :73) over (B_, N, C)
-    windows: qkv projection, the window-attention kernel, projection."""
+    windows: qkv projection, the window-attention kernel, projection.
+
+    With the JAX package's switch ``SWINDET_WATTN_V4=1``, read once here,
+    the three run as one op that keeps qkv and the attention output on
+    chip (``ops/window_attention_v4.py``), as
+    ``swindet_tpu/models/backbones/swin.py:238-259`` does. The JAX guard
+    (no attention or projection dropout, no qk_scale) always holds: the
+    port's attention has neither dropout and SwinTransformer refuses
+    qk_scale. The parameters and the ``state_dict`` are the same either
+    way."""
 
     def __init__(self, dim: int, window_size: int, num_heads: int,
                  qkv_bias: bool = True, dtype=torch.float32):
         super().__init__()
+        self.v4 = os.environ.get('SWINDET_WATTN_V4') == '1'
         self.num_heads = num_heads
         self.window_size = window_size
         self.relative_position_bias_table = nn.Parameter(
@@ -173,6 +167,11 @@ class WindowAttention(nn.Module):
         bias = self.relative_position_bias_table[
             self.relative_position_index].view(n, n, self.num_heads)
         bias = bias.permute(2, 0, 1).float().contiguous()
+        if self.v4:
+            return window_attention_v4_op(
+                x.to(self.qkv.compute_dtype).contiguous(), self.qkv.weight,
+                self.qkv.bias, bias, mask, self.proj.weight, self.proj.bias,
+                self.num_heads)
         qkv = self.qkv(x).contiguous()
         out = window_attention_op(qkv, bias, mask, self.num_heads)
         return self.proj(out)

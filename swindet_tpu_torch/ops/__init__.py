@@ -11,13 +11,19 @@ from .layer_norm import layer_norm, layer_norm_op, layer_norm_reference
 from .nms import nms_sorted, nms_sorted_reference
 from .roi_align import (multilevel_roi_align, multilevel_roi_align_backward,
                         roi_align, roi_align_bwd, roi_align_op)
+from .swin_attention import (shifted_window_attn_mask,
+                             swin_attention_reference, swin_window_attention)
+from .window_attention import window_attention, window_attention_reference
 from .window_attention_v3 import (window_attention_bwd,
                                   window_attention_bwd_reference,
                                   window_attention_fwd_p,
                                   window_attention_fwd_p_reference,
-                                  window_attention_op,
-                                  window_attention_reference,
-                                  window_attention_v3)
+                                  window_attention_op, window_attention_v3)
+from .window_attention_v4 import (window_attention_v4,
+                                  window_attention_v4_bwd,
+                                  window_attention_v4_bwd_reference,
+                                  window_attention_v4_op,
+                                  window_attention_v4_reference)
 
 # the kernel wrappers of the inference path, in the order of the model;
 # serving runs these
@@ -30,7 +36,14 @@ TRAINING_KERNELS = (window_attention_fwd_p, window_attention_bwd,
 # the fused-MLP configuration's (SWINDET_FUSED_MLP=1): serving runs the
 # forward, training both
 FUSED_MLP_KERNELS = (fused_mlp, fused_mlp_bwd)
-KERNEL_WRAPPERS = INFERENCE_KERNELS + TRAINING_KERNELS + FUSED_MLP_KERNELS
+# the v4 window-attention configuration's (SWINDET_WATTN_V4=1), in place of
+# the v3 attention kernels: serving runs the forward, training both
+WATTN_V4_KERNELS = (window_attention_v4, window_attention_v4_bwd)
+# kernels that no model path runs, as in the JAX package, where only the
+# ops tests run them: the v1 attention and the full-map shifted attention
+OP_ONLY_KERNELS = (window_attention, swin_window_attention)
+KERNEL_WRAPPERS = (INFERENCE_KERNELS + TRAINING_KERNELS + FUSED_MLP_KERNELS
+                   + WATTN_V4_KERNELS + OP_ONLY_KERNELS)
 
 
 def reset_launch_counts() -> None:

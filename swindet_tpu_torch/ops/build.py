@@ -2,7 +2,7 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, which is loaded with ``ctypes``.
-A library is named after a hash of its source, the shared header and the
+A library is named after a hash of its source, the shared headers and the
 compiler flags, so an edited source is rebuilt and an unchanged one is
 reused. Libraries go to ``build/kernels/`` at the root of the checkout.
 Nothing is built when this module is imported: the first wrapper that
@@ -26,7 +26,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
 KERNELS = ('layer_norm', 'window_attention', 'conv3x3', 'roi_align', 'nms',
-           'fused_mlp')
+           'fused_mlp', 'window_attention_v4')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-lineinfo', '-shared', '-Xcompiler', '-fPIC')
 
@@ -48,7 +48,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256()
-    for part in (CSRC / f'{name}.cu', CSRC / 'common.cuh'):
+    for part in (CSRC / f'{name}.cu', *sorted(CSRC.glob('*.cuh'))):
         h.update(part.read_bytes())
     h.update(' '.join(NVCC_FLAGS).encode())
     return BUILD_DIR / f'{name}-{h.hexdigest()[:16]}.so'

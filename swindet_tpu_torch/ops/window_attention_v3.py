@@ -6,7 +6,8 @@ of ``csrc/window_attention.cu``, each with its plain version beside it:
 
 - :func:`window_attention_v3` (replacing the Pallas ``_wattn3_kernel``),
   plain version :func:`window_attention_reference` (counterpart of
-  ``swindet_tpu/ops/window_attention.py:167``);
+  ``swindet_tpu/ops/window_attention.py:167``, kept in the port's
+  ``ops/window_attention.py`` and imported here);
 - :func:`window_attention_fwd_p` (``_wattn3_kernel_p``), plain version
   :func:`window_attention_fwd_p_reference`;
 - :func:`window_attention_bwd` (``_wattn3_bwd_kernel``), plain version
@@ -25,6 +26,9 @@ from typing import Optional, Tuple
 import torch
 
 from . import build
+from .window_attention import (apply_probs, attention_probs,
+                               check_attention_shapes,
+                               window_attention_reference)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -32,48 +36,6 @@ _F = ctypes.c_float
 _ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P)
 _FWD_P_ARGTYPES = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P)
 _BWD_ARGTYPES = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P)
-MAX_TOKENS = 64
-MAX_HEAD_DIM = 64
-
-
-def _probs(qkv: torch.Tensor, bias: torch.Tensor,
-           mask: Optional[torch.Tensor], num_heads: int):
-    """fp32 softmax (B_, nH, N, N) of the window logits, and v
-    (B_, nH, N, hd)."""
-    b_, n, c3 = qkv.shape
-    c = c3 // 3
-    hd = c // num_heads
-    scale = hd ** -0.5
-    q, k, v = qkv.view(b_, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
-    attn = torch.einsum('bhnd,bhmd->bhnm', q.float() * scale, k.float())
-    attn = attn + bias.float()[None]
-    if mask is not None:
-        nw = mask.shape[0]
-        attn = attn.view(b_ // nw, nw, num_heads, n, n) \
-            + mask.float()[None, :, None]
-        attn = attn.view(b_, num_heads, n, n)
-    return torch.softmax(attn, dim=-1), v
-
-
-def _apply_probs(p: torch.Tensor, v: torch.Tensor,
-                 dtype: torch.dtype) -> torch.Tensor:
-    """P v with P rounded to ``dtype`` and fp32 accumulation; (B_, N, C)
-    in ``dtype``."""
-    b_, nh, n, hd = v.shape
-    out = torch.einsum('bhnm,bhmd->bhnd', p.to(dtype).float(), v.float())
-    return out.transpose(1, 2).reshape(b_, n, nh * hd).to(dtype)
-
-
-def window_attention_reference(qkv: torch.Tensor, bias: torch.Tensor,
-                               mask: Optional[torch.Tensor],
-                               num_heads: int) -> torch.Tensor:
-    """Plain version. qkv (B_, N, 3C) with [q | k | v] and heads
-    contiguous; bias (nH, N, N); mask (nW, N, N) additive or None, window
-    w reading mask[w % nW]. Logits and softmax in fp32; the probabilities
-    are rounded to qkv's dtype before the product with v, accumulated in
-    fp32. Returns (B_, N, C) in qkv's dtype."""
-    p, v = _probs(qkv, bias, mask, num_heads)
-    return _apply_probs(p, v, qkv.dtype)
 
 
 def window_attention_fwd_p_reference(qkv: torch.Tensor, bias: torch.Tensor,
@@ -83,8 +45,8 @@ def window_attention_fwd_p_reference(qkv: torch.Tensor, bias: torch.Tensor,
     """Plain version of the training forward: the output of
     :func:`window_attention_reference` and the fp32 softmax laid out
     (nH, B_, N, N)."""
-    p, v = _probs(qkv, bias, mask, num_heads)
-    return _apply_probs(p, v, qkv.dtype), p.transpose(0, 1).contiguous()
+    p, v = attention_probs(qkv, bias, mask, num_heads)
+    return apply_probs(p, v, qkv.dtype), p.transpose(0, 1).contiguous()
 
 
 def window_attention_bwd_reference(qkv: torch.Tensor, p: torch.Tensor,
@@ -115,29 +77,9 @@ def window_attention_bwd_reference(qkv: torch.Tensor, p: torch.Tensor,
 def _check(qkv, bias, mask, num_heads, name):
     """Shapes of a kernel call: (B_, N, C, hd, dtype code); raises on
     what the kernels do not take."""
-    code = build.dtype_code(qkv, name)
     b_, n, c3 = qkv.shape
-    c = c3 // 3
-    if c3 % 3 or c % num_heads:
-        raise ValueError(f'{name}: qkv width {c3} does not split into 3 x '
-                         f'{num_heads} heads')
-    hd = c // num_heads
-    if n > MAX_TOKENS or hd > MAX_HEAD_DIM:
-        raise ValueError(f'{name}: N={n}, head dim {hd} over the kernel '
-                         f'limits {MAX_TOKENS}, {MAX_HEAD_DIM}')
-    if not qkv.is_contiguous():
-        raise ValueError(f'{name}: qkv must be contiguous')
-    tables = [('bias', bias, (num_heads, n, n))] if bias is not None else []
-    if mask is not None:
-        tables.append(('mask', mask, (mask.shape[0], n, n)))
-        if mask.shape[0] == 0 or b_ % mask.shape[0]:
-            raise ValueError(f'{name}: {mask.shape[0]} mask windows do not '
-                             f'divide B_={b_}')
-    for tname, t, shape in tables:
-        if t.dtype != torch.float32 or tuple(t.shape) != shape \
-                or t.device != qkv.device or not t.is_contiguous():
-            raise ValueError(f'{name}: {tname} must be a contiguous fp32 '
-                             f'{shape} tensor on {qkv.device}')
+    c, hd, code = check_attention_shapes(name, qkv, n, c3, num_heads, bias,
+                                         mask, b_)
     return b_, n, c, hd, code
 
 

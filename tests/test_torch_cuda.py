@@ -3,14 +3,20 @@ card, at small and ragged shapes that the main path does not reach (odd
 widths, partial tiles, invalid rois). Marked ``cuda``: they skip without
 a CUDA device and run on the card with
 
-    python -m pytest -m cuda tests/test_torch_cuda.py -q
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+(``--noconftest``: tests/conftest.py imports jax, which this file does
+not need.)
 
 Tolerances: fp32 at 1e-4 (summation order; RoIAlign 1e-3 for one-ulp
 sample coordinates, see chip_smoke.py), bf16 at 2e-2 (one rounding of
 the output on each side). The backward kernels sum across blocks by fp32
 atomics in a changing order and their entries cancel, so they are held
 to a fraction of each output's largest entry (chip_smoke.py TOL_SUM).
-The NMS kernel must equal its plain version exactly.
+The NMS kernel must equal its plain version exactly. The v4 attention
+kernel keeps qkv and the attention output in fp32 where its plain version
+rounds them to bf16, so in bf16 it is held to the plain version computed
+in fp32 on the same bf16 inputs and rounded once.
 """
 import pytest
 import torch
@@ -26,13 +32,19 @@ from swindet_tpu_torch.ops import (conv3x3, conv3x3_dw, conv3x3_dw_reference,
                                    nms_sorted, nms_sorted_reference,
                                    reset_launch_counts, roi_align,
                                    roi_align_bwd, roi_align_op,
+                                   swin_attention_reference,
+                                   swin_window_attention, window_attention,
                                    window_attention_bwd,
                                    window_attention_bwd_reference,
                                    window_attention_fwd_p,
                                    window_attention_fwd_p_reference,
                                    window_attention_op,
                                    window_attention_reference,
-                                   window_attention_v3)
+                                   window_attention_v3, window_attention_v4,
+                                   window_attention_v4_bwd,
+                                   window_attention_v4_bwd_reference,
+                                   window_attention_v4_op,
+                                   window_attention_v4_reference)
 from swindet_tpu_torch.models.backbones.swin import shifted_window_attn_mask
 
 pytestmark = pytest.mark.cuda
@@ -239,6 +251,17 @@ def test_autograd_ops_on_the_card_match_the_cpu(gen):
     w1, b1 = _randn(gen, 512, 128, scale=0.1), _randn(gen, 512)
     w2, b2 = _randn(gen, 128, 512, scale=0.05), _randn(gen, 128)
     cases.append((fused_mlp_op, (x.view(-1, 128), w1, b1, w2, b2), ()))
+    x4, wqkv, bqkv, wproj, bproj = _v4_params(gen, qkv.shape[0], 49, 96,
+                                              torch.float32)
+    cases += [
+        (lambda a, wq, bq, bb, wp, bp, m: window_attention_v4_op(
+            a, wq, bq, bb, m, wp, bp, 3), (x4, wqkv, bqkv, bias, wproj,
+                                           bproj), (mask,)),
+        (lambda a, bb, m: window_attention(a, bb, m, 3), (qkv, bias),
+         (mask,)),
+        (lambda a, bb: swin_window_attention(a, bb, 7, 3, 3),
+         (_randn(gen, 2, 14, 21, 288), bias), ()),
+    ]
     reset_launch_counts()
     for fn, inputs, consts in cases:
         on_card = grads(fn, inputs, consts)
@@ -248,7 +271,8 @@ def test_autograd_ops_on_the_card_match_the_cpu(gen):
             _close_summed(a.cpu(), c, torch.float32, tol32=1e-3)
     counts = launch_counts()
     # with a gradient wanted, attention runs the softmax-saving forward;
-    # NMS is no differentiable op
+    # NMS is no differentiable op; the v1 and full-map attentions recompute
+    # their backward through the plain version
     assert counts.pop('window_attention_v3') == 0
     assert counts.pop('nms_sorted') == 0
     assert all(v > 0 for v in counts.values()), counts
@@ -309,3 +333,83 @@ def test_fused_mlp_fwd_and_bwd(gen, dtype, r, c, h):
     # terms, over rows by atomics for the weights
     for a, w in zip(got, want):
         _close_summed(a, w, dtype)
+
+
+def _v4_params(gen, b_, n, c, dtype):
+    """x (B_, N, C) in dtype and the fp32 projections of a v4 call."""
+    return (_randn(gen, b_, n, c, dtype=dtype),
+            _randn(gen, 3 * c, c, scale=c ** -0.5), _randn(gen, 3 * c,
+                                                            scale=0.1),
+            _randn(gen, c, c, scale=c ** -0.5), _randn(gen, c, scale=0.1))
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('b_,n,c,nh,shift', [
+    (12, 49, 96, 3, True), (7, 49, 768, 24, False), (5, 16, 48, 3, False),
+    (3, 49, 1024, 32, False)])
+def test_window_attention_v4_fwd_and_bwd(gen, dtype, b_, n, c, nh, shift):
+    """Stage 1 with the shift mask; stage-4 width (C 768, 24 heads) and
+    Swin-B's (C 1,024, the most shared memory) at odd window counts; a
+    4x4 window."""
+    mask = None
+    if shift:
+        mask = torch.from_numpy(shifted_window_attn_mask(14, 21, 7, 3)).cuda()
+    x, wqkv, bqkv, wproj, bproj = _v4_params(gen, b_, n, c, dtype)
+    bias = _randn(gen, nh, n, n, scale=0.5)
+    args = (wqkv, bqkv, bias, mask, wproj)
+    got = window_attention_v4(x, *args, bproj, nh)
+    want = window_attention_v4_reference(x.float(), *args, bproj, nh)
+    _close(got, want.to(dtype), dtype)
+    g = _randn(gen, b_, n, c, dtype=dtype)
+    got = window_attention_v4_bwd(x, *args, g, nh)
+    want = window_attention_v4_bwd_reference(x, *args, g, nh)
+    for a, w in zip(got, want):
+        _close_summed(a, w, w.dtype if w.dtype == dtype else torch.float32)
+
+
+def test_window_attention_v4_refuses_what_the_kernel_does_not_take(gen):
+    for b_, n, c, nh in ((2, 81, 96, 3), (2, 49, 256, 2), (2, 49, 1536, 24)):
+        x, wqkv, bqkv, wproj, bproj = _v4_params(gen, b_, n, c,
+                                                 torch.float32)
+        bias = _randn(gen, nh, n, n)
+        with pytest.raises(ValueError):
+            window_attention_v4(x, wqkv, bqkv, bias, None, wproj, bproj, nh)
+    x, wqkv, bqkv, wproj, bproj = _v4_params(gen, 2, 49, 96, torch.float32)
+    bias = _randn(gen, 3, 49, 49)
+    with pytest.raises(ValueError):
+        window_attention_v4(x, wqkv.bfloat16(), bqkv, bias, None, wproj,
+                            bproj, 3)
+    with pytest.raises(ValueError):
+        window_attention_v4_bwd(x, wqkv, bqkv, bias, None, wproj,
+                                x.bfloat16(), 3)
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('b_,n,c,nh,nw', [(12, 49, 96, 3, 4),
+                                          (5, 16, 32, 2, None),
+                                          (3, 49, 768, 24, None)])
+def test_window_attention_v1(gen, dtype, b_, n, c, nh, nw):
+    qkv = _randn(gen, b_, n, 3 * c, dtype=dtype)
+    bias = _randn(gen, nh, n, n, scale=0.5)
+    mask = None
+    if nw:
+        mask = torch.zeros(nw, n, n)
+        mask[1, :10, 10:] = mask[1, 10:, :10] = -100.0
+        mask = mask.cuda()
+    _close(window_attention(qkv, bias, mask, nh),
+           window_attention_reference(qkv, bias, mask, nh), dtype)
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('b,hp,wp,c,nh,shift', [
+    (2, 21, 28, 32, 2, 0), (2, 21, 28, 32, 2, 3), (1, 28, 14, 96, 3, 3),
+    (1, 14, 14, 768, 24, 3)])
+def test_swin_window_attention(gen, dtype, b, hp, wp, c, nh, shift):
+    qkv = _randn(gen, b, hp, wp, 3 * c, dtype=dtype)
+    bias = _randn(gen, nh, 49, 49, scale=0.5)
+    _close(swin_window_attention(qkv, bias, 7, shift, nh),
+           swin_attention_reference(qkv, bias, 7, shift, nh), dtype)
+    # a map height that is no multiple of the window
+    with pytest.raises(ValueError):
+        swin_window_attention(qkv[:, :hp - 1].contiguous(), bias, 7, shift,
+                              nh)

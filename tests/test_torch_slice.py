@@ -107,6 +107,9 @@ def test_port_imports_without_jax_flax_cv2():
         "import swindet_tpu_torch, swindet_tpu_torch.models\n"
         "import swindet_tpu_torch.ops, swindet_tpu_torch.checkpoint\n"
         "import swindet_tpu_torch.engine\n"
+        "import swindet_tpu_torch.ops.window_attention_v4\n"
+        "import swindet_tpu_torch.ops.window_attention\n"
+        "import swindet_tpu_torch.ops.swin_attention\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'cv2', 'swindet_tpu')\n"

@@ -1,9 +1,10 @@
 """The port's training slice as a whole: ``forward_train`` of the tiny
 Mask R-CNN against the JAX package's on the same numpy weights, batch and
 sampler keys (fp32, CPU), its losses and the gradients of a fixed list of
-parameters, then one ``make_train_step`` step. The comparison runs twice:
-as configured, and with the JAX package's fused-MLP switch
-``SWINDET_FUSED_MLP=1`` set on both sides.
+parameters, then one ``make_train_step`` step. The comparison runs three
+times: as configured, with the JAX package's fused-MLP switch
+``SWINDET_FUSED_MLP=1`` set on both sides, and with its v4 window-attention
+switch ``SWINDET_WATTN_V4=1`` set on both sides.
 
 Sampler keys: the JAX samplers draw from a JAX PRNG and the port's from a
 ``torch.Generator``, which give different numbers, so both sides get the
@@ -50,6 +51,15 @@ FUSED_MLP_GRAD_PARAMS = (
     'backbone.layers.0.blocks.0.mlp.fc1.bias',
     'backbone.layers.3.blocks.0.mlp.fc2.weight',
     'backbone.layers.3.blocks.0.mlp.fc2.bias',
+)
+
+
+# and the v4 attention's parameters, whose gradients come from its backward
+WATTN_V4_GRAD_PARAMS = (
+    'backbone.layers.0.blocks.0.attn.qkv.bias',
+    'backbone.layers.1.blocks.0.attn.proj.weight',
+    'backbone.layers.3.blocks.0.attn.proj.bias',
+    'backbone.layers.3.blocks.0.attn.relative_position_bias_table',
 )
 
 
@@ -143,6 +153,7 @@ def _slice_run():
 def slice_run():
     mp = pytest.MonkeyPatch()
     mp.delenv('SWINDET_FUSED_MLP', raising=False)
+    mp.delenv('SWINDET_WATTN_V4', raising=False)
     try:
         return _slice_run()
     finally:
@@ -157,12 +168,34 @@ def fused_slice_run():
     package's fused reference path, traced afresh)."""
     mp = pytest.MonkeyPatch()
     mp.setenv('SWINDET_FUSED_MLP', '1')
+    mp.delenv('SWINDET_WATTN_V4', raising=False)
     try:
         run = _slice_run()
     finally:
         mp.undo()
     mlps = [m for m in run['port'].modules() if isinstance(m, Mlp)]
     assert len(mlps) == 4 and all(m.fused for m in mlps)
+    return run
+
+
+@pytest.fixture(scope='module')
+def wattn_v4_slice_run():
+    """The same with the JAX package's switch SWINDET_WATTN_V4=1 on both
+    sides: every Swin block's qkv projection, attention and output
+    projection go through the v4 op (the port's autograd Function and the
+    plain version of the backward kernels; the JAX package's v4 reference
+    path, traced afresh)."""
+    from swindet_tpu_torch.models.backbones.swin import WindowAttention
+    mp = pytest.MonkeyPatch()
+    mp.setenv('SWINDET_WATTN_V4', '1')
+    mp.delenv('SWINDET_FUSED_MLP', raising=False)
+    try:
+        run = _slice_run()
+    finally:
+        mp.undo()
+    attns = [m for m in run['port'].modules()
+             if isinstance(m, WindowAttention)]
+    assert attns and all(m.v4 for m in attns)
     return run
 
 
@@ -201,6 +234,15 @@ def test_forward_train_losses_match_jax_fused_mlp(fused_slice_run):
 @pytest.mark.parametrize('name', GRAD_PARAMS + FUSED_MLP_GRAD_PARAMS)
 def test_forward_train_grads_match_jax_fused_mlp(fused_slice_run, name):
     _check_grad(fused_slice_run, name)
+
+
+def test_forward_train_losses_match_jax_wattn_v4(wattn_v4_slice_run):
+    _check_losses(wattn_v4_slice_run)
+
+
+@pytest.mark.parametrize('name', GRAD_PARAMS + WATTN_V4_GRAD_PARAMS)
+def test_forward_train_grads_match_jax_wattn_v4(wattn_v4_slice_run, name):
+    _check_grad(wattn_v4_slice_run, name)
 
 
 def test_train_step_moves_the_parameters(slice_run):
