@@ -8,7 +8,10 @@ before the last line:
 
 1. device  -- requires CUDA; prints the card's name and power limit as
               nvidia-smi reports them, torch's CUDA and the nvcc version.
-2. build   -- builds every kernel from swindet_tpu_torch/csrc with nvcc.
+2. build   -- builds every kernel from swindet_tpu_torch/csrc with nvcc;
+              the conv library's SASS must hold tensor-core (HGMMA) and
+              TMA (UTMALDG) instructions, and the bf16 conv kernels'
+              registers, shared and local memory are printed.
 3. kernels -- holds each of the fifteen kernels against its plain
               PyTorch version on the card at the shapes of the main paths,
               in bf16 and fp32 (NMS: fp32 boxes, exact equality), times
@@ -20,14 +23,20 @@ before the last line:
               each kernel's bound from the bytes and operations of its
               inputs. The v1 and full-map attention kernels, which no
               model path runs (as in the JAX package), run only here.
+              The 3x3 conv and its filter gradient run in bf16 (their
+              tensor-core kernels) at every conv shape of the main path
+              and in fp32 (their SIMT kernels) at two: FPN P2 and the
+              mask head.
 4. main    -- serving: Mask R-CNN Swin-T (full width, seeded weights,
               bf16, RPN nms_pre = max_per_img = 1000) through
               init_detector and inference_detector on 3 synthetic
               800x1333 images after one warm-up; every inference kernel's
               launch count must rise (NMS twice a request: RPN and
-              multiclass) and no training kernel may launch.
+              multiclass) and no training kernel may launch; every conv
+              launch must be a tensor-core one (``tc_launches``).
 5. check   -- the same detector at fp32 on a small canvas, on the card
-              (kernels) and on the CPU (plain versions), must agree.
+              (kernels) and on the CPU (plain versions), must agree; its
+              convs run the SIMT kernels, no tensor-core one.
 6. train   -- training: the same detector in bf16 with the config's
               train_cfg, drop_path_rate 0.1, AdamW with the Swin
               paramwise_cfg and the schedule_1x warm-up, through
@@ -39,13 +48,15 @@ before the last line:
               (simple_test) of the trained model on the batch, then 2
               profiled steps. Over the timed steps every kernel of the
               configuration but the inference attention kernel must
-              launch (NMS once a step), and that one must not; the
-              validation pass, counted on its own, must launch the
+              launch (NMS once a step), and that one must not, and every
+              conv and filter-gradient launch must be a tensor-core one;
+              the validation pass, counted on its own, must launch the
               inference kernels and no training kernel.
 7. train-check -- forward_train and its gradients in fp32 on a 224x320
               canvas, on the card and on the CPU, with the same weights,
-              batch and sampler keys, must agree; a bf16 control run on
-              the card is held to the same CPU run and logged.
+              batch and sampler keys, must agree (the fp32 run launches
+              no tensor-core conv); a bf16 control run on the card is held
+              to the same CPU run and logged.
 8. fused   -- phases 4 to 7 again in the fused-MLP configuration, the JAX
               package's switch SWINDET_FUSED_MLP=1: the token MLPs of
               stages 1-3 (10 blocks) run the fused kernels, stage 4 stays
@@ -62,7 +73,9 @@ before the last line:
 
 Then one JSON line of per-kernel results (``launches``: the serving
 and the training runs' counts of the three configurations, each from its
-own reset, summed; each also apart), the card's name and power limit, and,
+own reset, summed; each also apart; for the two conv rows also
+``tc_launches``, counted the same way, and ``shapes``, the bf16 readings
+at every main-path shape), the card's name and power limit, and,
 last, one JSON line with the device. It imports neither jax nor the JAX
 package.
 """
@@ -71,6 +84,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -84,7 +98,8 @@ from swindet_tpu_torch.engine import (build_lr_schedule, build_optimizer,
                                       make_train_step)
 from swindet_tpu_torch.ops import (FUSED_MLP_KERNELS, INFERENCE_KERNELS,
                                    KERNEL_WRAPPERS, OP_ONLY_KERNELS,
-                                   TRAINING_KERNELS, WATTN_V4_KERNELS, build,
+                                   TENSOR_CORE_KERNELS, TRAINING_KERNELS,
+                                   WATTN_V4_KERNELS, build,
                                    conv3x3, conv3x3_dw, conv3x3_dw_reference,
                                    conv3x3_reference, fused_mlp,
                                    fused_mlp_bwd, fused_mlp_bwd_reference,
@@ -94,6 +109,7 @@ from swindet_tpu_torch.ops import (FUSED_MLP_KERNELS, INFERENCE_KERNELS,
                                    multilevel_roi_align_backward,
                                    nms_sorted, nms_sorted_reference,
                                    reset_launch_counts, roi_align,
+                                   tc_launch_counts,
                                    roi_align_bwd, swin_attention_reference,
                                    swin_window_attention, window_attention,
                                    window_attention_bwd,
@@ -261,6 +277,26 @@ def phase_build() -> None:
     log('build', f'{len(paths)} kernel libraries in '
                  f'{time.perf_counter() - t0:.1f} s: '
                  + ', '.join(p.name for p in paths.values()))
+    # the bf16 conv kernels must be tensor-core (HGMMA) kernels fed by TMA
+    # (UTMALDG); their registers, shared memory and local memory (spills)
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), 'cuobjdump')
+    lib = str(paths['conv3x3'])
+    sass = subprocess.run([tool, '-sass', lib], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    ops = {op: sum(op in line for line in sass.splitlines())
+           for op in ('HGMMA', 'UTMALDG')}
+    log('build', f'conv3x3 SASS: {ops["HGMMA"]} HGMMA, {ops["UTMALDG"]} '
+                 f'UTMALDG instructions')
+    if not all(ops.values()):
+        raise AssertionError(f'conv3x3: no tensor-core or TMA instructions '
+                             f'in {lib}: {ops}')
+    usage = subprocess.run([tool, '-res-usage', lib], capture_output=True,
+                           text=True, timeout=300,
+                           check=True).stdout.splitlines()
+    for name, res in zip(usage, usage[1:]):
+        kernel = re.search(r'conv3x3\w*_tc_kernel', name)
+        if 'Function' in name and kernel:
+            log('build', f'  {kernel.group(0)}: {res.strip()}')
 
 
 # ------------------------------------------------------------- phase 3
@@ -491,6 +527,38 @@ def _v4_flops(b_, c, backward=False):
     return 8.0 * rows * c * c + _attn_flops(b_, 49, c, 2)
 
 
+def _conv_compare(dtype, x, cw, cb, relu=False):
+    """Row 3 (``conv3x3``) on x (B, H, W, C) with cw (3, 3, C, Co) and cb
+    against its plain version, with its bound and the library call on
+    channels-last views (F.conv2d, without the ReLU where the kernel fuses
+    one)."""
+    (b, h, w, c), co = x.shape, cw.shape[3]
+    x_nchw, w_oihw = x.permute(0, 3, 1, 2), cw.permute(3, 2, 0, 1)
+    cbd = cb.to(dtype)
+    return _compare('conv3x3', dtype, lambda: conv3x3(x, cw, cb, relu),
+                    lambda: conv3x3_reference(x, cw, cb, relu),
+                    f'({b}, {h}, {w}, {c}->{co})' + (' relu' if relu else ''),
+                    work=(_nbytes(x) + b * h * w * co * x.element_size()
+                          + _nbytes(cw, cb), 2.0 * 9 * c * co * b * h * w),
+                    library_fn=lambda: F.conv2d(x_nchw, w_oihw, cbd,
+                                                padding=1))
+
+
+def _dw_compare(dtype, x, g):
+    """Row 8 (``conv3x3_dw``) on x (B, H, W, C) and g (B, H, W, Co)
+    against its plain version, with its bound and
+    torch.nn.grad.conv2d_weight on channels-last views."""
+    (b, h, w, c), co = x.shape, g.shape[3]
+    x_nchw, g_nchw = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+    return _compare('conv3x3_dw', dtype, lambda: conv3x3_dw(x, g),
+                    lambda: conv3x3_dw_reference(x, g),
+                    f'({b}, {h}, {w}, {c}->{co})', summed=True,
+                    work=(_nbytes(x, g) + 9 * c * co * 4,
+                          2.0 * 9 * c * co * b * h * w),
+                    library_fn=lambda: torch.nn.grad.conv2d_weight(
+                        x_nchw, (co, c, 3, 3), g_nchw, padding=1))
+
+
 def phase_kernels():
     gen = torch.Generator().manual_seed(0)
     dev = 'cuda'
@@ -572,43 +640,39 @@ def phase_kernels():
         results.setdefault('window_attention_bwd', {})[dtype] = r
         del p, p4
 
-        # 3x3 conv: FPN P2 output conv; mask-head conv with ReLU
+        # 3x3 conv: the FPN output convs at P2 (the row's main shape) and,
+        # in bf16 (the tensor-core kernel), P3-P5; in bf16 the RPN conv
+        # (ReLU) at P6; the mask-head conv (ReLU) on 100 rois. The P2 and
+        # mask-head inputs draw from gen in the order they always have; the
+        # other shapes from a generator of their own, so that they change
+        # no other row's inputs
+        cgen = torch.Generator().manual_seed(1)
         x = randn(1, 200, 336, 256).to(dtype)
         cw = randn(3, 3, 256, 256, scale=0.02).to(dtype)
         cb = randn(256)
-        x_nchw, w_oihw = x.permute(0, 3, 1, 2), cw.permute(3, 2, 0, 1)
-        cbd = cb.to(dtype)
-        r = _compare('conv3x3', dtype, lambda: conv3x3(x, cw, cb),
-                     lambda: conv3x3_reference(x, cw, cb),
-                     '(1, 200, 336, 256->256)',
-                     work=(2 * _nbytes(x) + _nbytes(cw, cb),
-                           2.0 * 9 * 256 * 256 * 67200),
-                     library_fn=lambda: F.conv2d(x_nchw, w_oihw, cbd,
-                                                 padding=1))
+        rows = [_conv_compare(dtype, x, cw, cb)]
+        if dtype == torch.bfloat16:
+            for (h, w), relu in [(hw, False) for hw in FPN_SHAPES[1:]] \
+                    + [((13, 21), True)]:
+                xs = torch.randn(1, h, w, 256, generator=cgen)
+                rows.append(_conv_compare(dtype, xs.to(dev, dtype), cw, cb,
+                                          relu))
         xm = randn(100, 14, 14, 256).to(dtype)
-        _compare('conv3x3', dtype, lambda: conv3x3(xm, cw, cb, True),
-                 lambda: conv3x3_reference(xm, cw, cb, True),
-                 '(100, 14, 14, 256->256) relu')
-        results.setdefault('conv3x3', {})[dtype] = r
+        rows.append(_conv_compare(dtype, xm, cw, cb, True))
+        results.setdefault('conv3x3', {})[dtype] = dict(rows[0], shapes=rows)
 
         # its filter gradient: FPN P2 of a batch of 2; mask head, 256 rois
         x2 = randn(2, 200, 336, 256).to(dtype)
         g2 = randn(2, 200, 336, 256, scale=0.1).to(dtype)
-        x2_nchw, g2_nchw = x2.permute(0, 3, 1, 2), g2.permute(0, 3, 1, 2)
-        r = _compare('conv3x3_dw', dtype, lambda: conv3x3_dw(x2, g2),
-                     lambda: conv3x3_dw_reference(x2, g2),
-                     '(2, 200, 336, 256->256)', summed=True,
-                     work=(_nbytes(x2, g2) + 9 * 256 * 256 * 4,
-                           2.0 * 9 * 256 * 256 * 134400),
-                     library_fn=lambda: torch.nn.grad.conv2d_weight(
-                         x2_nchw, (256, 256, 3, 3), g2_nchw, padding=1))
+        rows = [_dw_compare(dtype, x2, g2)]
+        del x2, g2
         xm2 = randn(256, 14, 14, 256).to(dtype)
         gm2 = randn(256, 14, 14, 256, scale=0.1).to(dtype)
-        _compare('conv3x3_dw', dtype, lambda: conv3x3_dw(xm2, gm2),
-                 lambda: conv3x3_dw_reference(xm2, gm2),
-                 '(256, 14, 14, 256->256)', summed=True)
-        results.setdefault('conv3x3_dw', {})[dtype] = r
-        del x2, g2, x2_nchw, g2_nchw
+        rows.append(_dw_compare(dtype, xm2, gm2))
+        results.setdefault('conv3x3_dw', {})[dtype] = dict(rows[0],
+                                                           shapes=rows)
+        del x, xm, xm2, gm2
+        torch.cuda.empty_cache()
 
         # RoIAlign: bbox 1000 rois x 7x7, mask 100 rois x 14x14, 4 levels
         feats = [randn(1, h, w, 256).to(dtype) for h, w in FPN_SHAPES]
@@ -863,6 +927,20 @@ NOT_SERVING = TRAINING_KERNELS + (fused_mlp_bwd, window_attention_v4_bwd) \
     + OP_ONLY_KERNELS
 
 
+def _check_tc(what, launches, bf16, wanted=TENSOR_CORE_KERNELS):
+    """The conv wrappers pick their kernel by dtype: in a bf16 run every
+    launch is a tensor-core one, and each of ``wanted`` launched; in an fp32
+    run none is. Returns the tensor-core counts."""
+    tc = tc_launch_counts()
+    want = {fn.__name__: launches[fn.__name__] if bf16 else 0
+            for fn in TENSOR_CORE_KERNELS}
+    idle = [fn.__name__ for fn in wanted if not launches[fn.__name__]]
+    if tc != want or idle:
+        raise AssertionError(f'{what}: tensor-core launches {tc}, expected '
+                             f'{want}; not launched: {idle}')
+    return tc
+
+
 def phase_main(phase='main', fused=False, v4=False):
     opts = {'model.test_cfg.rpn.nms_pre': 1000,
             'model.test_cfg.rpn.max_per_img': 1000}
@@ -894,6 +972,8 @@ def phase_main(phase='main', fused=False, v4=False):
                + ', '.join(f'{t:.4f}' for t in lat)
                + f'; detections per image: {counts}')
     log(phase, f'kernel launches over the 3 requests: {launches}')
+    tc = _check_tc(phase, launches, True, (conv3x3,))
+    log(phase, f'of which tensor-core kernels: {tc}')
     idle = [fn.__name__ for fn in _serving_kernels(v4)
             if launches[fn.__name__] == 0]
     if idle:
@@ -914,7 +994,7 @@ def phase_main(phase='main', fused=False, v4=False):
     got = {k: launches[k] for k in want}
     if got != want:
         raise AssertionError(f'launches {got}, expected {want}')
-    return launches, lat
+    return launches, lat, tc
 
 
 # ------------------------------------------------------------- phase 5
@@ -954,6 +1034,8 @@ def phase_check(device: str = 'cuda', phase: str = 'check',
             or bool(window_attention_v3.launches) == v4):
         raise AssertionError(f'launches against the configuration: '
                              f'{launch_counts()}')
+    if device == 'cuda':
+        _check_tc(phase, launch_counts(), False, (conv3x3,))
     feat_err = max((a - b).abs().max().item() / max(a.abs().max().item(), 1)
                    for a, b in zip(f_cpu, f_gpu))
     if feat_err > 1e-3:
@@ -1110,6 +1192,8 @@ def phase_train(phase='train', fused=False, v4=False):
     log(phase, 'last step: ' + ', '.join(f'{k} {v:.4f}'
                                          for k, v in out.items()))
     log(phase, f'kernel launches over the 5 timed steps: {steps}')
+    tc = _check_tc(phase, steps, True)
+    log(phase, f'of which tensor-core kernels: {tc}')
     # with a gradient wanted the attention forward is the softmax-saving
     # kernel, never the inference one, or in the v4 configuration the v4
     # forward and backward in place of all three; every other kernel of
@@ -1165,8 +1249,9 @@ def phase_train(phase='train', fused=False, v4=False):
     if wrong:
         raise AssertionError(f'validation pass: kernels idle or launched '
                              f'against their mode: {wrong}')
+    _check_tc('validation pass', val, True, (conv3x3,))
     busy = _profile_steps(step, batch, gen, float(np.median(times)), phase)
-    return steps, times, peak, busy
+    return steps, times, peak, busy, tc
 
 
 # ------------------------------------------------------------- phase 7
@@ -1356,6 +1441,8 @@ def phase_train_check(device: str = 'cuda', fused: bool = False,
     if device == 'cuda' and bool(window_attention_v4_bwd.launches) != v4:
         raise AssertionError(f'launches against the configuration: '
                              f'{launch_counts()}')
+    if device == 'cuda':
+        _check_tc('train-check', launch_counts(), False)
     _log_errors(f'{h}x{w} fp32 card vs CPU', *sound)
     control = _train_errors(ref, _train_grads(ctl, batch, keys, device))
     _log_errors(f'{h}x{w} control, bf16 card vs fp32 CPU', *control)
@@ -1378,12 +1465,13 @@ def _run_config(name, **flags):
     latencies, training launches, step times, peak memory and busy
     share."""
     phase = '' if not flags else f'{name}-'
-    serve, lat = phase_main(f'{phase}main', **flags)
+    serve, lat, serve_tc = phase_main(f'{phase}main', **flags)
     phase_check(phase=f'{phase}check', **flags)
-    train, times, peak, busy = phase_train(f'{phase}train', **flags)
+    train, times, peak, busy, train_tc = phase_train(f'{phase}train',
+                                                     **flags)
     phase_train_check(**flags)
     return dict(serve=serve, lat=lat, train=train, times=times, peak=peak,
-                busy=busy)
+                busy=busy, serve_tc=serve_tc, train_tc=train_tc)
 
 
 def main() -> int:
@@ -1414,14 +1502,21 @@ def main() -> int:
         # NMS takes fp32 boxes in both configurations
         fp32 = kernels[name][torch.float32]
         main_row = kernels[name].get(torch.bfloat16, fp32)
-        counts = {}
+        counts, tc = {}, {}
         for c, r in runs.items():
             pre = '' if c == 'default' else f'{c}_'
             counts[f'{pre}serve_launches'] = r['serve'][name]
             counts[f'{pre}train_launches'] = r['train'][name]
+            if fn in TENSOR_CORE_KERNELS:
+                tc[f'{pre}serve_tc_launches'] = r['serve_tc'][name]
+                tc[f'{pre}train_tc_launches'] = r['train_tc'][name]
+        if tc:
+            # the bf16 rows: every shape of the main path
+            tc = dict(tc_launches=sum(tc.values()), **tc,
+                      shapes=main_row['shapes'])
         rows.append(dict(
             name=name, route='cuda', **KERNELS[name],
-            launches=sum(counts.values()), **counts,
+            launches=sum(counts.values()), **counts, **tc,
             dtype='float32' if main_row is fp32 else 'bfloat16',
             shape=main_row['shape'], max_abs_err=main_row['max_abs_err'],
             ms=main_row['ms'], plain_ms=main_row['plain_ms'],

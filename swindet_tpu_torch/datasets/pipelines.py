@@ -2,9 +2,11 @@
 ``swindet_tpu/datasets/pipelines/transforms.py``: Resize, RandomFlip,
 Normalize, Pad, ImageToTensor, Collect), numpy and torch only.
 
-The resize is bilinear with half-pixel centres and no antialiasing, the
-sampling of cv2's INTER_LINEAR, computed by ``F.interpolate``; uint8
-images come back rounded to uint8 as cv2 returns them.
+The resize is cv2's INTER_LINEAR: bilinear with half-pixel centres and no
+antialiasing. A uint8 image goes through cv2's fixed-point arithmetic
+(11-bit weights, its rounding and its border rules), so it equals
+``cv2.resize`` bit for bit; any other dtype is resized in float by
+``F.interpolate``.
 """
 from __future__ import annotations
 
@@ -29,16 +31,66 @@ def rescale_size(old_wh: Tuple[int, int],
     return int(w * f + 0.5), int(h * f + 0.5)
 
 
+# cv2's INTER_RESIZE_COEF_BITS: the uint8 path's weights are fixed point
+# with 11 fraction bits
+_COEF_SCALE = 2048
+
+
+def _linear_taps(dst: int, src: int, clamp: bool):
+    """Source indices and fixed-point weights of one axis of cv2's uint8
+    INTER_LINEAR: the sample position in float32 from the double scale,
+    the weights rounded to 1/2048 each on its own. With ``clamp`` (the
+    horizontal axis) a sample left of the first or right of the last
+    source pixel takes that pixel whole, as cv2 does; the vertical axis
+    keeps its weights and clamps only the two row indices."""
+    scale = 1.0 / (dst / src)
+    f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f)
+    f = f - s
+    s = s.astype(np.int64)
+    if clamp:
+        lo, hi = s < 0, s >= src - 1
+        f[lo | hi] = 0
+        s[lo], s[hi] = 0, src - 1
+    c0 = np.rint((np.float32(1) - f) * np.float32(_COEF_SCALE))
+    c1 = np.rint(f * np.float32(_COEF_SCALE))
+    return (np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1),
+            c0.astype(np.int32), c1.astype(np.int32))
+
+
+def _imresize_uint8(img: np.ndarray, new_w: int, new_h: int) -> np.ndarray:
+    """cv2.resize(img, (new_w, new_h), INTER_LINEAR) of a uint8 (H, W, C)
+    image, bit for bit: int32 horizontal sums, then the vertical
+    combination of cv2's SIMD path, with arithmetic shifts."""
+    h, w = img.shape[:2]
+    x0, x1, a0, a1 = (torch.from_numpy(t)
+                      for t in _linear_taps(new_w, w, clamp=True))
+    y0, y1, b0, b1 = (torch.from_numpy(t)
+                      for t in _linear_taps(new_h, h, clamp=False))
+    src = torch.from_numpy(np.ascontiguousarray(img)).to(torch.int32)
+    # in place: the host resize is on the serving path
+    row = src.index_select(1, x0).mul_(a0[:, None])
+    row.add_(src.index_select(1, x1).mul_(a1[:, None])).__irshift__(4)
+    out = row.index_select(0, y0).mul_(b0[:, None, None]).__irshift__(16)
+    out.add_(row.index_select(0, y1).mul_(b1[:, None, None])
+             .__irshift__(16))
+    out.add_(2).__irshift__(2)
+    return out.clamp_(0, 255).to(torch.uint8).numpy()
+
+
 def imresize_bilinear(img: np.ndarray, size_wh: Tuple[int, int]
                       ) -> np.ndarray:
-    """(H, W, C) image to (h, w) = size_wh[::-1], bilinear."""
+    """(H, W, C) image to (h, w) = size_wh[::-1], bilinear as cv2's
+    INTER_LINEAR (bit for bit for uint8)."""
     new_w, new_h = size_wh
+    if img.shape[:2] == (new_h, new_w):
+        return img.copy()  # as cv2.resize does: its weights give the input
+    if img.dtype == np.uint8:
+        return _imresize_uint8(img, new_w, new_h)
     t = torch.from_numpy(np.ascontiguousarray(img)).float()
     t = F.interpolate(t.permute(2, 0, 1)[None], size=(new_h, new_w),
                       mode='bilinear', align_corners=False,
                       antialias=False)[0].permute(1, 2, 0)
-    if img.dtype == np.uint8:
-        return t.round().clamp(0, 255).to(torch.uint8).numpy()
     return t.numpy().astype(img.dtype)
 
 

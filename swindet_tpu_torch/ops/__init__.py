@@ -46,10 +46,21 @@ KERNEL_WRAPPERS = (INFERENCE_KERNELS + TRAINING_KERNELS + FUSED_MLP_KERNELS
                    + WATTN_V4_KERNELS + OP_ONLY_KERNELS)
 
 
+# wrappers with two kernels, picked by dtype: ``tc_launches`` counts the
+# bf16 tensor-core kernel's share of ``launches``
+TENSOR_CORE_KERNELS = (conv3x3, conv3x3_dw)
+
+
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+    for fn in TENSOR_CORE_KERNELS:
+        fn.tc_launches = 0
 
 
 def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+
+
+def tc_launch_counts() -> dict:
+    return {fn.__name__: fn.tc_launches for fn in TENSOR_CORE_KERNELS}

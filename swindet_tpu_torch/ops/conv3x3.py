@@ -1,16 +1,18 @@
 """3x3 stride-1 SAME convolution over NHWC with fused bias and ReLU.
 
-Counterpart of ``swindet_tpu/ops/conv3x3.py``. :func:`conv3x3` runs the
+Counterpart of ``swindet_tpu/ops/conv3x3.py``. :func:`conv3x3` runs a
 hand-written implicit-GEMM kernel (``csrc/conv3x3.cu``, replacing the
 Pallas ``_conv_kernel``) on a CUDA tensor and the plain version
-:func:`conv3x3_reference` on a CPU tensor; :func:`conv3x3_dw` runs the
+:func:`conv3x3_reference` on a CPU tensor; :func:`conv3x3_dw` runs a
 filter-gradient kernel (replacing ``_dw_kernel``) or its plain version
-:func:`conv3x3_dw_reference`. :func:`conv3x3_op` is the differentiable
-entry point (``conv3x3`` with ``_c3_fwd`` / ``conv3x3_bwd_pallas``,
-:183-226): dx is the forward kernel applied to g with the weight rotated by
-180 degrees, dw the filter-gradient kernel, db the sum of g. Weights are
-HWIO as in the JAX package; :func:`hwio` turns a torch OIHW weight into
-that layout.
+:func:`conv3x3_dw_reference`. On the card each picks its kernel by dtype
+alone: bf16 runs the tensor-core kernels (TMA loads and wgmma, counted in
+``wrapper.tc_launches`` as well as ``wrapper.launches``), fp32 the SIMT
+kernels. :func:`conv3x3_op` is the differentiable entry point
+(``conv3x3`` with ``_c3_fwd`` / ``conv3x3_bwd_pallas``, :183-226): dx is
+the forward kernel applied to g with the weight rotated by 180 degrees, dw
+the filter-gradient kernel, db the sum of g. Weights are HWIO as in the
+JAX package; :func:`hwio` turns a torch OIHW weight into that layout.
 """
 from __future__ import annotations
 
@@ -21,14 +23,44 @@ import torch.nn.functional as F
 
 from . import build
 
-_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p)
-_DW_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
-CHANNEL_MULTIPLE = 16
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = (_P, _P, _P, _P) + (_I,) * 6 + (_P,)
+_DW_ARGTYPES = (_P, _P, _P) + (_I,) * 5 + (_P,)
+_TC_ARGTYPES = (_P, _P, _P, _P) + (_I,) * 8 + (_P,)
+_DW_TC_ARGTYPES = (_P, _P, _P) + (_I,) * 8 + (_P,)
+# the fp32 SIMT kernel stages K slices of 16 channels; the bf16 kernels'
+# TMA needs rows and strides in multiples of 16 bytes
+CHANNEL_MULTIPLE = {torch.float32: 16, torch.bfloat16: 8}
+# the tensor-core kernels read the image in spatial boxes of 64 pixels
+BOX_SHAPES = ((1, 64), (2, 32), (4, 16), (8, 8))
+# the bf16 filter gradient's block tile, input by output channels, and
+# its blocks in waves over the SMs
+DW_TILE = (128, 256)
+DW_WAVES = 3
+
+
+def box_shape(h: int, w: int):
+    """The (rows, columns) box of 64 pixels that pads an h x w map least
+    (ties to the wider box): 4 x 16 for FPN P2 (200 x 336), 8 x 8 for the
+    14 x 14 mask-head maps."""
+    return min(BOX_SHAPES, key=lambda s: -(-h // s[0]) * s[0]
+               * (-(-w // s[1]) * s[1]))
+
+
+def dw_chunk(boxes: int, tiles: int, sms: int) -> int:
+    """Pixel boxes per block of the bf16 filter gradient: split the
+    ``boxes`` so that ``tiles`` x splits blocks make about DW_WAVES waves
+    over ``sms`` SMs (one block an SM), with at least one box a block."""
+    splits = max(1, min(boxes, DW_WAVES * sms // tiles))
+    return -(-boxes // splits)
+
+
+def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """The bf16 kernels' TMA reads need 16-byte aligned bases."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f'{name}: bf16 tensors must start on a '
+                             f'16-byte boundary')
 
 
 def hwio(weight_oihw: torch.Tensor) -> torch.Tensor:
@@ -50,20 +82,24 @@ def conv3x3_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             relu: bool = False) -> torch.Tensor:
-    """x (B, H, W, C) and w (3, 3, C, Co) of one dtype, b (Co,) fp32."""
+    """x (B, H, W, C) and w (3, 3, C, Co) of one dtype, b (Co,) fp32. On
+    the card bf16 runs the tensor-core kernel (C and Co multiples of 8),
+    fp32 the SIMT kernel (C a multiple of 16)."""
     if x.device.type == 'cpu':
         return conv3x3_reference(x, w, b, relu)
     if x.device.type != 'cuda':
         raise ValueError(f'conv3x3: unsupported device {x.device}')
-    code = build.dtype_code(x, 'conv3x3')
+    build.dtype_code(x, 'conv3x3')
     bs, h, wd, c = x.shape
     co = w.shape[3]
     if tuple(w.shape) != (3, 3, c, co) or w.dtype != x.dtype:
         raise ValueError(f'conv3x3: weight {tuple(w.shape)} {w.dtype} does '
                          f'not match (3, 3, {c}, Co) {x.dtype}')
-    if c % CHANNEL_MULTIPLE:
-        raise ValueError(f'conv3x3: input channels {c} are not a multiple '
-                         f'of {CHANNEL_MULTIPLE}')
+    mult = CHANNEL_MULTIPLE[x.dtype]
+    tc = x.dtype == torch.bfloat16
+    if c % mult or (tc and co % mult):
+        raise ValueError(f'conv3x3: {x.dtype} takes channels in multiples '
+                         f'of {mult}, got {c} -> {co}')
     if b.dtype != torch.float32 or tuple(b.shape) != (co,):
         raise ValueError(f'conv3x3: bias must be fp32 ({co},)')
     for name, t in (('x', x), ('w', w), ('b', b)):
@@ -71,17 +107,25 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             raise ValueError(f'conv3x3: {name} must be contiguous on '
                              f'{x.device}')
     out = torch.empty((bs, h, wd, co), dtype=x.dtype, device=x.device)
-    fn = build.bind('conv3x3', 'swindet_conv3x3', _ARGTYPES)
+    args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), bs, h,
+            wd, c, co, int(relu))
     with torch.cuda.device(x.device):
-        status = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                    out.data_ptr(), bs, h, wd, c, co, int(relu), code,
-                    build.stream_ptr(x.device))
+        if tc:
+            _check_aligned('conv3x3', x, w)
+            fn = build.bind('conv3x3', 'swindet_conv3x3_tc', _TC_ARGTYPES)
+            status = fn(*args, *box_shape(h, wd),
+                        build.stream_ptr(x.device))
+        else:
+            fn = build.bind('conv3x3', 'swindet_conv3x3', _ARGTYPES)
+            status = fn(*args, build.stream_ptr(x.device))
     build.check_launch('conv3x3', status)
     conv3x3.launches += 1
+    conv3x3.tc_launches += tc
     return out
 
 
 conv3x3.launches = 0
+conv3x3.tc_launches = 0
 
 
 def conv3x3_dw_reference(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -99,32 +143,52 @@ def conv3x3_dw_reference(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 def conv3x3_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Filter gradient (3, 3, C, Co) fp32 of x (B, H, W, C) and g
-    (B, H, W, Co) of one dtype."""
+    (B, H, W, Co) of one dtype. On the card bf16 runs the tensor-core
+    kernel (C and Co multiples of 8), fp32 the SIMT kernel."""
     if x.device.type == 'cpu':
         return conv3x3_dw_reference(x, g)
     if x.device.type != 'cuda':
         raise ValueError(f'conv3x3_dw: unsupported device {x.device}')
-    code = build.dtype_code(x, 'conv3x3_dw')
+    build.dtype_code(x, 'conv3x3_dw')
     bs, h, wd, c = x.shape
     co = g.shape[-1]
     if g.dtype != x.dtype or tuple(g.shape) != (bs, h, wd, co):
         raise ValueError(f'conv3x3_dw: g {tuple(g.shape)} {g.dtype} does not '
                          f'match ({bs}, {h}, {wd}, Co) {x.dtype}')
+    tc = x.dtype == torch.bfloat16
+    mult = CHANNEL_MULTIPLE[x.dtype]
+    if tc and (c % mult or co % mult):
+        raise ValueError(f'conv3x3_dw: {x.dtype} takes channels in '
+                         f'multiples of {mult}, got {c} -> {co}')
     for name, t in (('x', x), ('g', g)):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f'conv3x3_dw: {name} must be contiguous on '
                              f'{x.device}')
     dw = torch.zeros((3, 3, c, co), dtype=torch.float32, device=x.device)
-    fn = build.bind('conv3x3', 'swindet_conv3x3_dw', _DW_ARGTYPES)
+    args = (x.data_ptr(), g.data_ptr(), dw.data_ptr(), bs, h, wd, c, co)
     with torch.cuda.device(x.device):
-        status = fn(x.data_ptr(), g.data_ptr(), dw.data_ptr(), bs, h, wd, c,
-                    co, code, build.stream_ptr(x.device))
+        if tc:
+            _check_aligned('conv3x3_dw', x, g)
+            bh, bw = box_shape(h, wd)
+            boxes = bs * -(-h // bh) * -(-wd // bw)
+            tiles = 9 * -(-c // DW_TILE[0]) * -(-co // DW_TILE[1])
+            sms = torch.cuda.get_device_properties(
+                x.device).multi_processor_count
+            fn = build.bind('conv3x3', 'swindet_conv3x3_dw_tc',
+                            _DW_TC_ARGTYPES)
+            status = fn(*args, bh, bw, dw_chunk(boxes, tiles, sms),
+                        build.stream_ptr(x.device))
+        else:
+            fn = build.bind('conv3x3', 'swindet_conv3x3_dw', _DW_ARGTYPES)
+            status = fn(*args, build.stream_ptr(x.device))
     build.check_launch('conv3x3_dw', status)
     conv3x3_dw.launches += 1
+    conv3x3_dw.tc_launches += tc
     return dw
 
 
 conv3x3_dw.launches = 0
+conv3x3_dw.tc_launches = 0
 
 
 class Conv3x3Function(torch.autograd.Function):

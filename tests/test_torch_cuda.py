@@ -13,6 +13,8 @@ sample coordinates, see chip_smoke.py), bf16 at 2e-2 (one rounding of
 the output on each side). The backward kernels sum across blocks by fp32
 atomics in a changing order and their entries cancel, so they are held
 to a fraction of each output's largest entry (chip_smoke.py TOL_SUM).
+The 3x3 conv and its filter gradient run their tensor-core kernels in bf16
+and their SIMT kernels in fp32, so every conv case runs in both.
 The NMS kernel must equal its plain version exactly. The v4 attention
 kernel keeps qkv and the attention output in fp32 where its plain version
 rounds them to bf16, so in bf16 it is held to the plain version computed
@@ -32,6 +34,7 @@ from swindet_tpu_torch.ops import (conv3x3, conv3x3_dw, conv3x3_dw_reference,
                                    nms_sorted, nms_sorted_reference,
                                    reset_launch_counts, roi_align,
                                    roi_align_bwd, roi_align_op,
+                                   tc_launch_counts,
                                    swin_attention_reference,
                                    swin_window_attention, window_attention,
                                    window_attention_bwd,
@@ -97,10 +100,17 @@ def test_window_attention(gen, dtype, n, c, nh, shift):
            window_attention_reference(qkv, bias, mask, nh), dtype)
 
 
+# ragged in every dimension; then the main path's widths (FPN P4, RPN P6,
+# the mask head); and a width (37) that is no multiple of the box width
+# the bf16 kernel picks for it (8 x 8 boxes)
+CONV_CASES = [(2, 5, 9, 16, 24), (3, 14, 14, 128, 128), (1, 1, 70, 32, 200),
+              (1, 50, 84, 256, 256), (1, 13, 21, 256, 256),
+              (4, 14, 14, 256, 256), (2, 7, 37, 64, 64)]
+
+
 @pytest.mark.parametrize('dtype', DTYPES)
 @pytest.mark.parametrize('relu', [False, True])
-@pytest.mark.parametrize('shape', [(2, 5, 9, 16, 24), (3, 14, 14, 128, 128),
-                                   (1, 1, 70, 32, 200)])
+@pytest.mark.parametrize('shape', CONV_CASES)
 def test_conv3x3(gen, dtype, relu, shape):
     b, h, w, c, co = shape
     x = _randn(gen, b, h, w, c, dtype=dtype)
@@ -128,6 +138,41 @@ def test_roi_align(gen, dtype, out_size, ratio):
                                 roi_valid=valid[:7])
     _close(got[:7], want, dtype, atol32=1e-3)
     assert got[6].abs().max() == 0 and got[7].abs().max() == 0
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_conv_picks_its_kernel_by_dtype(gen, dtype):
+    """bf16 runs the tensor-core kernels (tc_launches rises with
+    launches), fp32 the SIMT kernels (tc_launches stays)."""
+    x = _randn(gen, 2, 9, 11, 64, dtype=dtype)
+    w = _randn(gen, 3, 3, 64, 64, dtype=dtype, scale=0.1)
+    reset_launch_counts()
+    conv3x3_op(x.requires_grad_(), w.requires_grad_(),
+               _randn(gen, 64).requires_grad_(), True).sum().backward()
+    tc = int(dtype == torch.bfloat16)
+    # the forward, dx (the forward on g) and dw
+    assert (conv3x3.launches, conv3x3_dw.launches) == (2, 1)
+    assert tc_launch_counts() == {'conv3x3': 2 * tc, 'conv3x3_dw': tc}
+
+
+def test_bf16_conv_refuses_what_tma_does_not_take(gen):
+    """The tensor-core kernels read through TMA: channels in multiples of
+    8 and 16-byte aligned bases."""
+    for c, co in ((12, 16), (16, 12)):
+        x = _randn(gen, 1, 4, 4, c, dtype=torch.bfloat16)
+        with pytest.raises(ValueError):
+            conv3x3(x, _randn(gen, 3, 3, c, co, dtype=torch.bfloat16),
+                    _randn(gen, co))
+        with pytest.raises(ValueError):
+            conv3x3_dw(x, _randn(gen, 1, 4, 4, co, dtype=torch.bfloat16))
+    flat = _randn(gen, 4 * 4 * 16 + 1, dtype=torch.bfloat16)
+    x = flat[1:].view(1, 4, 4, 16)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    w = _randn(gen, 3, 3, 16, 16, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        conv3x3(x, w, _randn(gen, 16))
+    with pytest.raises(ValueError):
+        conv3x3_dw(x, _randn(gen, 1, 4, 4, 16, dtype=torch.bfloat16))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
@@ -191,8 +236,7 @@ def test_window_attention_fwd_p_and_bwd(gen, dtype, n, c, nh, shift):
 
 
 @pytest.mark.parametrize('dtype', DTYPES)
-@pytest.mark.parametrize('shape', [(2, 5, 9, 24, 40), (3, 14, 14, 128, 128),
-                                   (1, 1, 70, 32, 200)])
+@pytest.mark.parametrize('shape', [(2, 5, 9, 24, 40)] + CONV_CASES[1:])
 def test_conv3x3_dw(gen, dtype, shape):
     b, h, w, c, co = shape
     x = _randn(gen, b, h, w, c, dtype=dtype)

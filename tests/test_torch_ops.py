@@ -28,7 +28,8 @@ from swindet_tpu_torch.ops import (conv3x3, conv3x3_reference, layer_norm,
                                    multilevel_roi_align, roi_align,
                                    window_attention_reference,
                                    window_attention_v3)
-from swindet_tpu_torch.ops.conv3x3 import hwio
+from swindet_tpu_torch.ops.conv3x3 import (BOX_SHAPES, DW_WAVES, box_shape,
+                                           dw_chunk, hwio)
 from swindet_tpu_torch.ops.roi_align import adaptive_grid, map_roi_levels
 
 T = torch.from_numpy
@@ -109,6 +110,35 @@ def test_hwio_layout():
     got = hwio(w)
     assert got.shape == (3, 3, 4, 8) and got.is_contiguous()
     assert torch.equal(got[1, 2, 3, 5], w[5, 3, 1, 2])
+
+
+@pytest.mark.parametrize('hw,box', [((200, 336), (4, 16)),
+                                    ((100, 168), (8, 8)),
+                                    ((50, 84), (2, 32)), ((25, 42), (4, 16)),
+                                    ((13, 21), (8, 8)), ((14, 14), (4, 16)),
+                                    ((1, 70), (1, 64))])
+def test_bf16_conv_box_shape(hw, box):
+    """The tensor-core conv's 64-pixel box for each map of the main path
+    (and a one-row map): the one that pads the map least."""
+    h, w = hw
+    got = box_shape(h, w)
+    assert got == box and got[0] * got[1] == 64
+    pad = lambda s: -(-h // s[0]) * s[0] * (-(-w // s[1]) * s[1])  # noqa
+    assert all(pad(got) <= pad(s) for s in BOX_SHAPES)
+
+
+@pytest.mark.parametrize('boxes,tiles', [(2100, 18), (1024, 18), (6, 18),
+                                         (1, 9), (5000, 36)])
+def test_bf16_dw_chunks_fill_the_card(boxes, tiles):
+    """The filter gradient's split K: every block gets at least one box,
+    the chunks cover every box once, and the blocks make at most DW_WAVES
+    waves over 132 SMs (exactly 3 at 256 -> 256, 18 tiles)."""
+    chunk = dw_chunk(boxes, tiles, 132)
+    splits = -(-boxes // chunk)
+    assert 1 <= chunk <= boxes and (splits - 1) * chunk < boxes
+    assert tiles * splits <= max(tiles, DW_WAVES * 132)
+    if boxes >= 22 and tiles == 18:
+        assert tiles * splits == 3 * 132
 
 
 # ------------------------------------------------------------- roi align
