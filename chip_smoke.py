@@ -9,9 +9,10 @@ before the last line:
 1. device  -- requires CUDA; prints the card's name and power limit as
               nvidia-smi reports them, torch's CUDA and the nvcc version.
 2. build   -- builds every kernel from swindet_tpu_torch/csrc with nvcc;
-              the conv library's SASS must hold tensor-core (HGMMA) and
-              TMA (UTMALDG) instructions, and the bf16 conv kernels'
-              registers, shared and local memory are printed.
+              the conv and fused-MLP libraries' SASS must hold
+              tensor-core (HGMMA) and TMA (UTMALDG) instructions, and
+              their bf16 kernels' registers, shared and local memory are
+              printed.
 3. kernels -- holds each of the fifteen kernels against its plain
               PyTorch version on the card at the shapes of the main paths,
               in bf16 and fp32 (NMS: fp32 boxes, exact equality), times
@@ -26,17 +27,25 @@ before the last line:
               The 3x3 conv and its filter gradient run in bf16 (their
               tensor-core kernels) at every conv shape of the main path
               and in fp32 (their SIMT kernels) at two: FPN P2 and the
-              mask head.
+              mask head. The fused MLP runs in bf16 (its tensor-core
+              kernels) at the forward's serving rows of stages 1-3 and
+              training rows of stage 1 and the backward's training rows
+              of stages 1-3, and in fp32 (SIMT) at stages 1 and 3; its
+              bf16 weight gradients are held to a limit derived from the
+              plain version's summation-order spread, which a control
+              with a 64-row tile of g zeroed must exceed.
 4. main    -- serving: Mask R-CNN Swin-T (full width, seeded weights,
               bf16, RPN nms_pre = max_per_img = 1000) through
               init_detector and inference_detector on 3 synthetic
               800x1333 images after one warm-up; every inference kernel's
               launch count must rise (NMS twice a request: RPN and
               multiclass) and no training kernel may launch; every conv
-              launch must be a tensor-core one (``tc_launches``).
+              (and fused-MLP) launch must be a tensor-core one
+              (``tc_launches``).
 5. check   -- the same detector at fp32 on a small canvas, on the card
               (kernels) and on the CPU (plain versions), must agree; its
-              convs run the SIMT kernels, no tensor-core one.
+              convs (and fused MLPs) run the SIMT kernels, no
+              tensor-core one.
 6. train   -- training: the same detector in bf16 with the config's
               train_cfg, drop_path_rate 0.1, AdamW with the Swin
               paramwise_cfg and the schedule_1x warm-up, through
@@ -62,7 +71,8 @@ before the last line:
               stages 1-3 (10 blocks) run the fused kernels, stage 4 stays
               unfused. Serving launches the fused forward 10 times a
               request; training the forward and the backward 10 times a
-              step. The card-vs-CPU checks hold the same limits.
+              step, every bf16 launch a tensor-core one, every fp32 one
+              SIMT. The card-vs-CPU checks hold the same limits.
 9. wattn-v4 -- phases 4 to 7 again in the v4 window-attention
               configuration, the JAX package's switch SWINDET_WATTN_V4=1:
               every Swin block's qkv projection, attention and output
@@ -73,9 +83,9 @@ before the last line:
 
 Then one JSON line of per-kernel results (``launches``: the serving
 and the training runs' counts of the three configurations, each from its
-own reset, summed; each also apart; for the two conv rows also
-``tc_launches``, counted the same way, and ``shapes``, the bf16 readings
-at every main-path shape), the card's name and power limit, and,
+own reset, summed; each also apart; for the conv and fused-MLP rows
+also ``tc_launches``, counted the same way, and ``shapes``, the bf16
+readings at every main-path shape), the card's name and power limit, and,
 last, one JSON line with the device. It imports neither jax nor the JAX
 package.
 """
@@ -102,7 +112,8 @@ from swindet_tpu_torch.ops import (FUSED_MLP_KERNELS, INFERENCE_KERNELS,
                                    WATTN_V4_KERNELS, build,
                                    conv3x3, conv3x3_dw, conv3x3_dw_reference,
                                    conv3x3_reference, fused_mlp,
-                                   fused_mlp_bwd, fused_mlp_bwd_reference,
+                                   fused_mlp_bwd, fused_mlp_bwd_limits,
+                                   fused_mlp_bwd_reference,
                                    fused_mlp_reference, launch_counts,
                                    layer_norm, layer_norm_reference,
                                    multilevel_roi_align,
@@ -203,8 +214,15 @@ TOL_SUM_ROI_FP32 = 1e-3
 # the hidden activation may land one bf16 unit apart. Its backward sums
 # over rows (the weight gradients by fp32 atomics, in a changing order)
 # from terms rounded to bf16 in a bf16 run, so it is held per output to
-# TOL_SUM of the largest entry. NMS must equal its plain version exactly
-# (count, indices and detections): its IoU rounds as the plain version's.
+# TOL_SUM of the largest entry, but for the fp32 weight gradients of a
+# bf16 run (dw1, db1, dw2): a and dh are rounded to bf16 from fp32 sums
+# whose order decides the rounding, which moves them by more than TOL_SUM
+# allows, so each is held to the largest of TOL_SUM[fp32] of its largest
+# entry, ORDER_SPREAD_FACTOR (4) times the plain version's own spread
+# under another summation order and the change one rounding flip can
+# make, on the inputs of the check (_mlp_bwd_limits, with a control that
+# must exceed it). NMS must equal its plain version exactly (count,
+# indices and detections): its IoU rounds as the plain version's.
 # The v4 attention forward keeps qkv, P and the attention output in fp32
 # and rounds once, at the output, where its plain version (the JAX
 # package's non-TPU path) rounds qkv and the attention output too: it is
@@ -277,26 +295,29 @@ def phase_build() -> None:
     log('build', f'{len(paths)} kernel libraries in '
                  f'{time.perf_counter() - t0:.1f} s: '
                  + ', '.join(p.name for p in paths.values()))
-    # the bf16 conv kernels must be tensor-core (HGMMA) kernels fed by TMA
-    # (UTMALDG); their registers, shared memory and local memory (spills)
+    # the bf16 conv and fused-MLP kernels must be tensor-core (HGMMA)
+    # kernels fed by TMA (UTMALDG); their registers, shared memory and
+    # local memory (spills)
     tool = os.path.join(os.path.dirname(build.nvcc_path()), 'cuobjdump')
-    lib = str(paths['conv3x3'])
-    sass = subprocess.run([tool, '-sass', lib], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
-    ops = {op: sum(op in line for line in sass.splitlines())
-           for op in ('HGMMA', 'UTMALDG')}
-    log('build', f'conv3x3 SASS: {ops["HGMMA"]} HGMMA, {ops["UTMALDG"]} '
-                 f'UTMALDG instructions')
-    if not all(ops.values()):
-        raise AssertionError(f'conv3x3: no tensor-core or TMA instructions '
-                             f'in {lib}: {ops}')
-    usage = subprocess.run([tool, '-res-usage', lib], capture_output=True,
-                           text=True, timeout=300,
-                           check=True).stdout.splitlines()
-    for name, res in zip(usage, usage[1:]):
-        kernel = re.search(r'conv3x3\w*_tc_kernel', name)
-        if 'Function' in name and kernel:
-            log('build', f'  {kernel.group(0)}: {res.strip()}')
+    for name, pattern in (('conv3x3', r'conv3x3\w*_tc_kernel'),
+                          ('fused_mlp', r'mlp\w*_tc_kernel')):
+        lib = str(paths[name])
+        sass = subprocess.run([tool, '-sass', lib], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+        ops = {op: sum(op in line for line in sass.splitlines())
+               for op in ('HGMMA', 'UTMALDG')}
+        log('build', f'{name} SASS: {ops["HGMMA"]} HGMMA, '
+                     f'{ops["UTMALDG"]} UTMALDG instructions')
+        if not all(ops.values()):
+            raise AssertionError(f'{name}: no tensor-core or TMA '
+                                 f'instructions in {lib}: {ops}')
+        usage = subprocess.run([tool, '-res-usage', lib],
+                               capture_output=True, text=True, timeout=300,
+                               check=True).stdout.splitlines()
+        for fn, res in zip(usage, usage[1:]):
+            kernel = re.search(pattern, fn)
+            if 'Function' in fn and kernel:
+                log('build', f'  {kernel.group(0)}: {res.strip()}')
 
 
 # ------------------------------------------------------------- phase 3
@@ -318,16 +339,19 @@ def bound(nbytes, flops, peak=PEAK_FLOPS):
 
 
 def _compare(name, dtype, kernel_fn, plain_fn, shape_note, work=None,
-             library_fn=None, summed=False, exact=False):
+             library_fn=None, summed=False, exact=False, limits=None):
     """Hold kernel_fn() against plain_fn() (each a tensor or a tuple of
     them), time both and, if given, library_fn; ``work`` (bytes, flops[,
     peak]) gives the bound. ``summed`` picks the scale-relative TOL_SUM
-    check of the backward kernels, ``exact`` equality."""
+    check of the backward kernels, ``exact`` equality; ``limits``, one
+    entry per output, replaces an output's summed limit by its entry where
+    that is not None."""
     got = _tensors(kernel_fn())
     want = _tensors(plain_fn())
     torch.cuda.synchronize()
     max_err = 0.0
-    for g, w in zip(got, want, strict=True):
+    limits = limits or [None] * len(want)
+    for g, w, lim in zip(got, want, limits, strict=True):
         if g.shape != w.shape or g.dtype != w.dtype:
             raise AssertionError(f'{name} {dtype}: kernel gives {g.shape} '
                                  f'{g.dtype}, plain {w.shape} {w.dtype}')
@@ -338,6 +362,9 @@ def _compare(name, dtype, kernel_fn, plain_fn, shape_note, work=None,
         if exact:
             excess = 0.0 if torch.equal(g, w) else 1.0
             rule = 'equality'
+        elif lim is not None:
+            excess = err.max().item() - lim
+            rule = f'the derived limit {lim:.3g}'
         elif summed:
             tol = TOL_SUM_ROI_FP32 if (
                 name, odt) == ('roi_align_bwd', torch.float32) \
@@ -469,6 +496,30 @@ def _unfused_mlp_bwd(x, w1, b1, w2, b2, g):
                                                            b2)]
     out = _unfused_mlp(*leaves)
     return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+
+def _mlp_bwd_limits(bwd, want):
+    """The limits of a bf16 run's fp32 weight gradients (dw1, db1, dw2)
+    of the fused backward on the inputs ``bwd``, given the plain version's
+    outputs ``want``: each the larger of TOL_SUM[fp32] of its largest entry
+    and ORDER_SPREAD_FACTOR times its summation-order spread on these
+    inputs (ops/fused_mlp.py). The plain version with the first 64-row
+    tile of g zeroed, a kernel that dropped a tile, must exceed every one
+    of them, or the limits could not tell."""
+    limits = fused_mlp_bwd_limits(*bwd, want, floor=TOL_SUM[torch.float32])
+    g = bwd[-1].clone()
+    g[:64] = 0
+    control = fused_mlp_bwd_reference(*bwd[:-1], g)
+    errs = [(a - w).abs().max().item()
+            for a, w in zip(control[1:4], want[1:4])]
+    log('kernels', '  weight-gradient limits (dw1, db1, dw2): '
+                   + ', '.join(f'{lim:.3g}' for lim in limits)
+                   + '; control with a 64-row tile of g zeroed: '
+                   + ', '.join(f'{e:.3g}' for e in errs))
+    if any(e <= lim for e, lim in zip(errs, limits)):
+        raise AssertionError('fused_mlp_bwd: the zeroed-tile control '
+                             'passes the derived limits')
+    return limits
 
 
 def _sdpa_inputs(qkv, bias, mask, nh):
@@ -642,11 +693,7 @@ def phase_kernels():
 
         # 3x3 conv: the FPN output convs at P2 (the row's main shape) and,
         # in bf16 (the tensor-core kernel), P3-P5; in bf16 the RPN conv
-        # (ReLU) at P6; the mask-head conv (ReLU) on 100 rois. The P2 and
-        # mask-head inputs draw from gen in the order they always have; the
-        # other shapes from a generator of their own, so that they change
-        # no other row's inputs
-        cgen = torch.Generator().manual_seed(1)
+        # (ReLU) at P6; the mask-head conv (ReLU) on 100 rois
         x = randn(1, 200, 336, 256).to(dtype)
         cw = randn(3, 3, 256, 256, scale=0.02).to(dtype)
         cb = randn(256)
@@ -654,9 +701,8 @@ def phase_kernels():
         if dtype == torch.bfloat16:
             for (h, w), relu in [(hw, False) for hw in FPN_SHAPES[1:]] \
                     + [((13, 21), True)]:
-                xs = torch.randn(1, h, w, 256, generator=cgen)
-                rows.append(_conv_compare(dtype, xs.to(dev, dtype), cw, cb,
-                                          relu))
+                rows.append(_conv_compare(dtype, randn(1, h, w, 256).to(
+                    dtype), cw, cb, relu))
         xm = randn(100, 14, 14, 256).to(dtype)
         rows.append(_conv_compare(dtype, xm, cw, cb, True))
         results.setdefault('conv3x3', {})[dtype] = dict(rows[0], shapes=rows)
@@ -716,37 +762,53 @@ def phase_kernels():
         results.setdefault('roi_align_bwd', {})[dtype] = r
         del g
 
-        # fused MLP: stages 1 and 3 of one image, and of a batch of 2 for
-        # the backward
-        for rows, c, main in ((67200, 96, True), (4200, 384, False)):
-            x, w1, b1, w2, b2, _ = _mlp_inputs(randn, rows, c, dtype)
+        # fused MLP: in bf16 (the tensor-core kernels) the forward at the
+        # serving rows of stages 1-3 and the training rows of stage 1, the
+        # backward at the training rows of stages 1-3; in fp32 (the SIMT
+        # kernels) stages 1 and 3
+        fwd = ((67200, 96), (16800, 192), (4200, 384), (134400, 96)) \
+            if dtype == torch.bfloat16 else ((67200, 96), (4200, 384))
+        rows = []
+        for n, c in fwd:
+            x, w1, b1, w2, b2, _ = _mlp_inputs(randn, n, c, dtype)
             mlp = (x, w1, b1, w2, b2)
             r = _compare('fused_mlp', dtype, lambda: fused_mlp(*mlp),
                          lambda: fused_mlp_reference(*mlp),
-                         f'({rows}, {c}) H {4 * c}',
+                         f'({n}, {c}) H {4 * c}',
                          work=(_nbytes(*mlp) + _nbytes(x),
-                               4.0 * rows * c * 4 * c))
+                               4.0 * n * c * 4 * c))
             r['unfused_ms'] = cuda_ms(lambda: _unfused_mlp(*mlp), iters=20)
             log('kernels', f'  unfused F.linear -> F.gelu -> F.linear '
                            f'{r["unfused_ms"]:.4f} ms')
-            if main:
-                results.setdefault('fused_mlp', {})[dtype] = r
-        for rows, c, main in ((134400, 96, True), (8400, 384, False)):
-            x, w1, b1, w2, b2, g = _mlp_inputs(randn, rows, c, dtype)
+            rows.append(r)
+        results.setdefault('fused_mlp', {})[dtype] = dict(rows[0],
+                                                          shapes=rows)
+        rows = []
+        for n, c in ((134400, 96), (33600, 192), (8400, 384)) \
+                if dtype == torch.bfloat16 else ((134400, 96), (8400, 384)):
+            x, w1, b1, w2, b2, g = _mlp_inputs(randn, n, c, dtype)
             bwd = (x, w1, b1, w2, g)
+            want = fused_mlp_bwd_reference(*bwd)
+            limits = None
+            if dtype == torch.bfloat16:
+                limits = [None, *_mlp_bwd_limits(bwd, want), None]
             r = _compare('fused_mlp_bwd', dtype, lambda: fused_mlp_bwd(*bwd),
                          lambda: fused_mlp_bwd_reference(*bwd),
-                         f'({rows}, {c}) H {4 * c}', summed=True,
+                         f'({n}, {c}) H {4 * c}', summed=True,
+                         limits=limits,
                          work=(_nbytes(*bwd) + _nbytes(x)
                                + 4 * (2 * 4 * c * c + 5 * c),
-                               10.0 * rows * c * 4 * c))
+                               10.0 * n * c * 4 * c))
+            del want
             r['unfused_ms'] = cuda_ms(_unfused_mlp_bwd(x, w1, b1, w2, b2, g),
                                       iters=20)
             log('kernels', f'  unfused backward (autograd of the chain) '
                            f'{r["unfused_ms"]:.4f} ms')
-            if main:
-                results.setdefault('fused_mlp_bwd', {})[dtype] = r
+            rows.append(r)
+        results.setdefault('fused_mlp_bwd', {})[dtype] = dict(rows[0],
+                                                              shapes=rows)
         del x, g, mlp, bwd
+        torch.cuda.empty_cache()
 
         # v4 attention (qkv projection, attention, output projection in one
         # kernel), bound by the fp32 CUDA-core rate: its weights and every
@@ -927,10 +989,18 @@ NOT_SERVING = TRAINING_KERNELS + (fused_mlp_bwd, window_attention_v4_bwd) \
     + OP_ONLY_KERNELS
 
 
-def _check_tc(what, launches, bf16, wanted=TENSOR_CORE_KERNELS):
-    """The conv wrappers pick their kernel by dtype: in a bf16 run every
-    launch is a tensor-core one, and each of ``wanted`` launched; in an fp32
-    run none is. Returns the tensor-core counts."""
+def _tc_kernels(fused, training=True):
+    """The wrappers with a tensor-core kernel that a run launches: the
+    conv forward, in training its filter gradient, and in the fused-MLP
+    configuration the fused forward and, in training, its backward."""
+    return ((conv3x3, conv3x3_dw) if training else (conv3x3,)) + (
+        (FUSED_MLP_KERNELS if training else (fused_mlp,)) if fused else ())
+
+
+def _check_tc(what, launches, bf16, wanted):
+    """The conv and fused-MLP wrappers pick their kernel by dtype: in a
+    bf16 run every launch is a tensor-core one, and each of ``wanted``
+    launched; in an fp32 run none is. Returns the tensor-core counts."""
     tc = tc_launch_counts()
     want = {fn.__name__: launches[fn.__name__] if bf16 else 0
             for fn in TENSOR_CORE_KERNELS}
@@ -972,7 +1042,7 @@ def phase_main(phase='main', fused=False, v4=False):
                + ', '.join(f'{t:.4f}' for t in lat)
                + f'; detections per image: {counts}')
     log(phase, f'kernel launches over the 3 requests: {launches}')
-    tc = _check_tc(phase, launches, True, (conv3x3,))
+    tc = _check_tc(phase, launches, True, _tc_kernels(fused, False))
     log(phase, f'of which tensor-core kernels: {tc}')
     idle = [fn.__name__ for fn in _serving_kernels(v4)
             if launches[fn.__name__] == 0]
@@ -1035,7 +1105,7 @@ def phase_check(device: str = 'cuda', phase: str = 'check',
         raise AssertionError(f'launches against the configuration: '
                              f'{launch_counts()}')
     if device == 'cuda':
-        _check_tc(phase, launch_counts(), False, (conv3x3,))
+        _check_tc(phase, launch_counts(), False, _tc_kernels(fused, False))
     feat_err = max((a - b).abs().max().item() / max(a.abs().max().item(), 1)
                    for a, b in zip(f_cpu, f_gpu))
     if feat_err > 1e-3:
@@ -1124,7 +1194,9 @@ def _profile_steps(step, batch, gen, step_ms, phase, n=2):
                              f'the {step_ms:.1f} ms step')
     ours = [r for r in rows if 'swindet' in r[0]]
     log(phase, f'  hand-written kernels: '
-                 f'{sum(r[1] for r in ours):.1f} ms per step')
+                 f'{sum(r[1] for r in ours):.1f} ms per step, of which the '
+                 f'fused MLP\'s '
+                 f'{sum(r[1] for r in ours if "mlp" in r[0]):.2f} ms')
     for key, ms, count in ours + [r for r in rows if r not in ours][:12]:
         log(phase, f'  {ms:9.3f} ms/step  {count:5d} launches/step  '
                      f'{key[:110]}')
@@ -1192,7 +1264,7 @@ def phase_train(phase='train', fused=False, v4=False):
     log(phase, 'last step: ' + ', '.join(f'{k} {v:.4f}'
                                          for k, v in out.items()))
     log(phase, f'kernel launches over the 5 timed steps: {steps}')
-    tc = _check_tc(phase, steps, True)
+    tc = _check_tc(phase, steps, True, _tc_kernels(fused))
     log(phase, f'of which tensor-core kernels: {tc}')
     # with a gradient wanted the attention forward is the softmax-saving
     # kernel, never the inference one, or in the v4 configuration the v4
@@ -1249,7 +1321,7 @@ def phase_train(phase='train', fused=False, v4=False):
     if wrong:
         raise AssertionError(f'validation pass: kernels idle or launched '
                              f'against their mode: {wrong}')
-    _check_tc('validation pass', val, True, (conv3x3,))
+    _check_tc('validation pass', val, True, _tc_kernels(fused, False))
     busy = _profile_steps(step, batch, gen, float(np.median(times)), phase)
     return steps, times, peak, busy, tc
 
@@ -1442,7 +1514,7 @@ def phase_train_check(device: str = 'cuda', fused: bool = False,
         raise AssertionError(f'launches against the configuration: '
                              f'{launch_counts()}')
     if device == 'cuda':
-        _check_tc('train-check', launch_counts(), False)
+        _check_tc('train-check', launch_counts(), False, _tc_kernels(fused))
     _log_errors(f'{h}x{w} fp32 card vs CPU', *sound)
     control = _train_errors(ref, _train_grads(ctl, batch, keys, device))
     _log_errors(f'{h}x{w} control, bf16 card vs fp32 CPU', *control)

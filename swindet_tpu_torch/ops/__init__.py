@@ -5,7 +5,8 @@ counts its kernel's launches. The ``*_op`` functions are the
 differentiable entry points the models call."""
 from .conv3x3 import (conv3x3, conv3x3_dw, conv3x3_dw_reference, conv3x3_op,
                       conv3x3_reference)
-from .fused_mlp import (fused_mlp, fused_mlp_bwd, fused_mlp_bwd_reference,
+from .fused_mlp import (fused_mlp, fused_mlp_bwd, fused_mlp_bwd_limits,
+                        fused_mlp_bwd_reference, fused_mlp_bwd_reference_f64,
                         fused_mlp_op, fused_mlp_reference)
 from .layer_norm import layer_norm, layer_norm_op, layer_norm_reference
 from .nms import nms_sorted, nms_sorted_reference
@@ -48,7 +49,7 @@ KERNEL_WRAPPERS = (INFERENCE_KERNELS + TRAINING_KERNELS + FUSED_MLP_KERNELS
 
 # wrappers with two kernels, picked by dtype: ``tc_launches`` counts the
 # bf16 tensor-core kernel's share of ``launches``
-TENSOR_CORE_KERNELS = (conv3x3, conv3x3_dw)
+TENSOR_CORE_KERNELS = (conv3x3, conv3x3_dw, fused_mlp, fused_mlp_bwd)
 
 
 def reset_launch_counts() -> None:

@@ -13,8 +13,11 @@ sample coordinates, see chip_smoke.py), bf16 at 2e-2 (one rounding of
 the output on each side). The backward kernels sum across blocks by fp32
 atomics in a changing order and their entries cancel, so they are held
 to a fraction of each output's largest entry (chip_smoke.py TOL_SUM).
-The 3x3 conv and its filter gradient run their tensor-core kernels in bf16
-and their SIMT kernels in fp32, so every conv case runs in both.
+The 3x3 conv, its filter gradient and the fused MLP run their
+tensor-core kernels in bf16 and their SIMT kernels in fp32, so every case
+runs in both. The fused MLP backward's fp32 weight gradients of a bf16 run
+are held to a limit derived from the plain version's own summation-order
+spread on the same inputs (ops/fused_mlp.py fused_mlp_bwd_limits).
 The NMS kernel must equal its plain version exactly. The v4 attention
 kernel keeps qkv and the attention output in fp32 where its plain version
 rounds them to bf16, so in bf16 it is held to the plain version computed
@@ -25,7 +28,8 @@ import torch
 
 from swindet_tpu_torch.ops import (conv3x3, conv3x3_dw, conv3x3_dw_reference,
                                    conv3x3_op, conv3x3_reference, fused_mlp,
-                                   fused_mlp_bwd, fused_mlp_bwd_reference,
+                                   fused_mlp_bwd, fused_mlp_bwd_limits,
+                                   fused_mlp_bwd_reference,
                                    fused_mlp_op, fused_mlp_reference,
                                    launch_counts, layer_norm, layer_norm_op,
                                    layer_norm_reference,
@@ -152,7 +156,8 @@ def test_conv_picks_its_kernel_by_dtype(gen, dtype):
     tc = int(dtype == torch.bfloat16)
     # the forward, dx (the forward on g) and dw
     assert (conv3x3.launches, conv3x3_dw.launches) == (2, 1)
-    assert tc_launch_counts() == {'conv3x3': 2 * tc, 'conv3x3_dw': tc}
+    counts = tc_launch_counts()
+    assert (counts['conv3x3'], counts['conv3x3_dw']) == (2 * tc, tc)
 
 
 def test_bf16_conv_refuses_what_tma_does_not_take(gen):
@@ -360,23 +365,85 @@ def test_nms_sorted(gen, b, n, thr, max_out, offset):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize('dtype', DTYPES)
-@pytest.mark.parametrize('r,c,h', [(100, 96, 384), (37, 48, 200),
-                                   (130, 384, 1536), (64, 192, 768)])
-def test_fused_mlp_fwd_and_bwd(gen, dtype, r, c, h):
+def _mlp_case(gen, dtype, r, c, h):
     x = _randn(gen, r, c, dtype=dtype)
     w1 = _randn(gen, h, c, dtype=dtype, scale=c ** -0.5)
     w2 = _randn(gen, c, h, dtype=dtype, scale=h ** -0.5)
     b1, b2 = _randn(gen, h, scale=0.1), _randn(gen, c, scale=0.1)
+    return x, w1, b1, w2, b2, _randn(gen, r, c, dtype=dtype)
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('r,c,h', [(100, 96, 384), (37, 48, 200),
+                                   (130, 384, 1536), (64, 192, 768),
+                                   (1037, 96, 384), (333, 192, 768),
+                                   (2111, 384, 1536)])
+def test_fused_mlp_fwd_and_bwd(gen, dtype, r, c, h):
+    """bf16 runs the tensor-core kernels, fp32 the SIMT ones; the last
+    three cases are stages 1-3 of Swin-T at row counts that are not
+    multiples of the 64-row tile. dx and db2 are held to TOL_SUM of their
+    largest entry; the fp32 weight gradients of a bf16 run to the limit
+    derived from the plain version's summation-order spread on these
+    inputs (fused_mlp_bwd_limits), which the plain version with one
+    64-row tile of g zeroed must exceed."""
+    x, w1, b1, w2, b2, g = _mlp_case(gen, dtype, r, c, h)
     _close(fused_mlp(x, w1, b1, w2, b2),
            fused_mlp_reference(x, w1, b1, w2, b2), dtype)
-    g = _randn(gen, r, c, dtype=dtype)
     got = fused_mlp_bwd(x, w1, b1, w2, g)
     want = fused_mlp_bwd_reference(x, w1, b1, w2, g)
-    # dx and the fp32 weight gradients: sums of products of rounded
-    # terms, over rows by atomics for the weights
-    for a, w in zip(got, want):
-        _close_summed(a, w, dtype)
+    _close_summed(got[0], want[0], dtype)
+    _close_summed(got[4], want[4], torch.float32)
+    if dtype == torch.float32:
+        for a, w in zip(got[1:4], want[1:4]):
+            _close_summed(a, w, dtype)
+        return
+    limits = fused_mlp_bwd_limits(x, w1, b1, w2, g, want)
+    for a, w, lim in zip(got[1:4], want[1:4], limits):
+        assert torch.isfinite(a).all()
+        assert (a - w).abs().max().item() <= lim
+    if r > 64:
+        dropped = g.clone()
+        dropped[:64] = 0
+        control = fused_mlp_bwd_reference(x, w1, b1, w2, dropped)
+        assert all((a - w).abs().max().item() > lim
+                   for a, w, lim in zip(control[1:4], want[1:4], limits))
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_fused_mlp_picks_its_kernel_by_dtype(gen, dtype):
+    """bf16 runs the tensor-core kernels (tc_launches rises with
+    launches), fp32 the SIMT kernels (tc_launches stays)."""
+    x, w1, b1, w2, b2, _ = _mlp_case(gen, dtype, 70, 96, 384)
+    reset_launch_counts()
+    fused_mlp_op(x.requires_grad_(), w1.requires_grad_(),
+                 b1.requires_grad_(), w2.requires_grad_(),
+                 b2.requires_grad_()).float().sum().backward()
+    tc = int(dtype == torch.bfloat16)
+    assert (fused_mlp.launches, fused_mlp_bwd.launches) == (1, 1)
+    counts = tc_launch_counts()
+    assert (counts['fused_mlp'], counts['fused_mlp_bwd']) == (tc, tc)
+
+
+def test_bf16_fused_mlp_refuses_what_tma_does_not_take(gen):
+    """The tensor-core kernels read through TMA: C, H and Co in multiples
+    of 8 and 16-byte aligned bases; nothing falls back to another
+    kernel."""
+    for c, h in ((36, 192), (48, 196)):
+        x, w1, b1, w2, b2, g = _mlp_case(gen, torch.bfloat16, 70, c, h)
+        with pytest.raises(ValueError):
+            fused_mlp(x, w1, b1, w2, b2)
+        with pytest.raises(ValueError):
+            fused_mlp_bwd(x, w1, b1, w2, g)
+    x, w1, b1, w2, b2, g = _mlp_case(gen, torch.bfloat16, 70, 48, 192)
+    flat = _randn(gen, 70 * 48 + 1, dtype=torch.bfloat16)
+    xo = flat[1:].view(70, 48)
+    assert xo.is_contiguous() and xo.data_ptr() % 16
+    reset_launch_counts()
+    with pytest.raises(ValueError):
+        fused_mlp(xo, w1, b1, w2, b2)
+    with pytest.raises(ValueError):
+        fused_mlp_bwd(xo, w1, b1, w2, g)
+    assert (fused_mlp.launches, fused_mlp_bwd.launches) == (0, 0)
 
 
 def _v4_params(gen, b_, n, c, dtype):

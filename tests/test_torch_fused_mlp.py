@@ -27,7 +27,9 @@ from swindet_tpu_torch.checkpoint import state_dict_from_jax
 from swindet_tpu_torch.models.builder import build_backbone
 from swindet_tpu_torch.models.layers import Mlp
 from swindet_tpu_torch.ops import (fused_mlp, fused_mlp_bwd,
-                                   fused_mlp_bwd_reference, fused_mlp_op,
+                                   fused_mlp_bwd_limits,
+                                   fused_mlp_bwd_reference,
+                                   fused_mlp_bwd_reference_f64, fused_mlp_op,
                                    fused_mlp_reference)
 
 TINY_SWIN = dict(type='SwinTransformer', embed_dim=32, depths=[2, 2, 2, 1],
@@ -119,6 +121,34 @@ def test_backward_wrapper_is_the_plain_version_on_cpu():
                                              (32, 64), (32,)]
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _over_limits(got, want, limits):
+    """Which of dw1, db1, dw2 exceed their limits."""
+    return [name for name, a, b, lim in zip(('dw1', 'db1', 'dw2'), got,
+                                            want[1:4], limits)
+            if (a - b).abs().max().item() > lim]
+
+
+@pytest.mark.parametrize('r,c,h,seed', [(256, 32, 128, 7), (200, 48, 192, 8)])
+def test_bwd_limit_from_the_order_spread(r, c, h, seed):
+    """The bf16 weight-gradient limit of the backward kernels' checks,
+    derived from the plain version's own summation-order spread on the
+    check's inputs: the plain version's float64-summed variant passes it,
+    and the plain version with one 64-row tile of g zeroed (a kernel that
+    dropped a tile) fails it in every one of dw1, db1 and dw2."""
+    x, w1, b1, w2, _ = _port(*_inputs(r, c, h, seed), torch.bfloat16)
+    g = torch.from_numpy(np.random.RandomState(seed).randn(r, c)
+                         .astype(np.float32)).bfloat16()
+    want = fused_mlp_bwd_reference(x, w1, b1, w2, g)
+    limits = fused_mlp_bwd_limits(x, w1, b1, w2, g, want)
+    assert all(lim > 0 for lim in limits)
+    assert not _over_limits(fused_mlp_bwd_reference_f64(x, w1, b1, w2, g),
+                            want, limits)
+    dropped = g.clone()
+    dropped[64:128] = 0
+    control = fused_mlp_bwd_reference(x, w1, b1, w2, dropped)
+    assert _over_limits(control[1:4], want, limits) == ['dw1', 'db1', 'dw2']
 
 
 def _jax_mlp_params(c, h, seed):
