@@ -39,13 +39,13 @@ before the last line:
               init_detector and inference_detector on 3 synthetic
               800x1333 images after one warm-up; every inference kernel's
               launch count must rise (NMS twice a request: RPN and
-              multiclass) and no training kernel may launch; every conv
-              (and fused-MLP) launch must be a tensor-core one
-              (``tc_launches``).
+              multiclass) and no training kernel may launch; every conv,
+              v3 attention (and fused-MLP) launch must be a tensor-core
+              one (``tc_launches``).
 5. check   -- the same detector at fp32 on a small canvas, on the card
               (kernels) and on the CPU (plain versions), must agree; its
-              convs (and fused MLPs) run the SIMT kernels, no
-              tensor-core one.
+              convs, attentions (and fused MLPs) run the SIMT kernels,
+              no tensor-core one.
 6. train   -- training: the same detector in bf16 with the config's
               train_cfg, drop_path_rate 0.1, AdamW with the Swin
               paramwise_cfg and the schedule_1x warm-up, through
@@ -58,14 +58,15 @@ before the last line:
               profiled steps. Over the timed steps every kernel of the
               configuration but the inference attention kernel must
               launch (NMS once a step), and that one must not, and every
-              conv and filter-gradient launch must be a tensor-core one;
+              conv, filter-gradient and attention-backward launch must be
+              a tensor-core one;
               the validation pass, counted on its own, must launch the
               inference kernels and no training kernel.
 7. train-check -- forward_train and its gradients in fp32 on a 224x320
               canvas, on the card and on the CPU, with the same weights,
               batch and sampler keys, must agree (the fp32 run launches
-              no tensor-core conv); a bf16 control run on the card is held
-              to the same CPU run and logged.
+              no tensor-core kernel); a bf16 control run on the card is
+              held to the same CPU run and logged.
 8. fused   -- phases 4 to 7 again in the fused-MLP configuration, the JAX
               package's switch SWINDET_FUSED_MLP=1: the token MLPs of
               stages 1-3 (10 blocks) run the fused kernels, stage 4 stays
@@ -83,11 +84,11 @@ before the last line:
 
 Then one JSON line of per-kernel results (``launches``: the serving
 and the training runs' counts of the three configurations, each from its
-own reset, summed; each also apart; for the conv and fused-MLP rows
-also ``tc_launches``, counted the same way, and ``shapes``, the bf16
-readings at every main-path shape), the card's name and power limit, and,
-last, one JSON line with the device. It imports neither jax nor the JAX
-package.
+own reset, summed; each also apart; for the conv, fused-MLP and v3
+attention rows also ``tc_launches``, counted the same way, and
+``shapes``, the bf16 readings at every main-path shape), the card's
+name and power limit, and, last, one JSON line with the device. It
+imports neither jax nor the JAX package.
 """
 from __future__ import annotations
 
@@ -231,6 +232,10 @@ TOL_SUM_ROI_FP32 = 1e-3
 # plain version computes in fp32 as the kernels do, so it is held to
 # TOL_SUM in both types.
 FPN_SHAPES = ((200, 336), (100, 168), (50, 84), (25, 42))
+# the Swin stages of an 800x1344 canvas: windows of one image, C, heads
+# and the map padded to whole 7x7 windows (the shift mask's (Hp, Wp))
+ATTN_STAGES = ((1392, 96, 3, (203, 336)), (360, 192, 6, (105, 168)),
+               (96, 384, 12, (56, 84)), (24, 768, 24, (28, 42)))
 # H100 SXM data-sheet rates (dense bf16 tensor cores, fp32 outside the
 # tensor cores, HBM3)
 PEAK_FLOPS = 989e12
@@ -296,18 +301,20 @@ def phase_build() -> None:
                  f'{time.perf_counter() - t0:.1f} s: '
                  + ', '.join(p.name for p in paths.values()))
     # the bf16 conv and fused-MLP kernels must be tensor-core (HGMMA)
-    # kernels fed by TMA (UTMALDG); their registers, shared memory and
-    # local memory (spills)
+    # kernels fed by TMA (UTMALDG), the window attention's hold mma.sync
+    # (HMMA); their registers, shared memory and local memory (spills)
     tool = os.path.join(os.path.dirname(build.nvcc_path()), 'cuobjdump')
-    for name, pattern in (('conv3x3', r'conv3x3\w*_tc_kernel'),
-                          ('fused_mlp', r'mlp\w*_tc_kernel')):
+    for name, pattern, wanted in (
+            ('conv3x3', r'conv3x3\w*_tc_kernel', ('HGMMA', 'UTMALDG')),
+            ('fused_mlp', r'mlp\w*_tc_kernel', ('HGMMA', 'UTMALDG')),
+            ('window_attention', r'wattn\w*_tc_kernel', ('HMMA',))):
         lib = str(paths[name])
         sass = subprocess.run([tool, '-sass', lib], capture_output=True,
                               text=True, timeout=300, check=True).stdout
         ops = {op: sum(op in line for line in sass.splitlines())
-               for op in ('HGMMA', 'UTMALDG')}
-        log('build', f'{name} SASS: {ops["HGMMA"]} HGMMA, '
-                     f'{ops["UTMALDG"]} UTMALDG instructions')
+               for op in wanted}
+        log('build', f'{name} SASS: ' + ', '.join(
+            f'{v} {op}' for op, v in ops.items()) + ' instructions')
         if not all(ops.values()):
             raise AssertionError(f'{name}: no tensor-core or TMA '
                                  f'instructions in {lib}: {ops}')
@@ -534,6 +541,22 @@ def _sdpa_inputs(qkv, bias, mask, nh):
     return q, k, v, add.to(qkv.dtype).contiguous()
 
 
+def _sdpa_bwd(qkv, bias, mask, nh, g):
+    """A function that runs the autograd backward of SDPA's graph (built
+    once here) with q, k, v and the fp32 bias as leaves, the bias added
+    to every window with the mask (so dBias sums over the windows): the
+    yardstick of row 7."""
+    b_, n, c3 = qkv.shape
+    hd = c3 // 3 // nh
+    leaves = [t.detach().contiguous().requires_grad_()
+              for t in qkv.view(b_, n, 3, nh, hd).permute(2, 0, 3, 1, 4)]
+    leaves.append(bias.detach().clone().requires_grad_())
+    add = _sdpa_inputs(qkv, leaves[3], mask, nh)[3]
+    out = F.scaled_dot_product_attention(*leaves[:3], attn_mask=add)
+    go = g.view(b_, n, nh, hd).transpose(1, 2)
+    return lambda: torch.autograd.grad(out, leaves, go, retain_graph=True)
+
+
 def _v4_inputs(randn, b_, c, dtype):
     """x (B_, 49, C) in dtype, the fp32 projections of a Swin block (nn.Linear
     layout) and an output gradient in dtype."""
@@ -635,61 +658,64 @@ def phase_kernels():
                  lambda: layer_norm_reference(x, w, b), '(1050, 768)')
         results.setdefault('layer_norm', {})[dtype] = r
 
-        # window attention: stage 1 shifted blocks, 29 x 48 windows
-        qkv = randn(1392, 49, 288).to(dtype)
-        bias = randn(3, 49, 49, scale=0.5)
-        mask = torch.from_numpy(
-            shifted_window_attn_mask(203, 336, 7, 3)).to(dev)
-        q, k, v, add = _sdpa_inputs(qkv, bias, mask, 3)
-        r = _compare('window_attention_v3', dtype,
-                     lambda: window_attention_v3(qkv, bias, mask, 3),
-                     lambda: window_attention_reference(qkv, bias, mask, 3),
-                     '(1392, 49, 3x96) shifted',
-                     work=(_nbytes(qkv, bias, mask) + _nbytes(qkv) // 3,
-                           _attn_flops(1392, 49, 96, 2)),
-                     library_fn=lambda: F.scaled_dot_product_attention(
-                         q, k, v, attn_mask=add))
-        qkv4 = randn(24, 49, 2304).to(dtype)
-        bias4 = randn(24, 49, 49, scale=0.5)
-        _compare('window_attention_v3', dtype,
-                 lambda: window_attention_v3(qkv4, bias4, None, 24),
-                 lambda: window_attention_reference(qkv4, bias4, None, 24),
-                 '(24, 49, 3x768)')
-        results.setdefault('window_attention_v3', {})[dtype] = r
-
-        # the training forward and the backward: stage 1 of a batch of 2
-        qkv2 = randn(2784, 49, 288).to(dtype)
-        p_bytes = 3 * 2784 * 49 * 49 * 4
-        r = _compare('window_attention_fwd_p', dtype,
-                     lambda: window_attention_fwd_p(qkv2, bias, mask, 3),
-                     lambda: window_attention_fwd_p_reference(qkv2, bias,
-                                                              mask, 3),
-                     '(2784, 49, 3x96) shifted',
-                     work=(_nbytes(qkv2, bias, mask) + _nbytes(qkv2) // 3
-                           + p_bytes, _attn_flops(2784, 49, 96, 2)))
-        _compare('window_attention_fwd_p', dtype,
-                 lambda: window_attention_fwd_p(qkv4, bias4, None, 24),
-                 lambda: window_attention_fwd_p_reference(qkv4, bias4, None,
-                                                          24),
-                 '(48 -> 24, 49, 3x768)')
-        results.setdefault('window_attention_fwd_p', {})[dtype] = r
-
-        _, p = window_attention_fwd_p_reference(qkv2, bias, mask, 3)
-        g = randn(2784, 49, 96).to(dtype)
-        r = _compare('window_attention_bwd', dtype,
-                     lambda: window_attention_bwd(qkv2, p, g, 3),
-                     lambda: window_attention_bwd_reference(qkv2, p, g, 3),
-                     '(2784, 49, 3x96)', summed=True,
-                     work=(2 * _nbytes(qkv2) + _nbytes(p, g)
-                           + 3 * 49 * 49 * 4, _attn_flops(2784, 49, 96, 5)))
-        _, p4 = window_attention_fwd_p_reference(qkv4, bias4, None, 24)
-        g4 = randn(24, 49, 768).to(dtype)
-        _compare('window_attention_bwd', dtype,
-                 lambda: window_attention_bwd(qkv4, p4, g4, 24),
-                 lambda: window_attention_bwd_reference(qkv4, p4, g4, 24),
-                 '(24, 49, 3x768)', summed=True)
-        results.setdefault('window_attention_bwd', {})[dtype] = r
-        del p, p4
+        # window attention at the shifted blocks of stages 1-4 of an
+        # 800x1344 canvas: the forward (row 2) at a request's windows, the
+        # backward (row 7) at a training batch's (twice as many); in bf16
+        # (the tensor-core kernels) at every stage, in fp32 (the SIMT
+        # kernels) at stages 1 and 4. The training forward (row 6) at
+        # stages 1 and 4 of the batch.
+        rows2, rows7 = [], []
+        for b_, c, nh, hw in (ATTN_STAGES if dtype == torch.bfloat16
+                              else ATTN_STAGES[::3]):
+            mask = torch.from_numpy(
+                shifted_window_attn_mask(*hw, 7, 3)).to(dev)
+            bias = randn(nh, 49, 49, scale=0.5)
+            qkv = randn(b_, 49, 3 * c).to(dtype)
+            q, k, v, add = _sdpa_inputs(qkv, bias, mask, nh)
+            rows2.append(_compare(
+                'window_attention_v3', dtype,
+                lambda: window_attention_v3(qkv, bias, mask, nh),
+                lambda: window_attention_reference(qkv, bias, mask, nh),
+                f'({b_}, 49, 3x{c}) {nh} heads shifted',
+                work=(_nbytes(qkv, bias, mask) + _nbytes(qkv) // 3,
+                      _attn_flops(b_, 49, c, 2)),
+                library_fn=lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=add)))
+            del qkv, q, k, v, add
+            qkv2 = randn(2 * b_, 49, 3 * c).to(dtype)
+            if b_ in (1392, 24):
+                r = _compare(
+                    'window_attention_fwd_p', dtype,
+                    lambda: window_attention_fwd_p(qkv2, bias, mask, nh),
+                    lambda: window_attention_fwd_p_reference(qkv2, bias,
+                                                             mask, nh),
+                    f'({2 * b_}, 49, 3x{c}) {nh} heads shifted',
+                    work=(_nbytes(qkv2, bias, mask) + _nbytes(qkv2) // 3
+                          + nh * 2 * b_ * 49 * 49 * 4,
+                          _attn_flops(2 * b_, 49, c, 2)))
+                results.setdefault('window_attention_fwd_p', {}) \
+                    .setdefault(dtype, r)
+            _, p = window_attention_fwd_p_reference(qkv2, bias, mask, nh)
+            g = randn(2 * b_, 49, c).to(dtype)
+            r = _compare('window_attention_bwd', dtype,
+                         lambda: window_attention_bwd(qkv2, p, g, nh),
+                         lambda: window_attention_bwd_reference(qkv2, p, g,
+                                                                nh),
+                         f'({2 * b_}, 49, 3x{c}) {nh} heads', summed=True,
+                         work=(2 * _nbytes(qkv2) + _nbytes(p, g)
+                               + nh * 49 * 49 * 4,
+                               _attn_flops(2 * b_, 49, c, 5)))
+            r['unfused_ms'] = cuda_ms(_sdpa_bwd(qkv2, bias, mask, nh, g),
+                                      iters=20)
+            log('kernels', f'  SDPA backward (autograd, q, k, v and the '
+                           f'bias as leaves) {r["unfused_ms"]:.4f} ms')
+            rows7.append(r)
+            del qkv2, p, g
+            torch.cuda.empty_cache()
+        results.setdefault('window_attention_v3', {})[dtype] = dict(
+            rows2[0], shapes=rows2)
+        results.setdefault('window_attention_bwd', {})[dtype] = dict(
+            rows7[0], shapes=rows7)
 
         # 3x3 conv: the FPN output convs at P2 (the row's main shape) and,
         # in bf16 (the tensor-core kernel), P3-P5; in bf16 the RPN conv
@@ -989,16 +1015,24 @@ NOT_SERVING = TRAINING_KERNELS + (fused_mlp_bwd, window_attention_v4_bwd) \
     + OP_ONLY_KERNELS
 
 
-def _tc_kernels(fused, training=True):
+def _tc_kernels(fused, training=True, v4=False):
     """The wrappers with a tensor-core kernel that a run launches: the
-    conv forward, in training its filter gradient, and in the fused-MLP
-    configuration the fused forward and, in training, its backward."""
-    return ((conv3x3, conv3x3_dw) if training else (conv3x3,)) + (
-        (FUSED_MLP_KERNELS if training else (fused_mlp,)) if fused else ())
+    conv forward and, in training, its filter gradient; outside the v4
+    configuration the v3 attention's inference forward (serving) or its
+    backward (training); in the fused-MLP configuration the fused forward
+    and, in training, its backward."""
+    kernels = (conv3x3, conv3x3_dw) if training else (conv3x3,)
+    if not v4:
+        kernels += (window_attention_bwd,) if training \
+            else (window_attention_v3,)
+    if fused:
+        kernels += FUSED_MLP_KERNELS if training else (fused_mlp,)
+    return kernels
 
 
 def _check_tc(what, launches, bf16, wanted):
-    """The conv and fused-MLP wrappers pick their kernel by dtype: in a
+    """The conv, fused-MLP and v3 attention wrappers pick their kernel by
+    dtype (the attention's also by head width, 32 at every stage): in a
     bf16 run every launch is a tensor-core one, and each of ``wanted``
     launched; in an fp32 run none is. Returns the tensor-core counts."""
     tc = tc_launch_counts()
@@ -1042,7 +1076,7 @@ def phase_main(phase='main', fused=False, v4=False):
                + ', '.join(f'{t:.4f}' for t in lat)
                + f'; detections per image: {counts}')
     log(phase, f'kernel launches over the 3 requests: {launches}')
-    tc = _check_tc(phase, launches, True, _tc_kernels(fused, False))
+    tc = _check_tc(phase, launches, True, _tc_kernels(fused, False, v4))
     log(phase, f'of which tensor-core kernels: {tc}')
     idle = [fn.__name__ for fn in _serving_kernels(v4)
             if launches[fn.__name__] == 0]
@@ -1105,7 +1139,8 @@ def phase_check(device: str = 'cuda', phase: str = 'check',
         raise AssertionError(f'launches against the configuration: '
                              f'{launch_counts()}')
     if device == 'cuda':
-        _check_tc(phase, launch_counts(), False, _tc_kernels(fused, False))
+        _check_tc(phase, launch_counts(), False,
+                  _tc_kernels(fused, False, v4))
     feat_err = max((a - b).abs().max().item() / max(a.abs().max().item(), 1)
                    for a, b in zip(f_cpu, f_gpu))
     if feat_err > 1e-3:
@@ -1264,7 +1299,7 @@ def phase_train(phase='train', fused=False, v4=False):
     log(phase, 'last step: ' + ', '.join(f'{k} {v:.4f}'
                                          for k, v in out.items()))
     log(phase, f'kernel launches over the 5 timed steps: {steps}')
-    tc = _check_tc(phase, steps, True, _tc_kernels(fused))
+    tc = _check_tc(phase, steps, True, _tc_kernels(fused, v4=v4))
     log(phase, f'of which tensor-core kernels: {tc}')
     # with a gradient wanted the attention forward is the softmax-saving
     # kernel, never the inference one, or in the v4 configuration the v4
@@ -1321,7 +1356,8 @@ def phase_train(phase='train', fused=False, v4=False):
     if wrong:
         raise AssertionError(f'validation pass: kernels idle or launched '
                              f'against their mode: {wrong}')
-    _check_tc('validation pass', val, True, _tc_kernels(fused, False))
+    _check_tc('validation pass', val, True,
+              _tc_kernels(fused, False, v4))
     busy = _profile_steps(step, batch, gen, float(np.median(times)), phase)
     return steps, times, peak, busy, tc
 
@@ -1514,7 +1550,8 @@ def phase_train_check(device: str = 'cuda', fused: bool = False,
         raise AssertionError(f'launches against the configuration: '
                              f'{launch_counts()}')
     if device == 'cuda':
-        _check_tc('train-check', launch_counts(), False, _tc_kernels(fused))
+        _check_tc('train-check', launch_counts(), False,
+                  _tc_kernels(fused, v4=v4))
     _log_errors(f'{h}x{w} fp32 card vs CPU', *sound)
     control = _train_errors(ref, _train_grads(ctl, batch, keys, device))
     _log_errors(f'{h}x{w} control, bf16 card vs fp32 CPU', *control)

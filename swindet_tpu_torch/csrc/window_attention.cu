@@ -6,44 +6,67 @@
 // for every window w and head h, reading the packed qkv projection
 // (B_, N, 3C) = [q | k | v] with heads contiguous inside each third, and
 // writing head h's lanes of the packed (B_, N, C) output directly.
-//
-// Replaces: swindet_tpu/ops/window_attention_v3.py · _wattn3_kernel (via
-// _wattn3_fwd_impl, pallas_call at :293), called from every Swin block
-// (models/backbones/swin.py:265-274); with the softmax saved,
-// _wattn3_kernel_p (:209, via _wattn3_fwd_p_impl, pallas_call at :253).
-//
-// Bound: at N = 49 tokens and hd = 32 one (window, head) pair does ~0.31
-// MFLOP on ~9.4 KB of bf16 q/k/v, ~33 flop/byte: memory-bound against the
-// card's ~295 flop/byte ridge, and far too small for a tensor-core tile.
-// Writing the fp32 softmax (9.6 KB per pair) doubles the training
-// forward's bytes. Design: one block per (window, head) -- 4,176 blocks at
-// stage 1 of an 800x1344 canvas, enough to fill 132 SMs. The block stages
-// its head's q (pre-scaled, fp32), k and v in shared memory with rows
-// padded by one float so the column walks are free of bank conflicts,
-// forms the N x N logits in shared memory, adds the relative-position bias
-// and the shift mask, runs the softmax one warp per row in fp32 (writing
-// the fp32 probabilities with coalesced stores when they are saved),
-// rounds the probabilities to the input type (as the TPU kernel feeds P
-// in the compute type to the second matmul), and accumulates P v in fp32.
-// Every DRAM byte is read once.
-//
-// Backward: replaces _wattn3_bwd_kernel (:119, via _wattn3_bwd_impl,
-// pallas_call at :189). From the saved fp32 P and the output gradient g:
+// Backward, from the saved fp32 softmax P and the output gradient g:
 //   dV = P^T g, dP = g V^T, dS = P * (dP - rowsum(dP * P)),
 //   dQ = scale * dS K, dK = dS^T (scale * Q), dBias[h] = sum_w dS.
-// Bound: bytes again -- per pair it reads q, k, v, g and the 9.6 KB fp32
-// P and writes dq, dk, dv, for ~0.6 MFLOP. Design: one block per
-// (group of kBwdWindows windows, head); per window it stages q, k, v, g
-// and P in shared memory and computes the five products above from there
-// in fp32. The TPU kernel carries dBias across its sequential grid
-// (:135-137); blocks here run in no order, so each block sums dS of its
-// windows in shared memory (one warp owns each row, so no two threads
-// touch one entry) and adds that partial to the zeroed fp32 dBias with
-// one atomicAdd per entry: kBwdWindows times fewer atomics than one per
-// window. The atomics' order varies between runs, so dBias varies in its
-// last bits.
 //
-// The same forward body serves two more TPU kernels that only the JAX
+// Replaces: swindet_tpu/ops/window_attention_v3.py · _wattn3_kernel (:38,
+// via _wattn3_fwd_impl, pallas_call at :293), called from every Swin block
+// (models/backbones/swin.py:265-274); with the softmax saved,
+// _wattn3_kernel_p (:209, via _wattn3_fwd_p_impl, pallas_call at :253);
+// the backward, _wattn3_bwd_kernel (:119, via _wattn3_bwd_impl,
+// pallas_call at :189).
+//
+// Bound: bytes. At N = 49 tokens and hd = 32 one (window, head) pair of
+// the forward does ~0.31 MFLOP on ~9.4 KB of bf16 q/k/v (~33 flop/byte,
+// against the card's ~295 flop/byte ridge); the backward ~0.77 MFLOP on
+// q, k, v, g and the 9.6 KB fp32 P in, dq, dk, dv out. Every main-path
+// stage of Swin-T/S/B has N = 49 and hd = 32: N pads to one 64-row tile
+// and hd is two k16 steps, so the products suit the tensor cores.
+//
+// bf16 with hd a multiple of 16 up to 64 (the main path): tensor cores,
+// mma.sync m16n8k16 (bf16 in, fp32 accumulation) on ldmatrix fragments.
+// A head's tokens are padded to 64 rows with zeros in shared memory and
+// four warps own its four 16-row tiles.
+//   wattn_fwd_tc_kernel (row 2): one block per window and group of up to
+//   three heads (ops/window_attention_v3.py fwd_geometry picks the group
+//   so the grid fills the card). The block stages the group's q, k and v
+//   rows with 16-byte cp.async copies (each row of a head is 2 hd
+//   contiguous bytes), its heads' bias, and the window's mask once for all
+//   its heads, all issued before it waits. A warp's S = Q K^T stays in
+//   its accumulator registers, is multiplied by scale in fp32, gets the
+//   head's bias and the mask, -inf past column N, and the softmax in fp32
+//   with the row max and sum over the four lanes that share a row. P is
+//   rounded to bf16 (as the TPU kernel feeds P in the
+//   compute type to the second product) and repacked in place as the A
+//   operand of P V (FlashAttention-2's register trick); the output is
+//   staged in the warp's own q rows and leaves in 16-byte stores.
+//   wattn_bwd_tc_kernel (row 7): one block per head and group of windows
+//   (bwd_geometry), the next window's q, k, v and g copied into a second
+//   buffer while the block works on the current one. Per window and
+//   16-row tile: dP = g V^T; dS in fp32 from the fp32 P, read into the
+//   accumulator layout; P and dS rounded to bf16 into shared memory;
+//   dQ = scale dS K with dS repacked as the A operand; then, once every
+//   tile's P and dS are in, dV = P^T g and dK = scale dS^T Q with the
+//   transposed operands through ldmatrix.trans. dBias sums the fp32 dS
+//   (never a rounded copy) in registers over the block's windows and adds
+//   that partial to the zeroed fp32 dBias with one atomicAdd per entry.
+//   The atomics' order varies between runs, so dBias varies in its last
+//   bits.
+//
+// fp32 and other head widths: the SIMT kernels, kept as first written.
+// window_attention_kernel runs one block per (window, head): q (pre-scaled,
+// fp32), k and v in shared memory with rows padded by one float, the N x N
+// logits in shared memory, the softmax one warp per row in fp32 (writing
+// the fp32 probabilities with coalesced stores when they are saved, for
+// the training forward of both types), the probabilities rounded to the
+// input type, and P v accumulated in fp32. window_attention_bwd_kernel
+// runs one block per (group of kBwdWindows windows, head) and computes the
+// five products from shared memory in fp32; the TPU kernel carries dBias
+// across its sequential grid (:135-137), here each block sums dS of its
+// windows in shared memory and adds it with one atomicAdd per entry.
+//
+// The same SIMT forward body serves two more TPU kernels that only the JAX
 // package's op tests run, each reading its own layout through a source
 // policy (PackedQkv above, HeadMajorQkv, SwinMap):
 // - swindet_window_attention_heads replaces swindet_tpu/ops/
@@ -61,7 +84,9 @@
 //   coordinates, and writes the output in rolled coordinates.
 // Both are bound by bytes as the forward above. Their backward recomputes
 // through the plain version in PyTorch, as the JAX package's does.
-#include "common.cuh"
+#include <type_traits>
+
+#include "sm90.cuh"
 
 namespace swindet {
 
@@ -379,7 +404,561 @@ static int launch_bwd(const void* qkv, const float* p, const void* g,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------- bf16 tensor-core kernels
+// N <= 64 tokens padded to kTcRows, hd in {16, 32, 48, 64}. Each head's q,
+// k, v (and g) tile is 64 rows of hd + 8 bf16 values: the 16 extra bytes a
+// row put the eight rows an ldmatrix phase reads on distinct banks and
+// keep every row on a 16-byte boundary for cp.async.
+
+constexpr int kTcRows = 64;
+constexpr int kTcWarpsPerHead = kTcRows / 16;
+constexpr int kTcHeadThreads = 32 * kTcWarpsPerHead;
+constexpr int kTcMaxHeads = 3;            // heads per forward block
+constexpr int kTcPitchP = kTcRows + 8;    // bf16 row pitch of P and dS
+constexpr int kTcKeyTiles = kTcRows / 8;  // n8 tiles of a row of logits
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   sm90::smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   sm90::smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most kPending committed groups are still in flight
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Four 8 x 8 bf16 matrices: lanes 8m .. 8m + 7 give the row addresses of
+// matrix m, and register m of a lane holds its elements (lane / 4,
+// 2 (lane % 4) + {0, 1}), or with .trans (2 (lane % 4) + {0, 1}, lane / 4).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(sm90::smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(sm90::smem_u32(p)));
+}
+
+// c (16 x 8 fp32) += a (16 x 16 bf16, row-major fragment) b (16 x 8)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two fp32 values rounded to nearest even bf16, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A lane's ldmatrix row address in a row-major tile `base` of row pitch
+// `pitch` elements:
+// - for the A operand (16 x 16) at rows m0 .., columns k0 .. (ldsm_x4);
+__device__ __forceinline__ const __nv_bfloat16* frag_a(
+    const __nv_bfloat16* base, int pitch, int m0, int k0, int lane) {
+  return base + (m0 + (lane & 7) + ((lane >> 3) & 1) * 8) * pitch + k0 +
+         (lane >> 4) * 8;
+}
+// - for the A operand at rows m0 .., columns k0 .. of the transpose of a
+//   tile stored [k][m] (ldsm_x4_t);
+__device__ __forceinline__ const __nv_bfloat16* frag_a_t(
+    const __nv_bfloat16* base, int pitch, int m0, int k0, int lane) {
+  return base + (k0 + (lane & 7) + (lane >> 4) * 8) * pitch + m0 +
+         ((lane >> 3) & 1) * 8;
+}
+// - for the B operands of two n8 tiles (n0 .., n0 + 8 ..) by k16 from a
+//   tile stored [n][k] (ldsm_x4: registers 0-1 the first tile's, 2-3 the
+//   second's);
+__device__ __forceinline__ const __nv_bfloat16* frag_b_nk(
+    const __nv_bfloat16* base, int pitch, int n0, int k0, int lane) {
+  return base + (n0 + (lane & 7) + (lane >> 4) * 8) * pitch + k0 +
+         ((lane >> 3) & 1) * 8;
+}
+// - the same from a tile stored [k][n] (ldsm_x4_t).
+__device__ __forceinline__ const __nv_bfloat16* frag_b_kn(
+    const __nv_bfloat16* base, int pitch, int k0, int n0, int lane) {
+  return base + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * pitch + n0 +
+         (lane >> 4) * 8;
+}
+
+// The A fragment of k step kk (columns 16 kk ..) of a 16 x 64 fp32
+// accumulator, rounded to bf16: the accumulator layout of n8 tiles 2 kk
+// and 2 kk + 1 is the A operand's.
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
+                                         const float (&s)[kTcKeyTiles][4],
+                                         int kk) {
+  a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+  a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+  a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+  a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+}
+
+// Store a warp's 16 x HD fp32 accumulator, times mul and rounded to bf16,
+// to rows row0 .. (those below n) of dst, `stride` elements apart: through
+// the warp's own staging tile st (16 rows of HD + 8), so that every global
+// store is 16 bytes.
+template <int HD>
+__device__ __forceinline__ void store_tile(const float (&acc)[HD / 8][4],
+                                           float mul, __nv_bfloat16* st,
+                                           __nv_bfloat16* dst, size_t stride,
+                                           int row0, int n, int lane) {
+  constexpr int P = HD + 8, CH = HD / 8;
+  const int gq = lane >> 2, t = lane & 3;
+  __syncwarp();  // the lanes' earlier reads of st are done
+#pragma unroll
+  for (int nt = 0; nt < HD / 8; ++nt) {
+    *reinterpret_cast<uint32_t*>(st + gq * P + nt * 8 + 2 * t) =
+        pack_bf16(acc[nt][0] * mul, acc[nt][1] * mul);
+    *reinterpret_cast<uint32_t*>(st + (gq + 8) * P + nt * 8 + 2 * t) =
+        pack_bf16(acc[nt][2] * mul, acc[nt][3] * mul);
+  }
+  __syncwarp();
+  for (int e = lane; e < 16 * CH; e += 32) {
+    const int r = e / CH, d = (e % CH) * 8;
+    if (row0 + r < n)
+      *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * stride + d) =
+          *reinterpret_cast<const uint4*>(st + r * P + d);
+  }
+}
+
+// Zero rows n .. kTcRows - 1 of `ntiles` consecutive tiles of HD + 8
+// columns, with `threads` threads.
+template <int HD>
+__device__ __forceinline__ void zero_pad_rows(__nv_bfloat16* tiles,
+                                              int ntiles, int n,
+                                              int threads) {
+  constexpr int P = HD + 8, RC = P / 8;  // 16-byte chunks a row
+  const int per_tile = (kTcRows - n) * RC;
+  for (int e = threadIdx.x; e < ntiles * per_tile; e += threads) {
+    const int tile = e / per_tile, r = e % per_tile;
+    *reinterpret_cast<uint4*>(tiles + (size_t)tile * kTcRows * P +
+                              (n + r / RC) * P + (r % RC) * 8) =
+        make_uint4(0, 0, 0, 0);
+  }
+}
+
+// Shared memory of the two kernels (ops/window_attention_v3.py
+// tc_fwd_smem and tc_bwd_smem compute the same).
+template <int HD>
+size_t tc_fwd_smem(int heads, int n, bool masked) {
+  return 2 * 3 * (size_t)heads * kTcRows * (HD + 8) +
+         4 * (size_t)(heads + masked) * n * n;
+}
+
+template <int HD>
+size_t tc_bwd_smem() {
+  return 2 * (2 * 4 * (size_t)kTcRows * (HD + 8)  // q, k, v, g, twice
+              + 2 * kTcRows * kTcPitchP            // P and dS in bf16
+              + kTcWarpsPerHead * 16 * (HD + 8));  // staging tiles
+}
+
+// Row 2. Block (window blockIdx.x, heads blockIdx.y * heads ..): warp w
+// owns rows 16 (w % 4) .. of head w / 4 of the group. Shared memory: the
+// group's q tiles, then its k tiles, then its v tiles, then the group's
+// bias (heads x n x n fp32), then the window's mask (n x n fp32) where
+// there is one. Every byte comes in by cp.async before the block waits.
+template <int HD>
+__global__ void __launch_bounds__(kTcMaxHeads * kTcHeadThreads, 2)
+wattn_fwd_tc_kernel(const __nv_bfloat16* __restrict__ qkv,
+                    const float* __restrict__ bias,
+                    const float* __restrict__ mask,
+                    __nv_bfloat16* __restrict__ out, int n, int c, int nw,
+                    int heads, float scale) {
+  constexpr int P = HD + 8, TILE = kTcRows * P, CH = HD / 8;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(tc_smem);
+  float* bsm = reinterpret_cast<float*>(sm + 3 * heads * TILE);
+  float* msk = bsm + heads * n * n;
+  const int win = blockIdx.x, h0 = blockIdx.y * heads;
+  const int threads = heads * kTcHeadThreads;
+
+  // the group's q, k and v rows, 16 bytes a copy
+  const __nv_bfloat16* src = qkv + (size_t)win * n * 3 * c + h0 * HD;
+  const int row_chunks = 3 * heads * CH;
+  for (int e = threadIdx.x; e < n * row_chunks; e += threads) {
+    const int i = e / row_chunks, r = e % row_chunks;
+    const int part = r / (heads * CH), hl = (r / CH) % heads;
+    const int d = (r % CH) * 8;
+    cp_async16(sm + (part * heads + hl) * TILE + i * P + d,
+               src + (size_t)i * 3 * c + part * c + hl * HD + d);
+  }
+  // the group's bias and the window's mask, 4 bytes a copy (an n x n
+  // block of odd n starts on no 16-byte boundary)
+  const float* bg = bias + (size_t)h0 * n * n;
+  for (int e = threadIdx.x; e < heads * n * n; e += threads)
+    cp_async4(bsm + e, bg + e);
+  if (mask) {
+    const float* mw = mask + (size_t)(win % nw) * n * n;
+    for (int e = threadIdx.x; e < n * n; e += threads)
+      cp_async4(msk + e, mw + e);
+  }
+  cp_async_commit();
+  zero_pad_rows<HD>(sm, 3 * heads, n, threads);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int hl = warp / kTcWarpsPerHead, m0 = 16 * (warp % kTcWarpsPerHead);
+  const int gq = lane >> 2, t = lane & 3;
+  __nv_bfloat16* q_s = sm + hl * TILE;
+  const __nv_bfloat16* k_s = sm + (heads + hl) * TILE;
+  const __nv_bfloat16* v_s = sm + (2 * heads + hl) * TILE;
+
+  // S = Q K^T over the 64 padded keys
+  float s[kTcKeyTiles][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(a, frag_a(q_s, P, m0, 16 * kk, lane));
+#pragma unroll
+    for (int jj = 0; jj < kTcKeyTiles / 2; ++jj) {
+      uint32_t b[4];
+      ldsm_x4(b, frag_b_nk(k_s, P, 16 * jj, 16 * kk, lane));
+      mma_bf16(s[2 * jj], a, b[0], b[1]);
+      mma_bf16(s[2 * jj + 1], a, b[2], b[3]);
+    }
+  }
+
+  // logits and softmax in fp32: this lane holds rows m0 + gq and
+  // m0 + gq + 8, columns 8 nt + 2 t + {0, 1}
+  const float* bias_h = bsm + hl * n * n;
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int nt = 0; nt < kTcKeyTiles; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = m0 + gq + (e >> 1) * 8, j = nt * 8 + 2 * t + (e & 1);
+      float v = -INFINITY;
+      if (j < n) {
+        v = s[nt][e] * scale;
+        if (i < n) {
+          v += bias_h[i * n + j];
+          if (mask) v += msk[i * n + j];
+        }
+      }
+      s[nt][e] = v;
+      mx[e >> 1] = fmaxf(mx[e >> 1], v);
+    }
+  float sum[2] = {0.f, 0.f}, inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+  }
+#pragma unroll
+  for (int nt = 0; nt < kTcKeyTiles; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[nt][e] = expf(s[nt][e] - mx[e >> 1]);
+      sum[e >> 1] += s[nt][e];
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    inv[r] = 1.f / sum[r];
+  }
+#pragma unroll
+  for (int nt = 0; nt < kTcKeyTiles; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] *= inv[e >> 1];
+
+  // O = round(P) V
+  float o[HD / 8][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < kTcRows / 16; ++kk) {
+    uint32_t a[4];
+    acc_to_a(a, s, kk);
+#pragma unroll
+    for (int dd = 0; dd < HD / 16; ++dd) {
+      uint32_t b[4];
+      ldsm_x4_t(b, frag_b_kn(v_s, P, 16 * kk, 16 * dd, lane));
+      mma_bf16(o[2 * dd], a, b[0], b[1]);
+      mma_bf16(o[2 * dd + 1], a, b[2], b[3]);
+    }
+  }
+  // this warp's q rows, which no other warp reads, stage its output
+  store_tile<HD>(o, 1.f, q_s + m0 * P,
+                 out + (size_t)win * n * c + (h0 + hl) * HD, c, m0, n, lane);
+}
+
+// Row 7. Block (windows blockIdx.x * windows .., head blockIdx.y): warp w
+// owns rows 16 w .. of the head's tiles. Shared memory: two buffers of the
+// q, k, v and g tiles, then P and dS in bf16 (64 x kTcPitchP each), then
+// one staging tile a warp.
+template <int HD>
+__global__ void __launch_bounds__(kTcHeadThreads, 3)
+wattn_bwd_tc_kernel(const __nv_bfloat16* __restrict__ qkv,
+                    const float* __restrict__ p,
+                    const __nv_bfloat16* __restrict__ g,
+                    __nv_bfloat16* __restrict__ dqkv,
+                    float* __restrict__ dbias, int b_, int n, int c,
+                    int windows, float scale) {
+  constexpr int P = HD + 8, TILE = kTcRows * P, CH = HD / 8;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  __nv_bfloat16* bufs = reinterpret_cast<__nv_bfloat16*>(tc_smem);
+  __nv_bfloat16* sp = bufs + 8 * TILE;
+  __nv_bfloat16* sds = sp + kTcRows * kTcPitchP;
+  const int h = blockIdx.y;
+  const int w0 = blockIdx.x * windows, w_end = min(w0 + windows, b_);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t = lane & 3, m0 = 16 * warp;
+  __nv_bfloat16* st = sds + kTcRows * kTcPitchP + warp * 16 * P;
+
+  // the q, k, v and g rows of window win into buffer b (tiles 4 b ..)
+  auto stage = [&](int win, int b) {
+    const __nv_bfloat16* base = qkv + (size_t)win * n * 3 * c + h * HD;
+    const __nv_bfloat16* gb = g + (size_t)win * n * c + h * HD;
+    for (int e = threadIdx.x; e < n * 4 * CH; e += kTcHeadThreads) {
+      const int i = e / (4 * CH), part = (e / CH) % 4, d = (e % CH) * 8;
+      const __nv_bfloat16* from =
+          part < 3 ? base + (size_t)i * 3 * c + part * c + d
+                   : gb + (size_t)i * c + d;
+      cp_async16(bufs + (4 * b + part) * TILE + i * P + d, from);
+    }
+    cp_async_commit();
+  };
+  stage(w0, 0);
+  zero_pad_rows<HD>(bufs, 8, n, kTcHeadThreads);
+
+  float db[kTcKeyTiles][4] = {};
+  for (int win = w0, b = 0; win < w_end; ++win, b ^= 1) {
+    const bool more = win + 1 < w_end;
+    if (more) stage(win + 1, b ^ 1);
+    // this lane's entries of the fp32 P, zero outside N x N
+    const float* pw = p + ((size_t)h * b_ + win) * n * n;
+    float pf[kTcKeyTiles][4];
+#pragma unroll
+    for (int nt = 0; nt < kTcKeyTiles; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = m0 + gq + (e >> 1) * 8, j = nt * 8 + 2 * t + (e & 1);
+        pf[nt][e] = i < n && j < n ? __ldg(pw + i * n + j) : 0.f;
+      }
+    if (more)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+    const __nv_bfloat16* q_s = bufs + 4 * b * TILE;
+    const __nv_bfloat16* k_s = q_s + TILE;
+    const __nv_bfloat16* v_s = k_s + TILE;
+    const __nv_bfloat16* g_s = v_s + TILE;
+
+    // dP = g V^T
+    float ds[kTcKeyTiles][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t a[4];
+      ldsm_x4(a, frag_a(g_s, P, m0, 16 * kk, lane));
+#pragma unroll
+      for (int jj = 0; jj < kTcKeyTiles / 2; ++jj) {
+        uint32_t bv[4];
+        ldsm_x4(bv, frag_b_nk(v_s, P, 16 * jj, 16 * kk, lane));
+        mma_bf16(ds[2 * jj], a, bv[0], bv[1]);
+        mma_bf16(ds[2 * jj + 1], a, bv[2], bv[3]);
+      }
+    }
+    // dS = P (dP - rowsum(dP P)) in fp32, summed into dBias; P and dS
+    // rounded to bf16 into this warp's rows of shared memory
+    float dot[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < kTcKeyTiles; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dot[e >> 1] += ds[nt][e] * pf[nt][e];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], 1);
+      dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], 2);
+    }
+#pragma unroll
+    for (int nt = 0; nt < kTcKeyTiles; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        ds[nt][e] = pf[nt][e] * (ds[nt][e] - dot[e >> 1]);
+        db[nt][e] += ds[nt][e];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int at = (m0 + gq + 8 * r) * kTcPitchP + nt * 8 + 2 * t;
+        *reinterpret_cast<uint32_t*>(sp + at) =
+            pack_bf16(pf[nt][2 * r], pf[nt][2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(sds + at) =
+            pack_bf16(ds[nt][2 * r], ds[nt][2 * r + 1]);
+      }
+    }
+
+    // dQ = scale dS K, with dS repacked as the A operand
+    __nv_bfloat16* d_win = dqkv + (size_t)win * n * 3 * c + h * HD;
+    {
+      float acc[HD / 8][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < kTcRows / 16; ++kk) {
+        uint32_t a[4];
+        acc_to_a(a, ds, kk);
+#pragma unroll
+        for (int dd = 0; dd < HD / 16; ++dd) {
+          uint32_t bk[4];
+          ldsm_x4_t(bk, frag_b_kn(k_s, P, 16 * kk, 16 * dd, lane));
+          mma_bf16(acc[2 * dd], a, bk[0], bk[1]);
+          mma_bf16(acc[2 * dd + 1], a, bk[2], bk[3]);
+        }
+      }
+      store_tile<HD>(acc, scale, st, d_win, 3 * (size_t)c, m0, n, lane);
+    }
+    __syncthreads();  // every row of P and dS is in shared memory
+
+    // dV = P^T g and dK = scale dS^T Q for key rows m0 ..
+    {
+      float acc[HD / 8][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < kTcRows / 16; ++kk) {
+        uint32_t a[4];
+        ldsm_x4_t(a, frag_a_t(sp, kTcPitchP, m0, 16 * kk, lane));
+#pragma unroll
+        for (int dd = 0; dd < HD / 16; ++dd) {
+          uint32_t bg[4];
+          ldsm_x4_t(bg, frag_b_kn(g_s, P, 16 * kk, 16 * dd, lane));
+          mma_bf16(acc[2 * dd], a, bg[0], bg[1]);
+          mma_bf16(acc[2 * dd + 1], a, bg[2], bg[3]);
+        }
+      }
+      store_tile<HD>(acc, 1.f, st, d_win + 2 * c, 3 * (size_t)c, m0, n,
+                     lane);
+    }
+    {
+      float acc[HD / 8][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < kTcRows / 16; ++kk) {
+        uint32_t a[4];
+        ldsm_x4_t(a, frag_a_t(sds, kTcPitchP, m0, 16 * kk, lane));
+#pragma unroll
+        for (int dd = 0; dd < HD / 16; ++dd) {
+          uint32_t bq[4];
+          ldsm_x4_t(bq, frag_b_kn(q_s, P, 16 * kk, 16 * dd, lane));
+          mma_bf16(acc[2 * dd], a, bq[0], bq[1]);
+          mma_bf16(acc[2 * dd + 1], a, bq[2], bq[3]);
+        }
+      }
+      store_tile<HD>(acc, scale, st, d_win + c, 3 * (size_t)c, m0, n, lane);
+    }
+    __syncthreads();  // buffer b, P and dS are free for the next windows
+  }
+
+  // this block's sum of dS over its windows, one atomic per entry
+  float* dbias_h = dbias + (size_t)h * n * n;
+#pragma unroll
+  for (int nt = 0; nt < kTcKeyTiles; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = m0 + gq + (e >> 1) * 8, j = nt * 8 + 2 * t + (e & 1);
+      if (i < n && j < n) atomicAdd(dbias_h + i * n + j, db[nt][e]);
+    }
+}
+
+template <int HD>
+static int launch_fwd_tc(const void* qkv, const float* bias,
+                         const float* mask, void* out, int b_, int n, int c,
+                         int nh, int nw, float scale, int heads,
+                         cudaStream_t stream) {
+  const size_t smem = tc_fwd_smem<HD>(heads, n, mask != nullptr);
+  auto kernel = wattn_fwd_tc_kernel<HD>;
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(b_, nh / heads);
+  kernel<<<grid, heads * kTcHeadThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(qkv), bias, mask,
+      static_cast<__nv_bfloat16*>(out), n, c, nw, heads, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+static int launch_bwd_tc(const void* qkv, const float* p, const void* g,
+                         void* dqkv, float* dbias, int b_, int n, int c,
+                         int nh, float scale, int windows,
+                         cudaStream_t stream) {
+  const size_t smem = tc_bwd_smem<HD>();
+  auto kernel = wattn_bwd_tc_kernel<HD>;
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((b_ + windows - 1) / windows, nh);
+  kernel<<<grid, kTcHeadThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(qkv), p,
+      static_cast<const __nv_bfloat16*>(g),
+      static_cast<__nv_bfloat16*>(dqkv), dbias, b_, n, c, windows, scale);
+  return (int)cudaGetLastError();
+}
+
+// the tensor-core kernels' head widths
+template <typename F>
+static int by_head_dim(int hd, F&& launch) {
+  switch (hd) {
+    case 16: return launch(std::integral_constant<int, 16>());
+    case 32: return launch(std::integral_constant<int, 32>());
+    case 48: return launch(std::integral_constant<int, 48>());
+    case 64: return launch(std::integral_constant<int, 64>());
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace swindet
+
+// The bf16 tensor-core forward (row 2): as swindet_window_attention for
+// bf16 qkv with N <= 64 and hd in {16, 32, 48, 64}, 16-byte aligned qkv
+// and out; `heads` heads a block (1-3, dividing nH).
+SWINDET_EXPORT int swindet_window_attention_tc(
+    const void* qkv, const float* bias, const float* mask, void* out, int b_,
+    int n, int c, int nh, int nw, float scale, int heads, void* stream) {
+  using namespace swindet;
+  if (b_ == 0) return (int)cudaSuccess;
+  if (n > kTcRows || heads < 1 || heads > kTcMaxHeads || nh % heads)
+    return (int)cudaErrorInvalidValue;
+  return by_head_dim(c / nh, [&](auto hd) {
+    return launch_fwd_tc<decltype(hd)::value>(
+        qkv, bias, mask, out, b_, n, c, nh, nw, scale, heads,
+        static_cast<cudaStream_t>(stream));
+  });
+}
+
+// The bf16 tensor-core backward (row 7): as swindet_window_attention_bwd
+// for bf16 qkv and g with N <= 64 and hd in {16, 32, 48, 64}, 16-byte
+// aligned; `windows` windows a block.
+SWINDET_EXPORT int swindet_window_attention_bwd_tc(
+    const void* qkv, const float* p, const void* g, void* dqkv, float* dbias,
+    int b_, int n, int c, int nh, float scale, int windows, void* stream) {
+  using namespace swindet;
+  if (b_ == 0) return (int)cudaSuccess;
+  if (n > kTcRows || windows < 1) return (int)cudaErrorInvalidValue;
+  return by_head_dim(c / nh, [&](auto hd) {
+    return launch_bwd_tc<decltype(hd)::value>(
+        qkv, p, g, dqkv, dbias, b_, n, c, nh, scale, windows,
+        static_cast<cudaStream_t>(stream));
+  });
+}
 
 // mask may be null (no shift); otherwise it is (nW, N, N) fp32 and window w
 // of the batch reads mask[w % nW].

@@ -47,9 +47,11 @@ KERNEL_WRAPPERS = (INFERENCE_KERNELS + TRAINING_KERNELS + FUSED_MLP_KERNELS
                    + WATTN_V4_KERNELS + OP_ONLY_KERNELS)
 
 
-# wrappers with two kernels, picked by dtype: ``tc_launches`` counts the
-# bf16 tensor-core kernel's share of ``launches``
-TENSOR_CORE_KERNELS = (conv3x3, conv3x3_dw, fused_mlp, fused_mlp_bwd)
+# wrappers with two kernels, picked by dtype (the attention's also by head
+# width): ``tc_launches`` counts the bf16 tensor-core kernel's share of
+# ``launches``
+TENSOR_CORE_KERNELS = (conv3x3, conv3x3_dw, fused_mlp, fused_mlp_bwd,
+                       window_attention_v3, window_attention_bwd)
 
 
 def reset_launch_counts() -> None:

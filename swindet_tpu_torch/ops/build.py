@@ -115,6 +115,15 @@ def check_launch(kernel: str, status: int) -> None:
                            f'{status}')
 
 
+def check_aligned(kernel: str, *tensors: torch.Tensor) -> None:
+    """The tensor-core kernels read bf16 tensors in 16-byte pieces (TMA
+    boxes or cp.async copies), from 16-byte aligned bases."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f'{kernel}: bf16 tensors must start on a '
+                             f'16-byte boundary')
+
+
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 

@@ -55,14 +55,6 @@ def dw_chunk(boxes: int, tiles: int, sms: int) -> int:
     return -(-boxes // splits)
 
 
-def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
-    """The bf16 kernels' TMA reads need 16-byte aligned bases."""
-    for t in tensors:
-        if t.data_ptr() % 16:
-            raise ValueError(f'{name}: bf16 tensors must start on a '
-                             f'16-byte boundary')
-
-
 def hwio(weight_oihw: torch.Tensor) -> torch.Tensor:
     """(Co, C, 3, 3) torch conv weight -> contiguous (3, 3, C, Co)."""
     return weight_oihw.permute(2, 3, 1, 0).contiguous()
@@ -111,7 +103,7 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             wd, c, co, int(relu))
     with torch.cuda.device(x.device):
         if tc:
-            _check_aligned('conv3x3', x, w)
+            build.check_aligned('conv3x3', x, w)
             fn = build.bind('conv3x3', 'swindet_conv3x3_tc', _TC_ARGTYPES)
             status = fn(*args, *box_shape(h, wd),
                         build.stream_ptr(x.device))
@@ -168,7 +160,7 @@ def conv3x3_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     args = (x.data_ptr(), g.data_ptr(), dw.data_ptr(), bs, h, wd, c, co)
     with torch.cuda.device(x.device):
         if tc:
-            _check_aligned('conv3x3_dw', x, g)
+            build.check_aligned('conv3x3_dw', x, g)
             bh, bw = box_shape(h, wd)
             boxes = bs * -(-h // bh) * -(-wd // bw)
             tiles = 9 * -(-c // DW_TILE[0]) * -(-co // DW_TILE[1])

@@ -158,14 +158,6 @@ def fused_mlp_bwd_limits(x: torch.Tensor, w1: torch.Tensor,
             for w, o, f in zip((want[1], want[2], want[3]), other, flip)]
 
 
-def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
-    """The bf16 kernels' TMA reads need 16-byte aligned bases."""
-    for t in tensors:
-        if t.data_ptr() % 16:
-            raise ValueError(f'{name}: bf16 tensors must start on a '
-                             f'16-byte boundary')
-
-
 def _check(name, x, w1, b1, w2, extra):
     code = build.dtype_code(x, name)
     r, c = x.shape
@@ -204,7 +196,7 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     out = torch.empty((r, co), dtype=x.dtype, device=x.device)
     tc = code == build.DTYPE_CODES[torch.bfloat16]
     if tc:
-        _check_aligned('fused_mlp', x, w1, w2)
+        build.check_aligned('fused_mlp', x, w1, w2)
     fn = build.bind('fused_mlp', 'swindet_fused_mlp_tc' if tc
                     else 'swindet_fused_mlp', _FWD_ARGTYPES)
     with torch.cuda.device(x.device):
@@ -241,7 +233,7 @@ def fused_mlp_bwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     db2 = torch.zeros((co,), dtype=torch.float32, device=dev)
     tc = code == build.DTYPE_CODES[torch.bfloat16]
     if tc:
-        _check_aligned('fused_mlp_bwd', x, w1, w2, g)
+        build.check_aligned('fused_mlp_bwd', x, w1, w2, g)
     fn = build.bind('fused_mlp', 'swindet_fused_mlp_bwd_tc' if tc
                     else 'swindet_fused_mlp_bwd', _BWD_ARGTYPES)
     with torch.cuda.device(dev):

@@ -14,7 +14,15 @@ of ``csrc/window_attention.cu``, each with its plain version beside it:
   :func:`window_attention_bwd_reference`.
 
 A wrapper runs its plain version on a CPU tensor and its kernel on a CUDA
-tensor. :func:`window_attention_op` is the differentiable entry point
+tensor. On the card :func:`window_attention_v3` and
+:func:`window_attention_bwd` pick their kernel by dtype and head width
+before the launch (:func:`uses_tensor_cores`): bf16 with hd a multiple of
+16 up to 64 (every stage of Swin-T/S/B) runs the tensor-core kernels
+(``mma.sync`` on 64-row tiles, counted in ``wrapper.tc_launches`` as well
+as ``wrapper.launches``; 16-byte aligned qkv and g, else ValueError),
+anything else the SIMT kernels; nothing falls back from one to the other.
+:func:`fwd_geometry` and :func:`bwd_geometry` set their grids.
+:func:`window_attention_op` is the differentiable entry point
 (``_wattn3_vjp``, :78-116): where a gradient is wanted it runs the
 training forward and saves ``(qkv, P)``; otherwise the inference kernel.
 """
@@ -33,9 +41,74 @@ from .window_attention import (apply_probs, attention_probs,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# the SIMT kernels' last int is the dtype code, the tensor-core
+# forward's its heads a block and the tensor-core backward's its windows
+# a block
 _ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P)
 _FWD_P_ARGTYPES = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P)
 _BWD_ARGTYPES = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P)
+# the tensor-core kernels (csrc/window_attention.cu): each head's tokens
+# padded to one 64-row tile with four warps, one a 16-row tile; a forward
+# block takes up to FWD_MAX_HEADS heads of one window, a backward block
+# up to BWD_MAX_WINDOWS windows of one head
+TC_ROWS = 64
+TC_HEAD_DIMS = (16, 32, 48, 64)
+FWD_MAX_HEADS = 3
+BWD_MAX_WINDOWS = 8
+# blocks a grid should have for each SM of the card: the forward kernel
+# holds two blocks an SM (its launch bounds), and the backward's grid
+# should make more than one wave of its three
+FWD_BLOCKS_PER_SM = 2
+BWD_BLOCKS_PER_SM = 4
+# shared memory a block may take on an H100
+SMEM_LIMIT = 232448
+
+
+def uses_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether the card runs the tensor-core kernels of rows 2 and 7 for
+    inputs of ``dtype`` and head width ``head_dim`` (N <= 64 holds for
+    every input the wrappers take)."""
+    return dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS
+
+
+def fwd_geometry(windows: int, num_heads: int, sms: int) -> int:
+    """Heads a block of the tensor-core forward: the largest divisor of
+    nH up to FWD_MAX_HEADS (so the window's mask is read once for the
+    most heads) whose grid of windows x nH / heads blocks fills ``sms``
+    SMs FWD_BLOCKS_PER_SM times over; 1 where none does."""
+    for heads in range(min(num_heads, FWD_MAX_HEADS), 0, -1):
+        if num_heads % heads == 0 \
+                and windows * (num_heads // heads) >= FWD_BLOCKS_PER_SM * sms:
+            return heads
+    return 1
+
+
+def bwd_geometry(windows: int, num_heads: int, sms: int) -> int:
+    """Windows a block of the tensor-core backward: the most, up to
+    BWD_MAX_WINDOWS, whose grid of ceil(B_ / windows) x nH blocks fills
+    ``sms`` SMs BWD_BLOCKS_PER_SM times over (each block adds its partial
+    dBias with one atomic per entry, so fewer blocks, fewer atomics); 1
+    where none does."""
+    for per in (BWD_MAX_WINDOWS, 4, 2):
+        if -(-windows // per) * num_heads >= BWD_BLOCKS_PER_SM * sms:
+            return per
+    return 1
+
+
+def tc_fwd_smem(head_dim: int, heads: int, n: int, masked: bool) -> int:
+    """Shared memory of a tensor-core forward block (csrc tc_fwd_smem): a
+    64-row tile of hd + 8 bf16 values for each head's q, k and v, each
+    head's fp32 bias and the window's fp32 mask."""
+    return 2 * 3 * heads * TC_ROWS * (head_dim + 8) \
+        + 4 * (heads + masked) * n * n
+
+
+def tc_bwd_smem(head_dim: int) -> int:
+    """Shared memory of a tensor-core backward block (csrc tc_bwd_smem):
+    two buffers of q, k, v and g tiles, P and dS in bf16, and one 16-row
+    staging tile for each of the four warps."""
+    return 2 * (2 * 4 * TC_ROWS * (head_dim + 8) + 2 * TC_ROWS * (TC_ROWS + 8)
+                + 4 * 16 * (head_dim + 8))
 
 
 def window_attention_fwd_p_reference(qkv: torch.Tensor, bias: torch.Tensor,
@@ -83,6 +156,10 @@ def _check(qkv, bias, mask, num_heads, name):
     return b_, n, c, hd, code
 
 
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def window_attention_v3(qkv: torch.Tensor, bias: torch.Tensor,
                         mask: Optional[torch.Tensor],
                         num_heads: int) -> torch.Tensor:
@@ -96,20 +173,30 @@ def window_attention_v3(qkv: torch.Tensor, bias: torch.Tensor,
     b_, n, c, hd, code = _check(qkv, bias, mask, num_heads,
                                 'window_attention_v3')
     out = torch.empty((b_, n, c), dtype=qkv.dtype, device=qkv.device)
-    fn = build.bind('window_attention', 'swindet_window_attention',
-                    _ARGTYPES)
+    tc = uses_tensor_cores(qkv.dtype, hd)
+    if tc:
+        build.check_aligned('window_attention_v3', qkv)
+        fn = build.bind('window_attention', 'swindet_window_attention_tc',
+                        _ARGTYPES)
+        last = fwd_geometry(b_, num_heads, _sms(qkv.device))
+    else:
+        fn = build.bind('window_attention', 'swindet_window_attention',
+                        _ARGTYPES)
+        last = code
     with torch.cuda.device(qkv.device):
         status = fn(qkv.data_ptr(), bias.data_ptr(),
                     None if mask is None else mask.data_ptr(),
                     out.data_ptr(), b_, n, c, num_heads,
-                    1 if mask is None else mask.shape[0], hd ** -0.5, code,
+                    1 if mask is None else mask.shape[0], hd ** -0.5, last,
                     build.stream_ptr(qkv.device))
     build.check_launch('window_attention_v3', status)
     window_attention_v3.launches += 1
+    window_attention_v3.tc_launches += tc
     return out
 
 
 window_attention_v3.launches = 0
+window_attention_v3.tc_launches = 0
 
 
 def window_attention_fwd_p(qkv: torch.Tensor, bias: torch.Tensor,
@@ -166,18 +253,28 @@ def window_attention_bwd(qkv: torch.Tensor, p: torch.Tensor,
     dqkv = torch.empty_like(qkv)
     dbias = torch.zeros((num_heads, n, n), dtype=torch.float32,
                         device=qkv.device)
-    fn = build.bind('window_attention', 'swindet_window_attention_bwd',
-                    _BWD_ARGTYPES)
+    tc = uses_tensor_cores(qkv.dtype, hd)
+    if tc:
+        build.check_aligned('window_attention_bwd', qkv, g)
+        fn = build.bind('window_attention', 'swindet_window_attention_bwd_tc',
+                        _BWD_ARGTYPES)
+        last = bwd_geometry(b_, num_heads, _sms(qkv.device))
+    else:
+        fn = build.bind('window_attention', 'swindet_window_attention_bwd',
+                        _BWD_ARGTYPES)
+        last = code
     with torch.cuda.device(qkv.device):
         status = fn(qkv.data_ptr(), p.data_ptr(), g.data_ptr(),
                     dqkv.data_ptr(), dbias.data_ptr(), b_, n, c, num_heads,
-                    hd ** -0.5, code, build.stream_ptr(qkv.device))
+                    hd ** -0.5, last, build.stream_ptr(qkv.device))
     build.check_launch('window_attention_bwd', status)
     window_attention_bwd.launches += 1
+    window_attention_bwd.tc_launches += tc
     return dqkv, dbias
 
 
 window_attention_bwd.launches = 0
+window_attention_bwd.tc_launches = 0
 
 
 class WindowAttentionFunction(torch.autograd.Function):

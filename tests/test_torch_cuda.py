@@ -13,9 +13,10 @@ sample coordinates, see chip_smoke.py), bf16 at 2e-2 (one rounding of
 the output on each side). The backward kernels sum across blocks by fp32
 atomics in a changing order and their entries cancel, so they are held
 to a fraction of each output's largest entry (chip_smoke.py TOL_SUM).
-The 3x3 conv, its filter gradient and the fused MLP run their
-tensor-core kernels in bf16 and their SIMT kernels in fp32, so every case
-runs in both. The fused MLP backward's fp32 weight gradients of a bf16 run
+The 3x3 conv, its filter gradient, the fused MLP and the window
+attention's forward and backward (rows 2 and 7) run their tensor-core
+kernels in bf16 and their SIMT kernels in fp32, so every case runs in
+both. The fused MLP backward's fp32 weight gradients of a bf16 run
 are held to a limit derived from the plain version's own summation-order
 spread on the same inputs (ops/fused_mlp.py fused_mlp_bwd_limits).
 The NMS kernel must equal its plain version exactly. The v4 attention
@@ -238,6 +239,65 @@ def test_window_attention_fwd_p_and_bwd(gen, dtype, n, c, nh, shift):
     want = window_attention_bwd_reference(qkv, want_p, g, nh)
     _close_summed(got[0], want[0], dtype)
     _close_summed(got[1], want[1], torch.float32)
+
+
+# rows 2 and 7 at the main path's shapes and at ragged ones: (B_, N, C,
+# nH, padded map of the shift mask or None). The forward runs at the
+# stage's windows of one request, the backward at twice as many (a
+# training batch of 2): stage 1 (shifted) and stage 4 of an 800x1344
+# canvas; 1,403 windows, whose last backward block (of 8 windows, at 132
+# SMs) is partial; N 16 with hd 16; hd 64; a 14x21 map's 6 masks.
+TC_ATTN_CASES = [(1392, 49, 96, 3, (203, 336)), (24, 49, 768, 24, None),
+                 (24, 49, 768, 24, (28, 42)), (1403, 49, 96, 3, None),
+                 (19, 16, 48, 3, None), (7, 49, 64, 1, None),
+                 (6, 49, 96, 3, (14, 21))]
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('b_,n,c,nh,shift_map', TC_ATTN_CASES)
+def test_window_attention_picks_its_kernel(gen, dtype, b_, n, c, nh,
+                                           shift_map):
+    """bf16 runs the tensor-core kernels of rows 2 and 7 (tc_launches
+    rises with launches), fp32 the SIMT kernels; both are held to their
+    plain versions with phase 3's limits."""
+    ws = int(n ** 0.5)
+    mask = None if shift_map is None else torch.from_numpy(
+        shifted_window_attn_mask(*shift_map, ws, ws // 2)).cuda()
+    qkv = _randn(gen, b_, n, 3 * c, dtype=dtype)
+    bias = _randn(gen, nh, n, n, scale=0.5)
+    reset_launch_counts()
+    _close(window_attention_v3(qkv, bias, mask, nh),
+           window_attention_reference(qkv, bias, mask, nh), dtype)
+    qkv2 = _randn(gen, 2 * b_, n, 3 * c, dtype=dtype)
+    _, p = window_attention_fwd_p_reference(qkv2, bias, mask, nh)
+    g = _randn(gen, 2 * b_, n, c, dtype=dtype)
+    got = window_attention_bwd(qkv2, p, g, nh)
+    want = window_attention_bwd_reference(qkv2, p, g, nh)
+    _close_summed(got[0], want[0], dtype)
+    _close_summed(got[1], want[1], torch.float32)
+    tc = int(dtype == torch.bfloat16)
+    assert (window_attention_v3.launches, window_attention_bwd.launches) \
+        == (1, 1)
+    counts = tc_launch_counts()
+    assert (counts['window_attention_v3'],
+            counts['window_attention_bwd']) == (tc, tc)
+
+
+def test_bf16_window_attention_refuses_misaligned_rows(gen):
+    """The tensor-core kernels copy rows in 16-byte pieces: a bf16 qkv or
+    g that does not start on a 16-byte boundary is refused, not run on
+    the SIMT kernels."""
+    flat = _randn(gen, 4 * 49 * 288 + 1, dtype=torch.bfloat16)
+    qkv = flat[1:].view(4, 49, 288)
+    assert qkv.is_contiguous() and qkv.data_ptr() % 16
+    bias = _randn(gen, 3, 49, 49)
+    with pytest.raises(ValueError):
+        window_attention_v3(qkv, bias, None, 3)
+    good = qkv.clone()
+    p = torch.full((3, 4, 49, 49), 1 / 49).cuda()
+    gflat = _randn(gen, 4 * 49 * 96 + 1, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        window_attention_bwd(good, p, gflat[1:].view(4, 49, 96), 3)
 
 
 @pytest.mark.parametrize('dtype', DTYPES)

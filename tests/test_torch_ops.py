@@ -18,8 +18,9 @@ from swindet_tpu.ops.roi_align import multilevel_roi_align as jax_roi
 from swindet_tpu.ops.roi_align_pallas import multilevel_roi_align_pallas
 from swindet_tpu.ops.window_attention import window_attention_reference \
     as jax_wattn_ref
-from swindet_tpu.ops.window_attention_v3 import window_attention_v3 \
-    as jax_wattn
+from swindet_tpu.ops.window_attention_v3 import (_wattn3_fwd_impl,
+                                                 window_attention_v3
+                                                 as jax_wattn)
 from swindet_tpu.models.backbones.swin import (relative_position_index,
                                                shifted_window_attn_mask)
 
@@ -31,6 +32,9 @@ from swindet_tpu_torch.ops import (conv3x3, conv3x3_reference, layer_norm,
 from swindet_tpu_torch.ops.conv3x3 import (BOX_SHAPES, DW_WAVES, box_shape,
                                            dw_chunk, hwio)
 from swindet_tpu_torch.ops.roi_align import adaptive_grid, map_roi_levels
+from swindet_tpu_torch.ops.window_attention_v3 import (
+    FWD_MAX_HEADS, SMEM_LIMIT, TC_HEAD_DIMS, TC_ROWS, bwd_geometry,
+    fwd_geometry, tc_bwd_smem, tc_fwd_smem, uses_tensor_cores)
 
 T = torch.from_numpy
 
@@ -85,6 +89,74 @@ def test_window_attention_matches_pallas(shift, c, nh):
     _close(got, spec, 1e-5)
     assert torch.equal(window_attention_v3(
         T(qkv), T(bias), None if mask is None else T(mask), nh), got)
+
+
+@pytest.mark.parametrize('shift', [False, True])
+def test_bf16_window_attention_matches_pallas(shift):
+    """bf16 qkv: the plain version rounds P to bf16 before P v and the
+    output once, as the Pallas kernel does (and the tensor-core kernel
+    after it). Both round the output from fp32 sums taken in different
+    orders, and a probability on a rounding boundary may round the other
+    way: held at the card's bf16 tolerance, 2e-2 (one bf16 unit of an
+    output, 2^-8 relative, and a flipped probability's 2^-9 times |v|)."""
+    qkv, bias, mask = _attn_inputs(12, 96, 3, shift, seed=2)
+    qb = jnp.asarray(qkv, jnp.bfloat16)
+    jmask = jnp.asarray(mask if shift else np.zeros((1, 49, 49), np.float32))
+    want = _wattn3_fwd_impl(qb, jnp.asarray(bias), jmask, 3, True)
+    tq = T(np.asarray(qb, np.float32)).bfloat16()
+    got = window_attention_reference(tq, T(bias),
+                                     None if mask is None else T(mask), 3)
+    assert got.dtype == torch.bfloat16
+    _close(got.float(), np.asarray(want, np.float32), 2e-2)
+
+
+# window counts of one request at stages 1-4 of an 800x1344 canvas, and
+# heads: the forward runs these, the backward twice the windows
+MAIN_ATTN_STAGES = [(1392, 3), (360, 6), (96, 12), (24, 24)]
+
+
+@pytest.mark.parametrize('windows,heads', MAIN_ATTN_STAGES)
+def test_tc_attention_grids_fill_the_card(windows, heads):
+    """Rows 2 and 7's tensor-core grids at the main path's shapes: every
+    (window, head) pair is covered once, a block's shared memory fits the
+    card, and each grid makes 2 (forward) or 4 (backward) blocks for each
+    of 132 SMs."""
+    group = fwd_geometry(windows, heads, 132)
+    assert 1 <= group <= FWD_MAX_HEADS and heads % group == 0
+    pairs = sorted((w, g * group + h) for w in range(windows)
+                   for g in range(heads // group) for h in range(group))
+    assert pairs == [(w, h) for w in range(windows) for h in range(heads)]
+    assert windows * (heads // group) >= 2 * 132
+    assert tc_fwd_smem(32, group, 49, True) <= SMEM_LIMIT
+
+    b_ = 2 * windows
+    per = bwd_geometry(b_, heads, 132)
+    blocks = -(-b_ // per)
+    covered = [w for blk in range(blocks)
+               for w in range(blk * per, min(blk * per + per, b_))]
+    assert covered == list(range(b_))
+    assert blocks * heads >= 4 * 132
+
+
+@pytest.mark.parametrize('hd', TC_HEAD_DIMS)
+def test_tc_attention_smem_fits_every_shape(hd):
+    """The largest blocks the wrappers can ask for fit in an H100 SM's
+    227 KB: three heads of 64 tokens with a mask, and the backward's."""
+    assert tc_fwd_smem(hd, FWD_MAX_HEADS, TC_ROWS, True) <= SMEM_LIMIT
+    assert tc_bwd_smem(hd) <= SMEM_LIMIT
+    # few windows: one head a forward block, one window a backward block
+    assert fwd_geometry(2, 6, 132) == 1 and bwd_geometry(3, 2, 132) == 1
+
+
+@pytest.mark.parametrize('dtype,hd,want', [
+    (torch.bfloat16, 32, True), (torch.bfloat16, 16, True),
+    (torch.bfloat16, 48, True), (torch.bfloat16, 64, True),
+    (torch.bfloat16, 8, False), (torch.bfloat16, 24, False),
+    (torch.float32, 32, False), (torch.float32, 64, False)])
+def test_tc_attention_routing(dtype, hd, want):
+    """bf16 with hd a multiple of 16 up to 64 takes the tensor-core
+    kernels; fp32 and any other head width the SIMT kernels."""
+    assert uses_tensor_cores(dtype, hd) is want
 
 
 # ------------------------------------------------------------- conv 3x3

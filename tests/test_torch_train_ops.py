@@ -129,6 +129,39 @@ def test_window_attention_split_plain_versions_match_pallas(shift):
     assert torch.equal(w_dqkv, got_dqkv) and torch.equal(w_dbias, got_dbias)
 
 
+@pytest.mark.parametrize('shift', [False, True])
+def test_bf16_window_attention_split_plain_versions_match_pallas(shift):
+    """bf16 qkv and g: the plain training forward and backward against
+    the Pallas kernels' own implementations in interpret mode. Both keep
+    P in fp32 (1e-5) and round the output once (the card's bf16 2e-2);
+    the backward computes dS and dBias in fp32 from the fp32 P and rounds
+    dqkv once to bf16, so dqkv is held as on the card, to 1e-2 of its
+    largest entry (one bf16 unit of an entry), and dBias to 1e-4 of its
+    largest (fp32 sums in another order)."""
+    nh = 3
+    qkv, bias, mask, g = _attn_inputs(12, 96, nh, shift, seed=3)
+    qb, gb = jnp.asarray(qkv, jnp.bfloat16), jnp.asarray(g, jnp.bfloat16)
+    jmask = jnp.asarray(mask if mask is not None
+                        else np.zeros((1, 49, 49), np.float32))
+    out, p = _wattn3_fwd_p_impl(qb, jnp.asarray(bias), jmask, nh, True)
+    tq = T(np.asarray(qb, np.float32)).bfloat16()
+    tg = T(np.asarray(gb, np.float32)).bfloat16()
+    got_out, got_p = window_attention_fwd_p_reference(
+        tq, T(bias), None if mask is None else T(mask), nh)
+    assert got_out.dtype == torch.bfloat16
+    _close(got_out.float(), np.asarray(out, np.float32), 2e-2)
+    _close(got_p, p, 1e-5)
+
+    dqkv, dbias = _wattn3_bwd_impl(qb, p, gb, nh, True)
+    got_dqkv, got_dbias = window_attention_bwd_reference(
+        tq, T(np.asarray(p)), tg, nh)
+    assert got_dqkv.dtype == torch.bfloat16
+    for got, want, tol in ((got_dqkv.float(), np.asarray(dqkv, np.float32),
+                            1e-2), (got_dbias, np.asarray(dbias), 1e-4)):
+        err = np.abs(got.numpy() - want).max()
+        assert err <= tol * np.abs(want).max(), err
+
+
 # ------------------------------------------------------------- conv 3x3
 @pytest.mark.parametrize('relu', [False, True])
 @pytest.mark.parametrize('hw', [(8, 12), (5, 7)])
