@@ -10,9 +10,11 @@ before the last line:
               nvidia-smi reports them, torch's CUDA and the nvcc version.
 2. build   -- builds every kernel from swindet_tpu_torch/csrc with nvcc;
               the conv and fused-MLP libraries' SASS must hold
-              tensor-core (HGMMA) and TMA (UTMALDG) instructions, and
-              their bf16 kernels' registers, shared and local memory are
-              printed.
+              tensor-core (HGMMA) and TMA (UTMALDG) instructions, the
+              window attention's HMMA, and their bf16 kernels' registers,
+              shared and local memory are printed, each instance by its
+              template arguments (the attention forward's with the P
+              store on and off).
 3. kernels -- holds each of the fifteen kernels against its plain
               PyTorch version on the card at the shapes of the main paths,
               in bf16 and fp32 (NMS: fp32 boxes, exact equality), times
@@ -27,7 +29,14 @@ before the last line:
               The 3x3 conv and its filter gradient run in bf16 (their
               tensor-core kernels) at every conv shape of the main path
               and in fp32 (their SIMT kernels) at two: FPN P2 and the
-              mask head. The fused MLP runs in bf16 (its tensor-core
+              mask head. The window attention's three kernels run in
+              bf16 (tensor cores) at every Swin stage's shape, the
+              inference forward at a request's windows, the training
+              forward and the backward at a training batch's, and in
+              fp32 (SIMT) at stages 1 and 4. NMS runs at its three
+              shapes with the device time of its mask and scan kernels
+              apart (torch.profiler) and the number of 64-box blocks the
+              scan visited. The fused MLP runs in bf16 (its tensor-core
               kernels) at the forward's serving rows of stages 1-3 and
               training rows of stage 1 and the backward's training rows
               of stages 1-3, and in fp32 (SIMT) at stages 1 and 3; its
@@ -58,8 +67,8 @@ before the last line:
               profiled steps. Over the timed steps every kernel of the
               configuration but the inference attention kernel must
               launch (NMS once a step), and that one must not, and every
-              conv, filter-gradient and attention-backward launch must be
-              a tensor-core one;
+              conv, filter-gradient, attention training-forward and
+              attention-backward launch must be a tensor-core one;
               the validation pass, counted on its own, must launch the
               inference kernels and no training kernel.
 7. train-check -- forward_train and its gradients in fp32 on a 224x320
@@ -85,8 +94,8 @@ before the last line:
 Then one JSON line of per-kernel results (``launches``: the serving
 and the training runs' counts of the three configurations, each from its
 own reset, summed; each also apart; for the conv, fused-MLP and v3
-attention rows also ``tc_launches``, counted the same way, and
-``shapes``, the bf16 readings at every main-path shape), the card's
+attention rows also ``tc_launches``, counted the same way; ``shapes``,
+the bf16 readings at every main-path shape, for those and NMS), the card's
 name and power limit, and, last, one JSON line with the device. It
 imports neither jax nor the JAX package.
 """
@@ -322,9 +331,12 @@ def phase_build() -> None:
                                capture_output=True, text=True, timeout=300,
                                check=True).stdout.splitlines()
         for fn, res in zip(usage, usage[1:]):
-            kernel = re.search(pattern, fn)
+            kernel = re.search(pattern + r'(I(?:L\w+?E)+E)?', fn)
             if 'Function' in fn and kernel:
-                log('build', f'  {kernel.group(0)}: {res.strip()}')
+                args = re.findall(r'L\w(\d+)E', kernel.group(1) or '')
+                log('build', f'  {re.match(pattern, kernel.group(0))[0]}'
+                             + (f'<{", ".join(args)}>' if args else '')
+                             + f': {res.strip()}')
 
 
 # ------------------------------------------------------------- phase 3
@@ -478,6 +490,37 @@ def _nms_work(args, out):
         pairs += int((n - 1 - pos).sum())
     return (_nbytes(*args) + _nbytes(*out), NMS_OPS_PER_IOU * pairs,
             PEAK_FP32)
+
+
+def _nms_blocks(args, out, max_out):
+    """The 64-box blocks that the scan visits per image on these
+    candidates: through the block of the last kept box where max_out were
+    kept, else all of them."""
+    order = args[3]
+    _, inds, count = out
+    inv = torch.argsort(order, dim=1)
+    blocks = []
+    for b in range(order.shape[0]):
+        k = int(count[b])
+        blocks.append(int(inv[b][inds[b, k - 1]]) // 64 + 1
+                      if k == max_out and k else -(-order.shape[1] // 64))
+    return blocks
+
+
+def _kernel_device_ms(fn, keys, iters=10):
+    """Device ms per call of fn() by kernel, from torch.profiler over
+    ``iters`` calls: {key: the summed time of the kernels whose name holds
+    keys[key]}."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    return {key: sum(e.device_time_total for e in events if name in e.key)
+            / 1e3 / iters for key, name in keys.items()}
 
 
 def _mlp_inputs(randn, rows, c, dtype):
@@ -660,11 +703,10 @@ def phase_kernels():
 
         # window attention at the shifted blocks of stages 1-4 of an
         # 800x1344 canvas: the forward (row 2) at a request's windows, the
-        # backward (row 7) at a training batch's (twice as many); in bf16
-        # (the tensor-core kernels) at every stage, in fp32 (the SIMT
-        # kernels) at stages 1 and 4. The training forward (row 6) at
-        # stages 1 and 4 of the batch.
-        rows2, rows7 = [], []
+        # training forward (row 6) and the backward (row 7) at a training
+        # batch's (twice as many); in bf16 (the tensor-core kernels) at
+        # every stage, in fp32 (the SIMT kernels) at stages 1 and 4
+        rows2, rows6, rows7 = [], [], []
         for b_, c, nh, hw in (ATTN_STAGES if dtype == torch.bfloat16
                               else ATTN_STAGES[::3]):
             mask = torch.from_numpy(
@@ -683,18 +725,16 @@ def phase_kernels():
                     q, k, v, attn_mask=add)))
             del qkv, q, k, v, add
             qkv2 = randn(2 * b_, 49, 3 * c).to(dtype)
-            if b_ in (1392, 24):
-                r = _compare(
-                    'window_attention_fwd_p', dtype,
-                    lambda: window_attention_fwd_p(qkv2, bias, mask, nh),
-                    lambda: window_attention_fwd_p_reference(qkv2, bias,
-                                                             mask, nh),
-                    f'({2 * b_}, 49, 3x{c}) {nh} heads shifted',
-                    work=(_nbytes(qkv2, bias, mask) + _nbytes(qkv2) // 3
-                          + nh * 2 * b_ * 49 * 49 * 4,
-                          _attn_flops(2 * b_, 49, c, 2)))
-                results.setdefault('window_attention_fwd_p', {}) \
-                    .setdefault(dtype, r)
+            # out held to TOL[dtype] elementwise, the fp32 P to TOL[fp32]
+            rows6.append(_compare(
+                'window_attention_fwd_p', dtype,
+                lambda: window_attention_fwd_p(qkv2, bias, mask, nh),
+                lambda: window_attention_fwd_p_reference(qkv2, bias, mask,
+                                                         nh),
+                f'({2 * b_}, 49, 3x{c}) {nh} heads shifted',
+                work=(_nbytes(qkv2, bias, mask) + _nbytes(qkv2) // 3
+                      + nh * 2 * b_ * 49 * 49 * 4,
+                      _attn_flops(2 * b_, 49, c, 2))))
             _, p = window_attention_fwd_p_reference(qkv2, bias, mask, nh)
             g = randn(2 * b_, 49, c).to(dtype)
             r = _compare('window_attention_bwd', dtype,
@@ -714,6 +754,8 @@ def phase_kernels():
             torch.cuda.empty_cache()
         results.setdefault('window_attention_v3', {})[dtype] = dict(
             rows2[0], shapes=rows2)
+        results.setdefault('window_attention_fwd_p', {})[dtype] = dict(
+            rows6[0], shapes=rows6)
         results.setdefault('window_attention_bwd', {})[dtype] = dict(
             rows7[0], shapes=rows7)
 
@@ -912,8 +954,10 @@ def phase_kernels():
         del qkv, qmap, q, k, v, add
 
         # NMS on fp32 boxes (the same in both configurations): RPN when
-        # serving and in a training step, the bbox head's multiclass NMS
+        # serving and in a training step, the bbox head's multiclass NMS;
+        # its mask and scan kernels' device times apart
         if dtype == torch.float32:
+            rows = []
             for b, n, groups, thr, max_out, note in (
                     (2, 8819, 5, 0.7, 1000, 'RPN train'),
                     (1, 4819, 5, 0.7, 1000, 'RPN serve'),
@@ -927,7 +971,17 @@ def phase_kernels():
                              f'B {b} N {n} IoU {thr} max {max_out} ({note}, '
                              f'{[int(k) for k in out[2]]} kept)',
                              work=_nms_work(args, out), exact=True)
-                results.setdefault('nms_sorted', {}).setdefault(dtype, r)
+                r.update(_kernel_device_ms(
+                    lambda: nms_sorted(*args, thr, max_out),
+                    {'mask_device_ms': 'nms_mask_kernel',
+                     'scan_device_ms': 'nms_scan_kernel'}))
+                r['scan_blocks'] = _nms_blocks(args, out, max_out)
+                log('kernels', f'  device ms: mask {r["mask_device_ms"]:.4f}'
+                               f', scan {r["scan_device_ms"]:.4f}; 64-box '
+                               f'blocks the scan visited per image '
+                               f'{r["scan_blocks"]} of {-(-n // 64)}')
+                rows.append(r)
+            results['nms_sorted'] = {dtype: dict(rows[0], shapes=rows)}
             del args, out
         torch.cuda.empty_cache()
     return results
@@ -1019,12 +1073,12 @@ def _tc_kernels(fused, training=True, v4=False):
     """The wrappers with a tensor-core kernel that a run launches: the
     conv forward and, in training, its filter gradient; outside the v4
     configuration the v3 attention's inference forward (serving) or its
-    backward (training); in the fused-MLP configuration the fused forward
-    and, in training, its backward."""
+    training forward and backward (training); in the fused-MLP
+    configuration the fused forward and, in training, its backward."""
     kernels = (conv3x3, conv3x3_dw) if training else (conv3x3,)
     if not v4:
-        kernels += (window_attention_bwd,) if training \
-            else (window_attention_v3,)
+        kernels += (window_attention_fwd_p, window_attention_bwd) \
+            if training else (window_attention_v3,)
     if fused:
         kernels += FUSED_MLP_KERNELS if training else (fused_mlp,)
     return kernels
@@ -1620,9 +1674,10 @@ def main() -> int:
                 tc[f'{pre}serve_tc_launches'] = r['serve_tc'][name]
                 tc[f'{pre}train_tc_launches'] = r['train_tc'][name]
         if tc:
-            # the bf16 rows: every shape of the main path
-            tc = dict(tc_launches=sum(tc.values()), **tc,
-                      shapes=main_row['shapes'])
+            tc = dict(tc_launches=sum(tc.values()), **tc)
+        if 'shapes' in main_row:
+            # the bf16 rows (NMS: fp32): every shape of the main path
+            tc['shapes'] = main_row['shapes']
         rows.append(dict(
             name=name, route='cuda', **KERNELS[name],
             launches=sum(counts.values()), **counts, **tc,

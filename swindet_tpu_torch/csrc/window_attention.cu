@@ -41,6 +41,22 @@
 //   compute type to the second product) and repacked in place as the A
 //   operand of P V (FlashAttention-2's register trick); the output is
 //   staged in the warp's own q rows and leaves in 16-byte stores.
+//   With kSaveP (row 6, the training forward) the same kernel also writes
+//   the fp32 P, the normalised logits in registers before the bf16
+//   rounding. A warp's 16 rows of p[h, w] are one contiguous span of
+//   16 N floats that starts on a 4-byte boundary only (N x N blocks of
+//   odd N), so float2 or float4 stores straight from the accumulator
+//   layout would be misaligned for half the rows, and scalar stores from
+//   it touch eight rows per instruction. Instead each warp stages its
+//   span in shared memory and leaves it in coalesced 4-byte stores, 128
+//   contiguous bytes an instruction: every byte of P is written once, in
+//   full sectors but at the span's two ends. The staging reuses the k
+//   tiles, the bias and the mask, which no warp reads once the logits
+//   are in registers (one barrier after the logits): for that the P
+//   variant orders the tiles q, v, k, so that the k tiles, the bias and
+//   the mask are one region (tc_fwd_smem counts a larger block only
+//   where that region is smaller than the staging, which no Swin shape
+//   asks for).
 //   wattn_bwd_tc_kernel (row 7): one block per head and group of windows
 //   (bwd_geometry), the next window's q, k, v and g copied into a second
 //   buffer while the block works on the current one. Per window and
@@ -59,8 +75,8 @@
 // fp32), k and v in shared memory with rows padded by one float, the N x N
 // logits in shared memory, the softmax one warp per row in fp32 (writing
 // the fp32 probabilities with coalesced stores when they are saved, for
-// the training forward of both types), the probabilities rounded to the
-// input type, and P v accumulated in fp32. window_attention_bwd_kernel
+// the training forward off the tensor cores), the probabilities rounded
+// to the input type, and P v accumulated in fp32. window_attention_bwd_kernel
 // runs one block per (group of kBwdWindows windows, head) and computes the
 // five products from shared memory in fp32; the TPU kernel carries dBias
 // across its sequential grid (:135-137), here each block sums dS of its
@@ -562,11 +578,18 @@ __device__ __forceinline__ void zero_pad_rows(__nv_bfloat16* tiles,
 }
 
 // Shared memory of the two kernels (ops/window_attention_v3.py
-// tc_fwd_smem and tc_bwd_smem compute the same).
+// tc_fwd_smem and tc_bwd_smem compute the same). With save_p the P
+// staging, 16 rows of n floats for each of the block's 4 heads warps,
+// starts at the k tiles (the tiles ordered q, v, k) and may run past the
+// mask: the block is the larger of the two.
 template <int HD>
-size_t tc_fwd_smem(int heads, int n, bool masked) {
-  return 2 * 3 * (size_t)heads * kTcRows * (HD + 8) +
-         4 * (size_t)(heads + masked) * n * n;
+size_t tc_fwd_smem(int heads, int n, bool masked, bool save_p) {
+  const size_t tiles = 2 * 3 * (size_t)heads * kTcRows * (HD + 8);
+  const size_t base = tiles + 4 * (size_t)(heads + masked) * n * n;
+  if (!save_p) return base;
+  const size_t staged = tiles / 3 * 2 +
+                        4 * (size_t)heads * kTcWarpsPerHead * 16 * n;
+  return base > staged ? base : staged;
 }
 
 template <int HD>
@@ -576,19 +599,24 @@ size_t tc_bwd_smem() {
               + kTcWarpsPerHead * 16 * (HD + 8));  // staging tiles
 }
 
-// Row 2. Block (window blockIdx.x, heads blockIdx.y * heads ..): warp w
-// owns rows 16 (w % 4) .. of head w / 4 of the group. Shared memory: the
-// group's q tiles, then its k tiles, then its v tiles, then the group's
-// bias (heads x n x n fp32), then the window's mask (n x n fp32) where
-// there is one. Every byte comes in by cp.async before the block waits.
-template <int HD>
+// Row 2, and with kSaveP row 6. Block (window blockIdx.x, heads
+// blockIdx.y * heads ..): warp w owns rows 16 (w % 4) .. of head w / 4 of
+// the group. Shared memory: the group's q tiles, then its k tiles, then
+// its v tiles (with kSaveP q, v, k), then the group's bias (heads x n x n
+// fp32), then the window's mask (n x n fp32) where there is one. Every
+// byte comes in by cp.async before the block waits. With kSaveP, p is the
+// fp32 softmax (nH, B_, N, N), B_ = gridDim.x.
+template <int HD, bool kSaveP>
 __global__ void __launch_bounds__(kTcMaxHeads * kTcHeadThreads, 2)
 wattn_fwd_tc_kernel(const __nv_bfloat16* __restrict__ qkv,
                     const float* __restrict__ bias,
                     const float* __restrict__ mask,
-                    __nv_bfloat16* __restrict__ out, int n, int c, int nw,
-                    int heads, float scale) {
+                    __nv_bfloat16* __restrict__ out, float* __restrict__ p,
+                    int n, int c, int nw, int heads, float scale) {
   constexpr int P = HD + 8, TILE = kTcRows * P, CH = HD / 8;
+  // tile slots of k and v: the P variant puts k last, beside the bias and
+  // mask whose room it shares with the P staging
+  constexpr int kSlotK = kSaveP ? 2 : 1, kSlotV = kSaveP ? 1 : 2;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(tc_smem);
   float* bsm = reinterpret_cast<float*>(sm + 3 * heads * TILE);
@@ -602,8 +630,9 @@ wattn_fwd_tc_kernel(const __nv_bfloat16* __restrict__ qkv,
   for (int e = threadIdx.x; e < n * row_chunks; e += threads) {
     const int i = e / row_chunks, r = e % row_chunks;
     const int part = r / (heads * CH), hl = (r / CH) % heads;
+    const int slot = kSaveP ? (3 - part) % 3 : part;
     const int d = (r % CH) * 8;
-    cp_async16(sm + (part * heads + hl) * TILE + i * P + d,
+    cp_async16(sm + (slot * heads + hl) * TILE + i * P + d,
                src + (size_t)i * 3 * c + part * c + hl * HD + d);
   }
   // the group's bias and the window's mask, 4 bytes a copy (an n x n
@@ -625,8 +654,8 @@ wattn_fwd_tc_kernel(const __nv_bfloat16* __restrict__ qkv,
   const int hl = warp / kTcWarpsPerHead, m0 = 16 * (warp % kTcWarpsPerHead);
   const int gq = lane >> 2, t = lane & 3;
   __nv_bfloat16* q_s = sm + hl * TILE;
-  const __nv_bfloat16* k_s = sm + (heads + hl) * TILE;
-  const __nv_bfloat16* v_s = sm + (2 * heads + hl) * TILE;
+  const __nv_bfloat16* k_s = sm + (kSlotK * heads + hl) * TILE;
+  const __nv_bfloat16* v_s = sm + (kSlotV * heads + hl) * TILE;
 
   // S = Q K^T over the 64 padded keys
   float s[kTcKeyTiles][4] = {};
@@ -686,6 +715,28 @@ wattn_fwd_tc_kernel(const __nv_bfloat16* __restrict__ qkv,
   for (int nt = 0; nt < kTcKeyTiles; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[nt][e] *= inv[e >> 1];
+
+  if constexpr (kSaveP) {
+    // every warp's logits are in registers: the k tiles, the bias and the
+    // mask are free. This warp's rows of the fp32 P (before the bf16
+    // rounding below) go to its 16 x n staging span there, then to
+    // p[h, w] rows m0 .. in coalesced stores.
+    __syncthreads();
+    float* st = reinterpret_cast<float*>(sm + 2 * heads * TILE) +
+                warp * 16 * n;
+#pragma unroll
+    for (int nt = 0; nt < kTcKeyTiles; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = gq + (e >> 1) * 8, j = nt * 8 + 2 * t + (e & 1);
+        if (m0 + r < n && j < n) st[r * n + j] = s[nt][e];
+      }
+    __syncwarp();
+    float* dst = p + ((size_t)(h0 + hl) * gridDim.x + win) * n * n +
+                 (size_t)m0 * n;
+    const int count = min(16, n - m0) * n;
+    for (int e = lane; e < count; e += 32) dst[e] = st[e];
+  }
 
   // O = round(P) V
   float o[HD / 8][4] = {};
@@ -880,19 +931,19 @@ wattn_bwd_tc_kernel(const __nv_bfloat16* __restrict__ qkv,
     }
 }
 
-template <int HD>
+template <int HD, bool kSaveP>
 static int launch_fwd_tc(const void* qkv, const float* bias,
-                         const float* mask, void* out, int b_, int n, int c,
-                         int nh, int nw, float scale, int heads,
-                         cudaStream_t stream) {
-  const size_t smem = tc_fwd_smem<HD>(heads, n, mask != nullptr);
-  auto kernel = wattn_fwd_tc_kernel<HD>;
+                         const float* mask, void* out, float* p, int b_,
+                         int n, int c, int nh, int nw, float scale,
+                         int heads, cudaStream_t stream) {
+  const size_t smem = tc_fwd_smem<HD>(heads, n, mask != nullptr, kSaveP);
+  auto kernel = wattn_fwd_tc_kernel<HD, kSaveP>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(b_, nh / heads);
   kernel<<<grid, heads * kTcHeadThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(qkv), bias, mask,
-      static_cast<__nv_bfloat16*>(out), n, c, nw, heads, scale);
+      static_cast<__nv_bfloat16*>(out), p, n, c, nw, heads, scale);
   return (int)cudaGetLastError();
 }
 
@@ -938,8 +989,26 @@ SWINDET_EXPORT int swindet_window_attention_tc(
   if (n > kTcRows || heads < 1 || heads > kTcMaxHeads || nh % heads)
     return (int)cudaErrorInvalidValue;
   return by_head_dim(c / nh, [&](auto hd) {
-    return launch_fwd_tc<decltype(hd)::value>(
-        qkv, bias, mask, out, b_, n, c, nh, nw, scale, heads,
+    return launch_fwd_tc<decltype(hd)::value, false>(
+        qkv, bias, mask, out, nullptr, b_, n, c, nh, nw, scale, heads,
+        static_cast<cudaStream_t>(stream));
+  });
+}
+
+// The bf16 tensor-core training forward (row 6): as
+// swindet_window_attention_fwd_p with the shapes, alignment and `heads`
+// of swindet_window_attention_tc.
+SWINDET_EXPORT int swindet_window_attention_fwd_p_tc(
+    const void* qkv, const float* bias, const float* mask, void* out,
+    float* p, int b_, int n, int c, int nh, int nw, float scale, int heads,
+    void* stream) {
+  using namespace swindet;
+  if (b_ == 0) return (int)cudaSuccess;
+  if (n > kTcRows || heads < 1 || heads > kTcMaxHeads || nh % heads)
+    return (int)cudaErrorInvalidValue;
+  return by_head_dim(c / nh, [&](auto hd) {
+    return launch_fwd_tc<decltype(hd)::value, true>(
+        qkv, bias, mask, out, p, b_, n, c, nh, nw, scale, heads,
         static_cast<cudaStream_t>(stream));
   });
 }

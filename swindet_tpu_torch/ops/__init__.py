@@ -51,7 +51,8 @@ KERNEL_WRAPPERS = (INFERENCE_KERNELS + TRAINING_KERNELS + FUSED_MLP_KERNELS
 # width): ``tc_launches`` counts the bf16 tensor-core kernel's share of
 # ``launches``
 TENSOR_CORE_KERNELS = (conv3x3, conv3x3_dw, fused_mlp, fused_mlp_bwd,
-                       window_attention_v3, window_attention_bwd)
+                       window_attention_v3, window_attention_fwd_p,
+                       window_attention_bwd)
 
 
 def reset_launch_counts() -> None:

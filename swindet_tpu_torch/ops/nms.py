@@ -17,7 +17,9 @@ once, and the keep mask is the fixpoint of
 ``alive = init & ~any_j(alive[j] & over[j, i], j < i)``, reached by Jacobi
 sweeps (a matrix-vector product each) in as many sweeps as the longest
 chain of suppressions; the host reads one flag per burst of sweeps to see
-whether the fixpoint is reached. The kernel reads nothing on the host.
+whether the fixpoint is reached. The kernels read nothing on the host: an
+over-threshold bitmask over the card, then a scan of one step per 64-box
+block (``csrc/nms.cu``).
 """
 from __future__ import annotations
 
@@ -34,7 +36,8 @@ _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_float, ctypes.c_void_p)
 # Jacobi sweeps between two host checks for the fixpoint
 SWEEPS_PER_CHECK = 16
-# the scan keeps one bit per candidate in 48 KB of shared memory
+# the scan keeps one bit per candidate in 48 KB of shared memory (its
+# other buffers, about 1.3 KB, come on top)
 MAX_CANDIDATES = 48 * 1024 * 8
 
 
@@ -125,9 +128,14 @@ def nms_sorted(boxes_s: torch.Tensor, score_s: torch.Tensor,
     if n > MAX_CANDIDATES:
         raise ValueError(f'nms_sorted: {n} candidates, over '
                          f'{MAX_CANDIDATES}')
+    if boxes_s.data_ptr() % 16:
+        raise ValueError('nms_sorted: the kernels read a box in one 16-byte '
+                         'load: boxes_s must start on a 16-byte boundary')
     dev = boxes_s.device
     words = -(-n // 64)
-    mask = torch.empty((b, n, words), dtype=torch.int64, device=dev)
+    # the over-threshold bitmask, and in row n each 64-box block's word of
+    # invalid boxes
+    mask = torch.empty((b, n + 1, words), dtype=torch.int64, device=dev)
     dets = torch.empty((b, max_out, 5), dtype=torch.float32, device=dev)
     inds = torch.empty((b, max_out), dtype=torch.int64, device=dev)
     count = torch.empty((b,), dtype=torch.int64, device=dev)

@@ -14,14 +14,16 @@ of ``csrc/window_attention.cu``, each with its plain version beside it:
   :func:`window_attention_bwd_reference`.
 
 A wrapper runs its plain version on a CPU tensor and its kernel on a CUDA
-tensor. On the card :func:`window_attention_v3` and
-:func:`window_attention_bwd` pick their kernel by dtype and head width
-before the launch (:func:`uses_tensor_cores`): bf16 with hd a multiple of
-16 up to 64 (every stage of Swin-T/S/B) runs the tensor-core kernels
-(``mma.sync`` on 64-row tiles, counted in ``wrapper.tc_launches`` as well
-as ``wrapper.launches``; 16-byte aligned qkv and g, else ValueError),
-anything else the SIMT kernels; nothing falls back from one to the other.
-:func:`fwd_geometry` and :func:`bwd_geometry` set their grids.
+tensor. On the card each of the three picks its kernel by dtype and head
+width before the launch (:func:`uses_tensor_cores`, :func:`kernel_symbol`):
+bf16 with hd a multiple of 16 up to 64 (every stage of Swin-T/S/B) runs
+the tensor-core kernels (``mma.sync`` on 64-row tiles, counted in
+``wrapper.tc_launches`` as well as ``wrapper.launches``; 16-byte aligned
+qkv and g, else ValueError), anything else the SIMT kernels; nothing
+falls back from one to the other. The training forward's tensor-core
+kernel is the inference forward's with an epilogue that stores the fp32
+P. :func:`fwd_geometry` sets both forwards' grids, :func:`bwd_geometry`
+the backward's.
 :func:`window_attention_op` is the differentiable entry point
 (``_wattn3_vjp``, :78-116): where a gradient is wanted it runs the
 training forward and saves ``(qkv, P)``; otherwise the inference kernel.
@@ -42,7 +44,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # the SIMT kernels' last int is the dtype code, the tensor-core
-# forward's its heads a block and the tensor-core backward's its windows
+# forwards' their heads a block and the tensor-core backward's its windows
 # a block
 _ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P)
 _FWD_P_ARGTYPES = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P)
@@ -65,17 +67,35 @@ SMEM_LIMIT = 232448
 
 
 def uses_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
-    """Whether the card runs the tensor-core kernels of rows 2 and 7 for
-    inputs of ``dtype`` and head width ``head_dim`` (N <= 64 holds for
+    """Whether the card runs the tensor-core kernels of rows 2, 6 and 7
+    for inputs of ``dtype`` and head width ``head_dim`` (N <= 64 holds for
     every input the wrappers take)."""
     return dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS
 
 
+# C entry points of csrc/window_attention.cu: (SIMT, tensor-core) for the
+# inference forward (row 2), the training forward (row 6), the backward
+# (row 7)
+_SYMBOLS = {
+    'fwd': ('swindet_window_attention', 'swindet_window_attention_tc'),
+    'fwd_p': ('swindet_window_attention_fwd_p',
+              'swindet_window_attention_fwd_p_tc'),
+    'bwd': ('swindet_window_attention_bwd',
+            'swindet_window_attention_bwd_tc')}
+
+
+def kernel_symbol(kind: str, dtype: torch.dtype, head_dim: int) -> str:
+    """The entry point that the wrapper of ``kind`` ('fwd', 'fwd_p' or
+    'bwd') launches for inputs of ``dtype`` and head width ``head_dim``."""
+    return _SYMBOLS[kind][uses_tensor_cores(dtype, head_dim)]
+
+
 def fwd_geometry(windows: int, num_heads: int, sms: int) -> int:
-    """Heads a block of the tensor-core forward: the largest divisor of
-    nH up to FWD_MAX_HEADS (so the window's mask is read once for the
-    most heads) whose grid of windows x nH / heads blocks fills ``sms``
-    SMs FWD_BLOCKS_PER_SM times over; 1 where none does."""
+    """Heads a block of the tensor-core forwards (rows 2 and 6): the
+    largest divisor of nH up to FWD_MAX_HEADS (so the window's mask is
+    read once for the most heads) whose grid of windows x nH / heads
+    blocks fills ``sms`` SMs FWD_BLOCKS_PER_SM times over; 1 where none
+    does."""
     for heads in range(min(num_heads, FWD_MAX_HEADS), 0, -1):
         if num_heads % heads == 0 \
                 and windows * (num_heads // heads) >= FWD_BLOCKS_PER_SM * sms:
@@ -95,12 +115,20 @@ def bwd_geometry(windows: int, num_heads: int, sms: int) -> int:
     return 1
 
 
-def tc_fwd_smem(head_dim: int, heads: int, n: int, masked: bool) -> int:
+def tc_fwd_smem(head_dim: int, heads: int, n: int, masked: bool,
+                save_p: bool = False) -> int:
     """Shared memory of a tensor-core forward block (csrc tc_fwd_smem): a
     64-row tile of hd + 8 bf16 values for each head's q, k and v, each
-    head's fp32 bias and the window's fp32 mask."""
-    return 2 * 3 * heads * TC_ROWS * (head_dim + 8) \
-        + 4 * (heads + masked) * n * n
+    head's fp32 bias and the window's fp32 mask. With ``save_p`` (row 6)
+    each of the block's warps (four a head) stages its 16 rows of the fp32
+    P, n floats each, from the start of the k tiles (ordered q, v, k) on,
+    over the k tiles, the bias and the mask: the block is the larger of
+    the two."""
+    tiles = 2 * 3 * heads * TC_ROWS * (head_dim + 8)
+    base = tiles + 4 * (heads + masked) * n * n
+    if not save_p:
+        return base
+    return max(base, tiles // 3 * 2 + 4 * heads * 4 * 16 * n)
 
 
 def tc_bwd_smem(head_dim: int) -> int:
@@ -176,13 +204,9 @@ def window_attention_v3(qkv: torch.Tensor, bias: torch.Tensor,
     tc = uses_tensor_cores(qkv.dtype, hd)
     if tc:
         build.check_aligned('window_attention_v3', qkv)
-        fn = build.bind('window_attention', 'swindet_window_attention_tc',
-                        _ARGTYPES)
-        last = fwd_geometry(b_, num_heads, _sms(qkv.device))
-    else:
-        fn = build.bind('window_attention', 'swindet_window_attention',
-                        _ARGTYPES)
-        last = code
+    fn = build.bind('window_attention',
+                    kernel_symbol('fwd', qkv.dtype, hd), _ARGTYPES)
+    last = fwd_geometry(b_, num_heads, _sms(qkv.device)) if tc else code
     with torch.cuda.device(qkv.device):
         status = fn(qkv.data_ptr(), bias.data_ptr(),
                     None if mask is None else mask.data_ptr(),
@@ -214,20 +238,26 @@ def window_attention_fwd_p(qkv: torch.Tensor, bias: torch.Tensor,
     out = torch.empty((b_, n, c), dtype=qkv.dtype, device=qkv.device)
     p = torch.empty((num_heads, b_, n, n), dtype=torch.float32,
                     device=qkv.device)
-    fn = build.bind('window_attention', 'swindet_window_attention_fwd_p',
-                    _FWD_P_ARGTYPES)
+    tc = uses_tensor_cores(qkv.dtype, hd)
+    if tc:
+        build.check_aligned('window_attention_fwd_p', qkv)
+    fn = build.bind('window_attention',
+                    kernel_symbol('fwd_p', qkv.dtype, hd), _FWD_P_ARGTYPES)
+    last = fwd_geometry(b_, num_heads, _sms(qkv.device)) if tc else code
     with torch.cuda.device(qkv.device):
         status = fn(qkv.data_ptr(), bias.data_ptr(),
                     None if mask is None else mask.data_ptr(),
                     out.data_ptr(), p.data_ptr(), b_, n, c, num_heads,
-                    1 if mask is None else mask.shape[0], hd ** -0.5, code,
+                    1 if mask is None else mask.shape[0], hd ** -0.5, last,
                     build.stream_ptr(qkv.device))
     build.check_launch('window_attention_fwd_p', status)
     window_attention_fwd_p.launches += 1
+    window_attention_fwd_p.tc_launches += tc
     return out, p
 
 
 window_attention_fwd_p.launches = 0
+window_attention_fwd_p.tc_launches = 0
 
 
 def window_attention_bwd(qkv: torch.Tensor, p: torch.Tensor,
@@ -256,13 +286,9 @@ def window_attention_bwd(qkv: torch.Tensor, p: torch.Tensor,
     tc = uses_tensor_cores(qkv.dtype, hd)
     if tc:
         build.check_aligned('window_attention_bwd', qkv, g)
-        fn = build.bind('window_attention', 'swindet_window_attention_bwd_tc',
-                        _BWD_ARGTYPES)
-        last = bwd_geometry(b_, num_heads, _sms(qkv.device))
-    else:
-        fn = build.bind('window_attention', 'swindet_window_attention_bwd',
-                        _BWD_ARGTYPES)
-        last = code
+    fn = build.bind('window_attention', kernel_symbol('bwd', qkv.dtype, hd),
+                    _BWD_ARGTYPES)
+    last = bwd_geometry(b_, num_heads, _sms(qkv.device)) if tc else code
     with torch.cuda.device(qkv.device):
         status = fn(qkv.data_ptr(), p.data_ptr(), g.data_ptr(),
                     dqkv.data_ptr(), dbias.data_ptr(), b_, n, c, num_heads,

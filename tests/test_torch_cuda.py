@@ -196,6 +196,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError):
         nms_sorted(boxes, _randn(gen, 1, 10), torch.ones(1, 10).cuda(),
                    torch.arange(10).cuda()[None], 0.5, 5)
+    # the kernels read a box in one 16-byte load
+    with pytest.raises(ValueError):
+        nms_sorted(_randn(gen, 41)[1:].view(1, 10, 4), _randn(gen, 1, 10),
+                   torch.ones(1, 10, dtype=torch.bool).cuda(),
+                   torch.arange(10).cuda()[None], 0.5, 5)
     w1, b1, w2, b2 = (_randn(gen, 96, 24), _randn(gen, 96),
                       _randn(gen, 24, 96), _randn(gen, 24))
     with pytest.raises(ValueError):
@@ -257,9 +262,10 @@ TC_ATTN_CASES = [(1392, 49, 96, 3, (203, 336)), (24, 49, 768, 24, None),
 @pytest.mark.parametrize('b_,n,c,nh,shift_map', TC_ATTN_CASES)
 def test_window_attention_picks_its_kernel(gen, dtype, b_, n, c, nh,
                                            shift_map):
-    """bf16 runs the tensor-core kernels of rows 2 and 7 (tc_launches
-    rises with launches), fp32 the SIMT kernels; both are held to their
-    plain versions with phase 3's limits."""
+    """bf16 runs the tensor-core kernels of rows 2, 6 and 7 (tc_launches
+    rises with launches), fp32 the SIMT kernels; all are held to their
+    plain versions with phase 3's limits (row 6's out at the input type's,
+    its fp32 P at fp32's)."""
     ws = int(n ** 0.5)
     mask = None if shift_map is None else torch.from_numpy(
         shifted_window_attn_mask(*shift_map, ws, ws // 2)).cuda()
@@ -269,18 +275,21 @@ def test_window_attention_picks_its_kernel(gen, dtype, b_, n, c, nh,
     _close(window_attention_v3(qkv, bias, mask, nh),
            window_attention_reference(qkv, bias, mask, nh), dtype)
     qkv2 = _randn(gen, 2 * b_, n, 3 * c, dtype=dtype)
-    _, p = window_attention_fwd_p_reference(qkv2, bias, mask, nh)
+    out, p_got = window_attention_fwd_p(qkv2, bias, mask, nh)
+    want_out, p = window_attention_fwd_p_reference(qkv2, bias, mask, nh)
+    _close(out, want_out, dtype)
+    _close(p_got, p, torch.float32)
     g = _randn(gen, 2 * b_, n, c, dtype=dtype)
     got = window_attention_bwd(qkv2, p, g, nh)
     want = window_attention_bwd_reference(qkv2, p, g, nh)
     _close_summed(got[0], want[0], dtype)
     _close_summed(got[1], want[1], torch.float32)
     tc = int(dtype == torch.bfloat16)
-    assert (window_attention_v3.launches, window_attention_bwd.launches) \
-        == (1, 1)
+    assert (window_attention_v3.launches, window_attention_fwd_p.launches,
+            window_attention_bwd.launches) == (1, 1, 1)
     counts = tc_launch_counts()
-    assert (counts['window_attention_v3'],
-            counts['window_attention_bwd']) == (tc, tc)
+    assert (counts['window_attention_v3'], counts['window_attention_fwd_p'],
+            counts['window_attention_bwd']) == (tc, tc, tc)
 
 
 def test_bf16_window_attention_refuses_misaligned_rows(gen):
@@ -293,6 +302,8 @@ def test_bf16_window_attention_refuses_misaligned_rows(gen):
     bias = _randn(gen, 3, 49, 49)
     with pytest.raises(ValueError):
         window_attention_v3(qkv, bias, None, 3)
+    with pytest.raises(ValueError):
+        window_attention_fwd_p(qkv, bias, None, 3)
     good = qkv.clone()
     p = torch.full((3, 4, 49, 49), 1 / 49).cuda()
     gflat = _randn(gen, 4 * 49 * 96 + 1, dtype=torch.bfloat16)
@@ -393,16 +404,32 @@ def test_autograd_ops_on_the_card_match_the_cpu(gen):
     assert launch_counts()['window_attention_v3'] == 1
 
 
-def _nms_case(gen, b, n, offset, valid_share=0.9):
-    """Score-sorted proposal-like boxes over a 200 x 300 canvas, with
-    batched_nms's class offsets where ``offset``."""
+def _nms_case(gen, b, n, layout, valid_share=0.9):
+    """Score-sorted candidates. ``layout`` False: proposal-like boxes over
+    a 200 x 300 canvas; True: the same with batched_nms's class offsets;
+    'chain': after one box far away, boxes 10 px wide each 3 px right of
+    the one before (IoU 0.538 with the next, 0.25 with the one after) with
+    falling scores, so at IoU 0.5 every other one is kept and boxes 63 and
+    127 suppress 64 and 128 across the scan's 64-box block edges;
+    'disjoint': boxes that do not touch, all kept until max_out;
+    'invalid': proposal-like boxes, none of them valid."""
     u = torch.rand(b, n, 5, generator=gen)
     wh = 4 + 80 * u[..., 2:4]
     xy = u[..., :2] * torch.tensor([300.0, 200.0])
+    if layout in ('chain', 'disjoint'):
+        x = torch.arange(n, dtype=torch.float32) * (3 if layout == 'chain'
+                                                    else 20)
+        x[0] = 5000.0 if layout == 'chain' else 0.0
+        xy = torch.stack([x, torch.zeros(n)], -1).expand(b, n, 2)
+        wh = torch.full((b, n, 2), 10.0)
+        u[..., 4] = torch.linspace(1, 0.1, n)
+        valid_share = 1.0
     boxes = torch.cat([xy, xy + wh], -1)
-    if offset:
+    if layout is True:
         boxes = boxes + (torch.randint(0, 80, (b, n, 1), generator=gen)
                          * 385.0)
+    if layout == 'invalid':
+        valid_share = 0.0
     valid = torch.rand(b, n, generator=gen) < valid_share
     score = torch.where(valid, u[..., 4], -torch.inf)
     order = torch.sort(-score, dim=1, stable=True).indices
@@ -412,17 +439,33 @@ def _nms_case(gen, b, n, offset, valid_share=0.9):
                                             take(valid), order)]
 
 
-@pytest.mark.parametrize('b,n,thr,max_out,offset', [
+# the main path's shapes and ragged ones; then cases aimed at the scan's
+# 64-box blocks: a suppression chain across block edges, max_out reached
+# at index 64 k + 5 inside a block, N one short of, at and one past whole
+# blocks, every box invalid, and the training step's RPN (B 2, N 8,819)
+@pytest.mark.parametrize('b,n,thr,max_out,layout', [
     (1, 300, 0.5, 100, False), (2, 1000, 0.7, 1000, True),
     (1, 4819, 0.7, 1000, True), (3, 65, 0.3, 8, False), (1, 1, 0.5, 4, False),
-    (2, 2048, 0.5, 100, True)])
-def test_nms_sorted(gen, b, n, thr, max_out, offset):
-    args = _nms_case(gen, b, n, offset)
+    (2, 2048, 0.5, 100, True),
+    (2, 300, 0.5, 200, 'chain'), (1, 1000, 0.5, 1000, 'chain'),
+    (1, 320, 0.5, 70, 'disjoint'), (2, 320, 0.5, 134, 'disjoint'),
+    (1, 127, 0.3, 100, False), (1, 128, 0.3, 100, False),
+    (1, 129, 0.3, 100, False), (2, 4095, 0.7, 1000, True),
+    (2, 4096, 0.7, 1000, True), (2, 4097, 0.7, 1000, True),
+    (2, 300, 0.5, 100, 'invalid'), (2, 8819, 0.7, 1000, True)])
+def test_nms_sorted(gen, b, n, thr, max_out, layout):
+    args = _nms_case(gen, b, n, layout)
     got = nms_sorted(*args, thr, max_out)
     want = nms_sorted_reference(*args, thr, max_out)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
         assert torch.equal(g, w)
+    if layout == 'chain':
+        assert want[2].tolist() == [min(max_out, 1 + n // 2)] * b
+    if layout == 'disjoint':
+        assert want[2].tolist() == [max_out] * b
+    if layout == 'invalid':
+        assert want[2].tolist() == [0] * b
 
 
 def _mlp_case(gen, dtype, r, c, h):

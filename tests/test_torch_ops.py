@@ -34,7 +34,7 @@ from swindet_tpu_torch.ops.conv3x3 import (BOX_SHAPES, DW_WAVES, box_shape,
 from swindet_tpu_torch.ops.roi_align import adaptive_grid, map_roi_levels
 from swindet_tpu_torch.ops.window_attention_v3 import (
     FWD_MAX_HEADS, SMEM_LIMIT, TC_HEAD_DIMS, TC_ROWS, bwd_geometry,
-    fwd_geometry, tc_bwd_smem, tc_fwd_smem, uses_tensor_cores)
+    fwd_geometry, kernel_symbol, tc_bwd_smem, tc_fwd_smem, uses_tensor_cores)
 
 T = torch.from_numpy
 
@@ -157,6 +157,57 @@ def test_tc_attention_routing(dtype, hd, want):
     """bf16 with hd a multiple of 16 up to 64 takes the tensor-core
     kernels; fp32 and any other head width the SIMT kernels."""
     assert uses_tensor_cores(dtype, hd) is want
+
+
+# window counts of a training batch of 2 at stages 1-4 of an 800x1344
+# canvas, and heads: the training forward (row 6) and the backward run these
+TRAIN_ATTN_STAGES = [(2 * w, h) for w, h in MAIN_ATTN_STAGES]
+
+
+@pytest.mark.parametrize('windows,heads', TRAIN_ATTN_STAGES)
+def test_tc_fwd_p_grid_and_smem_at_the_training_shapes(windows, heads):
+    """Row 6's tensor-core forward at the training batch's shapes: its
+    grid fills 2 blocks for each of 132 SMs, and with the P staging a
+    block takes no more shared memory than row 2's, so two blocks (each
+    with the 1 KB the card reserves a block) still fit an SM's 228 KB."""
+    group = fwd_geometry(windows, heads, 132)
+    assert heads % group == 0
+    assert windows * (heads // group) >= 2 * 132
+    for masked in (False, True):
+        smem = tc_fwd_smem(32, group, 49, masked, save_p=True)
+        assert smem == tc_fwd_smem(32, group, 49, masked)
+        assert 2 * (smem + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize('hd', TC_HEAD_DIMS)
+@pytest.mark.parametrize('heads', [1, 2, 3])
+def test_tc_fwd_p_smem_fits_every_shape(hd, heads):
+    """With the P staging (16 rows of N fp32 values for each of a head's
+    four warps, over the k tiles, the bias and the mask) a block fits
+    232,448 B at every head width, head group and N up to 64, and covers
+    both the forward's tiles and tables and the staging."""
+    for n in range(1, TC_ROWS + 1):
+        for masked in (False, True):
+            smem = tc_fwd_smem(hd, heads, n, masked, save_p=True)
+            assert smem <= SMEM_LIMIT
+            assert smem >= tc_fwd_smem(hd, heads, n, masked)
+            tiles = 2 * 3 * heads * TC_ROWS * (hd + 8)
+            assert smem >= tiles // 3 * 2 + 4 * heads * 4 * 16 * n
+
+
+@pytest.mark.parametrize('kind', ['fwd', 'fwd_p', 'bwd'])
+@pytest.mark.parametrize('dtype,hd,want', [
+    (torch.bfloat16, 32, True), (torch.bfloat16, 16, True),
+    (torch.bfloat16, 64, True), (torch.bfloat16, 24, False),
+    (torch.float32, 32, False), (torch.float32, 64, False)])
+def test_tc_attention_kernel_symbols(kind, dtype, hd, want):
+    """Each of the three wrappers (rows 2, 6 and 7) launches its
+    tensor-core entry point exactly where uses_tensor_cores holds, and its
+    SIMT one otherwise."""
+    name = {'fwd': 'swindet_window_attention', 'fwd_p':
+            'swindet_window_attention_fwd_p',
+            'bwd': 'swindet_window_attention_bwd'}[kind]
+    assert kernel_symbol(kind, dtype, hd) == name + ('_tc' if want else '')
 
 
 # ------------------------------------------------------------- conv 3x3

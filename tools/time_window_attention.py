@@ -1,6 +1,6 @@
-"""Device time of the v3 window-attention forward and backward kernels
-(rows 2 and 7) at the Swin-T shapes of the main path, in bf16, on one
-CUDA card.
+"""Device time of the v3 window-attention kernels, the inference forward,
+the training forward that saves P and the backward (rows 2, 6 and 7), at
+the Swin-T shapes of the main path, in bf16, on one CUDA card.
 
     python tools/time_window_attention.py [REPO_ROOT ...]
 
@@ -9,8 +9,9 @@ Each REPO_ROOT (default: this checkout) names a checkout whose
 versions (a parent and a change, in turns) compare on one card in one
 call. The forward runs at the windows of one 800x1344 canvas at stages
 1-4 (1,392, 360, 96 and 24 windows of 3, 6, 12 and 24 heads, hd 32) with
-the stage's shift mask, the backward at twice as many windows (a training
-batch of 2) from the plain version's fp32 softmax; inputs are seeded.
+the stage's shift mask, the training forward and the backward at twice as
+many windows (a training batch of 2), the backward from the plain
+version's fp32 softmax; inputs are seeded.
 Prints one JSON line per checkout: the card's name and power limit as
 nvidia-smi reports them; ``ms``, the mean ms of 20 calls after 3
 warm-ups by CUDA events around them (as chip_smoke.py phase 3 times a
@@ -19,6 +20,11 @@ takes longer than its kernel, this reads the host); and ``device_ms``,
 the kernel's own device time per call from torch.profiler over 20 more
 calls (the kernels of the ``swindet`` namespace only, not the wrapper's
 zeroing of dBias).
+
+    python tools/time_window_attention.py build/parent . . build/parent
+
+times a parent checkout (unpacked with ``git archive`` into
+``build/parent/``) and this one in turns.
 """
 import json
 import os
@@ -63,6 +69,7 @@ def run(root: str) -> None:
     from swindet_tpu_torch.models.backbones.swin import \
         shifted_window_attn_mask
     from swindet_tpu_torch.ops import (window_attention_bwd,
+                                       window_attention_fwd_p,
                                        window_attention_fwd_p_reference,
                                        window_attention_v3)
     if not torch.cuda.is_available():
@@ -83,6 +90,8 @@ def run(root: str) -> None:
         for key, fn in (
                 (f'window_attention_v3 ({b_}, 49, 3x{c}) shifted',
                  lambda: window_attention_v3(qkv, bias, mask, nh)),
+                (f'window_attention_fwd_p ({2 * b_}, 49, 3x{c}) shifted',
+                 lambda: window_attention_fwd_p(qkv2, bias, mask, nh)),
                 (f'window_attention_bwd ({2 * b_}, 49, 3x{c})',
                  lambda: window_attention_bwd(qkv2, p, g, nh))):
             out[key] = _time(fn)
