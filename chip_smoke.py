@@ -11,7 +11,8 @@ before the last line:
 2. build   -- builds every kernel from swindet_tpu_torch/csrc with nvcc;
               the conv and fused-MLP libraries' SASS must hold
               tensor-core (HGMMA) and TMA (UTMALDG) instructions, the
-              window attention's HMMA, and their bf16 kernels' registers,
+              v3 and v4 window attentions' HMMA, and their bf16 kernels'
+              registers,
               shared and local memory are printed, each instance by its
               template arguments (the attention forward's with the P
               store on and off).
@@ -36,10 +37,20 @@ before the last line:
               fp32 (SIMT) at stages 1 and 4. NMS runs at its three
               shapes with the device time of its mask and scan kernels
               apart (torch.profiler) and the number of 64-box blocks the
-              scan visited. The fused MLP runs in bf16 (its tensor-core
-              kernels) at the forward's serving rows of stages 1-3 and
-              training rows of stage 1 and the backward's training rows
-              of stages 1-3, and in fp32 (SIMT) at stages 1 and 3; its
+              scan visited. The v4 attention (rows 12 and 13) runs in
+              bf16 (its tensor-core kernels) at every Swin stage's shape,
+              the forward at a request's windows and the backward at a
+              training batch's, and in fp32 (SIMT) at stages 1 and 4; its
+              bf16 backward is held to the plain version with the
+              kernels' bf16 roundings, dx at TOL_SUM and the fp32
+              gradients at limits derived on the check's inputs, which a
+              control with a 64-row tile of g zeroed must exceed, and
+              each output's distance to the fp32 plain version is logged
+              beside the bf16 unfused chain's. The fused MLP runs in
+              bf16 (its tensor-core kernels) at the forward's serving
+              rows of stages 1-3 and training rows of stage 1 and the
+              backward's training rows of stages 1-3, and in fp32
+              (SIMT) at stages 1 and 3; its
               bf16 weight gradients are held to a limit derived from the
               plain version's summation-order spread, which a control
               with a 64-row tile of g zeroed must exceed.
@@ -88,14 +99,16 @@ before the last line:
               every Swin block's qkv projection, attention and output
               projection run as one kernel. Serving launches the v4
               forward 12 times a request, training the forward and the
-              backward 12 times a step, and none of the v3 attention
+              backward 12 times a step, every bf16 launch a tensor-core
+              one, every fp32 one SIMT, and none of the v3 attention
               kernels runs. The card-vs-CPU checks hold the same limits.
 
 Then one JSON line of per-kernel results (``launches``: the serving
 and the training runs' counts of the three configurations, each from its
-own reset, summed; each also apart; for the conv, fused-MLP and v3
-attention rows also ``tc_launches``, counted the same way; ``shapes``,
-the bf16 readings at every main-path shape, for those and NMS), the card's
+own reset, summed; each also apart; for the conv, fused-MLP and v3 and
+v4 attention rows also ``tc_launches``, counted the same way;
+``shapes``, the bf16 readings at every main-path shape, for those and
+NMS), the card's
 name and power limit, and, last, one JSON line with the device. It
 imports neither jax nor the JAX package.
 """
@@ -140,6 +153,7 @@ from swindet_tpu_torch.ops import (FUSED_MLP_KERNELS, INFERENCE_KERNELS,
                                    window_attention_reference,
                                    window_attention_v3, window_attention_v4,
                                    window_attention_v4_bwd,
+                                   window_attention_v4_bwd_limits,
                                    window_attention_v4_bwd_reference,
                                    window_attention_v4_reference)
 from swindet_tpu_torch.ops.roi_align import _flat_layout, _taps, map_roi_levels
@@ -233,13 +247,19 @@ TOL_SUM_ROI_FP32 = 1e-3
 # make, on the inputs of the check (_mlp_bwd_limits, with a control that
 # must exceed it). NMS must equal its plain version exactly (count,
 # indices and detections): its IoU rounds as the plain version's.
-# The v4 attention forward keeps qkv, P and the attention output in fp32
-# and rounds once, at the output, where its plain version (the JAX
-# package's non-TPU path) rounds qkv and the attention output too: it is
-# held elementwise to TOL against the plain version computed in fp32 on
-# the same inputs and rounded once to the compute dtype. Its backward's
-# plain version computes in fp32 as the kernels do, so it is held to
-# TOL_SUM in both types.
+# The v4 attention forward is held elementwise to TOL against its plain
+# version computed in fp32 on the same inputs and rounded once to the
+# compute dtype: the SIMT kernel (fp32) keeps qkv, P and the attention
+# output in fp32, the tensor-core kernel (bf16) rounds them to bf16 as
+# the JAX package's bf16 chain does (max |d| 0.0078-0.0156 against TOL's
+# 2e-2 + 2e-2 |out|). Its fp32 backward is held to TOL_SUM against the
+# fp32 plain version. The bf16 backward's tensor-core kernels round
+# their operands to bf16 (q, k, v, P, the attention output, d(attn), dS,
+# dqkv, the weights), which moves the fp32 weight gradients by 2e-3 to
+# 8e-3 of their largest entry, as much as the bf16 autograd of the
+# unfused chain: it is held to the plain version with the same roundings
+# (tc_rounding), dx at TOL_SUM[bf16] and the fp32 outputs at limits
+# derived as the fused MLP's (_v4_bwd_check).
 FPN_SHAPES = ((200, 336), (100, 168), (50, 84), (25, 42))
 # the Swin stages of an 800x1344 canvas: windows of one image, C, heads
 # and the map padded to whole 7x7 windows (the shift mask's (Hp, Wp))
@@ -310,13 +330,15 @@ def phase_build() -> None:
                  f'{time.perf_counter() - t0:.1f} s: '
                  + ', '.join(p.name for p in paths.values()))
     # the bf16 conv and fused-MLP kernels must be tensor-core (HGMMA)
-    # kernels fed by TMA (UTMALDG), the window attention's hold mma.sync
-    # (HMMA); their registers, shared memory and local memory (spills)
+    # kernels fed by TMA (UTMALDG), the window attentions' (v3 and v4) hold
+    # mma.sync (HMMA); their registers, shared memory and local memory
+    # (spills)
     tool = os.path.join(os.path.dirname(build.nvcc_path()), 'cuobjdump')
     for name, pattern, wanted in (
             ('conv3x3', r'conv3x3\w*_tc_kernel', ('HGMMA', 'UTMALDG')),
             ('fused_mlp', r'mlp\w*_tc_kernel', ('HGMMA', 'UTMALDG')),
-            ('window_attention', r'wattn\w*_tc_kernel', ('HMMA',))):
+            ('window_attention', r'wattn_\w*_tc_kernel', ('HMMA',)),
+            ('window_attention_v4', r'wattn4\w*_tc_kernel', ('HMMA',))):
         lib = str(paths[name])
         sass = subprocess.run([tool, '-sass', lib], capture_output=True,
                               text=True, timeout=300, check=True).stdout
@@ -632,6 +654,56 @@ def _unfused_v4_bwd(x, wqkv, bqkv, bias, mask, wproj, bproj, nh, g):
                                        retain_graph=True)
 
 
+def _v4_bwd_check(bwd, bproj):
+    """Row 13's bf16 check on the inputs ``bwd``: the limits of its fp32
+    outputs (dWqkv, dbqkv, dBias, dWproj, dbproj) against the plain
+    version with the tensor-core kernels' roundings, each the largest of
+    TOL_SUM[fp32] of its largest entry, ORDER_SPREAD_FACTOR (4) times its
+    summation-order spread on these inputs and the change one rounding
+    flip can make (ops/window_attention_v4.py). That plain version with
+    the first 64-row tile of g zeroed, a kernel that dropped a tile, must
+    exceed every one. Logs beside them the grade of a bf16 run: the
+    kernel's distance to the fp32 plain version and that of the bf16
+    autograd of the unfused chain, as shares of each output's largest
+    entry. Returns the six outputs' limits (None for dx, held to
+    TOL_SUM[bf16])."""
+    x, wqkv, bqkv, bias, mask, wproj, g, nh = bwd
+    want = window_attention_v4_bwd_reference(*bwd, tc_rounding=True)
+    limits = window_attention_v4_bwd_limits(*bwd, want,
+                                            floor=TOL_SUM[torch.float32])
+    dropped = g.clone()
+    dropped.view(-1, x.shape[-1])[:64] = 0
+    control = window_attention_v4_bwd_reference(*bwd[:-2], dropped, nh,
+                                                tc_rounding=True)
+    errs = [(a - w).abs().max().item()
+            for a, w in zip(control[1:], want[1:])]
+    del want, control, dropped
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item()
+
+    fp32 = window_attention_v4_bwd_reference(*bwd)
+    got = window_attention_v4_bwd(*bwd)
+    chain = _unfused_v4_bwd(x, wqkv, bqkv, bias, mask, wproj, bproj, nh,
+                            g)()
+    chain = [chain[i] for i in (0, 1, 2, 5, 3, 4)]
+    log('kernels', '  fp32-output limits (dWqkv, dbqkv, dBias, dWproj, '
+                   'dbproj): ' + ', '.join(f'{lim:.3g}' for lim in limits)
+                   + '; control with a 64-row tile of g zeroed: '
+                   + ', '.join(f'{e:.3g}' for e in errs))
+    log('kernels', '  distance to the fp32 plain version / max|fp32| '
+                   '(dx, dWqkv, dbqkv, dBias, dWproj, dbproj): kernel '
+                   + ', '.join(f'{rel(a, f):.2g}' for a, f in zip(got, fp32))
+                   + '; bf16 autograd of the unfused chain '
+                   + ', '.join(f'{rel(a, f):.2g}'
+                               for a, f in zip(chain, fp32)))
+    if any(e <= lim for e, lim in zip(errs, limits)):
+        raise AssertionError('window_attention_v4_bwd: the zeroed-tile '
+                             'control passes the derived limits')
+    return [None, *limits]
+
+
 def _v4_flops(b_, c, backward=False):
     """Operations of the v4 function on B_ windows of 49 tokens: the qkv
     and output projections (8 N C^2 a window) and the two attention
@@ -879,58 +951,67 @@ def phase_kernels():
         torch.cuda.empty_cache()
 
         # v4 attention (qkv projection, attention, output projection in one
-        # kernel), bound by the fp32 CUDA-core rate: its weights and every
-        # intermediate are fp32. Serving: stage 1 of one image, shifted,
-        # and stage 4; training: the same of a batch of 2.
-        mask = torch.from_numpy(
-            shifted_window_attn_mask(203, 336, 7, 3)).to(dev)
-        for b_, c, nh, m, main in ((1392, 96, 3, mask, True),
-                                   (24, 768, 24, None, False)):
-            x, wqkv, bqkv, wproj, bproj, _ = _v4_inputs(randn, b_, c, dtype)
+        # kernel, row 12, and its backward, row 13): in bf16 (the
+        # tensor-core kernels, bound at the bf16 tensor-core rate) at every
+        # stage, in fp32 (the SIMT kernels, bound at the fp32 CUDA-core
+        # rate) at stages 1 and 4; the forward at a request's windows, the
+        # backward at a training batch's, with the stage's shift mask. The
+        # bf16 backward is held to the plain version with the tensor-core
+        # kernels' roundings (_v4_bwd_check).
+        bf16 = dtype == torch.bfloat16
+        peak = PEAK_FLOPS if bf16 else PEAK_FP32
+        rows12, rows13 = [], []
+        for b_, c, nh, hw in ATTN_STAGES if bf16 else ATTN_STAGES[::3]:
+            mask = torch.from_numpy(
+                shifted_window_attn_mask(*hw, 7, 3)).to(dev)
             bias = randn(nh, 49, 49, scale=0.5)
-            v4 = (x, wqkv, bqkv, bias, m, wproj, bproj, nh)
+            x, wqkv, bqkv, wproj, bproj, _ = _v4_inputs(randn, b_, c, dtype)
+            v4 = (x, wqkv, bqkv, bias, mask, wproj, bproj, nh)
             r = _compare('window_attention_v4', dtype,
                          lambda: window_attention_v4(*v4),
                          lambda: window_attention_v4_reference(
                              x.float(), *v4[1:]).to(dtype),
-                         f'({b_}, 49, {c}) {nh} heads'
-                         + (' shifted' if m is not None else ''),
+                         f'({b_}, 49, {c}) {nh} heads shifted',
                          work=(2 * _nbytes(x) + _nbytes(wqkv, bqkv, bias,
-                                                        wproj, bproj)
-                               + (0 if m is None else _nbytes(m)),
-                               _v4_flops(b_, c), PEAK_FP32))
+                                                        wproj, bproj, mask),
+                               _v4_flops(b_, c), peak))
             cast = [t.to(dtype) for t in (wqkv, bqkv, wproj, bproj)]
             r['unfused_ms'] = cuda_ms(lambda: _unfused_v4(
-                x, cast[0], cast[1], bias, m, cast[2], cast[3], nh), iters=20)
+                x, cast[0], cast[1], bias, mask, cast[2], cast[3], nh),
+                iters=20)
             log('kernels', f'  unfused F.linear -> SDPA -> F.linear '
                            f'{r["unfused_ms"]:.4f} ms')
-            if main:
-                results.setdefault('window_attention_v4', {})[dtype] = r
-        for b_, c, nh, m, main in ((2784, 96, 3, mask, True),
-                                   (48, 768, 24, None, False)):
-            x, wqkv, bqkv, wproj, bproj, g = _v4_inputs(randn, b_, c, dtype)
-            bias = randn(nh, 49, 49, scale=0.5)
-            bwd = (x, wqkv, bqkv, bias, m, wproj, g, nh)
+            rows12.append(r)
+            del x, v4, cast
+            x, wqkv, bqkv, wproj, bproj, g = _v4_inputs(randn, 2 * b_, c,
+                                                        dtype)
+            bwd = (x, wqkv, bqkv, bias, mask, wproj, g, nh)
+            limits = _v4_bwd_check(bwd, bproj) if bf16 else None
             r = _compare('window_attention_v4_bwd', dtype,
                          lambda: window_attention_v4_bwd(*bwd),
-                         lambda: window_attention_v4_bwd_reference(*bwd),
-                         f'({b_}, 49, {c}) {nh} heads'
-                         + (' shifted' if m is not None else ''),
-                         summed=True,
+                         lambda: window_attention_v4_bwd_reference(
+                             *bwd, tc_rounding=bf16),
+                         f'({2 * b_}, 49, {c}) {nh} heads shifted',
+                         summed=True, limits=limits,
                          work=(3 * _nbytes(x) + 2 * _nbytes(
-                             wqkv, bqkv, bias, wproj, bproj)
-                               + (0 if m is None else _nbytes(m)),
-                               _v4_flops(b_, c, backward=True), PEAK_FP32))
+                             wqkv, bqkv, bias, wproj, bproj) + _nbytes(mask),
+                               _v4_flops(2 * b_, c, backward=True), peak))
             r['unfused_ms'] = cuda_ms(_unfused_v4_bwd(
-                x, wqkv, bqkv, bias, m, wproj, bproj, nh, g), iters=20)
+                x, wqkv, bqkv, bias, mask, wproj, bproj, nh, g), iters=20)
             log('kernels', f'  unfused backward (autograd of the chain) '
                            f'{r["unfused_ms"]:.4f} ms')
-            if main:
-                results.setdefault('window_attention_v4_bwd', {})[dtype] = r
-        del x, g, v4, bwd
+            rows13.append(r)
+            del x, g, bwd
+            torch.cuda.empty_cache()
+        results.setdefault('window_attention_v4', {})[dtype] = dict(
+            rows12[0], shapes=rows12)
+        results.setdefault('window_attention_v4_bwd', {})[dtype] = dict(
+            rows13[0], shapes=rows13)
 
         # the v1 attention over head-major q, k, v and the full-map
         # shifted attention, which no model path runs: stage 1 of one image
+        mask = torch.from_numpy(
+            shifted_window_attn_mask(203, 336, 7, 3)).to(dev)
         qkv = randn(1392, 49, 288).to(dtype)
         bias = randn(3, 49, 49, scale=0.5)
         q, k, v, add = _sdpa_inputs(qkv, bias, mask, 3)
@@ -1073,22 +1154,26 @@ def _tc_kernels(fused, training=True, v4=False):
     """The wrappers with a tensor-core kernel that a run launches: the
     conv forward and, in training, its filter gradient; outside the v4
     configuration the v3 attention's inference forward (serving) or its
-    training forward and backward (training); in the fused-MLP
-    configuration the fused forward and, in training, its backward."""
+    training forward and backward (training), in it the v4 forward and,
+    in training, its backward; in the fused-MLP configuration the fused
+    forward and, in training, its backward."""
     kernels = (conv3x3, conv3x3_dw) if training else (conv3x3,)
     if not v4:
         kernels += (window_attention_fwd_p, window_attention_bwd) \
             if training else (window_attention_v3,)
+    else:
+        kernels += WATTN_V4_KERNELS if training else (window_attention_v4,)
     if fused:
         kernels += FUSED_MLP_KERNELS if training else (fused_mlp,)
     return kernels
 
 
 def _check_tc(what, launches, bf16, wanted):
-    """The conv, fused-MLP and v3 attention wrappers pick their kernel by
-    dtype (the attention's also by head width, 32 at every stage): in a
-    bf16 run every launch is a tensor-core one, and each of ``wanted``
-    launched; in an fp32 run none is. Returns the tensor-core counts."""
+    """The conv, fused-MLP and v3 and v4 attention wrappers pick their
+    kernel by dtype (the attentions' also by head width, 32 at every
+    stage): in a bf16 run every launch is a tensor-core one, and each of
+    ``wanted`` launched; in an fp32 run none is. Returns the tensor-core
+    counts."""
     tc = tc_launch_counts()
     want = {fn.__name__: launches[fn.__name__] if bf16 else 0
             for fn in TENSOR_CORE_KERNELS}

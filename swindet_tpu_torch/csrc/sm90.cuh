@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks written in PTX: the tensor memory
 // accelerator (TMA) with its tensor maps, mbarriers, warpgroup register
 // reallocation and the warpgroup matrix multiply (wgmma). Used by the
-// tensor-core implicit-GEMM convolutions of conv3x3.cu and the tensor-core
-// fused MLP of fused_mlp.cu.
+// tensor-core implicit-GEMM convolutions of conv3x3.cu, the tensor-core
+// fused MLP of fused_mlp.cu and the v4 attention's weight gradients
+// (window_attention_v4.cu).
 //
 // A tensor map is encoded on the host with the driver's
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint so that

@@ -22,7 +22,9 @@ from .window_attention_v3 import (window_attention_bwd,
                                   window_attention_op, window_attention_v3)
 from .window_attention_v4 import (window_attention_v4,
                                   window_attention_v4_bwd,
+                                  window_attention_v4_bwd_limits,
                                   window_attention_v4_bwd_reference,
+                                  window_attention_v4_bwd_reference_f64,
                                   window_attention_v4_op,
                                   window_attention_v4_reference)
 
@@ -47,12 +49,13 @@ KERNEL_WRAPPERS = (INFERENCE_KERNELS + TRAINING_KERNELS + FUSED_MLP_KERNELS
                    + WATTN_V4_KERNELS + OP_ONLY_KERNELS)
 
 
-# wrappers with two kernels, picked by dtype (the attention's also by head
+# wrappers with two kernels, picked by dtype (the attentions' also by head
 # width): ``tc_launches`` counts the bf16 tensor-core kernel's share of
 # ``launches``
 TENSOR_CORE_KERNELS = (conv3x3, conv3x3_dw, fused_mlp, fused_mlp_bwd,
                        window_attention_v3, window_attention_fwd_p,
-                       window_attention_bwd)
+                       window_attention_bwd, window_attention_v4,
+                       window_attention_v4_bwd)
 
 
 def reset_launch_counts() -> None:

@@ -28,20 +28,21 @@ MAX_HEAD_DIM = 64
 
 
 def attention_probs(qkv: torch.Tensor, bias: torch.Tensor,
-                    mask: Optional[torch.Tensor], num_heads: int):
-    """fp32 softmax (B_, nH, N, N) of the window logits, and v
-    (B_, nH, N, hd)."""
+                    mask: Optional[torch.Tensor], num_heads: int,
+                    dtype: torch.dtype = torch.float32):
+    """Softmax (B_, nH, N, N) of the window logits in ``dtype`` (fp32;
+    float64 for a check's order spread), and v (B_, nH, N, hd)."""
     b_, n, c3 = qkv.shape
     c = c3 // 3
     hd = c // num_heads
     scale = hd ** -0.5
     q, k, v = qkv.view(b_, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
-    attn = torch.einsum('bhnd,bhmd->bhnm', q.float() * scale, k.float())
-    attn = attn + bias.float()[None]
+    attn = torch.einsum('bhnd,bhmd->bhnm', q.to(dtype) * scale, k.to(dtype))
+    attn = attn + bias.to(dtype)[None]
     if mask is not None:
         nw = mask.shape[0]
         attn = attn.view(b_ // nw, nw, num_heads, n, n) \
-            + mask.float()[None, :, None]
+            + mask.to(dtype)[None, :, None]
         attn = attn.view(b_, num_heads, n, n)
     return torch.softmax(attn, dim=-1), v
 

@@ -20,9 +20,14 @@ both. The fused MLP backward's fp32 weight gradients of a bf16 run
 are held to a limit derived from the plain version's own summation-order
 spread on the same inputs (ops/fused_mlp.py fused_mlp_bwd_limits).
 The NMS kernel must equal its plain version exactly. The v4 attention
-kernel keeps qkv and the attention output in fp32 where its plain version
-rounds them to bf16, so in bf16 it is held to the plain version computed
-in fp32 on the same bf16 inputs and rounded once.
+(rows 12 and 13) runs its tensor-core kernels in bf16 and its SIMT
+kernels in fp32. Its forward is held in bf16 to the plain version
+computed in fp32 on the same bf16 inputs and rounded once; its bf16
+backward to the plain version with the tensor-core kernels' bf16
+roundings (``tc_rounding``): dx at 1e-2 of its largest entry, the fp32
+weight and bias gradients at limits derived on the same inputs
+(ops/window_attention_v4.py window_attention_v4_bwd_limits), which the
+plain version with one 64-row tile of g zeroed must exceed.
 """
 import pytest
 import torch
@@ -50,6 +55,7 @@ from swindet_tpu_torch.ops import (conv3x3, conv3x3_dw, conv3x3_dw_reference,
                                    window_attention_reference,
                                    window_attention_v3, window_attention_v4,
                                    window_attention_v4_bwd,
+                                   window_attention_v4_bwd_limits,
                                    window_attention_v4_bwd_reference,
                                    window_attention_v4_op,
                                    window_attention_v4_reference)
@@ -560,25 +566,99 @@ def _v4_params(gen, b_, n, c, dtype):
 @pytest.mark.parametrize('dtype', DTYPES)
 @pytest.mark.parametrize('b_,n,c,nh,shift', [
     (12, 49, 96, 3, True), (7, 49, 768, 24, False), (5, 16, 48, 3, False),
-    (3, 49, 1024, 32, False)])
+    (3, 49, 1024, 32, False), (1392, 49, 96, 3, (203, 336)),
+    (360, 49, 192, 6, (105, 168)), (96, 49, 384, 12, (56, 84)),
+    (24, 49, 768, 24, (28, 42))])
 def test_window_attention_v4_fwd_and_bwd(gen, dtype, b_, n, c, nh, shift):
-    """Stage 1 with the shift mask; stage-4 width (C 768, 24 heads) and
-    Swin-B's (C 1,024, the most shared memory) at odd window counts; a
-    4x4 window."""
-    mask = None
+    """Stage 1 with the shift mask of a 14x21 map; stage-4 width (C 768,
+    24 heads) and Swin-B's (C 1,024) at odd window counts; a 4x4 window;
+    and the four Swin-T stages of an 800x1344 canvas with their shift
+    masks, the forward at a request's windows and the backward at a
+    training batch's. bf16 runs the tensor-core kernels (rows 12 and 13),
+    fp32 the SIMT ones; the bf16 backward is held to the rounding plain
+    version (dx at 1e-2 of its largest entry, the fp32 outputs at the
+    derived limits, which a zeroed 64-row tile of g must exceed), fp32 to
+    the fp32 plain version at 1e-4."""
+    mask, b_bwd = None, b_
     if shift:
-        mask = torch.from_numpy(shifted_window_attn_mask(14, 21, 7, 3)).cuda()
+        hw = (14, 21) if shift is True else shift
+        mask = torch.from_numpy(shifted_window_attn_mask(*hw, 7, 3)).cuda()
+        b_bwd = b_ if shift is True else 2 * b_
     x, wqkv, bqkv, wproj, bproj = _v4_params(gen, b_, n, c, dtype)
     bias = _randn(gen, nh, n, n, scale=0.5)
     args = (wqkv, bqkv, bias, mask, wproj)
+    reset_launch_counts()
     got = window_attention_v4(x, *args, bproj, nh)
     want = window_attention_v4_reference(x.float(), *args, bproj, nh)
     _close(got, want.to(dtype), dtype)
-    g = _randn(gen, b_, n, c, dtype=dtype)
+    x = _randn(gen, b_bwd, n, c, dtype=dtype)
+    g = _randn(gen, b_bwd, n, c, dtype=dtype)
+    bf16 = dtype == torch.bfloat16
     got = window_attention_v4_bwd(x, *args, g, nh)
-    want = window_attention_v4_bwd_reference(x, *args, g, nh)
-    for a, w in zip(got, want):
-        _close_summed(a, w, w.dtype if w.dtype == dtype else torch.float32)
+    want = window_attention_v4_bwd_reference(x, *args, g, nh,
+                                             tc_rounding=bf16)
+    tc = int(bf16)
+    assert (window_attention_v4.launches, window_attention_v4_bwd.launches,
+            window_attention_v4.tc_launches,
+            window_attention_v4_bwd.tc_launches) == (1, 1, tc, tc)
+    _close_summed(got[0], want[0], dtype)
+    if not bf16:
+        for a, w in zip(got[1:], want[1:]):
+            _close_summed(a, w, torch.float32)
+        return
+    limits = window_attention_v4_bwd_limits(x, *args, g, nh, want)
+    for a, w, lim in zip(got[1:], want[1:], limits):
+        assert a.dtype == torch.float32 and torch.isfinite(a).all()
+        assert (a - w).abs().max().item() <= lim
+    dropped = g.clone()
+    dropped.view(-1, c)[:64] = 0
+    control = window_attention_v4_bwd_reference(x, *args, dropped, nh,
+                                                tc_rounding=True)
+    assert all((a - w).abs().max().item() > lim
+               for a, w, lim in zip(control[1:], want[1:], limits))
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_window_attention_v4_picks_its_kernel_by_dtype(gen, dtype):
+    """Through the differentiable op, bf16 runs the tensor-core forward
+    and backward (tc_launches rises with launches), fp32 the SIMT ones;
+    every gradient comes back finite and shaped as its leaf."""
+    x, wqkv, bqkv, wproj, bproj = _v4_params(gen, 6, 49, 96, dtype)
+    bias = _randn(gen, 3, 49, 49, scale=0.5)
+    mask = torch.from_numpy(shifted_window_attn_mask(14, 21, 7, 3)).cuda()
+    leaves = [t.requires_grad_() for t in (x, wqkv, bqkv, bias, wproj,
+                                           bproj)]
+    reset_launch_counts()
+    out = window_attention_v4_op(*leaves[:4], mask, *leaves[4:], 3)
+    out.float().sum().backward()
+    tc = int(dtype == torch.bfloat16)
+    assert (window_attention_v4.launches,
+            window_attention_v4_bwd.launches) == (1, 1)
+    counts = tc_launch_counts()
+    assert (counts['window_attention_v4'],
+            counts['window_attention_v4_bwd']) == (tc, tc)
+    for t in leaves:
+        assert t.grad.shape == t.shape and torch.isfinite(t.grad).all()
+
+
+def test_bf16_window_attention_v4_refuses_misaligned_inputs(gen):
+    """The tensor-core kernels copy rows of x and g in 16-byte pieces: a
+    bf16 x or g that does not start on a 16-byte boundary is refused, not
+    run on the SIMT kernels."""
+    x, wqkv, bqkv, wproj, bproj = _v4_params(gen, 2, 49, 96, torch.bfloat16)
+    bias = _randn(gen, 3, 49, 49)
+    flat = _randn(gen, 2 * 49 * 96 + 1, dtype=torch.bfloat16)
+    xo = flat[1:].view(2, 49, 96)
+    assert xo.is_contiguous() and xo.data_ptr() % 16
+    reset_launch_counts()
+    with pytest.raises(ValueError):
+        window_attention_v4(xo, wqkv, bqkv, bias, None, wproj, bproj, 3)
+    with pytest.raises(ValueError):
+        window_attention_v4_bwd(xo, wqkv, bqkv, bias, None, wproj, x, 3)
+    with pytest.raises(ValueError):
+        window_attention_v4_bwd(x, wqkv, bqkv, bias, None, wproj, xo, 3)
+    assert (window_attention_v4.launches,
+            window_attention_v4_bwd.launches) == (0, 0)
 
 
 def test_window_attention_v4_refuses_what_the_kernel_does_not_take(gen):

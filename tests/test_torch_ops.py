@@ -35,6 +35,10 @@ from swindet_tpu_torch.ops.roi_align import adaptive_grid, map_roi_levels
 from swindet_tpu_torch.ops.window_attention_v3 import (
     FWD_MAX_HEADS, SMEM_LIMIT, TC_HEAD_DIMS, TC_ROWS, bwd_geometry,
     fwd_geometry, kernel_symbol, tc_bwd_smem, tc_fwd_smem, uses_tensor_cores)
+from swindet_tpu_torch.ops.window_attention_v4 import (
+    DW_KC, TC_MAX_CLUSTER, dw_split_rows, fwd_geometry as v4_fwd_geometry,
+    kernel_symbol as v4_kernel_symbol, tc_bwd_smem as v4_bwd_smem,
+    tc_fwd_smem as v4_fwd_smem, uses_tensor_cores as v4_uses_tensor_cores)
 
 T = torch.from_numpy
 
@@ -208,6 +212,106 @@ def test_tc_attention_kernel_symbols(kind, dtype, hd, want):
             'swindet_window_attention_fwd_p',
             'bwd': 'swindet_window_attention_bwd'}[kind]
     assert kernel_symbol(kind, dtype, hd) == name + ('_tc' if want else '')
+
+
+# (windows of one request, C, heads) at stages 1-4 of Swin-T and Swin-B;
+# the v4 forward runs these windows, its backward twice as many
+V4_STAGES = [(1392, 96, 3), (360, 192, 6), (96, 384, 12), (24, 768, 24),
+             (1392, 128, 4), (360, 256, 8), (96, 512, 16), (24, 1024, 32)]
+
+
+@pytest.mark.parametrize('windows,c,heads', V4_STAGES)
+def test_v4_tc_grids_and_smem_at_the_stage_shapes(windows, c, heads):
+    """Rows 12 and 13's tensor-core kernels take every Swin-T and Swin-B
+    stage in bf16 with a block in 227 KB; the forward's cluster divides
+    the heads, has at most 8 blocks and fills 2 blocks for each of 132
+    SMs where 8 can; the backward covers every window of a training
+    batch once; each weight gradient's split is a whole number of
+    32-row chunks and gives at least 2 blocks an SM where the rows
+    allow."""
+    hd = c // heads
+    assert v4_uses_tensor_cores(torch.bfloat16, 49, c, heads)
+    assert v4_fwd_smem(49, c, hd) <= SMEM_LIMIT
+    assert v4_bwd_smem(49, hd) <= SMEM_LIMIT
+    for b_ in (windows, 2 * windows):
+        cl = v4_fwd_geometry(b_, heads, 132)
+        assert heads % cl == 0 and 1 <= cl <= TC_MAX_CLUSTER
+        assert b_ * cl >= 2 * 132 or cl == max(
+            g for g in range(1, TC_MAX_CLUSTER + 1) if heads % g == 0)
+    b_ = 2 * windows
+    per = bwd_geometry(b_, heads, 132)
+    covered = [w for blk in range(-(-b_ // per))
+               for w in range(blk * per, min(blk * per + per, b_))]
+    assert covered == list(range(b_))
+    rows = b_ * 49
+    for m in (3 * c, c):
+        split = dw_split_rows(rows, m, c, 132)
+        splits = -(-rows // split)
+        assert split % DW_KC == 0 and (splits - 1) * split < rows
+        tiles = -(-m // 64) * -(-c // 64)
+        assert tiles * splits >= 2 * 132 or split <= 64 + DW_KC
+
+
+@pytest.mark.parametrize('windows,heads,cluster', [
+    (1392, 3, 1), (360, 6, 1), (96, 12, 3), (24, 24, 8), (2784, 3, 1),
+    (720, 6, 1), (192, 12, 2), (48, 24, 6), (24, 32, 8), (2, 6, 6)])
+def test_v4_forward_cluster(windows, heads, cluster):
+    """The smallest cluster that fills the card two blocks an SM: one
+    block a window at stages 1-2, the window split over 3 (request) or 2
+    (training) blocks at stage 3 and over 8 or 6 at stage 4; with few
+    windows the largest divisor of the heads up to 8. At Swin-T's widths
+    a block of such a cluster fits three an SM (with the 1 KB the card
+    reserves a block)."""
+    assert v4_fwd_geometry(windows, heads, 132) == cluster
+    assert 3 * (v4_fwd_smem(49, 32 * heads, 32, cluster) + 1024) \
+        <= 228 * 1024
+
+
+@pytest.mark.parametrize('dtype,n,c,heads,want', [
+    (torch.bfloat16, 49, 96, 3, True), (torch.bfloat16, 16, 96, 3, True),
+    (torch.bfloat16, 16, 48, 3, True), (torch.bfloat16, 64, 1024, 16, True),
+    (torch.bfloat16, 49, 1024, 32, True), (torch.bfloat16, 49, 96, 12, False),
+    (torch.bfloat16, 49, 96, 4, False), (torch.bfloat16, 81, 96, 3, False),
+    (torch.bfloat16, 49, 1536, 24, False), (torch.bfloat16, 49, 256, 2, False),
+    (torch.float32, 49, 96, 3, False), (torch.float32, 49, 768, 24, False)])
+def test_v4_tc_routing(dtype, n, c, heads, want):
+    """bf16 with N <= 64, hd in {16, 32, 48, 64} and both blocks within
+    227 KB (every Swin stage, a 4x4 window, Swin-B's C 1,024) takes the
+    tensor-core kernels; fp32, other head widths, N over 64 and C 1,536
+    with hd 64 (a forward block of 280 KB) the SIMT ones."""
+    assert v4_uses_tensor_cores(dtype, n, c, heads) is want
+    for kind in ('fwd', 'bwd'):
+        name = 'swindet_window_attention_v4' + ('_bwd' if kind == 'bwd'
+                                                else '')
+        assert v4_kernel_symbol(kind, dtype, n, c, heads) == \
+            name + ('_tc' if want else '')
+
+
+def test_v4_smem_matches_the_kernels_layout():
+    """tc_fwd_smem and tc_bwd_smem (mirrored in csrc tc_fwd_smem and
+    tc_bwd_smem) at Swin-T stages 1 and 4, Swin-B stage 4 and a 4x4
+    window, counted by hand: the block's columns of the bf16 attention
+    output (64 x (C / cluster + 8)), q, k, v tiles (64 x 40 each), the
+    fp32 bias plus mask (49 x 49, 2,404 floats rounded to 16 bytes) and
+    two pipeline stages of a 64-row and a 96-row chunk (40 values a
+    row); the backward's q, k, v and d tiles, P and dS
+    (64 x 72 each), the same table (at a 4x4 window the four warps' 16 x
+    40 staging tiles, which take its room) and pipeline. The largest
+    shape the kernels take, Swin-B's C 1,024 at hd 64 and N 64, fits."""
+    pipe = 2 * 2 * (64 + 96) * 40
+    add = 4 * 2404
+    assert v4_fwd_smem(49, 96, 32) == 2 * (64 * 104 + 3 * 64 * 40) + add \
+        + pipe
+    assert v4_fwd_smem(49, 1024, 32) == 2 * (64 * 1032 + 3 * 64 * 40) \
+        + add + pipe
+    # a block of stage 4's cluster of 8 holds its 96 columns only
+    assert v4_fwd_smem(49, 768, 32, 8) == v4_fwd_smem(49, 96, 32)
+    assert v4_bwd_smem(49, 32) == 2 * (4 * 64 * 40 + 2 * 64 * 72) + add \
+        + pipe
+    assert v4_bwd_smem(16, 32) == 2 * (4 * 64 * 40 + 2 * 64 * 72) \
+        + 4 * 32 * 40 + pipe
+    assert v4_fwd_smem(64, 1024, 64) <= SMEM_LIMIT
+    assert v4_bwd_smem(64, 64) <= SMEM_LIMIT
 
 
 # ------------------------------------------------------------- conv 3x3

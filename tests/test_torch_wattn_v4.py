@@ -25,14 +25,20 @@ from swindet_tpu.ops.window_attention_v4 import (
     window_attention_v4_reference as jax_window_attention_v4_reference)
 from tests.test_torch_checkpoint import jax_backbone_params
 
+import torch.nn.functional as F
+
 from swindet_tpu_torch.checkpoint import state_dict_from_jax
-from swindet_tpu_torch.models.backbones.swin import WindowAttention
+from swindet_tpu_torch.models.backbones.swin import (
+    WindowAttention, shifted_window_attn_mask)
 from swindet_tpu_torch.models.builder import build_backbone
 from swindet_tpu_torch.ops import (window_attention_v4,
                                    window_attention_v4_bwd,
+                                   window_attention_v4_bwd_limits,
                                    window_attention_v4_bwd_reference,
+                                   window_attention_v4_bwd_reference_f64,
                                    window_attention_v4_op,
                                    window_attention_v4_reference)
+from swindet_tpu_torch.ops.window_attention import attention_probs
 
 TINY_SWIN = dict(type='SwinTransformer', embed_dim=32, depths=[2, 2, 2, 1],
                  num_heads=[1, 2, 4, 8], window_size=7, drop_path_rate=0.0)
@@ -157,6 +163,124 @@ def test_op_gradients_match_jax_grad(with_mask):
                                    err_msg=f'grad {name}')
     if pa[4] is not None:
         assert pa[4].grad is None
+
+
+def _bwd_as_first_written(x, wqkv, bqkv, bias, mask, wproj, g, num_heads):
+    """The plain backward as it read before it took the tensor-core
+    kernels' rounding option, kept here to hold the option's default to
+    it bit for bit."""
+    b_, n, c = x.shape
+    hd = c // num_heads
+    scale = hd ** -0.5
+    xf, gf = x.float(), g.float()
+    qkv = F.linear(xf, wqkv.float(), bqkv.float())
+    p, v = attention_probs(qkv, bias, mask, num_heads)
+    attn = (p @ v).transpose(1, 2).reshape(b_ * n, c)
+    g2 = gf.reshape(b_ * n, c)
+    dwproj = g2.t() @ attn
+    dbproj = g2.sum(0)
+    da = (g2 @ wproj.float()).view(b_, n, num_heads, hd).transpose(1, 2)
+    q, k = qkv.view(b_, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)[:2]
+    q = q * scale
+    dv = p.transpose(-1, -2) @ da
+    dp = da @ v.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dq = (ds @ k) * scale
+    dk = ds.transpose(-1, -2) @ q
+    dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4) \
+        .reshape(b_ * n, 3 * c)
+    dwqkv = dqkv.t() @ xf.reshape(b_ * n, c)
+    dx = (dqkv @ wqkv.float()).view(b_, n, c).to(x.dtype)
+    return dx, dwqkv, dqkv.sum(0), ds.sum(0), dwproj, dbproj
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('with_mask', [False, True])
+def test_bwd_reference_default_is_unchanged(dtype, with_mask):
+    """With tc_rounding off (the default, what every fp32 check reads) the
+    plain backward equals its first form bit for bit."""
+    x, wqkv, bqkv, bias, mask, wproj, _ = _port(*_inputs(
+        with_mask=with_mask, seed=5))
+    g = torch.from_numpy(np.random.RandomState(6).randn(*x.shape)
+                         .astype(np.float32))
+    args = (x.to(dtype), wqkv, bqkv, bias, mask, wproj, g.to(dtype), 2)
+    for a, b in zip(window_attention_v4_bwd_reference(*args),
+                    _bwd_as_first_written(*args)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+# a stage-1 width (C 96, 3 heads, with the shift mask of a 14 x 21 map's 6
+# windows) and a stage-4 width (C 768, 24 heads, no shift), a few windows
+# each
+V4_WIDTHS = [(12, 96, 3, (14, 21)), (4, 768, 24, None)]
+
+
+def _v4_case(b_, c, nh, shift_map, seed=0):
+    """Seeded bf16 x and g, fp32 weights of a Swin block (the scales of
+    chip_smoke.py's _v4_inputs) and the shift mask or None."""
+    rs = np.random.RandomState(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rs.randn(*shape) * scale)
+                                .astype(np.float32))
+
+    mask = None if shift_map is None else torch.from_numpy(
+        shifted_window_attn_mask(*shift_map, 7, 3))
+    return (t(b_, 49, c).bfloat16(), t(3 * c, c, scale=c ** -0.5),
+            t(3 * c, scale=0.1), t(nh, 49, 49, scale=0.5), mask,
+            t(c, c, scale=c ** -0.5), t(c, scale=0.1),
+            t(b_, 49, c).bfloat16())
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+@pytest.mark.parametrize('b_,c,nh,shift_map', V4_WIDTHS)
+def test_rounding_bwd_is_as_close_as_the_bf16_chain(b_, c, nh, shift_map):
+    """In bf16, the plain backward with the tensor-core kernels' rounding
+    is no farther from the fp32 plain version than 1.5 times the bf16
+    autograd of the unfused chain (window_attention_v4_reference, what
+    the JAX package's non-TPU path computes), per output, as a share of
+    the output's largest entry."""
+    x, wqkv, bqkv, bias, mask, wproj, bproj, g = _v4_case(b_, c, nh,
+                                                          shift_map)
+    args = (x, wqkv, bqkv, bias, mask, wproj, g, nh)
+    fp32 = window_attention_v4_bwd_reference(*args)
+    mine = window_attention_v4_bwd_reference(*args, tc_rounding=True)
+    leaves = [t.clone().requires_grad_()
+              for t in (x, wqkv, bqkv, bias, wproj, bproj)]
+    out = window_attention_v4_reference(*leaves[:4], mask, *leaves[4:], nh)
+    out.backward(g)
+    chain = [leaves[i].grad for i in (0, 1, 2, 3, 4, 5)]
+    for name, a, b, f in zip(GRADS, mine, chain, fp32):
+        assert a.dtype == f.dtype and a.shape == f.shape
+        assert _rel(a, f) <= 1.5 * _rel(b, f), name
+
+
+@pytest.mark.parametrize('b_,c,nh,shift_map', V4_WIDTHS)
+def test_bwd_limit_from_the_order_spread(b_, c, nh, shift_map):
+    """The bf16 check's limits of the fp32 outputs (dWqkv, dbqkv, dBias,
+    dWproj, dbproj), derived on the check's own inputs: the same
+    computation in float64 passes them, and the rounding plain version
+    with one 64-row tile of g zeroed (a kernel that dropped a tile) fails
+    every one."""
+    x, wqkv, bqkv, bias, mask, wproj, _, g = _v4_case(b_, c, nh, shift_map,
+                                                      seed=1)
+    args = (x, wqkv, bqkv, bias, mask, wproj, g, nh)
+    want = window_attention_v4_bwd_reference(*args, tc_rounding=True)
+    limits = window_attention_v4_bwd_limits(*args, want)
+    assert len(limits) == 5 and all(lim > 0 for lim in limits)
+    other = window_attention_v4_bwd_reference_f64(*args)
+    assert all((o - w).abs().max().item() <= lim
+               for o, w, lim in zip(other, want[1:], limits))
+    dropped = g.clone()
+    dropped.view(-1, c)[64:128] = 0
+    control = window_attention_v4_bwd_reference(*args[:-2], dropped, nh,
+                                                tc_rounding=True)
+    assert all((a - w).abs().max().item() > lim
+               for a, w, lim in zip(control[1:], want[1:], limits))
 
 
 def _jax_attention_params(c, nh, ws, qkv_bias, seed):

@@ -1,8 +1,9 @@
-"""Device time of the v3 window-attention kernels, the inference forward,
-the training forward that saves P and the backward (rows 2, 6 and 7), at
-the Swin-T shapes of the main path, in bf16, on one CUDA card.
+"""Device time of the window-attention kernels at the Swin-T shapes of
+the main path, in bf16, on one CUDA card: the v3 inference forward, the
+training forward that saves P and the backward (rows 2, 6 and 7), and the
+v4 forward and backward with both projections folded in (rows 12 and 13).
 
-    python tools/time_window_attention.py [REPO_ROOT ...]
+    python tools/time_window_attention.py [--rows v3|v4|all] [REPO_ROOT ...]
 
 Each REPO_ROOT (default: this checkout) names a checkout whose
 ``swindet_tpu_torch`` is timed, each in a process of its own, so two
@@ -11,7 +12,9 @@ call. The forward runs at the windows of one 800x1344 canvas at stages
 1-4 (1,392, 360, 96 and 24 windows of 3, 6, 12 and 24 heads, hd 32) with
 the stage's shift mask, the training forward and the backward at twice as
 many windows (a training batch of 2), the backward from the plain
-version's fp32 softmax; inputs are seeded.
+version's fp32 softmax; inputs are seeded. The v4 rows take x, the fp32
+weights of the stage's Swin block and the shift mask: the forward at a
+request's windows, the backward at a training batch's.
 Prints one JSON line per checkout: the card's name and power limit as
 nvidia-smi reports them; ``ms``, the mean ms of 20 calls after 3
 warm-ups by CUDA events around them (as chip_smoke.py phase 3 times a
@@ -19,15 +22,18 @@ kernel: where a call's host work, the Python wrapper and the launch,
 takes longer than its kernel, this reads the host); and ``device_ms``,
 the kernel's own device time per call from torch.profiler over 20 more
 calls (the kernels of the ``swindet`` namespace only, not the wrapper's
-zeroing of dBias).
+zeroing of dBias). ``kernels`` splits each v4 row's device time by kernel
+function (the backward's several kernels, the weights' bf16 cast).
 
     python tools/time_window_attention.py build/parent . . build/parent
 
 times a parent checkout (unpacked with ``git archive`` into
 ``build/parent/``) and this one in turns.
 """
+import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -52,6 +58,8 @@ def _time(fn, iters=20):
 
 
 def _device_ms(fn, iters=20):
+    """The swindet kernels' device ms per call, in all and by kernel
+    function name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -59,11 +67,41 @@ def _device_ms(fn, iters=20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.key_averages()
-               if 'swindet' in e.key) / 1e3 / iters
+    split = {}
+    for e in prof.key_averages():
+        if 'swindet' in e.key:
+            name = re.search(r'(\w+(?:<[^()]*>)?)\(', e.key)
+            key = name.group(1) if name else e.key
+            split[key] = split.get(key, 0.0) + e.device_time_total / 1e3 / iters
+    return sum(split.values()), split
 
 
-def run(root: str) -> None:
+def run_v4(randn, torch, mask, b_, c, nh, out, dev, kernels):
+    """Rows 12 and 13 at one stage: the forward at a request's windows, the
+    backward at a training batch's."""
+    from swindet_tpu_torch.ops import (window_attention_v4,
+                                       window_attention_v4_bwd)
+    f32 = torch.float32
+    w = (randn(3 * c, c, scale=c ** -0.5, dtype=f32),
+         randn(3 * c, scale=0.1, dtype=f32))
+    bias = randn(nh, 49, 49, scale=0.5, dtype=f32)
+    wproj = randn(c, c, scale=c ** -0.5, dtype=f32)
+    bproj = randn(c, scale=0.1, dtype=f32)
+    x = randn(b_, 49, c)
+    x2, g2 = randn(2 * b_, 49, c), randn(2 * b_, 49, c)
+    for key, fn in (
+            (f'window_attention_v4 ({b_}, 49, {c}) {nh} heads shifted',
+             lambda: window_attention_v4(x, *w, bias, mask, wproj, bproj,
+                                         nh)),
+            (f'window_attention_v4_bwd ({2 * b_}, 49, {c}) {nh} heads '
+             f'shifted',
+             lambda: window_attention_v4_bwd(x2, *w, bias, mask, wproj, g2,
+                                             nh))):
+        out[key] = _time(fn)
+        dev[key], kernels[key] = _device_ms(fn)
+
+
+def run(root: str, rows: str) -> None:
     sys.path.insert(0, root)
     import torch
     from swindet_tpu_torch.models.backbones.swin import \
@@ -79,9 +117,13 @@ def run(root: str) -> None:
     def randn(*shape, scale=1.0, dtype=torch.bfloat16):
         return (torch.randn(*shape, generator=gen) * scale).cuda().to(dtype)
 
-    out, dev = {}, {}
+    out, dev, kernels = {}, {}, {}
     for b_, c, nh, (hp, wp) in STAGES:
         mask = torch.from_numpy(shifted_window_attn_mask(hp, wp, 7, 3)).cuda()
+        if rows in ('v4', 'all'):
+            run_v4(randn, torch, mask, b_, c, nh, out, dev, kernels)
+        if rows == 'v4':
+            continue
         bias = randn(nh, 49, 49, scale=0.5, dtype=torch.float32)
         qkv = randn(b_, 49, 3 * c)
         qkv2 = randn(2 * b_, 49, 3 * c)
@@ -95,24 +137,28 @@ def run(root: str) -> None:
                 (f'window_attention_bwd ({2 * b_}, 49, 3x{c})',
                  lambda: window_attention_bwd(qkv2, p, g, nh))):
             out[key] = _time(fn)
-            dev[key] = _device_ms(fn)
+            dev[key] = _device_ms(fn)[0]
         del p
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(json.dumps({'root': root, 'card': smi, 'ms': out,
-                      'device_ms': dev}), flush=True)
+                      'device_ms': dev, 'kernels': kernels}), flush=True)
 
 
 def main() -> None:
     here = os.path.join(os.path.dirname(os.path.abspath(__file__)), '..')
-    roots = [os.path.abspath(r) for r in sys.argv[1:]] or [here]
+    ap = argparse.ArgumentParser()
+    ap.add_argument('--rows', choices=('v3', 'v4', 'all'), default='all')
+    ap.add_argument('roots', nargs='*')
+    args = ap.parse_args()
+    roots = [os.path.abspath(r) for r in args.roots] or [here]
     if len(roots) == 1:
-        run(roots[0])
+        run(roots[0], args.rows)
         return
     for root in roots:
-        subprocess.run([sys.executable, os.path.abspath(__file__), root],
-                       check=True, timeout=900)
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        '--rows', args.rows, root], check=True, timeout=900)
 
 
 if __name__ == '__main__':
