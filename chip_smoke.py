@@ -53,7 +53,13 @@ before the last line:
               (SIMT) at stages 1 and 3; its
               bf16 weight gradients are held to a limit derived from the
               plain version's summation-order spread, which a control
-              with a 64-row tile of g zeroed must exceed.
+              with a 64-row tile of g zeroed must exceed. RoIAlign runs
+              at serving's and training's bbox and mask shapes, its
+              backward at training's, each with its bound; both then at
+              7x7 and 14x14 on 256 rois piled on one 20x20-cell area of
+              P2 and on edge-case rois (slivers, one past every border,
+              reversed, degenerate, invalid); the backward must repeat
+              bit for bit.
 4. main    -- serving: Mask R-CNN Swin-T (full width, seeded weights,
               bf16, RPN nms_pre = max_per_img = 1000) through
               init_detector and inference_detector on 3 synthetic
@@ -107,10 +113,10 @@ Then one JSON line of per-kernel results (``launches``: the serving
 and the training runs' counts of the three configurations, each from its
 own reset, summed; each also apart; for the conv, fused-MLP and v3 and
 v4 attention rows also ``tc_launches``, counted the same way;
-``shapes``, the bf16 readings at every main-path shape, for those and
-NMS), the card's
-name and power limit, and, last, one JSON line with the device. It
-imports neither jax nor the JAX package.
+``shapes``, the bf16 readings at every main-path shape, for those,
+RoIAlign and its backward and NMS), the card's name and power limit,
+and, last, one JSON line with the device. It imports neither jax nor the
+JAX package.
 """
 from __future__ import annotations
 
@@ -224,7 +230,8 @@ TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 # and N(0, 1) feature maps change by up to ~6 per cell)
 TOL_ROI_FP32 = (1e-3, 1e-4)
 # The backward kernels sum over windows, pixels or rois across blocks, by
-# fp32 atomics in an order that changes from run to run, and their
+# fp32 atomics in an order that changes from run to run (RoIAlign's sums
+# its rois in index order instead, and must repeat bit for bit), and their
 # entries cancel (a sum of ~1e5 signed products can be near zero while
 # each product is not): |kernel - plain| <= TOL_SUM * max|plain| per
 # output, a little looser than the forwards' elementwise tolerance. bf16
@@ -478,6 +485,105 @@ def _roi_work(shapes, rois, strides, out_size):
         samples += int(used.sum())
         rows += [i[used].unique() for i in idx]
     return torch.cat(rows).unique().numel(), samples
+
+
+# rois of ROADMAP section 3 item 3 and the borders on an 800x1344 canvas,
+# [batch, x1, y1, x2, y2]: corners, a full-width and a full-height
+# sliver, one past every border, one that is reversed, one degenerate
+# and one invalid (last)
+ROI_EDGE_CASES = (
+    (0, 0, 0, 60, 60), (1, 1300, 760, 1344, 800), (1, 0, 400, 1344, 406),
+    (0, 600, 0, 612, 800), (1, -400, -240, 1900, 1700),
+    (0, 700, 500, 650, 420), (1, 5, 5, 5, 5), (0, 100, 100, 300, 300))
+
+
+def _crowded_rois(gen, n, x0=400.0, y0=300.0, cells=20, stride=4,
+                  device='cuda'):
+    """n rois of 8-80 px, all inside one cells x cells area of P2 whose
+    corner is (x0, y0) px, spread over a batch of 2."""
+    u = torch.rand(n, 4, generator=gen)
+    side = cells * stride
+    w, h = 8 + u[:, 0] * (side - 8), 8 + u[:, 1] * (side - 8)
+    x1, y1 = x0 + u[:, 2] * (side - w), y0 + u[:, 3] * (side - h)
+    b = (torch.arange(n) % 2).float()
+    return torch.stack([b, x1, y1, x1 + w, y1 + h], 1).to(device) \
+        .contiguous()
+
+
+def roi_checks(dtype, gen, randn):
+    """RoIAlign (row 4) and its backward (row 9) against their plain
+    versions at the main paths' shapes, each with its bound: the forward
+    at serving's bbox (1000 rois 7x7) and mask (100 rois 14x14) shapes,
+    batch 1, and at training's (1024 rois 7x7, 256 rois 14x14, batch 2),
+    the backward at training's; then both at 7x7 and 14x14 on 256 rois
+    piled on one 20x20-cell area of P2 (the backward's tiles each sum many
+    overlapping rois) and on the edge-case rois, with one of them invalid.
+    The backward must repeat bit for bit (it has no atomics). Returns the
+    forward's and the backward's rows, the bbox shape first, with every
+    main-path shape in ``shapes``."""
+    strides = (4, 8, 16, 32)
+    el = torch.finfo(dtype).bits // 8
+    fwd, bwd = [], []
+    shapes = [(2, h, w, 256) for h, w in FPN_SHAPES]
+    level_bytes = sum(np.prod(s) for s in shapes) * el
+    feats = {b: [randn(b, h, w, 256).to(dtype) for h, w in FPN_SHAPES]
+             for b in (1, 2)}
+    for n, size, b in ((1000, 7, 1), (100, 14, 1), (1024, 7, 2),
+                       (256, 14, 2)):
+        rois = _rois(gen, n, batch=b)
+        touched, samples = _roi_work(FPN_SHAPES, rois, strides, size)
+        note = f'{n} rois {size}x{size}x256' + ('' if b == 1 else
+                                                 f', batch {b}')
+        fwd.append(_compare(
+            'roi_align', dtype,
+            lambda: roi_align(feats[b], rois, strides, size),
+            lambda: multilevel_roi_align(feats[b], rois, strides, size),
+            note, work=(touched * 256 * el + _nbytes(rois)
+                        + n * size * size * 256 * el,
+                        samples * 256 * 4 * 2.0)))
+        if b == 1:
+            continue
+        g = randn(n, size, size, 256).to(dtype)
+        bwd.append(_compare(
+            'roi_align_bwd', dtype,
+            lambda: roi_align_bwd(shapes, dtype, rois, g, strides, size),
+            lambda: multilevel_roi_align_backward(shapes, dtype, rois, g,
+                                                  strides, size),
+            note, summed=True,
+            work=(_nbytes(g, rois) + level_bytes, samples * 256 * 4 * 2.0)))
+        _check_repeats(shapes, dtype, rois, g, strides, size)
+    edge = torch.tensor(ROI_EDGE_CASES, dtype=torch.float32).cuda()
+    valid = torch.ones(len(edge), dtype=torch.bool).cuda()
+    valid[-1] = False
+    for rois, valid, note in ((_crowded_rois(gen, 256), None,
+                               '256 rois on 20x20 cells of P2'),
+                              (edge, valid, 'edge-case rois')):
+        for size in (7, 14):
+            g = randn(rois.shape[0], size, size, 256).to(dtype)
+            _compare('roi_align', dtype,
+                     lambda: roi_align(feats[2], rois, strides, size,
+                                       roi_valid=valid),
+                     lambda: multilevel_roi_align(feats[2], rois, strides,
+                                                  size, roi_valid=valid),
+                     f'{note} {size}x{size}x256, batch 2')
+            _compare('roi_align_bwd', dtype,
+                     lambda: roi_align_bwd(shapes, dtype, rois, g, strides,
+                                           size, roi_valid=valid),
+                     lambda: multilevel_roi_align_backward(
+                         shapes, dtype, rois, g, strides, size,
+                         roi_valid=valid),
+                     f'{note} {size}x{size}x256, batch 2', summed=True)
+            _check_repeats(shapes, dtype, rois, g, strides, size, valid)
+    return dict(fwd[0], shapes=fwd), dict(bwd[0], shapes=bwd)
+
+
+def _check_repeats(shapes, dtype, rois, g, strides, size, valid=None):
+    """Two runs of the RoIAlign backward kernel give the same bits."""
+    a, b = (roi_align_bwd(shapes, dtype, rois, g, strides, size,
+                          roi_valid=valid) for _ in range(2))
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f'roi_align_bwd {dtype} {rois.shape[0]} rois '
+                             f'{size}x{size}: two runs differ')
 
 
 def _nms_inputs(gen, b, n, groups):
@@ -860,47 +966,10 @@ def phase_kernels():
         del x, xm, xm2, gm2
         torch.cuda.empty_cache()
 
-        # RoIAlign: bbox 1000 rois x 7x7, mask 100 rois x 14x14, 4 levels
-        feats = [randn(1, h, w, 256).to(dtype) for h, w in FPN_SHAPES]
-        rois = _rois(gen, 1000)
-        touched, samples = _roi_work(FPN_SHAPES, rois, strides, 7)
-        r = _compare('roi_align', dtype,
-                     lambda: roi_align(feats, rois, strides, 7),
-                     lambda: multilevel_roi_align(feats, rois, strides, 7),
-                     '1000 rois 7x7x256',
-                     work=(touched * 256 * el + _nbytes(rois)
-                           + 1000 * 49 * 256 * el,
-                           samples * 256 * 4 * 2.0))
-        rois = _rois(gen, 100)
-        _compare('roi_align', dtype,
-                 lambda: roi_align(feats, rois, strides, 14),
-                 lambda: multilevel_roi_align(feats, rois, strides, 14),
-                 '100 rois 14x14x256')
-        results.setdefault('roi_align', {})[dtype] = r
-
-        # its backward: bbox 2 x 512 rois, mask 2 x 128 rois, batch 2
-        shapes = [(2, h, w, 256) for h, w in FPN_SHAPES]
-        level_bytes = sum(np.prod(s) for s in shapes) * el
-        rois = _rois(gen, 1024, batch=2)
-        g = randn(1024, 7, 7, 256).to(dtype)
-        _, samples = _roi_work(FPN_SHAPES, rois, strides, 7)
-        r = _compare('roi_align_bwd', dtype,
-                     lambda: roi_align_bwd(shapes, dtype, rois, g, strides,
-                                           7),
-                     lambda: multilevel_roi_align_backward(
-                         shapes, dtype, rois, g, strides, 7),
-                     '1024 rois 7x7x256, batch 2', summed=True,
-                     work=(_nbytes(g, rois) + level_bytes,
-                           samples * 256 * 4 * 2.0))
-        rois = _rois(gen, 256, batch=2)
-        g = randn(256, 14, 14, 256).to(dtype)
-        _compare('roi_align_bwd', dtype,
-                 lambda: roi_align_bwd(shapes, dtype, rois, g, strides, 14),
-                 lambda: multilevel_roi_align_backward(
-                     shapes, dtype, rois, g, strides, 14),
-                 '256 rois 14x14x256, batch 2', summed=True)
-        results.setdefault('roi_align_bwd', {})[dtype] = r
-        del g
+        results.setdefault('roi_align', {})[dtype], \
+            results.setdefault('roi_align_bwd', {})[dtype] = \
+            roi_checks(dtype, gen, randn)
+        torch.cuda.empty_cache()
 
         # fused MLP: in bf16 (the tensor-core kernels) the forward at the
         # serving rows of stages 1-3 and the training rows of stage 1, the

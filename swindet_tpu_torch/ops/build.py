@@ -116,12 +116,13 @@ def check_launch(kernel: str, status: int) -> None:
 
 
 def check_aligned(kernel: str, *tensors: torch.Tensor) -> None:
-    """The tensor-core kernels read bf16 tensors in 16-byte pieces (TMA
-    boxes or cp.async copies), from 16-byte aligned bases."""
+    """The tensor-core kernels (TMA boxes or cp.async copies) and the
+    RoIAlign kernels (vector loads) read tensors in 16-byte pieces, from
+    16-byte aligned bases."""
     for t in tensors:
         if t.data_ptr() % 16:
-            raise ValueError(f'{kernel}: bf16 tensors must start on a '
-                             f'16-byte boundary')
+            raise ValueError(f'{kernel}: tensors must start on a 16-byte '
+                             f'boundary')
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -3,11 +3,13 @@
 Counterpart of ``swindet_tpu/ops/roi_align.py`` (the contract, ported here
 as the plain version :func:`multilevel_roi_align`) and of
 ``swindet_tpu/ops/roi_align_pallas.py`` (the TPU kernels, replaced by
-``csrc/roi_align.cu``). :func:`roi_align` runs the forward kernel on CUDA
+``csrc/roi_align.cu``, which computes the same separable form
+A_y . F . A_x^T). :func:`roi_align` runs the forward kernel on CUDA
 tensors and the plain version on CPU tensors; :func:`roi_align_bwd` runs
-the backward kernel (replacing ``_roi_align_bwd_kernel``) or its plain
-version :func:`multilevel_roi_align_backward`, the exact gradient of the
-contract for every roi. Both route rois to FPN levels with
+the backward kernel (replacing ``_roi_align_bwd_kernel``; it writes every
+level once, with no atomics, so it is deterministic) or its plain version
+:func:`multilevel_roi_align_backward`, the exact gradient of the contract
+for every roi. Both route rois to FPN levels with
 :func:`map_roi_levels`. :func:`roi_align_op` is the differentiable entry
 point (``_rap_vjp``): feature gradients for every level, none for the
 rois, which are detached proposals throughout (:558-561).
@@ -30,14 +32,39 @@ SR0_GMAX = 8
 # rois per chunk of the plain version: bounds its (R, P, P, C) sample grid
 _PLAIN_CHUNK_ELEMS = 1 << 26
 
+# the kernels carry 8 channels a thread in 16-byte pieces; the forward
+# runs C / 8 threads on a roi, at most 256; the backward holds at most
+# 64 x 64 bins
+CHANNEL_MULTIPLE = 8
+MAX_CHANNELS = 2048
+MAX_BWD_OUT_SIZE = 64
+
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
-# swindet_roi_align_bwd takes the same arguments, with the level gradient
-# buffers in place of the features and grad_out in place of out
-_BWD_ARGTYPES = _ARGTYPES
+# swindet_roi_align_bwd takes the same arguments, with the level gradients
+# in place of the features and grad_out in place of out, and its scratch
+# before the stream
+_BWD_ARGTYPES = _ARGTYPES[:-1] + (ctypes.c_void_p, ctypes.c_void_p)
+# the backward's items: 16 x 16-cell tiles of every level and image, each
+# in 64-channel chunks (csrc/roi_align.cu kTile, kBwdChunk)
+BWD_TILE = 16
+BWD_CHUNK = 64
+
+
+def _check_channels(kernel: str, c: int) -> None:
+    if c % CHANNEL_MULTIPLE or c > MAX_CHANNELS:
+        raise ValueError(f'{kernel}: C must be a multiple of '
+                         f'{CHANNEL_MULTIPLE} up to {MAX_CHANNELS}, got {c}')
+
+
+def _bwd_items(feat_shapes: Sequence[Sequence[int]]) -> int:
+    """The backward kernel's items, which its scratch holds a byte each."""
+    tiles = sum(b * -(-h // BWD_TILE) * -(-w // BWD_TILE)
+                for b, h, w, _ in feat_shapes)
+    return tiles * -(-feat_shapes[0][-1] // BWD_CHUNK)
 
 
 def adaptive_grid(extent: torch.Tensor, out_size: int, g_max: int):
@@ -237,6 +264,8 @@ def roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor,
         if roi_valid.shape != (n,) or roi_valid.device != dev:
             raise ValueError(f'roi_align: roi_valid must be ({n},) on {dev}')
         roi_valid = roi_valid.to(torch.uint8).contiguous()
+    _check_channels('roi_align', c)
+    build.check_aligned('roi_align', *feats)
     lvl = map_roi_levels(rois, len(feats), finest_scale).to(torch.int32)
     out = torch.empty((n, out_size, out_size, c), dtype=dtype, device=dev)
     nl = len(feats)
@@ -298,7 +327,8 @@ def roi_align_bwd(feat_shapes: Sequence[Sequence[int]], dtype: torch.dtype,
                   ) -> List[torch.Tensor]:
     """Backward of :func:`roi_align` with the arguments of
     :func:`multilevel_roi_align_backward`: the kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+    which writes every value of the returned levels, the plain version for
+    CPU tensors."""
     if rois.device.type == 'cpu':
         return multilevel_roi_align_backward(
             feat_shapes, dtype, rois, g, strides, out_size, sampling_ratio,
@@ -328,23 +358,30 @@ def roi_align_bwd(feat_shapes: Sequence[Sequence[int]], dtype: torch.dtype,
             raise ValueError(f'roi_align_bwd: roi_valid must be ({n},) on '
                              f'{dev}')
         roi_valid = roi_valid.to(torch.uint8).contiguous()
+    _check_channels('roi_align_bwd', c)
+    build.check_aligned('roi_align_bwd', g)
+    if out_size > MAX_BWD_OUT_SIZE:
+        raise ValueError(f'roi_align_bwd: out_size up to {MAX_BWD_OUT_SIZE}')
     lvl = map_roi_levels(rois, nl, finest_scale).to(torch.int32)
-    grads = [torch.zeros(tuple(s), dtype=torch.float32, device=dev)
+    grads = [torch.empty(tuple(s), dtype=dtype, device=dev)
              for s in feat_shapes]
     ptrs = (ctypes.c_void_p * nl)(*[t.data_ptr() for t in grads])
     heights = (ctypes.c_int * nl)(*[s[1] for s in feat_shapes])
     widths = (ctypes.c_int * nl)(*[s[2] for s in feat_shapes])
     scales = (ctypes.c_float * nl)(*[1.0 / s for s in strides])
+    # a byte per item: whether its tile is left to the split kernel
+    deferred = torch.empty(_bwd_items(feat_shapes), dtype=torch.uint8,
+                           device=dev)
     fn = build.bind('roi_align', 'swindet_roi_align_bwd', _BWD_ARGTYPES)
     with torch.cuda.device(dev):
         status = fn(ptrs, heights, widths, scales, nl, b, rois.data_ptr(),
                     lvl.data_ptr(),
                     None if roi_valid is None else roi_valid.data_ptr(),
                     g.data_ptr(), n, c, out_size, sampling_ratio, SR0_GMAX,
-                    code, build.stream_ptr(dev))
+                    code, deferred.data_ptr(), build.stream_ptr(dev))
     build.check_launch('roi_align_bwd', status)
     roi_align_bwd.launches += 1
-    return [t.to(dtype) for t in grads]
+    return grads
 
 
 roi_align_bwd.launches = 0

@@ -10,9 +10,11 @@ not need.)
 
 Tolerances: fp32 at 1e-4 (summation order; RoIAlign 1e-3 for one-ulp
 sample coordinates, see chip_smoke.py), bf16 at 2e-2 (one rounding of
-the output on each side). The backward kernels sum across blocks by fp32
-atomics in a changing order and their entries cancel, so they are held
-to a fraction of each output's largest entry (chip_smoke.py TOL_SUM).
+the output on each side). The backward kernels sum across blocks (by fp32
+atomics in a changing order, but RoIAlign's, which sums in roi order and
+is checked to repeat bit for bit) and their entries cancel, so they are
+held to a fraction of each output's largest entry (chip_smoke.py
+TOL_SUM).
 The 3x3 conv, its filter gradient, the fused MLP and the window
 attention's forward and backward (rows 2 and 7) run their tensor-core
 kernels in bf16 and their SIMT kernels in fp32, so every case runs in
@@ -60,6 +62,8 @@ from swindet_tpu_torch.ops import (conv3x3, conv3x3_dw, conv3x3_dw_reference,
                                    window_attention_v4_op,
                                    window_attention_v4_reference)
 from swindet_tpu_torch.models.backbones.swin import shifted_window_attn_mask
+
+from chip_smoke import _crowded_rois
 
 pytestmark = pytest.mark.cuda
 DTYPES = [torch.float32, torch.bfloat16]
@@ -131,24 +135,82 @@ def test_conv3x3(gen, dtype, relu, shape):
            conv3x3_reference(x, wt, bias, relu), dtype)
 
 
+# rois at the borders, a thin tall one, one degenerate, the full-width
+# sliver and the roi past every border of ROADMAP section 3 item 3, on
+# 4 levels of a 160 x 224 canvas
+ROI_CASES = [
+    [0, 0, 0, 30, 30], [1, 100, 60, 180, 150], [0, 10, 5, 220, 158],
+    [1, 200, 140, 260, 200], [0, 50, 0, 52, 160], [1, 3, 3, 3, 3],
+    [0, 0, 0, 224, 160], [1, 0, 90, 224, 96], [1, -100, -60, 480, 420]]
+ROI_LEVELS = ((40, 56), (20, 28), (10, 14), (5, 7))
+
+
 @pytest.mark.parametrize('dtype', DTYPES)
 @pytest.mark.parametrize('out_size,ratio', [(7, 0), (14, 0), (7, 2)])
 def test_roi_align(gen, dtype, out_size, ratio):
-    feats = [_randn(gen, 2, h, w, 48, dtype=dtype)
-             for h, w in ((40, 56), (20, 28), (10, 14), (5, 7))]
-    rois = torch.tensor([
-        [0, 0, 0, 30, 30], [1, 100, 60, 180, 150], [0, 10, 5, 220, 158],
-        [1, 200, 140, 260, 200], [0, 50, 0, 52, 160], [1, 3, 3, 3, 3],
-        [0, 0, 0, 224, 160], [5, 10, 10, 40, 40]], dtype=torch.float32)
-    rois = rois.cuda()
-    valid = torch.tensor([1, 1, 1, 1, 1, 1, 0, 1], dtype=torch.bool).cuda()
+    feats = [_randn(gen, 2, h, w, 48, dtype=dtype) for h, w in ROI_LEVELS]
+    rois = torch.tensor(ROI_CASES + [[5, 10, 10, 40, 40]],
+                        dtype=torch.float32).cuda()
+    valid = torch.tensor([1, 1, 1, 1, 1, 1, 0, 1, 1, 1],
+                         dtype=torch.bool).cuda()
     strides = (4, 8, 16, 32)
     got = roi_align(feats, rois, strides, out_size, ratio, roi_valid=valid)
     # the roi with batch index 5 is out of range: the kernel zeroes it
-    want = multilevel_roi_align(feats, rois[:7], strides, out_size, ratio,
-                                roi_valid=valid[:7])
-    _close(got[:7], want, dtype, atol32=1e-3)
-    assert got[6].abs().max() == 0 and got[7].abs().max() == 0
+    want = multilevel_roi_align(feats, rois[:9], strides, out_size, ratio,
+                                roi_valid=valid[:9])
+    _close(got[:9], want, dtype, atol32=1e-3)
+    assert got[6].abs().max() == 0 and got[9].abs().max() == 0
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('out_size', [7, 14])
+@pytest.mark.parametrize('n,c', [(256, 64), (512, 256), (2048, 64)])
+def test_roi_align_crowded_and_deterministic(gen, dtype, out_size, n, c):
+    """n rois piled on one 20 x 20-cell area of P2: every backward tile
+    there sums many overlapping rois, and those keeping more than 64 are
+    split over a cluster (512 rois at C 256 make 48 such items, more than
+    the split kernel's 32 clusters; 2,048 rois take two scan rounds, each
+    cut into runs). Two backward runs are equal bit for bit (no
+    atomics)."""
+    shapes = [(2, h, w, c) for h, w in ((64, 96), (32, 48), (16, 24),
+                                        (8, 12))]
+    feats = [_randn(gen, *s, dtype=dtype) for s in shapes]
+    rois = _crowded_rois(gen, n, x0=100.0, y0=60.0)
+    strides = (4, 8, 16, 32)
+    _close(roi_align(feats, rois, strides, out_size),
+           multilevel_roi_align(feats, rois, strides, out_size), dtype,
+           atol32=1e-3)
+    g = _randn(gen, n, out_size, out_size, c, dtype=dtype)
+    got = roi_align_bwd(shapes, dtype, rois, g, strides, out_size)
+    want = multilevel_roi_align_backward(shapes, dtype, rois, g, strides,
+                                         out_size)
+    for a, b in zip(got, want):
+        _close_summed(a, b, dtype, tol32=1e-3)
+    again = roi_align_bwd(shapes, dtype, rois, g, strides, out_size)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_roi_align_refuses_what_the_kernels_do_not_take(gen):
+    """The kernels carry 8 channels in 16-byte pieces: C a multiple of 8,
+    16-byte aligned bases; the backward holds up to 64 x 64 bins."""
+    rois = torch.tensor([[0, 0, 0, 30, 30]], dtype=torch.float32).cuda()
+    strides = (4, 8)
+    feats = [_randn(gen, 1, 8, 8, 12), _randn(gen, 1, 4, 4, 12)]
+    with pytest.raises(ValueError):
+        roi_align(feats, rois, strides, 7)
+    g = _randn(gen, 1, 7, 7, 12)
+    with pytest.raises(ValueError):
+        roi_align_bwd([f.shape for f in feats], torch.float32, rois, g,
+                      strides, 7)
+    flat = _randn(gen, 8 * 8 * 16 + 1)
+    feats = [flat[1:].view(1, 8, 8, 16), _randn(gen, 1, 4, 4, 16)]
+    assert feats[0].is_contiguous() and feats[0].data_ptr() % 16
+    with pytest.raises(ValueError):
+        roi_align(feats, rois, strides, 7)
+    g = _randn(gen, 1, 65, 65, 16)
+    with pytest.raises(ValueError):
+        roi_align_bwd([f.shape for f in feats], torch.float32, rois, g,
+                      strides, 65)
 
 
 @pytest.mark.parametrize('dtype', DTYPES)
@@ -330,15 +392,12 @@ def test_conv3x3_dw(gen, dtype, shape):
 @pytest.mark.parametrize('dtype', DTYPES)
 @pytest.mark.parametrize('out_size,ratio', [(7, 0), (14, 0), (7, 2)])
 def test_roi_align_bwd(gen, dtype, out_size, ratio):
-    shapes = [(2, h, w, 48) for h, w in ((40, 56), (20, 28), (10, 14),
-                                          (5, 7))]
-    rois = torch.tensor([
-        [0, 0, 0, 30, 30], [1, 100, 60, 180, 150], [0, 10, 5, 220, 158],
-        [1, 200, 140, 260, 200], [0, 50, 0, 52, 160], [1, 3, 3, 3, 3],
-        [0, 0, 0, 224, 160], [0, 12, 8, 40, 36]],
-        dtype=torch.float32).cuda()
-    valid = torch.tensor([1, 1, 1, 1, 1, 1, 0, 1], dtype=torch.bool).cuda()
-    g = _randn(gen, 8, out_size, out_size, 48, dtype=dtype)
+    shapes = [(2, h, w, 48) for h, w in ROI_LEVELS]
+    rois = torch.tensor(ROI_CASES + [[0, 12, 8, 40, 36]],
+                        dtype=torch.float32).cuda()
+    valid = torch.tensor([1, 1, 1, 1, 1, 1, 0, 1, 1, 1],
+                         dtype=torch.bool).cuda()
+    g = _randn(gen, 10, out_size, out_size, 48, dtype=dtype)
     strides = (4, 8, 16, 32)
     got = roi_align_bwd(shapes, dtype, rois, g, strides, out_size, ratio,
                         roi_valid=valid)

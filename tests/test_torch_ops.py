@@ -31,7 +31,8 @@ from swindet_tpu_torch.ops import (conv3x3, conv3x3_reference, layer_norm,
                                    window_attention_v3)
 from swindet_tpu_torch.ops.conv3x3 import (BOX_SHAPES, DW_WAVES, box_shape,
                                            dw_chunk, hwio)
-from swindet_tpu_torch.ops.roi_align import adaptive_grid, map_roi_levels
+from swindet_tpu_torch.ops.roi_align import (_bwd_items, adaptive_grid,
+                                             map_roi_levels)
 from swindet_tpu_torch.ops.window_attention_v3 import (
     FWD_MAX_HEADS, SMEM_LIMIT, TC_HEAD_DIMS, TC_ROWS, bwd_geometry,
     fwd_geometry, kernel_symbol, tc_bwd_smem, tc_fwd_smem, uses_tensor_cores)
@@ -437,3 +438,140 @@ def test_roi_levels_and_adaptive_grid():
     assert g.tolist() == [1.0, 3.0, 8.0]
     assert torch.allclose(weights.sum(1), torch.ones(3))
     assert torch.allclose(steps[1, :3], torch.tensor([0.5, 1.5, 2.5]) / 3)
+
+
+# ----------------------------------------- roi align: the separable form
+# The CUDA kernels (csrc/roi_align.cu) compute out = A_y . F . A_x^T per
+# roi and its transpose A_y^T . g . A_x. separable_matrices builds A_y and
+# A_x as they do, in fp32 with the plain version's separately rounded
+# sample positions; the products are taken here in fp64, so these tests
+# hold the math, and the kernels' sums are held to the plain versions on
+# the card.
+def separable_matrices(rois, shapes, strides, out_size, sampling_ratio=0,
+                       finest_scale=56, g_max=8):
+    """Per roi: its level and A_y (out, H_l), A_x (out, W_l), fp32."""
+    f32 = np.float32
+    lvl = map_roi_levels(torch.from_numpy(rois), len(shapes),
+                         finest_scale).numpy()
+    result = []
+    for roi, l in zip(rois, lvl):
+        scale = f32(1.0 / strides[l])
+        mats = []
+        for lo, hi, size in ((roi[2], roi[4], shapes[l][0]),
+                             (roi[1], roi[3], shapes[l][1])):
+            with np.errstate(invalid='ignore'):
+                start = f32(f32(lo) * scale) - f32(0.5)
+                width = f32(f32(f32(hi) * scale) - f32(0.5)) - start
+                bin_ = f32(width / f32(out_size))
+                g = sampling_ratio or int(min(max(
+                    np.nan_to_num(np.ceil(bin_), nan=1.0), 1), g_max))
+                k = (np.arange(g, dtype=f32) + f32(0.5)) / f32(g)
+                pos = start + (np.arange(out_size, dtype=f32)[:, None]
+                               + k[None]) * bin_                # (out, g)
+                ok = (pos >= -1) & (pos <= size)
+            pos = np.minimum(np.maximum(np.where(ok, pos, 0), 0),
+                             f32(size - 1))
+            c0 = np.floor(pos).astype(np.int64)
+            c1 = np.minimum(c0 + 1, size - 1)
+            frac = pos - np.floor(pos)
+            inv_g = f32(1) / f32(g)
+            a = np.zeros((out_size, size), f32)
+            rows = np.arange(out_size)
+            for j in range(g):     # sample order, as the kernels add
+                m = ok[:, j]
+                np.add.at(a, (rows[m], c0[m, j]), (1 - frac[m, j]) * inv_g)
+                np.add.at(a, (rows[m], c1[m, j]), frac[m, j] * inv_g)
+            mats.append(a)
+        result.append((int(l), *mats))
+    return result
+
+
+def separable_roi_align(feats, rois, strides, out_size, sampling_ratio=0,
+                        roi_valid=None):
+    """A_y . F . A_x^T per roi; zeros for invalid rois and for rois whose
+    batch index lies outside the batch, as the kernel gives."""
+    shapes = [f.shape[1:3] for f in feats]
+    out = np.zeros((len(rois), out_size, out_size, feats[0].shape[-1]))
+    for r, (l, ay, ax) in enumerate(separable_matrices(
+            rois, shapes, strides, out_size, sampling_ratio)):
+        b = int(rois[r, 0])
+        if (roi_valid is None or roi_valid[r]) and 0 <= b < len(feats[l]):
+            out[r] = np.einsum('py,yxc,qx->pqc', ay.astype(np.float64),
+                               feats[l][b], ax.astype(np.float64))
+    return out
+
+
+# the first five are border and oversize rois the strip passes take, then
+# an invalid one; then a reversed roi (x2 < x1, y2 < y1), a full-width
+# sliver and a roi past every border, on which the JAX package's strip
+# passes depart from the contract (the reversed roi at 7 x 7 and 14 x 14
+# by up to 4.8, the other two at 14 x 14, ROADMAP section 3 item 3), and a
+# roi whose batch index is out of range
+SEP_ROIS = np.array([
+    [0, 0, 0, 30, 30], [0, 300, 180, 360, 230], [1, 320, 10, 335, 190],
+    [0, 100, 0, 118, 470], [0, 2, 3, 40, 300], [0, 0, 0, 0, 0],
+    [1, 60, 50, 20, 10], [1, 0, 90, 336, 96], [1, -100, -60, 480, 420],
+    [5, 10, 10, 40, 40]], np.float32)
+SEP_VALID = np.array([True] * 5 + [False, True, True, True, True])
+SEP_STRIP_EXACT = slice(0, 6)
+
+
+@pytest.mark.parametrize('out_size,ratio', [(7, 0), (14, 0), (7, 2)])
+def test_roi_align_separable_form_matches_the_plain_version(
+        feats, out_size, ratio):
+    rois = np.concatenate([SEP_ROIS[:9], _rois(np.random.RandomState(6),
+                                               12)])
+    valid = np.concatenate([SEP_VALID[:9], np.ones(12, bool)])
+    got = separable_roi_align(feats, rois, STRIDES, out_size, ratio, valid)
+    want = multilevel_roi_align([T(f) for f in feats], T(rois), STRIDES,
+                                out_size, ratio, roi_valid=T(valid))
+    _close(got, want, 1e-4)
+
+
+@pytest.mark.parametrize('out_size', [7, 14])
+def test_roi_align_separable_form_matches_pallas_and_the_contract(
+        feats, out_size):
+    """The Pallas kernel in interpret mode on the rois where its strip
+    passes keep the contract; the JAX package's exact RoIAlign on every
+    roi, the reversed one, the sliver and the roi past every border among
+    them, at 1e-4 as everywhere; zeros for the roi whose batch index is
+    out of range."""
+    got = separable_roi_align(feats, SEP_ROIS, STRIDES, out_size,
+                              roi_valid=SEP_VALID)
+    jf = [jnp.asarray(f) for f in feats]
+    exact = SEP_STRIP_EXACT
+    want = multilevel_roi_align_pallas(
+        jf, jnp.asarray(SEP_ROIS[exact]), STRIDES, out_size,
+        roi_valid=jnp.asarray(SEP_VALID[exact]), interpret=True)
+    _close(got[exact], want, 1e-4)
+    contract = jax_roi(jf, jnp.asarray(SEP_ROIS[:9]), STRIDES, out_size,
+                       roi_valid=jnp.asarray(SEP_VALID[:9]))
+    _close(got[:9], contract, 1e-4)
+    assert np.abs(got[5]).max() == 0 and np.abs(got[9]).max() == 0
+
+
+def test_roi_align_bwd_scratch_has_a_byte_per_item():
+    """The backward's scratch: a byte per item, the 16 x 16-cell tiles of
+    every level and image, partial ones at the edges included, times the
+    64-channel chunks, a partial one included (csrc/roi_align.cu)."""
+    fpn = [(2, 200, 336, 256), (2, 100, 168, 256), (2, 50, 84, 256),
+           (2, 25, 42, 256)]
+    assert _bwd_items(fpn) == 2 * (13 * 21 + 7 * 11 + 4 * 6 + 2 * 3) * 4
+    assert _bwd_items([(1, 17, 33, 72), (1, 9, 17, 72)]) == (6 + 2) * 2
+
+
+def test_roi_align_separable_matrices_rows():
+    """A row of A holds at most 2 g nonzeros, which sum to the share of
+    the bin's samples inside the map."""
+    rois = np.array([[0, 10, 20, 150, 60], [0, -40, -40, 20, 20],
+                     [0, 0, 90, 336, 96]], np.float32)
+    shapes = [(50, 84), (25, 42), (13, 21), (7, 11)]
+    for (l, ay, ax), roi in zip(separable_matrices(rois, shapes, STRIDES,
+                                                   7), rois):
+        for a in (ay, ax):
+            assert ((a != 0).sum(1) <= 2 * 8).all()
+            assert (a >= 0).all() and (a.sum(1) <= 1 + 1e-6).all()
+    # the first roi lies inside the map: each row sums to one
+    _, ay, ax = separable_matrices(rois[:1], shapes, STRIDES, 7)[0]
+    np.testing.assert_allclose(ay.sum(1), 1, atol=1e-6)
+    np.testing.assert_allclose(ax.sum(1), 1, atol=1e-6)

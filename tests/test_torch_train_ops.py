@@ -42,6 +42,11 @@ from swindet_tpu_torch.ops import (conv3x3_dw, conv3x3_dw_reference,
                                    window_attention_fwd_p_reference,
                                    window_attention_op)
 
+from chip_smoke import _crowded_rois
+
+from .test_torch_ops import (SEP_ROIS, SEP_STRIP_EXACT, SEP_VALID,
+                             separable_matrices)
+
 T = torch.from_numpy
 
 
@@ -278,3 +283,172 @@ def test_roi_align_backward_plain_version_matches_pallas(feats):
     wrapped = roi_align_bwd(shapes, torch.float32, T(rois), T(g), STRIDES,
                             14, roi_valid=T(valid))
     assert all(torch.equal(a, b) for a, b in zip(wrapped, got))
+
+
+# ----------------------------------------- roi align: the separable form
+def _window_overlaps(roi, scale, y0, x0, tile):
+    """The backward kernel's test of a roi against a tile: its window on
+    the level, widened by a cell for rounding, meets the tile."""
+    f32 = np.float32
+    x1, y1, x2, y2 = (f32(f32(v) * f32(scale)) - f32(0.5) for v in roi[1:])
+    return (np.floor(min(x1, x2)) - 1 <= x0 + tile - 1
+            and np.floor(max(x1, x2)) + 2 >= x0
+            and np.floor(min(y1, y2)) - 1 <= y0 + tile - 1
+            and np.floor(max(y1, y2)) + 2 >= y0)
+
+
+def separable_roi_align_backward(shapes, rois, g, strides, out_size,
+                                 sampling_ratio=0, roi_valid=None,
+                                 tile=None):
+    """A_y^T . g . A_x per roi, added into its level ((B, H, W, C) each,
+    fp64); nothing from invalid rois or rois whose batch index lies
+    outside the batch. With ``tile``, every tile x tile block of every
+    level and image is computed on its own, as the backward kernel does:
+    from the rois, in index order, that pass its window test, each with A_y
+    and A_x restricted to the tile, and written once."""
+    grads = [np.zeros(s) for s in shapes]
+    mats = separable_matrices(rois, [s[1:3] for s in shapes], strides,
+                              out_size, sampling_ratio)
+    for r, (l, ay, ax) in enumerate(mats):
+        b = int(rois[r, 0])
+        if (roi_valid is not None and not roi_valid[r]) \
+                or not 0 <= b < shapes[l][0]:
+            continue
+        if tile is None:
+            grads[l][b] += np.einsum('py,pqc,qx->yxc', ay.astype(np.float64),
+                                     g[r], ax.astype(np.float64))
+            continue
+        h, w = shapes[l][1:3]
+        for y0 in range(0, h, tile):
+            for x0 in range(0, w, tile):
+                if not _window_overlaps(rois[r], 1.0 / strides[l], y0, x0,
+                                        tile):
+                    continue
+                grads[l][b, y0:y0 + tile, x0:x0 + tile] += np.einsum(
+                    'py,pqc,qx->yxc', ay[:, y0:y0 + tile].astype(np.float64),
+                    g[r], ax[:, x0:x0 + tile].astype(np.float64))
+    return grads
+
+
+def _sep_case(out_size, seed):
+    """SEP_ROIS, a roi on level 1 and one on level 2, 24 rois piled on
+    one 20 x 20-cell area of level 0; the output gradient."""
+    more = np.array([[1, 40, 30, 200, 160], [0, 20, 0, 336, 200]],
+                    np.float32)
+    rois = np.concatenate([SEP_ROIS, more,
+                           _crowded_rois(torch.Generator().manual_seed(seed),
+                                         24, x0=100.0, y0=100.0,
+                                         device='cpu').numpy()])
+    valid = np.concatenate([SEP_VALID, np.ones(26, bool)])
+    g = np.random.RandomState(seed).randn(len(rois), out_size, out_size,
+                                          32).astype(np.float32)
+    return rois, valid, g
+
+
+@pytest.mark.parametrize('out_size,ratio', [(7, 0), (14, 0), (7, 2)])
+def test_roi_align_separable_backward_matches_the_plain_version(
+        feats, out_size, ratio):
+    rois, valid, g = _sep_case(out_size, 7)
+    keep = np.arange(len(rois)) != 9   # the plain version needs b < B
+    shapes = [f.shape for f in feats]
+    got = separable_roi_align_backward(shapes, rois[keep], g[keep], STRIDES,
+                                       out_size, ratio, valid[keep])
+    want = multilevel_roi_align_backward(shapes, torch.float32,
+                                         T(rois[keep]), T(g[keep]), STRIDES,
+                                         out_size, ratio,
+                                         roi_valid=T(valid[keep]))
+    for a, b in zip(got, want):
+        _close(a, b, 1e-4)
+
+
+@pytest.mark.parametrize('out_size', [7, 14])
+def test_roi_align_separable_backward_matches_pallas_and_the_contract(
+        feats, out_size):
+    """The Pallas backward in interpret mode on the rois where its strip
+    passes keep the contract; the gradient of the JAX package's exact
+    RoIAlign on every roi, the reversed one, the sliver and the roi past
+    every border among them, at 1e-4 as everywhere; no gradient from the
+    roi whose batch index is out of range."""
+    rois, valid, g = _sep_case(out_size, 8)
+    shapes = [f.shape for f in feats]
+    exact = SEP_STRIP_EXACT
+    got = separable_roi_align_backward(shapes, rois[exact], g[exact],
+                                       STRIDES, out_size,
+                                       roi_valid=valid[exact])
+    want = _roi_align_pallas_bwd_impl(
+        tuple(jnp.asarray(f) for f in feats), jnp.asarray(rois[exact]),
+        jnp.asarray(valid[exact]), jnp.asarray(g[exact]), STRIDES,
+        out_size, 0, 56, True)
+    for a, b in zip(got, want):
+        _close(a, b, 1e-4)
+    keep = np.arange(len(rois)) != 9
+    _, vjp = jax.vjp(lambda fs: jax_roi(
+        fs, jnp.asarray(rois[keep]), STRIDES, out_size,
+        roi_valid=jnp.asarray(valid[keep])), [jnp.asarray(f) for f in feats])
+    (want,) = vjp(jnp.asarray(g[keep]))
+    got = separable_roi_align_backward(shapes, rois, g, STRIDES, out_size,
+                                       roi_valid=valid)
+    for a, b in zip(got, want):
+        _close(a, b, 1e-4)
+
+
+@pytest.mark.parametrize('out_size', [7, 14])
+@pytest.mark.parametrize('tile', [16, 5])
+def test_roi_align_separable_backward_by_tiles_sums_to_the_whole(
+        feats, out_size, tile):
+    """The backward kernel's tiling: every tile from the rois that pass
+    its window test, with A restricted to it, gives the whole level; the
+    test keeps no roi off a tile it touches."""
+    rois, valid, g = _sep_case(out_size, 9)
+    shapes = [f.shape for f in feats]
+    whole = separable_roi_align_backward(shapes, rois, g, STRIDES,
+                                         out_size, roi_valid=valid)
+    tiled = separable_roi_align_backward(shapes, rois, g, STRIDES,
+                                         out_size, roi_valid=valid,
+                                         tile=tile)
+    assert all(np.abs(w).max() > 0 for w in whole)
+    for a, b in zip(tiled, whole):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize('out_size', [7, 14])
+def test_roi_align_separable_backward_split_tiles_sum_to_the_whole(
+        feats, out_size):
+    """The backward's split of a crowded tile: its kept rois, in index
+    order, cut into 4 contiguous runs (the r-th from kept * r // 4 to
+    kept * (r + 1) // 4), each run summed on its own and the 4 sums added
+    in rank order, give the tile of the whole level."""
+    rois, valid, g = _sep_case(out_size, 10)
+    shapes = [f.shape for f in feats]
+    whole = separable_roi_align_backward(shapes, rois, g, STRIDES,
+                                         out_size, roi_valid=valid)
+    mats = separable_matrices(rois, [s[1:3] for s in shapes], STRIDES,
+                              out_size)
+    tile, parts, most = 16, 4, 0
+    for l, (b_, h, w, c) in enumerate(shapes):
+        for b in range(b_):
+            for y0 in range(0, h, tile):
+                for x0 in range(0, w, tile):
+                    kept = [r for r, (lr, _, _) in enumerate(mats)
+                            if lr == l and valid[r] and int(rois[r, 0]) == b
+                            and _window_overlaps(rois[r], 1.0 / STRIDES[l],
+                                                 y0, x0, tile)]
+                    runs = [kept[len(kept) * k // parts:
+                                 len(kept) * (k + 1) // parts]
+                            for k in range(parts)]
+                    assert sum(runs, []) == kept
+                    most = max(most, len(kept))
+                    got = np.zeros((min(tile, h - y0), min(tile, w - x0), c))
+                    for run in runs:
+                        part = np.zeros_like(got)
+                        for r in run:
+                            _, ay, ax = mats[r]
+                            part += np.einsum(
+                                'py,pqc,qx->yxc',
+                                ay[:, y0:y0 + tile].astype(np.float64), g[r],
+                                ax[:, x0:x0 + tile].astype(np.float64))
+                        got += part
+                    np.testing.assert_allclose(
+                        got, whole[l][b, y0:y0 + tile, x0:x0 + tile],
+                        rtol=0, atol=1e-9)
+    assert most > parts   # some tile is split into runs of several rois
