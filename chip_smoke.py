@@ -11,11 +11,13 @@ before the last line:
 2. build   -- builds every kernel from swindet_tpu_torch/csrc with nvcc;
               the conv and fused-MLP libraries' SASS must hold
               tensor-core (HGMMA) and TMA (UTMALDG) instructions, the
-              v3 and v4 window attentions' HMMA, and their bf16 kernels'
-              registers,
-              shared and local memory are printed, each instance by its
-              template arguments (the attention forward's with the P
-              store on and off).
+              v3 and v4 window attentions' HMMA, and so must each of the
+              four instances of the tensor-core forward over head-major
+              q, k, v (row 14); their bf16 kernels' and the LayerNorm
+              kernels' registers, shared and local memory are printed,
+              each instance by its template arguments (the attention
+              forward's with the P store on and off and its staging
+              policy, the LayerNorm's dtype and chunks a lane).
 3. kernels -- holds each of the fifteen kernels against its plain
               PyTorch version on the card at the shapes of the main paths,
               in bf16 and fp32 (NMS: fp32 boxes, exact equality), times
@@ -25,8 +27,17 @@ before the last line:
               F.linear -> F.gelu -> F.linear, F.linear -> SDPA -> F.linear
               -- and its autograd backward as unfused_ms), and computes
               each kernel's bound from the bytes and operations of its
-              inputs. The v1 and full-map attention kernels, which no
-              model path runs (as in the JAX package), run only here.
+              inputs. LayerNorm runs at the seven shapes of a request's
+              32 norms, each with its kernel's profiler device ms, and
+              its first kernel (a warp a row, for other widths and bases
+              off 16 bytes) at the first of them, on a copy of x one
+              element past a 16-byte boundary, which the profiler must
+              show ran that kernel alone. The
+              v1 and full-map attention kernels, which no model path
+              runs (as in the JAX package), run only here: the v1 one in
+              bf16 must launch its tensor-core kernel, in fp32 its SIMT
+              one, and its kernel's device ms is read apart from its
+              wrapper's head-major copy.
               The 3x3 conv and its filter gradient run in bf16 (their
               tensor-core kernels) at every conv shape of the main path
               and in fp32 (their SIMT kernels) at two: FPN P2 and the
@@ -111,10 +122,13 @@ before the last line:
 
 Then one JSON line of per-kernel results (``launches``: the serving
 and the training runs' counts of the three configurations, each from its
-own reset, summed; each also apart; for the conv, fused-MLP and v3 and
-v4 attention rows also ``tc_launches``, counted the same way;
+own reset, summed; each also apart; for the conv, fused-MLP and v1, v3
+and v4 attention rows also ``tc_launches``, counted the same way;
 ``shapes``, the bf16 readings at every main-path shape, for those,
-RoIAlign and its backward and NMS), the card's name and power limit,
+LayerNorm, RoIAlign and its backward and NMS; ``device_ms`` for
+LayerNorm and the v1 attention, for the latter ``copy_device_ms``, and
+for LayerNorm ``first_kernel``, its first kernel's reading), the card's
+name and power limit,
 and, last, one JSON line with the device. It imports neither jax nor the
 JAX package.
 """
@@ -272,6 +286,12 @@ FPN_SHAPES = ((200, 336), (100, 168), (50, 84), (25, 42))
 # and the map padded to whole 7x7 windows (the shift mask's (Hp, Wp))
 ATTN_STAGES = ((1392, 96, 3, (203, 336)), (360, 192, 6, (105, 168)),
                (96, 384, 12, (56, 84)), (24, 768, 24, (28, 42)))
+# the (rows, C) of Swin-T's 32 LayerNorms on an 800x1344 canvas, a request's:
+# the patch embedding's and stage 1's (6 norms), the first merge norm,
+# stage 2's (5), the second merge norm, stage 3's (13), the third merge
+# norm, stage 4's (5)
+LN_SHAPES = ((67200, 96), (16800, 384), (16800, 192), (4200, 768),
+             (4200, 384), (1050, 1536), (1050, 768))
 # H100 SXM data-sheet rates (dense bf16 tensor cores, fp32 outside the
 # tensor cores, HBM3)
 PEAK_FLOPS = 989e12
@@ -330,6 +350,20 @@ def phase_device() -> str:
 
 
 # ------------------------------------------------------------- phase 2
+def _demangle(names):
+    """C++ names of mangled kernel symbols, by c++filt where the host has
+    it (else the mangled names), template arguments kept and the
+    parameter list dropped."""
+    try:
+        out = subprocess.run(['c++filt'], input='\n'.join(names),
+                             capture_output=True, text=True, timeout=60,
+                             check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        return list(names)
+    return [re.sub(r'^void |\(.*$', '', n).replace('swindet::', '')
+            for n in out]
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     paths = build.build()
@@ -338,34 +372,45 @@ def phase_build() -> None:
                  + ', '.join(p.name for p in paths.values()))
     # the bf16 conv and fused-MLP kernels must be tensor-core (HGMMA)
     # kernels fed by TMA (UTMALDG), the window attentions' (v3 and v4) hold
-    # mma.sync (HMMA); their registers, shared memory and local memory
-    # (spills)
+    # mma.sync (HMMA), every instance of the tensor-core forward over
+    # head-major q, k, v (row 14) among them; their registers, shared
+    # memory and local memory (spills), and the LayerNorm kernels'
     tool = os.path.join(os.path.dirname(build.nvcc_path()), 'cuobjdump')
     for name, pattern, wanted in (
             ('conv3x3', r'conv3x3\w*_tc_kernel', ('HGMMA', 'UTMALDG')),
             ('fused_mlp', r'mlp\w*_tc_kernel', ('HGMMA', 'UTMALDG')),
             ('window_attention', r'wattn_\w*_tc_kernel', ('HMMA',)),
-            ('window_attention_v4', r'wattn4\w*_tc_kernel', ('HMMA',))):
+            ('window_attention_v4', r'wattn4\w*_tc_kernel', ('HMMA',)),
+            ('layer_norm', r'layer_norm\w*_kernel', ())):
         lib = str(paths[name])
-        sass = subprocess.run([tool, '-sass', lib], capture_output=True,
-                              text=True, timeout=300, check=True).stdout
-        ops = {op: sum(op in line for line in sass.splitlines())
-               for op in wanted}
-        log('build', f'{name} SASS: ' + ', '.join(
-            f'{v} {op}' for op, v in ops.items()) + ' instructions')
-        if not all(ops.values()):
-            raise AssertionError(f'{name}: no tensor-core or TMA '
-                                 f'instructions in {lib}: {ops}')
+        if wanted:
+            sass = subprocess.run([tool, '-sass', lib], capture_output=True,
+                                  text=True, timeout=300, check=True).stdout
+            ops = {op: sum(op in line for line in sass.splitlines())
+                   for op in wanted}
+            log('build', f'{name} SASS: ' + ', '.join(
+                f'{v} {op}' for op, v in ops.items()) + ' instructions')
+            if not all(ops.values()):
+                raise AssertionError(f'{name}: no tensor-core or TMA '
+                                     f'instructions in {lib}: {ops}')
+        if name == 'window_attention':
+            heads = [f for f in sass.split('Function : ')[1:]
+                     if 'HeadMajorTc' in f.splitlines()[0]]
+            hmma = [f.count('HMMA') for f in heads]
+            log('build', f'  the head-major tensor-core instances (row '
+                         f'14): {hmma} HMMA instructions')
+            if len(hmma) != 4 or not all(hmma):
+                raise AssertionError(f'window_attention: head-major '
+                                     f'tensor-core instances {hmma}')
         usage = subprocess.run([tool, '-res-usage', lib],
                                capture_output=True, text=True, timeout=300,
                                check=True).stdout.splitlines()
-        for fn, res in zip(usage, usage[1:]):
-            kernel = re.search(pattern + r'(I(?:L\w+?E)+E)?', fn)
-            if 'Function' in fn and kernel:
-                args = re.findall(r'L\w(\d+)E', kernel.group(1) or '')
-                log('build', f'  {re.match(pattern, kernel.group(0))[0]}'
-                             + (f'<{", ".join(args)}>' if args else '')
-                             + f': {res.strip()}')
+        found = [(re.search(r'Function (\S+?):?$', fn.strip())[1],
+                  res.strip()) for fn, res in zip(usage, usage[1:])
+                 if 'Function' in fn and re.search(pattern, fn)]
+        for kernel, (_, res) in zip(_demangle([f for f, _ in found]),
+                                    found):
+            log('build', f'  {kernel}: {res}')
 
 
 # ------------------------------------------------------------- phase 3
@@ -865,19 +910,48 @@ def phase_kernels():
     strides = (4, 8, 16, 32)
     for dtype in (torch.bfloat16, torch.float32):
         el = torch.finfo(dtype).bits // 8
-        # LayerNorm: patch-embed / stage-1 norms, 200 x 336 tokens x 96
-        x = (randn(1, 200, 336, 96) * 2 + 0.5).to(dtype)
-        w, b = randn(96), randn(96)
-        wd, bd = w.to(dtype), b.to(dtype)
-        r = _compare('layer_norm', dtype, lambda: layer_norm(x, w, b),
-                     lambda: layer_norm_reference(x, w, b), '(67200, 96)',
-                     work=(2 * _nbytes(x) + _nbytes(w, b), 8.0 * x.numel()),
-                     library_fn=lambda: F.layer_norm(x, (96,), wd, bd))
-        x = randn(1050, 768).to(dtype)
-        w, b = randn(768), randn(768)
-        _compare('layer_norm', dtype, lambda: layer_norm(x, w, b),
-                 lambda: layer_norm_reference(x, w, b), '(1050, 768)')
-        results.setdefault('layer_norm', {})[dtype] = r
+        # LayerNorm at the seven shapes of a request's 32 norms (the row's
+        # main shape first: the patch embedding's and stage 1's), each with
+        # its kernel's device ms beside the wrapper's event ms
+        rows1 = []
+        for n, c in LN_SHAPES:
+            x = (randn(n, c) * 2 + 0.5).to(dtype)
+            w, b = randn(c), randn(c)
+            wd, bd = w.to(dtype), b.to(dtype)
+            r = _compare('layer_norm', dtype, lambda: layer_norm(x, w, b),
+                         lambda: layer_norm_reference(x, w, b),
+                         f'({n}, {c})',
+                         work=(2 * _nbytes(x) + _nbytes(w, b),
+                               8.0 * x.numel()),
+                         library_fn=lambda: F.layer_norm(x, (c,), wd, bd))
+            r['device_ms'] = _kernel_device_ms(
+                lambda: layer_norm(x, w, b), {'k': 'swindet'})['k']
+            log('kernels', f'  device ms {r["device_ms"]:.4f}')
+            rows1.append(r)
+        # the first kernel (a warp a row), which takes the widths that are
+        # no multiple of the vector and bases off 16 bytes: the main
+        # shape's x copied one element past a 16-byte boundary
+        x = (randn(*LN_SHAPES[0]) * 2 + 0.5).to(dtype)
+        w, b = randn(x.shape[1]), randn(x.shape[1])
+        off = torch.empty(x.numel() + 1, dtype=dtype, device=dev)[1:] \
+            .view(x.shape).copy_(x)
+        first = _compare('layer_norm', dtype, lambda: layer_norm(off, w, b),
+                         lambda: layer_norm_reference(x, w, b),
+                         f'{tuple(x.shape)} off 16 bytes',
+                         work=(2 * _nbytes(x) + _nbytes(w, b),
+                               8.0 * x.numel()))
+        dms = _kernel_device_ms(lambda: layer_norm(off, w, b),
+                                {'first': 'layer_norm_kernel',
+                                 'vec': 'layer_norm_vec_kernel'})
+        if dms['first'] <= 0 or dms['vec'] > 0:
+            raise AssertionError('layer_norm: a base off 16 bytes must run '
+                                 f'the first kernel alone, profiler {dms}')
+        first['device_ms'] = dms['first']
+        log('kernels', f'  device ms {first["device_ms"]:.4f} (the first '
+                       'kernel)')
+        results.setdefault('layer_norm', {})[dtype] = dict(
+            rows1[0], shapes=rows1, first_kernel=first)
+        del x, off
 
         # window attention at the shifted blocks of stages 1-4 of an
         # 800x1344 canvas: the forward (row 2) at a request's windows, the
@@ -1077,14 +1151,18 @@ def phase_kernels():
         results.setdefault('window_attention_v4_bwd', {})[dtype] = dict(
             rows13[0], shapes=rows13)
 
-        # the v1 attention over head-major q, k, v and the full-map
-        # shifted attention, which no model path runs: stage 1 of one image
+        # the v1 attention over head-major q, k, v (row 14; in bf16 its
+        # tensor-core kernel, in fp32 the SIMT one) and the full-map shifted
+        # attention, which no model path runs: stage 1 of one image. Row
+        # 14's wrapper makes the head-major copy before its kernel: the
+        # profiler splits the kernel's device ms from the copy's.
         mask = torch.from_numpy(
             shifted_window_attn_mask(203, 336, 7, 3)).to(dev)
         qkv = randn(1392, 49, 288).to(dtype)
         bias = randn(3, 49, 49, scale=0.5)
         q, k, v, add = _sdpa_inputs(qkv, bias, mask, 3)
-        results.setdefault('window_attention', {})[dtype] = _compare(
+        before = window_attention.launches, window_attention.tc_launches
+        r = _compare(
             'window_attention', dtype,
             lambda: window_attention(qkv, bias, mask, 3),
             lambda: window_attention_reference(qkv, bias, mask, 3),
@@ -1093,6 +1171,19 @@ def phase_kernels():
                   _attn_flops(1392, 49, 96, 2)),
             library_fn=lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=add))
+        dms = _kernel_device_ms(lambda: window_attention(qkv, bias, mask, 3),
+                                {'device_ms': 'swindet', 'all': ''})
+        r['device_ms'] = dms['device_ms']
+        r['copy_device_ms'] = dms['all'] - dms['device_ms']
+        launched = window_attention.launches - before[0]
+        launched_tc = window_attention.tc_launches - before[1]
+        log('kernels', f'  device ms: kernel {r["device_ms"]:.4f}, '
+                       f'head-major copy {r["copy_device_ms"]:.4f}; '
+                       f'{launched} launches, {launched_tc} tensor-core')
+        if launched_tc != (launched if dtype == torch.bfloat16 else 0):
+            raise AssertionError('window_attention: bf16 must run the '
+                                 'tensor-core kernel and fp32 the SIMT one')
+        results.setdefault('window_attention', {})[dtype] = r
         qmap = qkv.view(1, 203, 336, 288)
         results.setdefault('swin_window_attention', {})[dtype] = _compare(
             'swin_window_attention', dtype,
@@ -1791,6 +1882,12 @@ def _run_config(name, **flags):
                 busy=busy, serve_tc=serve_tc, train_tc=train_tc)
 
 
+# phase 3's further readings of a kernel's main row that the JSON line
+# carries: the kernel's own device ms (rows 1 and 14), row 14's
+# head-major copy, and row 1's first kernel off the vector path
+PHASE3_EXTRAS = ('device_ms', 'copy_device_ms', 'first_kernel')
+
+
 def main() -> int:
     # the default configuration is the config as it stands
     os.environ.pop('SWINDET_FUSED_MLP', None)
@@ -1843,7 +1940,8 @@ def main() -> int:
             unfused_ms=main_row.get('unfused_ms'),
             fp32_max_abs_err=fp32['max_abs_err'], fp32_ms=fp32['ms'],
             fp32_plain_ms=fp32['plain_ms'],
-            fp32_library_ms=fp32['library_ms']))
+            fp32_library_ms=fp32['library_ms'],
+            **{k: main_row[k] for k in PHASE3_EXTRAS if k in main_row}))
     print(json.dumps({'kernels': rows}), flush=True)
     print(smi, flush=True)
     # the run uses one card, cuda:0, whatever the host exposes

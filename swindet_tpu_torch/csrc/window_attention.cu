@@ -82,15 +82,21 @@
 // across its sequential grid (:135-137), here each block sums dS of its
 // windows in shared memory and adds it with one atomicAdd per entry.
 //
-// The same SIMT forward body serves two more TPU kernels that only the JAX
-// package's op tests run, each reading its own layout through a source
-// policy (PackedQkv above, HeadMajorQkv, SwinMap):
+// Two more TPU kernels that only the JAX package's op tests run:
 // - swindet_window_attention_heads replaces swindet_tpu/ops/
 //   window_attention.py · _wattn_kernel (:30, via
 //   _window_attention_fwd_impl, pallas_call at :141): the v1 attention over
 //   head-major (B_, nH, N, hd) q, k, v. The TPU padded N to a sublane
 //   multiple and masked the padded keys with -1e30; here the loops stop at
-//   N, and window w reads mask[w mod nW] with no tiled copy.
+//   N (the tensor-core kernel sets the padded keys to -inf), and window w
+//   reads mask[w mod nW] with no tiled copy. It computes row 2's function
+//   from another layout, so it runs row 2's kernels: in bf16 with hd in
+//   {16, 32, 48, 64}, swindet_window_attention_heads_tc, which is
+//   wattn_fwd_tc_kernel with the HeadMajorTc staging policy (each
+//   (window, head)'s q, k and v is one contiguous n x hd span, copied in
+//   16-byte cp.async chunks along it; everything after the staging, and
+//   the packed (B_, N, C) output, is row 2's); otherwise the SIMT
+//   window_attention_kernel with the HeadMajorQkv source policy.
 // - swindet_swin_attention replaces swindet_tpu/ops/swin_attention.py ·
 //   _swin_attn_kernel (:46, via _swin_attn_fwd_impl, pallas_call at :149):
 //   the cyclic roll, window partition and attention over the padded qkv map
@@ -98,8 +104,10 @@
 //   the rolled positions with wrap-around (the TPU read row blocks i and
 //   i + 1 mod nHb), rebuilds the -100 shift mask from region ids in rolled
 //   coordinates, and writes the output in rolled coordinates.
-// Both are bound by bytes as the forward above. Their backward recomputes
-// through the plain version in PyTorch, as the JAX package's does.
+// The SIMT forward body reads each layout through a source policy
+// (PackedQkv above, HeadMajorQkv, SwinMap). Both kernels are bound by
+// bytes as the forward above. Their backward recomputes through the plain
+// version in PyTorch, as the JAX package's does.
 #include "mma_sync.cuh"
 
 namespace swindet {
@@ -444,6 +452,55 @@ __device__ __forceinline__ void zero_pad_rows(__nv_bfloat16* tiles,
   }
 }
 
+// Where a tensor-core forward block finds its heads' q (part 0), k (1) and
+// v (2). `split` names 16-byte chunk e of the group's 3 x heads x n x CH
+// chunks by (part, head hl of the group, row i, column d), numbered so that
+// consecutive threads copy consecutive bytes of the source; `at` is that
+// chunk's address for head h of window win.
+
+// The packed projection (B_, N, 3C), heads contiguous in each third (rows
+// 2 and 6): a token's row holds the group's q, k and v chunks side by side.
+struct PackedTc {
+  const __nv_bfloat16* qkv;
+  int c;
+  __device__ __forceinline__ void split(int e, int heads, int n, int ch,
+                                        int& part, int& hl, int& i,
+                                        int& d) const {
+    const int row_chunks = 3 * heads * ch, r = e % row_chunks;
+    i = e / row_chunks;
+    part = r / (heads * ch);
+    hl = (r / ch) % heads;
+    d = (r % ch) * 8;
+  }
+  __device__ __forceinline__ const __nv_bfloat16* at(int win, int h,
+                                                     int part, int i, int d,
+                                                     int n, int hd) const {
+    return qkv + ((size_t)win * n + i) * 3 * c + part * c + h * hd + d;
+  }
+};
+
+// Head-major q, k and v, each (B_, nH, N, hd) (row 14): a (window, head)'s
+// q, k or v is one contiguous n x hd span, walked chunk after chunk.
+struct HeadMajorTc {
+  const __nv_bfloat16 *q, *k, *v;
+  int nh;
+  __device__ __forceinline__ void split(int e, int heads, int n, int ch,
+                                        int& part, int& hl, int& i,
+                                        int& d) const {
+    const int span = n * ch, r = e % span;
+    part = e / (heads * span);
+    hl = (e / span) % heads;
+    i = r / ch;
+    d = (r % ch) * 8;
+  }
+  __device__ __forceinline__ const __nv_bfloat16* at(int win, int h,
+                                                     int part, int i, int d,
+                                                     int n, int hd) const {
+    const __nv_bfloat16* base = part == 0 ? q : (part == 1 ? k : v);
+    return base + (((size_t)win * nh + h) * n + i) * hd + d;
+  }
+};
+
 // Shared memory of the two kernels (ops/window_attention_v3.py
 // tc_fwd_smem and tc_bwd_smem compute the same). With save_p the P
 // staging, 16 rows of n floats for each of the block's 4 heads warps,
@@ -466,17 +523,17 @@ size_t tc_bwd_smem() {
               + kTcWarpsPerHead * 16 * (HD + 8));  // staging tiles
 }
 
-// Row 2, and with kSaveP row 6. Block (window blockIdx.x, heads
-// blockIdx.y * heads ..): warp w owns rows 16 (w % 4) .. of head w / 4 of
-// the group. Shared memory: the group's q tiles, then its k tiles, then
-// its v tiles (with kSaveP q, v, k), then the group's bias (heads x n x n
-// fp32), then the window's mask (n x n fp32) where there is one. Every
-// byte comes in by cp.async before the block waits. With kSaveP, p is the
-// fp32 softmax (nH, B_, N, N), B_ = gridDim.x.
-template <int HD, bool kSaveP>
+// Row 2 (Src PackedTc), with kSaveP row 6, and row 14 (Src HeadMajorTc).
+// Block (window blockIdx.x, heads blockIdx.y * heads ..): warp w owns rows
+// 16 (w % 4) .. of head w / 4 of the group. Shared memory: the group's q
+// tiles, then its k tiles, then its v tiles (with kSaveP q, v, k), then
+// the group's bias (heads x n x n fp32), then the window's mask (n x n
+// fp32) where there is one. Every byte comes in by cp.async before the
+// block waits. With kSaveP, p is the fp32 softmax (nH, B_, N, N),
+// B_ = gridDim.x.
+template <int HD, bool kSaveP, typename Src>
 __global__ void __launch_bounds__(kTcMaxHeads * kTcHeadThreads, 2)
-wattn_fwd_tc_kernel(const __nv_bfloat16* __restrict__ qkv,
-                    const float* __restrict__ bias,
+wattn_fwd_tc_kernel(const Src src, const float* __restrict__ bias,
                     const float* __restrict__ mask,
                     __nv_bfloat16* __restrict__ out, float* __restrict__ p,
                     int n, int c, int nw, int heads, float scale) {
@@ -492,15 +549,12 @@ wattn_fwd_tc_kernel(const __nv_bfloat16* __restrict__ qkv,
   const int threads = heads * kTcHeadThreads;
 
   // the group's q, k and v rows, 16 bytes a copy
-  const __nv_bfloat16* src = qkv + (size_t)win * n * 3 * c + h0 * HD;
-  const int row_chunks = 3 * heads * CH;
-  for (int e = threadIdx.x; e < n * row_chunks; e += threads) {
-    const int i = e / row_chunks, r = e % row_chunks;
-    const int part = r / (heads * CH), hl = (r / CH) % heads;
+  for (int e = threadIdx.x; e < 3 * heads * n * CH; e += threads) {
+    int part, hl, i, d;
+    src.split(e, heads, n, CH, part, hl, i, d);
     const int slot = kSaveP ? (3 - part) % 3 : part;
-    const int d = (r % CH) * 8;
     cp_async16(sm + (slot * heads + hl) * TILE + i * P + d,
-               src + (size_t)i * 3 * c + part * c + hl * HD + d);
+               src.at(win, h0 + hl, part, i, d, n, HD));
   }
   // the group's bias and the window's mask, 4 bytes a copy (an n x n
   // block of odd n starts on no 16-byte boundary)
@@ -704,19 +758,19 @@ wattn_bwd_tc_kernel(const __nv_bfloat16* __restrict__ qkv,
     }
 }
 
-template <int HD, bool kSaveP>
-static int launch_fwd_tc(const void* qkv, const float* bias,
+template <int HD, bool kSaveP, typename Src>
+static int launch_fwd_tc(const Src& src, const float* bias,
                          const float* mask, void* out, float* p, int b_,
                          int n, int c, int nh, int nw, float scale,
                          int heads, cudaStream_t stream) {
   const size_t smem = tc_fwd_smem<HD>(heads, n, mask != nullptr, kSaveP);
-  auto kernel = wattn_fwd_tc_kernel<HD, kSaveP>;
+  auto kernel = wattn_fwd_tc_kernel<HD, kSaveP, Src>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(b_, nh / heads);
   kernel<<<grid, heads * kTcHeadThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), bias, mask,
-      static_cast<__nv_bfloat16*>(out), p, n, c, nw, heads, scale);
+      src, bias, mask, static_cast<__nv_bfloat16*>(out), p, n, c, nw, heads,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -749,9 +803,10 @@ SWINDET_EXPORT int swindet_window_attention_tc(
   if (b_ == 0) return (int)cudaSuccess;
   if (n > kTcRows || heads < 1 || heads > kTcMaxHeads || nh % heads)
     return (int)cudaErrorInvalidValue;
+  const PackedTc src{static_cast<const __nv_bfloat16*>(qkv), c};
   return by_head_dim(c / nh, [&](auto hd) {
     return launch_fwd_tc<decltype(hd)::value, false>(
-        qkv, bias, mask, out, nullptr, b_, n, c, nh, nw, scale, heads,
+        src, bias, mask, out, nullptr, b_, n, c, nh, nw, scale, heads,
         static_cast<cudaStream_t>(stream));
   });
 }
@@ -767,9 +822,10 @@ SWINDET_EXPORT int swindet_window_attention_fwd_p_tc(
   if (b_ == 0) return (int)cudaSuccess;
   if (n > kTcRows || heads < 1 || heads > kTcMaxHeads || nh % heads)
     return (int)cudaErrorInvalidValue;
+  const PackedTc src{static_cast<const __nv_bfloat16*>(qkv), c};
   return by_head_dim(c / nh, [&](auto hd) {
     return launch_fwd_tc<decltype(hd)::value, true>(
-        qkv, bias, mask, out, p, b_, n, c, nh, nw, scale, heads,
+        src, bias, mask, out, p, b_, n, c, nh, nw, scale, heads,
         static_cast<cudaStream_t>(stream));
   });
 }
@@ -871,6 +927,28 @@ SWINDET_EXPORT int swindet_window_attention_heads(
                                     s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 tensor-core v1 forward (row 14): as
+// swindet_window_attention_heads for bf16 q, k, v with N <= 64 and hd in
+// {16, 32, 48, 64}, 16-byte aligned q, k, v and out; `heads` heads a block
+// (1-3, dividing nH), as swindet_window_attention_tc.
+SWINDET_EXPORT int swindet_window_attention_heads_tc(
+    const void* q, const void* k, const void* v, const float* bias,
+    const float* mask, void* out, int b_, int n, int c, int nh, int nw,
+    float scale, int heads, void* stream) {
+  using namespace swindet;
+  if (b_ == 0) return (int)cudaSuccess;
+  if (n > kTcRows || heads < 1 || heads > kTcMaxHeads || nh % heads)
+    return (int)cudaErrorInvalidValue;
+  using T = __nv_bfloat16;
+  const HeadMajorTc src{static_cast<const T*>(q), static_cast<const T*>(k),
+                        static_cast<const T*>(v), nh};
+  return by_head_dim(c / nh, [&](auto hd) {
+    return launch_fwd_tc<decltype(hd)::value, false>(
+        src, bias, mask, out, nullptr, b_, n, c, nh, nw, scale, heads,
+        static_cast<cudaStream_t>(stream));
+  });
 }
 
 // Shifted-window attention over the padded qkv map (B, Hp, Wp, 3C) of

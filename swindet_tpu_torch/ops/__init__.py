@@ -55,7 +55,7 @@ KERNEL_WRAPPERS = (INFERENCE_KERNELS + TRAINING_KERNELS + FUSED_MLP_KERNELS
 TENSOR_CORE_KERNELS = (conv3x3, conv3x3_dw, fused_mlp, fused_mlp_bwd,
                        window_attention_v3, window_attention_fwd_p,
                        window_attention_bwd, window_attention_v4,
-                       window_attention_v4_bwd)
+                       window_attention_v4_bwd, window_attention)
 
 
 def reset_launch_counts() -> None:

@@ -4,16 +4,25 @@ plain window attention that every attention op of the port is held to.
 Counterpart of ``swindet_tpu/ops/window_attention.py``.
 :func:`window_attention` (``window_attention.py:60``) splits the packed
 qkv projection into head-major (B_, nH, N, hd) q, k, v, as
-``_window_attention_fwd_impl`` (:123-124) does, and runs the kernel
-``swindet_window_attention_heads`` of ``csrc/window_attention.cu``
-(replacing the Pallas ``_wattn_kernel``, :30) on a CUDA tensor, or the
-plain version :func:`window_attention_reference` (:167) on a CPU tensor.
+``_window_attention_fwd_impl`` (:123-124) does, and runs a kernel of
+``csrc/window_attention.cu`` (replacing the Pallas ``_wattn_kernel``,
+:30) on a CUDA tensor, or the plain version
+:func:`window_attention_reference` (:167) on a CPU tensor. On the card it
+picks as the v3 forward does (``window_attention_v3.uses_tensor_cores``,
+``kernel_symbol('heads', ...)``): bf16 with hd in {16, 32, 48, 64} runs
+the tensor-core kernel ``swindet_window_attention_heads_tc`` (row 2's
+``mma.sync`` forward staging head-major rows, its grid from
+``window_attention_v3.fwd_geometry``; counted in
+``window_attention.tc_launches`` as well as ``window_attention.launches``),
+anything else the SIMT kernel ``swindet_window_attention_heads``.
 Its backward recomputes through the plain version, as ``_wattn_vjp_bwd``
 (:93) does: the JAX package has no backward kernel here.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import importlib
 from typing import Optional
 
 import torch
@@ -22,6 +31,8 @@ from . import build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# the last int is the SIMT kernel's dtype code or the tensor-core
+# kernel's heads a block
 _ARGTYPES = (_P,) * 6 + (_I,) * 5 + (ctypes.c_float, _I, _P)
 MAX_TOKENS = 64
 MAX_HEAD_DIM = 64
@@ -99,6 +110,15 @@ def check_attention_shapes(name: str, qkv: torch.Tensor, n: int, c3: int,
     return c, hd, code
 
 
+@functools.cache
+def _v3():
+    """The v3 module, whose dispatch and grid the tensor-core kernel
+    shares; imported at first use, as it imports this module's plain
+    version (by name: the package's ``window_attention_v3`` is the
+    function)."""
+    return importlib.import_module(f'{__package__}.window_attention_v3')
+
+
 def _forward(qkv: torch.Tensor, bias: torch.Tensor,
              mask: Optional[torch.Tensor], num_heads: int) -> torch.Tensor:
     if qkv.device.type == 'cpu':
@@ -106,22 +126,27 @@ def _forward(qkv: torch.Tensor, bias: torch.Tensor,
     if qkv.device.type != 'cuda':
         raise ValueError(f'window_attention: unsupported device '
                          f'{qkv.device}')
+    v3 = _v3()
     b_, n, c3 = qkv.shape
     c, hd, code = check_attention_shapes('window_attention', qkv, n, c3,
                                          num_heads, bias, mask, b_)
     q, k, v = qkv.view(b_, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4) \
         .contiguous()
     out = torch.empty((b_, n, c), dtype=qkv.dtype, device=qkv.device)
-    fn = build.bind('window_attention', 'swindet_window_attention_heads',
-                    _ARGTYPES)
+    tc = v3.uses_tensor_cores(qkv.dtype, hd)
+    last = v3.fwd_geometry(b_, num_heads, v3._sms(qkv.device)) if tc \
+        else code
+    fn = build.bind('window_attention',
+                    v3.kernel_symbol('heads', qkv.dtype, hd), _ARGTYPES)
     with torch.cuda.device(qkv.device):
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     bias.data_ptr(), None if mask is None else mask.data_ptr(),
                     out.data_ptr(), b_, n, c, num_heads,
-                    1 if mask is None else mask.shape[0], hd ** -0.5, code,
+                    1 if mask is None else mask.shape[0], hd ** -0.5, last,
                     build.stream_ptr(qkv.device))
     build.check_launch('window_attention', status)
     window_attention.launches += 1
+    window_attention.tc_launches += tc
     return out
 
 
@@ -153,8 +178,10 @@ def window_attention(qkv: torch.Tensor, bias: torch.Tensor,
     """Differentiable v1 window attention: qkv (B_, N, 3C), bias
     (nH, N, N) fp32, mask (nW, N, N) fp32 or None with nW dividing B_.
     Returns (B_, N, C) in qkv's dtype; ``window_attention.launches``
-    counts the kernel's launches."""
+    counts the kernels' launches, ``window_attention.tc_launches`` the
+    tensor-core kernel's."""
     return _WindowAttentionFunction.apply(qkv, bias, mask, num_heads)
 
 
 window_attention.launches = 0
+window_attention.tc_launches = 0

@@ -67,26 +67,30 @@ SMEM_LIMIT = 232448
 
 
 def uses_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
-    """Whether the card runs the tensor-core kernels of rows 2, 6 and 7
-    for inputs of ``dtype`` and head width ``head_dim`` (N <= 64 holds for
+    """Whether the card runs the tensor-core kernels of rows 2, 6, 7 and
+    14 for inputs of ``dtype`` and head width ``head_dim`` (N <= 64 holds for
     every input the wrappers take)."""
     return dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS
 
 
 # C entry points of csrc/window_attention.cu: (SIMT, tensor-core) for the
 # inference forward (row 2), the training forward (row 6), the backward
-# (row 7)
+# (row 7), and the v1 forward over head-major q, k, v (row 14,
+# ops/window_attention.py)
 _SYMBOLS = {
     'fwd': ('swindet_window_attention', 'swindet_window_attention_tc'),
     'fwd_p': ('swindet_window_attention_fwd_p',
               'swindet_window_attention_fwd_p_tc'),
     'bwd': ('swindet_window_attention_bwd',
-            'swindet_window_attention_bwd_tc')}
+            'swindet_window_attention_bwd_tc'),
+    'heads': ('swindet_window_attention_heads',
+              'swindet_window_attention_heads_tc')}
 
 
 def kernel_symbol(kind: str, dtype: torch.dtype, head_dim: int) -> str:
-    """The entry point that the wrapper of ``kind`` ('fwd', 'fwd_p' or
-    'bwd') launches for inputs of ``dtype`` and head width ``head_dim``."""
+    """The entry point that the wrapper of ``kind`` ('fwd', 'fwd_p',
+    'bwd' or 'heads') launches for inputs of ``dtype`` and head width
+    ``head_dim``."""
     return _SYMBOLS[kind][uses_tensor_cores(dtype, head_dim)]
 
 

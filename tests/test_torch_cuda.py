@@ -63,7 +63,7 @@ from swindet_tpu_torch.ops import (conv3x3, conv3x3_dw, conv3x3_dw_reference,
                                    window_attention_v4_reference)
 from swindet_tpu_torch.models.backbones.swin import shifted_window_attn_mask
 
-from chip_smoke import _crowded_rois
+from chip_smoke import LN_SHAPES, _crowded_rois
 
 pytestmark = pytest.mark.cuda
 DTYPES = [torch.float32, torch.bfloat16]
@@ -89,12 +89,29 @@ def _close(got, want, dtype, atol32=1e-4):
                                rtol=tol)
 
 
+# (rows, C) of Swin-T's 32 norms on an 800x1344 canvas (chip_smoke.py
+# LN_SHAPES), Swin-B's widest (2048), an odd width, ragged row counts, and
+# Swin-B's other widths (bf16 K 1, 2 and 4)
+LN_CASES = [(3, 5, 7, 33), (1, 1536), (1000, 96), *LN_SHAPES, (301, 2048),
+            (2, 7, 192), (1000, 128), (301, 256), (301, 512), (301, 1024)]
+
+
 @pytest.mark.parametrize('dtype', DTYPES)
-@pytest.mark.parametrize('shape', [(3, 5, 7, 33), (1, 1536), (1000, 96)])
+@pytest.mark.parametrize('shape', LN_CASES)
 def test_layer_norm(gen, dtype, shape):
+    """Both kernels against the plain version: the vector kernel where C
+    is a multiple of the 16-byte vector (ln_geometry), the first kernel
+    at C = 33 and for the same x copied to a base one element past a
+    16-byte boundary."""
     x = _randn(gen, *shape, dtype=dtype, scale=3.0)
     w, b = _randn(gen, shape[-1]), _randn(gen, shape[-1])
-    _close(layer_norm(x, w, b), layer_norm_reference(x, w, b), dtype)
+    want = layer_norm_reference(x, w, b)
+    _close(layer_norm(x, w, b), want, dtype)
+    flat = torch.empty(x.numel() + 1, dtype=dtype, device=x.device)
+    off = flat[1:].view(x.shape)
+    off.copy_(x)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    _close(layer_norm(off, w, b), want, dtype)
 
 
 @pytest.mark.parametrize('dtype', DTYPES)
@@ -738,10 +755,14 @@ def test_window_attention_v4_refuses_what_the_kernel_does_not_take(gen):
 
 
 @pytest.mark.parametrize('dtype', DTYPES)
-@pytest.mark.parametrize('b_,n,c,nh,nw', [(12, 49, 96, 3, 4),
-                                          (5, 16, 32, 2, None),
-                                          (3, 49, 768, 24, None)])
+@pytest.mark.parametrize('b_,n,c,nh,nw', [
+    (12, 49, 96, 3, 4), (5, 16, 32, 2, None), (3, 49, 768, 24, None),
+    (8, 49, 64, 4, 4), (7, 49, 144, 3, None), (6, 36, 96, 2, 2),
+    (8, 49, 128, 2, 4), (5, 64, 256, 4, None), (4, 49, 72, 3, None)])
 def test_window_attention_v1(gen, dtype, b_, n, c, nh, nw):
+    """Row 14 at hd 32, 16, 48 and 64 (the tensor-core kernel in bf16:
+    tc_launches rises with launches), masked and unmasked, and at hd 24
+    (the SIMT kernel in both dtypes)."""
     qkv = _randn(gen, b_, n, 3 * c, dtype=dtype)
     bias = _randn(gen, nh, n, n, scale=0.5)
     mask = None
@@ -749,8 +770,12 @@ def test_window_attention_v1(gen, dtype, b_, n, c, nh, nw):
         mask = torch.zeros(nw, n, n)
         mask[1, :10, 10:] = mask[1, 10:, :10] = -100.0
         mask = mask.cuda()
+    reset_launch_counts()
     _close(window_attention(qkv, bias, mask, nh),
            window_attention_reference(qkv, bias, mask, nh), dtype)
+    tc = int(dtype == torch.bfloat16 and c // nh in (16, 32, 48, 64))
+    assert window_attention.launches == 1
+    assert tc_launch_counts()['window_attention'] == tc
 
 
 @pytest.mark.parametrize('dtype', DTYPES)

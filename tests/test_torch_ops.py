@@ -31,6 +31,8 @@ from swindet_tpu_torch.ops import (conv3x3, conv3x3_reference, layer_norm,
                                    window_attention_v3)
 from swindet_tpu_torch.ops.conv3x3 import (BOX_SHAPES, DW_WAVES, box_shape,
                                            dw_chunk, hwio)
+from swindet_tpu_torch.ops.layer_norm import (LN_BLOCKS_PER_SM, LN_PER_LANE,
+                                              LN_THREADS, ln_geometry)
 from swindet_tpu_torch.ops.roi_align import (_bwd_items, adaptive_grid,
                                              map_roi_levels)
 from swindet_tpu_torch.ops.window_attention_v3 import (
@@ -40,6 +42,8 @@ from swindet_tpu_torch.ops.window_attention_v4 import (
     DW_KC, TC_MAX_CLUSTER, dw_split_rows, fwd_geometry as v4_fwd_geometry,
     kernel_symbol as v4_kernel_symbol, tc_bwd_smem as v4_bwd_smem,
     tc_fwd_smem as v4_fwd_smem, uses_tensor_cores as v4_uses_tensor_cores)
+
+from chip_smoke import LN_SHAPES
 
 T = torch.from_numpy
 
@@ -64,6 +68,57 @@ def test_layer_norm_matches_pallas(shape):
            1e-5)
     # on a CPU tensor the dispatching wrapper is the plain version
     assert torch.equal(layer_norm(T(x), T(s), T(b)), got)
+
+
+# (rows, C) of Swin-T's 32 norms on an 800x1344 canvas at batch 1 and a
+# training batch's 2 (chip_smoke.py LN_SHAPES), Swin-B's widths (C 4/3 of
+# Swin-T's), and ragged row counts (one row, a partial tile, a partial
+# last block)
+LN_GEOMETRY_CASES = [(r * b, c) for b in (1, 2) for r, c in LN_SHAPES] + [
+    (300, 2048), (1, 96), (37, 192), (1049, 768), (67201, 96)] + [
+    (r, c * 4 // 3) for r, c in LN_SHAPES if c < 1536]
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('rows,cols', LN_GEOMETRY_CASES)
+def test_ln_geometry_covers_every_row_once(dtype, rows, cols):
+    """The vector LayerNorm kernel's launch (csrc/layer_norm.cu, laid out
+    in LnPlan): the lanes of a group hold every 16-byte chunk of a row
+    once, the warps' row tiles cover every row once and nothing past the
+    end, a lane holds at most 8 chunks of x (or one row where that has
+    more: fp32 C 1536 and 2048), and the grid puts a block on
+    every SM that has a tile and no more than LN_BLOCKS_PER_SM."""
+    plan = ln_geometry(rows, cols, dtype, 132)
+    vec = 16 // dtype.itemsize
+    g, k = plan.group, plan.per_lane
+    assert g in (1, 2, 4, 8, 16, 32) and k in LN_PER_LANE[dtype]
+    assert sorted(l + j * g for l in range(g) for j in range(k)) \
+        == list(range(cols // vec))
+    assert plan.rows_per_thread * k <= max(8, k)
+    slots = 32 // g
+    tiles = -(-rows // plan.tile_rows)
+    warps = LN_THREADS // 32
+    assert min(tiles, 132) <= plan.blocks <= LN_BLOCKS_PER_SM * 132
+    seen = np.zeros(tiles * plan.tile_rows, np.int64)
+    for b in range(plan.blocks):
+        for w in range(warps):
+            for t in range(b + w * plan.blocks, tiles, warps * plan.blocks):
+                base = t * plan.tile_rows
+                for r in range(plan.rows_per_thread):
+                    seen[base + r * slots:base + r * slots + slots] += 1
+    assert (seen[:rows] == 1).all() and (seen[rows:] <= 1).all()
+
+
+@pytest.mark.parametrize('dtype,cols', [
+    (torch.bfloat16, 33), (torch.bfloat16, 36), (torch.float32, 30),
+    (torch.bfloat16, 40), (torch.float32, 20), (torch.bfloat16, 3072),
+    (torch.bfloat16, 4096)])
+def test_ln_geometry_leaves_other_widths_to_the_first_kernel(dtype, cols):
+    """Widths that are no multiple of the 16-byte vector, or whose lanes
+    would hold a chunk count the kernel is not built for in that dtype (5;
+    bf16 12 and 16, which no Swin config reaches), keep the first
+    kernel."""
+    assert ln_geometry(1000, cols, dtype, 132) is None
 
 
 # ------------------------------------------------------ window attention
@@ -200,18 +255,19 @@ def test_tc_fwd_p_smem_fits_every_shape(hd, heads):
             assert smem >= tiles // 3 * 2 + 4 * heads * 4 * 16 * n
 
 
-@pytest.mark.parametrize('kind', ['fwd', 'fwd_p', 'bwd'])
+@pytest.mark.parametrize('kind', ['fwd', 'fwd_p', 'bwd', 'heads'])
 @pytest.mark.parametrize('dtype,hd,want', [
     (torch.bfloat16, 32, True), (torch.bfloat16, 16, True),
     (torch.bfloat16, 64, True), (torch.bfloat16, 24, False),
     (torch.float32, 32, False), (torch.float32, 64, False)])
 def test_tc_attention_kernel_symbols(kind, dtype, hd, want):
-    """Each of the three wrappers (rows 2, 6 and 7) launches its
+    """Each of the four wrappers (rows 2, 6, 7 and 14) launches its
     tensor-core entry point exactly where uses_tensor_cores holds, and its
     SIMT one otherwise."""
     name = {'fwd': 'swindet_window_attention', 'fwd_p':
             'swindet_window_attention_fwd_p',
-            'bwd': 'swindet_window_attention_bwd'}[kind]
+            'bwd': 'swindet_window_attention_bwd',
+            'heads': 'swindet_window_attention_heads'}[kind]
     assert kernel_symbol(kind, dtype, hd) == name + ('_tc' if want else '')
 
 

@@ -1,9 +1,10 @@
 """Device time of the window-attention kernels at the Swin-T shapes of
 the main path, in bf16, on one CUDA card: the v3 inference forward, the
-training forward that saves P and the backward (rows 2, 6 and 7), and the
-v4 forward and backward with both projections folded in (rows 12 and 13).
+training forward that saves P and the backward (rows 2, 6 and 7), the
+v4 forward and backward with both projections folded in (rows 12 and 13),
+and the v1 forward over head-major q, k, v (row 14).
 
-    python tools/time_window_attention.py [--rows v3|v4|all] [REPO_ROOT ...]
+    python tools/time_window_attention.py [--rows v1|v3|v4|all] [REPO_ROOT ...]
 
 Each REPO_ROOT (default: this checkout) names a checkout whose
 ``swindet_tpu_torch`` is timed, each in a process of its own, so two
@@ -14,7 +15,13 @@ the stage's shift mask, the training forward and the backward at twice as
 many windows (a training batch of 2), the backward from the plain
 version's fp32 softmax; inputs are seeded. The v4 rows take x, the fp32
 weights of the stage's Swin block and the shift mask: the forward at a
-request's windows, the backward at a training batch's.
+request's windows, the backward at a training batch's. The v1 rows take
+the packed qkv as the v3 forward does, at a request's windows; their
+wrapper makes the head-major copy of q, k and v before the kernel, and
+``copy_device_ms`` gives that copy's device time apart (every kernel
+outside the ``swindet`` namespace), ``sdpa_ms`` the CUDA-event ms of
+``F.scaled_dot_product_attention`` on the same q, k, v and the additive
+bias and mask in bf16 (a yardstick; the port never calls it).
 Prints one JSON line per checkout: the card's name and power limit as
 nvidia-smi reports them; ``ms``, the mean ms of 20 calls after 3
 warm-ups by CUDA events around them (as chip_smoke.py phase 3 times a
@@ -59,7 +66,7 @@ def _time(fn, iters=20):
 
 def _device_ms(fn, iters=20):
     """The swindet kernels' device ms per call, in all and by kernel
-    function name."""
+    function name, and the other kernels' in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -67,13 +74,36 @@ def _device_ms(fn, iters=20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    split = {}
+    split, other = {}, 0.0
     for e in prof.key_averages():
+        ms = e.device_time_total / 1e3 / iters
         if 'swindet' in e.key:
             name = re.search(r'(\w+(?:<[^()]*>)?)\(', e.key)
             key = name.group(1) if name else e.key
-            split[key] = split.get(key, 0.0) + e.device_time_total / 1e3 / iters
-    return sum(split.values()), split
+            split[key] = split.get(key, 0.0) + ms
+        else:
+            other += ms
+    return sum(split.values()), split, other
+
+
+def run_v1(randn, torch, mask, b_, c, nh, out, dev, kernels, copy, sdpa):
+    """Row 14 at one stage, at a request's windows: the wrapper (the
+    head-major copy and the kernel), the kernel's and the copy's device
+    ms, and SDPA on the same inputs."""
+    import torch.nn.functional as F
+    from swindet_tpu_torch.ops import window_attention
+    bias = randn(nh, 49, 49, scale=0.5, dtype=torch.float32)
+    qkv = randn(b_, 49, 3 * c)
+    key = f'window_attention ({b_}, 49, 3x{c}) shifted'
+    fn = lambda: window_attention(qkv, bias, mask, nh)  # noqa: E731
+    out[key] = _time(fn)
+    dev[key], kernels[key], copy[key] = _device_ms(fn)
+    q, k, v = qkv.view(b_, 49, 3, nh, c // nh).permute(2, 0, 3, 1, 4)
+    nw = mask.shape[0]
+    add = (bias[None, None] + mask[None, :, None]).expand(
+        b_ // nw, -1, -1, -1, -1).reshape(b_, nh, 49, 49).to(qkv.dtype)
+    sdpa[key] = _time(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=add))
 
 
 def run_v4(randn, torch, mask, b_, c, nh, out, dev, kernels):
@@ -98,7 +128,7 @@ def run_v4(randn, torch, mask, b_, c, nh, out, dev, kernels):
              lambda: window_attention_v4_bwd(x2, *w, bias, mask, wproj, g2,
                                              nh))):
         out[key] = _time(fn)
-        dev[key], kernels[key] = _device_ms(fn)
+        dev[key], kernels[key], _ = _device_ms(fn)
 
 
 def run(root: str, rows: str) -> None:
@@ -117,12 +147,15 @@ def run(root: str, rows: str) -> None:
     def randn(*shape, scale=1.0, dtype=torch.bfloat16):
         return (torch.randn(*shape, generator=gen) * scale).cuda().to(dtype)
 
-    out, dev, kernels = {}, {}, {}
+    out, dev, kernels, copy, sdpa = {}, {}, {}, {}, {}
     for b_, c, nh, (hp, wp) in STAGES:
         mask = torch.from_numpy(shifted_window_attn_mask(hp, wp, 7, 3)).cuda()
         if rows in ('v4', 'all'):
             run_v4(randn, torch, mask, b_, c, nh, out, dev, kernels)
-        if rows == 'v4':
+        if rows in ('v1', 'all'):
+            run_v1(randn, torch, mask, b_, c, nh, out, dev, kernels, copy,
+                   sdpa)
+        if rows in ('v1', 'v4'):
             continue
         bias = randn(nh, 49, 49, scale=0.5, dtype=torch.float32)
         qkv = randn(b_, 49, 3 * c)
@@ -143,13 +176,15 @@ def run(root: str, rows: str) -> None:
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(json.dumps({'root': root, 'card': smi, 'ms': out,
-                      'device_ms': dev, 'kernels': kernels}), flush=True)
+                      'device_ms': dev, 'kernels': kernels,
+                      'copy_device_ms': copy, 'sdpa_ms': sdpa}), flush=True)
 
 
 def main() -> None:
     here = os.path.join(os.path.dirname(os.path.abspath(__file__)), '..')
     ap = argparse.ArgumentParser()
-    ap.add_argument('--rows', choices=('v3', 'v4', 'all'), default='all')
+    ap.add_argument('--rows', choices=('v1', 'v3', 'v4', 'all'),
+                    default='all')
     ap.add_argument('roots', nargs='*')
     args = ap.parse_args()
     roots = [os.path.abspath(r) for r in args.roots] or [here]
