@@ -13,7 +13,8 @@ before the last line:
               tensor-core (HGMMA) and TMA (UTMALDG) instructions, the
               v3 and v4 window attentions' HMMA, and so must each of the
               four instances of the tensor-core forward over head-major
-              q, k, v (row 14); their bf16 kernels' and the LayerNorm
+              q, k, v (row 14) and over the qkv map (row 15); their bf16
+              kernels' and the LayerNorm
               kernels' registers, shared and local memory are printed,
               each instance by its template arguments (the attention
               forward's with the P store on and off and its staging
@@ -34,10 +35,15 @@ before the last line:
               element past a 16-byte boundary, which the profiler must
               show ran that kernel alone. The
               v1 and full-map attention kernels, which no model path
-              runs (as in the JAX package), run only here: the v1 one in
-              bf16 must launch its tensor-core kernel, in fp32 its SIMT
-              one, and its kernel's device ms is read apart from its
-              wrapper's head-major copy.
+              runs (as in the JAX package), run only here, each in bf16
+              on its tensor-core kernel and in fp32 on its SIMT one (a
+              launch of the other fails the run): the v1 one at stage 1,
+              its kernel's device ms read apart from its wrapper's
+              head-major copy; the full-map one on the padded map of one
+              image at every Swin stage with shift 3 and at stage 1 with
+              no shift, with its kernel's device ms, the unfused chain
+              (roll, partition, SDPA, reverse) and the port's blockwise
+              path (gather, row 2, inverse gather) beside it.
               The 3x3 conv and its filter gradient run in bf16 (their
               tensor-core kernels) at every conv shape of the main path
               and in fp32 (their SIMT kernels) at two: FPN P2 and the
@@ -122,11 +128,13 @@ before the last line:
 
 Then one JSON line of per-kernel results (``launches``: the serving
 and the training runs' counts of the three configurations, each from its
-own reset, summed; each also apart; for the conv, fused-MLP and v1, v3
-and v4 attention rows also ``tc_launches``, counted the same way;
-``shapes``, the bf16 readings at every main-path shape, for those,
+own reset, summed; each also apart; for the conv, fused-MLP and v1, v3,
+v4 and full-map attention rows also ``tc_launches``, counted the same
+way; ``shapes``, the bf16 readings at every main-path shape, for those,
 LayerNorm, RoIAlign and its backward and NMS; ``device_ms`` for
-LayerNorm and the v1 attention, for the latter ``copy_device_ms``, and
+LayerNorm and the v1 and full-map attentions, for the v1 one
+``copy_device_ms``, for the full-map one ``unfused_ms``,
+``unfused_device_ms``, ``blockwise_ms`` and ``blockwise_device_ms``, and
 for LayerNorm ``first_kernel``, its first kernel's reading), the card's
 name and power limit,
 and, last, one JSON line with the device. It imports neither jax nor the
@@ -178,7 +186,8 @@ from swindet_tpu_torch.ops import (FUSED_MLP_KERNELS, INFERENCE_KERNELS,
                                    window_attention_v4_reference)
 from swindet_tpu_torch.ops.roi_align import _flat_layout, _taps, map_roi_levels
 from swindet_tpu_torch.models.backbones.swin import (WindowAttention,
-                                                     shifted_window_attn_mask)
+                                                     shifted_window_attn_mask,
+                                                     window_gather_indices)
 from swindet_tpu_torch.models.dense_heads import rpn_head as rpn_head_module
 from swindet_tpu_torch.utils import Config
 
@@ -373,8 +382,9 @@ def phase_build() -> None:
     # the bf16 conv and fused-MLP kernels must be tensor-core (HGMMA)
     # kernels fed by TMA (UTMALDG), the window attentions' (v3 and v4) hold
     # mma.sync (HMMA), every instance of the tensor-core forward over
-    # head-major q, k, v (row 14) among them; their registers, shared
-    # memory and local memory (spills), and the LayerNorm kernels'
+    # head-major q, k, v (row 14) and over the qkv map (row 15) among them;
+    # their registers, shared memory and local memory (spills), and the
+    # LayerNorm kernels'
     tool = os.path.join(os.path.dirname(build.nvcc_path()), 'cuobjdump')
     for name, pattern, wanted in (
             ('conv3x3', r'conv3x3\w*_tc_kernel', ('HGMMA', 'UTMALDG')),
@@ -394,14 +404,15 @@ def phase_build() -> None:
                 raise AssertionError(f'{name}: no tensor-core or TMA '
                                      f'instructions in {lib}: {ops}')
         if name == 'window_attention':
-            heads = [f for f in sass.split('Function : ')[1:]
-                     if 'HeadMajorTc' in f.splitlines()[0]]
-            hmma = [f.count('HMMA') for f in heads]
-            log('build', f'  the head-major tensor-core instances (row '
-                         f'14): {hmma} HMMA instructions')
-            if len(hmma) != 4 or not all(hmma):
-                raise AssertionError(f'window_attention: head-major '
-                                     f'tensor-core instances {hmma}')
+            for policy, row in (('HeadMajorTc', 14), ('SwinMapTc', 15)):
+                fns = [f for f in sass.split('Function : ')[1:]
+                       if policy in f.splitlines()[0]]
+                hmma = [f.count('HMMA') for f in fns]
+                log('build', f'  the {policy} tensor-core instances (row '
+                             f'{row}): {hmma} HMMA instructions')
+                if len(hmma) != 4 or not all(hmma):
+                    raise AssertionError(f'window_attention: {policy} '
+                                         f'tensor-core instances {hmma}')
         usage = subprocess.run([tool, '-res-usage', lib],
                                capture_output=True, text=True, timeout=300,
                                check=True).stdout.splitlines()
@@ -694,6 +705,100 @@ def _kernel_device_ms(fn, keys, iters=10):
     events = prof.key_averages()
     return {key: sum(e.device_time_total for e in events if name in e.key)
             / 1e3 / iters for key, name in keys.items()}
+
+
+def _swin_chain(qmap, bias, mask, nh, shift, ws=7):
+    """The unfused chain of row 15 in qmap's dtype: torch.roll, window
+    partition, SDPA with the bias and the shift mask as one additive mask
+    (made here, outside the timed call), window reverse; rolled
+    coordinates, as the kernel's. The yardstick of row 15's kernels."""
+    _, hp, wp, c3 = qmap.shape
+    c, nwy, nwx = c3 // 3, hp // ws, wp // ws
+    add = bias[None] if mask is None else bias[None] + mask[:, None]
+    add = add.to(qmap.dtype)
+
+    def chain():
+        x = torch.roll(qmap, (-shift, -shift), (1, 2))
+        q, k, v = x.view(1, nwy, ws, nwx, ws, c3).permute(0, 1, 3, 2, 4, 5) \
+            .reshape(-1, ws * ws, 3, nh, c // nh).permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=add)
+        return o.transpose(1, 2).reshape(1, nwy, nwx, ws, ws, c) \
+            .permute(0, 1, 3, 2, 4, 5).reshape(1, hp, wp, c)
+    return chain
+
+
+def _swin_blockwise(qmap, bias, mask, nh, shift, ws=7):
+    """The port's own blockwise path for row 15's attention: the
+    backbone's roll + partition gather (window_gather_indices), row 2's
+    wrapper with the shift mask, and the inverse gather, which also
+    un-rolls. A yardstick of the fused kernel's worth."""
+    _, hp, wp, c3 = qmap.shape
+    idx, _, inv_idx = (torch.from_numpy(t).to(qmap.device)
+                       for t in window_gather_indices(hp, wp, ws, shift))
+
+    def blockwise():
+        wins = qmap.view(1, hp * wp, c3)[:, idx].view(-1, ws * ws, c3)
+        o = window_attention_v3(wins, bias, mask, nh)
+        return o.view(1, hp * wp, c3 // 3)[:, inv_idx] \
+            .view(1, hp, wp, c3 // 3)
+    return blockwise
+
+
+def swin_checks(dtype, randn):
+    """Row 15 on the padded map of one image at the four Swin stages of
+    an 800x1344 canvas with shift 3, and at stage 1 with no shift: each
+    held to its plain version, with the kernel's profiler device ms, the
+    unfused chain (unfused_ms) and the port's blockwise path (blockwise_ms,
+    its output un-rolled, so held to the un-rolled kernel output; events
+    and device ms of all their kernels). In bf16 every launch must be the
+    tensor-core kernel's, in fp32 the SIMT kernel's. Returns stage 1 with
+    shift 3 and every row under ``shapes``."""
+    bf16 = dtype == torch.bfloat16
+    peak = PEAK_FLOPS if bf16 else PEAK_FP32
+    before = swin_window_attention.launches, swin_window_attention.tc_launches
+    rows = []
+    for (windows, c, nh, (hp, wp)), shift in (
+            [(st, 3) for st in ATTN_STAGES] + [(ATTN_STAGES[0], 0)]):
+        qmap = randn(1, hp, wp, 3 * c).to(dtype)
+        bias = randn(nh, 49, 49, scale=0.5)
+        mask = None if shift == 0 else torch.from_numpy(
+            shifted_window_attn_mask(hp, wp, 7, shift)).to(qmap.device)
+        fn = lambda: swin_window_attention(qmap, bias, 7, shift, nh)  # noqa
+        r = _compare('swin_window_attention', dtype, fn,
+                     lambda: swin_attention_reference(qmap, bias, 7, shift,
+                                                      nh),
+                     f'(1, {hp}, {wp}, 3x{c}) shift {shift}',
+                     work=(_nbytes(qmap, bias) + _nbytes(qmap) // 3,
+                           _attn_flops(windows, 49, c, 2), peak))
+        r['device_ms'] = _kernel_device_ms(fn, {'k': 'swindet'})['k']
+        got = fn()
+        for name, yard, want in (
+                ('unfused', _swin_chain(qmap, bias, mask, nh, shift), got),
+                ('blockwise', _swin_blockwise(qmap, bias, mask, nh, shift),
+                 torch.roll(got, (shift, shift), (1, 2)))):
+            err = (yard().float() - want.float()).abs().max().item()
+            atol, rtol = TOL[dtype]
+            if not err <= atol + rtol * want.float().abs().max().item():
+                raise AssertionError(f'swin_window_attention {dtype}: the '
+                                     f'{name} yardstick differs by {err:.3g}')
+            r[f'{name}_ms'] = cuda_ms(yard, iters=20)
+            r[f'{name}_device_ms'] = _kernel_device_ms(yard,
+                                                       {'k': ''})['k']
+        log('kernels', f'  device ms: kernel {r["device_ms"]:.4f}, unfused '
+                       f'chain {r["unfused_device_ms"]:.4f} (events '
+                       f'{r["unfused_ms"]:.4f}), blockwise path '
+                       f'{r["blockwise_device_ms"]:.4f} (events '
+                       f'{r["blockwise_ms"]:.4f})')
+        rows.append(r)
+        del qmap, got
+    launched = swin_window_attention.launches - before[0]
+    launched_tc = swin_window_attention.tc_launches - before[1]
+    log('kernels', f'  swin_window_attention: {launched} launches, '
+                   f'{launched_tc} tensor-core')
+    if launched_tc != (launched if bf16 else 0):
+        raise AssertionError('swin_window_attention: bf16 must run the '
+                             'tensor-core kernel and fp32 the SIMT one')
+    return dict(rows[0], shapes=rows)
 
 
 def _mlp_inputs(randn, rows, c, dtype):
@@ -1184,15 +1289,9 @@ def phase_kernels():
             raise AssertionError('window_attention: bf16 must run the '
                                  'tensor-core kernel and fp32 the SIMT one')
         results.setdefault('window_attention', {})[dtype] = r
-        qmap = qkv.view(1, 203, 336, 288)
-        results.setdefault('swin_window_attention', {})[dtype] = _compare(
-            'swin_window_attention', dtype,
-            lambda: swin_window_attention(qmap, bias, 7, 3, 3),
-            lambda: swin_attention_reference(qmap, bias, 7, 3, 3),
-            '(1, 203, 336, 3x96) shift 3',
-            work=(_nbytes(qmap, bias) + _nbytes(qmap) // 3,
-                  _attn_flops(1392, 49, 96, 2)))
-        del qkv, qmap, q, k, v, add
+        del qkv, q, k, v, add
+        results.setdefault('swin_window_attention', {})[dtype] = \
+            swin_checks(dtype, randn)
 
         # NMS on fp32 boxes (the same in both configurations): RPN when
         # serving and in a training step, the bbox head's multiclass NMS;
@@ -1883,9 +1982,11 @@ def _run_config(name, **flags):
 
 
 # phase 3's further readings of a kernel's main row that the JSON line
-# carries: the kernel's own device ms (rows 1 and 14), row 14's
-# head-major copy, and row 1's first kernel off the vector path
-PHASE3_EXTRAS = ('device_ms', 'copy_device_ms', 'first_kernel')
+# carries: the kernel's own device ms (rows 1, 14 and 15), row 14's
+# head-major copy, row 1's first kernel off the vector path, and row 15's
+# yardsticks' device ms and its blockwise path's ms
+PHASE3_EXTRAS = ('device_ms', 'copy_device_ms', 'first_kernel',
+                 'unfused_device_ms', 'blockwise_ms', 'blockwise_device_ms')
 
 
 def main() -> int:

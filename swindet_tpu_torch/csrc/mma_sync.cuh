@@ -128,14 +128,14 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
 }
 
 // Store a warp's 16 x HD fp32 accumulator, times mul and rounded to bf16,
-// to rows row0 .. (those below n) of dst, `stride` elements apart: through
-// the warp's own staging tile st (16 rows of HD + 8), so that every global
-// store is 16 bytes.
-template <int HD>
+// to rows row0 .. (those below n), row i at row_at(i): through the warp's
+// own staging tile st (16 rows of HD + 8), so that every global store is
+// 16 bytes.
+template <int HD, typename RowAt>
 __device__ __forceinline__ void store_tile(const float (&acc)[HD / 8][4],
                                            float mul, __nv_bfloat16* st,
-                                           __nv_bfloat16* dst, size_t stride,
-                                           int row0, int n, int lane) {
+                                           RowAt row_at, int row0, int n,
+                                           int lane) {
   constexpr int P = HD + 8, CH = HD / 8;
   const int gq = lane >> 2, t = lane & 3;
   __syncwarp();  // the lanes' earlier reads of st are done
@@ -150,9 +150,20 @@ __device__ __forceinline__ void store_tile(const float (&acc)[HD / 8][4],
   for (int e = lane; e < 16 * CH; e += 32) {
     const int r = e / CH, d = (e % CH) * 8;
     if (row0 + r < n)
-      *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * stride + d) =
+      *reinterpret_cast<uint4*>(row_at(row0 + r) + d) =
           *reinterpret_cast<const uint4*>(st + r * P + d);
   }
+}
+
+// The same with row i at dst + i stride.
+template <int HD>
+__device__ __forceinline__ void store_tile(const float (&acc)[HD / 8][4],
+                                           float mul, __nv_bfloat16* st,
+                                           __nv_bfloat16* dst, size_t stride,
+                                           int row0, int n, int lane) {
+  store_tile<HD>(
+      acc, mul, st, [=](int i) { return dst + (size_t)i * stride; }, row0,
+      n, lane);
 }
 
 // The attention backward of one window and head for this warp's 16 rows

@@ -100,10 +100,22 @@
 // - swindet_swin_attention replaces swindet_tpu/ops/swin_attention.py ·
 //   _swin_attn_kernel (:46, via _swin_attn_fwd_impl, pallas_call at :149):
 //   the cyclic roll, window partition and attention over the padded qkv map
-//   (B, Hp, Wp, 3C) in one pass. Each block reads its window's tokens at
-//   the rolled positions with wrap-around (the TPU read row blocks i and
-//   i + 1 mod nHb), rebuilds the -100 shift mask from region ids in rolled
-//   coordinates, and writes the output in rolled coordinates.
+//   (B, Hp, Wp, 3C) in one pass, the output written in rolled coordinates
+//   (the TPU read row blocks i and i + 1 mod nHb). Its arithmetic is row
+//   2's at the same windows, so it runs row 2's kernels too: in
+//   bf16 with hd in {16, 32, 48, 64}, swindet_swin_attention_tc, which is
+//   wattn_fwd_tc_kernel with the SwinMapTc staging policy. A pixel's row of
+//   the map is laid out as a token row of the packed projection, so the
+//   copies are PackedTc's, each starting at the wrapped pixel (a
+//   conditional subtract: only the last window row and column wrap). The
+//   map has no mask input: only windows of the last window row or column
+//   mix shift regions, so only there (one uniform branch a block) does the
+//   block build its tokens' region ids in shared memory (n bytes) and add
+//   -100 to the logits where a row's and a column's ids differ. The
+//   epilogue's 16-byte stores go to each token's rolled pixel (store_tile
+//   with a row address). Otherwise the SIMT window_attention_kernel with the
+//   SwinMap source policy, which reads each element at its rolled position
+//   and rebuilds the mask from region ids per logit.
 // The SIMT forward body reads each layout through a source policy
 // (PackedQkv above, HeadMajorQkv, SwinMap). Both kernels are bound by
 // bytes as the forward above. Their backward recomputes through the plain
@@ -453,16 +465,23 @@ __device__ __forceinline__ void zero_pad_rows(__nv_bfloat16* tiles,
 }
 
 // Where a tensor-core forward block finds its heads' q (part 0), k (1) and
-// v (2). `split` names 16-byte chunk e of the group's 3 x heads x n x CH
-// chunks by (part, head hl of the group, row i, column d), numbered so that
+// v (2), and where it writes its output. `window` turns the block's window
+// index into the policy's handle w of that window, made once a block.
+// `split` names 16-byte chunk e of the group's 3 x heads x n x CH chunks by
+// (part, head hl of the group, row i, column d), numbered so that
 // consecutive threads copy consecutive bytes of the source; `at` is that
-// chunk's address for head h of window win.
+// chunk's address for head h of window w; `out_row` is where token i of
+// window w writes its C outputs. With kRegions the policy has no mask
+// input: `mixed` tells whether window w mixes shift regions, and `region`
+// gives token i's region there.
 
 // The packed projection (B_, N, 3C), heads contiguous in each third (rows
 // 2 and 6): a token's row holds the group's q, k and v chunks side by side.
 struct PackedTc {
+  static constexpr bool kRegions = false;
   const __nv_bfloat16* qkv;
   int c;
+  __device__ __forceinline__ int window(int win) const { return win; }
   __device__ __forceinline__ void split(int e, int heads, int n, int ch,
                                         int& part, int& hl, int& i,
                                         int& d) const {
@@ -477,13 +496,20 @@ struct PackedTc {
                                                      int n, int hd) const {
     return qkv + ((size_t)win * n + i) * 3 * c + part * c + h * hd + d;
   }
+  __device__ __forceinline__ __nv_bfloat16* out_row(__nv_bfloat16* out,
+                                                    int win, int i,
+                                                    int n) const {
+    return out + ((size_t)win * n + i) * c;
+  }
 };
 
 // Head-major q, k and v, each (B_, nH, N, hd) (row 14): a (window, head)'s
 // q, k or v is one contiguous n x hd span, walked chunk after chunk.
 struct HeadMajorTc {
+  static constexpr bool kRegions = false;
   const __nv_bfloat16 *q, *k, *v;
-  int nh;
+  int nh, c;
+  __device__ __forceinline__ int window(int win) const { return win; }
   __device__ __forceinline__ void split(int e, int heads, int n, int ch,
                                         int& part, int& hl, int& i,
                                         int& d) const {
@@ -499,17 +525,89 @@ struct HeadMajorTc {
     const __nv_bfloat16* base = part == 0 ? q : (part == 1 ? k : v);
     return base + (((size_t)win * nh + h) * n + i) * hd + d;
   }
+  __device__ __forceinline__ __nv_bfloat16* out_row(__nv_bfloat16* out,
+                                                    int win, int i,
+                                                    int n) const {
+    return out + ((size_t)win * n + i) * c;
+  }
+};
+
+// The padded qkv map (B, Hp, Wp, 3C) of a shifted block (row 15), the
+// output (B, Hp, Wp, C) in rolled coordinates. A pixel's row is laid out as
+// a token row of the packed projection, so `split` is PackedTc's. Window
+// win is (image b, window row wy, window column wx), row-major; its token i
+// sits at rolled position (y, x) = (ws wy + i / ws, ws wx + i % ws) and
+// reads map pixel (y + shift, x + shift), less Hp or Wp where that passes
+// the edge (only the last window row and column wrap). The region of a
+// rolled row y is 0 below Hp - ws, 1 below Hp - shift and 2 above, the
+// same for columns (the reference's img_mask slices), so only windows of
+// the last window row or column mix regions, and none without a shift.
+struct SwinMapTc : PackedTc {
+  static constexpr bool kRegions = true;
+  // nwy x nwx windows an image; ws_inv = ceil(2^16 / ws), so that
+  // (i ws_inv) >> 16 = i / ws for every token i < 64 (the error,
+  // i / 2^16 < 1 / 1024, stays under the 1 / ws to the next integer)
+  int hp, wp, ws, shift, nwy, nwx, ws_inv;
+  // a window: its image and the rolled position of its token 0
+  struct Window {
+    int b, y0, x0;
+  };
+  __device__ __forceinline__ Window window(int win) const {
+    const int per_img = nwy * nwx, b = win / per_img, w = win - b * per_img;
+    const int wy = w / nwx;
+    return {b, wy * ws, (w - wy * nwx) * ws};
+  }
+  // token i's rolled position
+  __device__ __forceinline__ void pos(const Window& w, int i, int& y,
+                                      int& x) const {
+    const int r = (i * ws_inv) >> 16;
+    y = w.y0 + r;
+    x = w.x0 + i - r * ws;
+  }
+  __device__ __forceinline__ const __nv_bfloat16* at(const Window& w, int h,
+                                                     int part, int i, int d,
+                                                     int n, int hd) const {
+    int y, x;
+    pos(w, i, y, x);
+    y += shift;
+    if (y >= hp) y -= hp;
+    x += shift;
+    if (x >= wp) x -= wp;
+    return qkv + (((size_t)w.b * hp + y) * wp + x) * 3 * c + part * c +
+           h * hd + d;
+  }
+  __device__ __forceinline__ bool mixed(const Window& w) const {
+    return shift && (w.y0 == hp - ws || w.x0 == wp - ws);
+  }
+  __device__ __forceinline__ unsigned char region(const Window& w,
+                                                  int i) const {
+    int y, x;
+    pos(w, i, y, x);
+    const int ry = y < hp - ws ? 0 : (y < hp - shift ? 1 : 2);
+    const int rx = x < wp - ws ? 0 : (x < wp - shift ? 1 : 2);
+    return (unsigned char)(3 * ry + rx);
+  }
+  __device__ __forceinline__ __nv_bfloat16* out_row(__nv_bfloat16* out,
+                                                    const Window& w, int i,
+                                                    int n) const {
+    int y, x;
+    pos(w, i, y, x);
+    return out + (((size_t)w.b * hp + y) * wp + x) * c;
+  }
 };
 
 // Shared memory of the two kernels (ops/window_attention_v3.py
-// tc_fwd_smem and tc_bwd_smem compute the same). With save_p the P
-// staging, 16 rows of n floats for each of the block's 4 heads warps,
-// starts at the k tiles (the tiles ordered q, v, k) and may run past the
-// mask: the block is the larger of the two.
+// tc_fwd_smem and tc_bwd_smem compute the same). With regions (row 15, no
+// mask) the window's n region ids, a byte each, follow the bias. With
+// save_p the P staging, 16 rows of n floats for each of the block's 4
+// heads warps, starts at the k tiles (the tiles ordered q, v, k) and may
+// run past the mask: the block is the larger of the two.
 template <int HD>
-size_t tc_fwd_smem(int heads, int n, bool masked, bool save_p) {
+size_t tc_fwd_smem(int heads, int n, bool masked, bool save_p,
+                   bool regions = false) {
   const size_t tiles = 2 * 3 * (size_t)heads * kTcRows * (HD + 8);
-  const size_t base = tiles + 4 * (size_t)(heads + masked) * n * n;
+  const size_t base = tiles + 4 * (size_t)(heads + masked) * n * n +
+                      (regions ? n : 0);
   if (!save_p) return base;
   const size_t staged = tiles / 3 * 2 +
                         4 * (size_t)heads * kTcWarpsPerHead * 16 * n;
@@ -523,14 +621,15 @@ size_t tc_bwd_smem() {
               + kTcWarpsPerHead * 16 * (HD + 8));  // staging tiles
 }
 
-// Row 2 (Src PackedTc), with kSaveP row 6, and row 14 (Src HeadMajorTc).
-// Block (window blockIdx.x, heads blockIdx.y * heads ..): warp w owns rows
-// 16 (w % 4) .. of head w / 4 of the group. Shared memory: the group's q
-// tiles, then its k tiles, then its v tiles (with kSaveP q, v, k), then
-// the group's bias (heads x n x n fp32), then the window's mask (n x n
-// fp32) where there is one. Every byte comes in by cp.async before the
-// block waits. With kSaveP, p is the fp32 softmax (nH, B_, N, N),
-// B_ = gridDim.x.
+// Row 2 (Src PackedTc), with kSaveP row 6, row 14 (Src HeadMajorTc) and
+// row 15 (Src SwinMapTc). Block (window blockIdx.x, heads blockIdx.y *
+// heads ..): warp w owns rows 16 (w % 4) .. of head w / 4 of the group.
+// Shared memory: the group's q tiles, then its k tiles, then its v tiles
+// (with kSaveP q, v, k), then the group's bias (heads x n x n fp32), then
+// the window's mask (n x n fp32) where there is one, or with
+// Src::kRegions the window's region ids (n bytes) where it mixes regions.
+// Every byte comes in by cp.async before the block waits. With kSaveP, p
+// is the fp32 softmax (nH, B_, N, N), B_ = gridDim.x.
 template <int HD, bool kSaveP, typename Src>
 __global__ void __launch_bounds__(kTcMaxHeads * kTcHeadThreads, 2)
 wattn_fwd_tc_kernel(const Src src, const float* __restrict__ bias,
@@ -545,8 +644,11 @@ wattn_fwd_tc_kernel(const Src src, const float* __restrict__ bias,
   __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(tc_smem);
   float* bsm = reinterpret_cast<float*>(sm + 3 * heads * TILE);
   float* msk = bsm + heads * n * n;
+  [[maybe_unused]] unsigned char* reg =
+      reinterpret_cast<unsigned char*>(msk);
   const int win = blockIdx.x, h0 = blockIdx.y * heads;
   const int threads = heads * kTcHeadThreads;
+  const auto w = src.window(win);
 
   // the group's q, k and v rows, 16 bytes a copy
   for (int e = threadIdx.x; e < 3 * heads * n * CH; e += threads) {
@@ -554,7 +656,7 @@ wattn_fwd_tc_kernel(const Src src, const float* __restrict__ bias,
     src.split(e, heads, n, CH, part, hl, i, d);
     const int slot = kSaveP ? (3 - part) % 3 : part;
     cp_async16(sm + (slot * heads + hl) * TILE + i * P + d,
-               src.at(win, h0 + hl, part, i, d, n, HD));
+               src.at(w, h0 + hl, part, i, d, n, HD));
   }
   // the group's bias and the window's mask, 4 bytes a copy (an n x n
   // block of odd n starts on no 16-byte boundary)
@@ -568,6 +670,15 @@ wattn_fwd_tc_kernel(const Src src, const float* __restrict__ bias,
   }
   cp_async_commit();
   zero_pad_rows<HD>(sm, 3 * heads, n, threads);
+  // the shift mask of a window that mixes regions, from its region ids:
+  // one uniform branch a block
+  [[maybe_unused]] bool mixed = false;
+  if constexpr (Src::kRegions) {
+    mixed = src.mixed(w);
+    if (mixed)
+      for (int e = threadIdx.x; e < n; e += threads)
+        reg[e] = src.region(w, e);
+  }
   cp_async_wait<0>();
   __syncthreads();
 
@@ -613,6 +724,21 @@ wattn_fwd_tc_kernel(const Src src, const float* __restrict__ bias,
       s[nt][e] = v;
       mx[e >> 1] = fmaxf(mx[e >> 1], v);
     }
+  if constexpr (Src::kRegions) {
+    // the shift mask, after the bias as the reference adds it, in the
+    // windows that mix regions only: the others skip the pass
+    if (mixed) {
+      mx[0] = mx[1] = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < kTcKeyTiles; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = m0 + gq + (e >> 1) * 8, j = nt * 8 + 2 * t + (e & 1);
+          if (i < n && j < n && reg[i] != reg[j]) s[nt][e] += -100.f;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+        }
+    }
+  }
   float sum[2] = {0.f, 0.f}, inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -674,8 +800,10 @@ wattn_fwd_tc_kernel(const Src src, const float* __restrict__ bias,
     }
   }
   // this warp's q rows, which no other warp reads, stage its output
-  store_tile<HD>(o, 1.f, q_s + m0 * P,
-                 out + (size_t)win * n * c + (h0 + hl) * HD, c, m0, n, lane);
+  store_tile<HD>(
+      o, 1.f, q_s + m0 * P,
+      [=](int i) { return src.out_row(out, w, i, n) + (h0 + hl) * HD; },
+      m0, n, lane);
 }
 
 // Row 7. Block (windows blockIdx.x * windows .., head blockIdx.y): warp w
@@ -763,7 +891,8 @@ static int launch_fwd_tc(const Src& src, const float* bias,
                          const float* mask, void* out, float* p, int b_,
                          int n, int c, int nh, int nw, float scale,
                          int heads, cudaStream_t stream) {
-  const size_t smem = tc_fwd_smem<HD>(heads, n, mask != nullptr, kSaveP);
+  const size_t smem =
+      tc_fwd_smem<HD>(heads, n, mask != nullptr, kSaveP, Src::kRegions);
   auto kernel = wattn_fwd_tc_kernel<HD, kSaveP, Src>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
@@ -943,7 +1072,7 @@ SWINDET_EXPORT int swindet_window_attention_heads_tc(
     return (int)cudaErrorInvalidValue;
   using T = __nv_bfloat16;
   const HeadMajorTc src{static_cast<const T*>(q), static_cast<const T*>(k),
-                        static_cast<const T*>(v), nh};
+                        static_cast<const T*>(v), nh, c};
   return by_head_dim(c / nh, [&](auto hd) {
     return launch_fwd_tc<decltype(hd)::value, false>(
         src, bias, mask, out, nullptr, b_, n, c, nh, nw, scale, heads,
@@ -979,4 +1108,27 @@ SWINDET_EXPORT int swindet_swin_attention(const void* qkv, const float* bias,
                                     scale, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 tensor-core form of swindet_swin_attention (row 15): bf16 qkv
+// with ws^2 <= 64 and hd in {16, 32, 48, 64}, 16-byte aligned qkv and out;
+// `heads` heads a block (1-3, dividing nH), as swindet_window_attention_tc.
+SWINDET_EXPORT int swindet_swin_attention_tc(
+    const void* qkv, const float* bias, void* out, int b, int hp, int wp,
+    int c, int nh, int ws, int shift, float scale, int heads, void* stream) {
+  using namespace swindet;
+  const int windows = b * (hp / ws) * (wp / ws);
+  if (windows == 0) return (int)cudaSuccess;
+  const int n = ws * ws;
+  if (n > kTcRows || heads < 1 || heads > kTcMaxHeads || nh % heads ||
+      shift < 0 || shift >= ws)
+    return (int)cudaErrorInvalidValue;
+  const SwinMapTc src{{static_cast<const __nv_bfloat16*>(qkv), c},
+                      hp, wp, ws, shift, hp / ws, wp / ws,
+                      (65536 + ws - 1) / ws};
+  return by_head_dim(c / nh, [&](auto hd) {
+    return launch_fwd_tc<decltype(hd)::value, false>(
+        src, bias, nullptr, out, nullptr, windows, n, c, nh, 1, scale, heads,
+        static_cast<cudaStream_t>(stream));
+  });
 }

@@ -13,6 +13,7 @@ from .nms import nms_sorted, nms_sorted_reference
 from .roi_align import (multilevel_roi_align, multilevel_roi_align_backward,
                         roi_align, roi_align_bwd, roi_align_op)
 from .swin_attention import (shifted_window_attn_mask,
+                             swin_attention_kernel_form,
                              swin_attention_reference, swin_window_attention)
 from .window_attention import window_attention, window_attention_reference
 from .window_attention_v3 import (window_attention_bwd,
@@ -55,7 +56,8 @@ KERNEL_WRAPPERS = (INFERENCE_KERNELS + TRAINING_KERNELS + FUSED_MLP_KERNELS
 TENSOR_CORE_KERNELS = (conv3x3, conv3x3_dw, fused_mlp, fused_mlp_bwd,
                        window_attention_v3, window_attention_fwd_p,
                        window_attention_bwd, window_attention_v4,
-                       window_attention_v4_bwd, window_attention)
+                       window_attention_v4_bwd, window_attention,
+                       swin_window_attention)
 
 
 def reset_launch_counts() -> None:

@@ -67,16 +67,17 @@ SMEM_LIMIT = 232448
 
 
 def uses_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
-    """Whether the card runs the tensor-core kernels of rows 2, 6, 7 and
-    14 for inputs of ``dtype`` and head width ``head_dim`` (N <= 64 holds for
-    every input the wrappers take)."""
+    """Whether the card runs the tensor-core kernels of rows 2, 6, 7, 14
+    and 15 for inputs of ``dtype`` and head width ``head_dim`` (N <= 64
+    holds for every input the wrappers take)."""
     return dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS
 
 
 # C entry points of csrc/window_attention.cu: (SIMT, tensor-core) for the
 # inference forward (row 2), the training forward (row 6), the backward
-# (row 7), and the v1 forward over head-major q, k, v (row 14,
-# ops/window_attention.py)
+# (row 7), the v1 forward over head-major q, k, v (row 14,
+# ops/window_attention.py) and the full-map shifted attention (row 15,
+# ops/swin_attention.py)
 _SYMBOLS = {
     'fwd': ('swindet_window_attention', 'swindet_window_attention_tc'),
     'fwd_p': ('swindet_window_attention_fwd_p',
@@ -84,13 +85,14 @@ _SYMBOLS = {
     'bwd': ('swindet_window_attention_bwd',
             'swindet_window_attention_bwd_tc'),
     'heads': ('swindet_window_attention_heads',
-              'swindet_window_attention_heads_tc')}
+              'swindet_window_attention_heads_tc'),
+    'swin': ('swindet_swin_attention', 'swindet_swin_attention_tc')}
 
 
 def kernel_symbol(kind: str, dtype: torch.dtype, head_dim: int) -> str:
     """The entry point that the wrapper of ``kind`` ('fwd', 'fwd_p',
-    'bwd' or 'heads') launches for inputs of ``dtype`` and head width
-    ``head_dim``."""
+    'bwd', 'heads' or 'swin') launches for inputs of ``dtype`` and head
+    width ``head_dim``."""
     return _SYMBOLS[kind][uses_tensor_cores(dtype, head_dim)]
 
 
@@ -120,16 +122,17 @@ def bwd_geometry(windows: int, num_heads: int, sms: int) -> int:
 
 
 def tc_fwd_smem(head_dim: int, heads: int, n: int, masked: bool,
-                save_p: bool = False) -> int:
+                save_p: bool = False, regions: bool = False) -> int:
     """Shared memory of a tensor-core forward block (csrc tc_fwd_smem): a
     64-row tile of hd + 8 bf16 values for each head's q, k and v, each
-    head's fp32 bias and the window's fp32 mask. With ``save_p`` (row 6)
-    each of the block's warps (four a head) stages its 16 rows of the fp32
-    P, n floats each, from the start of the k tiles (ordered q, v, k) on,
-    over the k tiles, the bias and the mask: the block is the larger of
-    the two."""
+    head's fp32 bias and the window's fp32 mask, or with ``regions`` (row
+    15, which has no mask input) the window's n region ids, a byte each.
+    With ``save_p`` (row 6) each of the block's warps (four a head) stages
+    its 16 rows of the fp32 P, n floats each, from the start of the k
+    tiles (ordered q, v, k) on, over the k tiles, the bias and the mask:
+    the block is the larger of the two."""
     tiles = 2 * 3 * heads * TC_ROWS * (head_dim + 8)
-    base = tiles + 4 * (heads + masked) * n * n
+    base = tiles + 4 * (heads + masked) * n * n + (n if regions else 0)
     if not save_p:
         return base
     return max(base, tiles // 3 * 2 + 4 * heads * 4 * 16 * n)

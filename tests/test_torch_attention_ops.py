@@ -6,11 +6,16 @@ against ``jax.grad`` through the JAX ops (whose backward recomputes
 through their lax references, as the port's does through its plain
 versions). The full-map attention is also held to the port's own
 blockwise path: the backbone's pad + roll + partition gather, window
-attention with the shift mask, and the inverse gather.
+attention with the shift mask, and the inverse gather; and the form its
+tensor-core kernel computes (``swin_attention_kernel_form``: wrapped
+pixel reads, a mask from region ids only in the last window row and
+column, output at rolled pixels) to the Pallas kernel.
 
 The same numpy inputs, made from a seed, go through both sides.
 Tolerances are those of the JAX package's tests, in fp32: forwards 1e-5,
-gradients 1e-4.
+gradients 1e-4; bf16 forwards at the card's bf16 tolerance, 2e-2
+(chip_smoke.py TOL: one bf16 unit of an output, 2^-8 relative, and a
+probability rounded one bf16 unit apart).
 """
 import numpy as np
 import jax
@@ -25,6 +30,7 @@ from swindet_tpu.ops.window_attention import \
 
 from swindet_tpu_torch.models.backbones.swin import window_gather_indices
 from swindet_tpu_torch.ops import (shifted_window_attn_mask,
+                                   swin_attention_kernel_form,
                                    swin_attention_reference,
                                    swin_window_attention, window_attention,
                                    window_attention_reference)
@@ -108,6 +114,48 @@ def test_swin_attention_matches_pallas(b, hp, wp, shift):
                                atol=1e-5)
     assert torch.equal(got, swin_attention_reference(
         torch.from_numpy(qkv), torch.from_numpy(bias), ws, shift, nh))
+
+
+@pytest.mark.parametrize('b,hp,wp,shift', [
+    (2, 21, 28, 0), (2, 21, 28, 3), (1, 28, 14, 3), (2, 7, 21, 3),
+    (1, 14, 7, 3), (1, 7, 7, 3), (1, 7, 14, 0)])
+def test_swin_attention_kernel_form_matches_pallas(b, hp, wp, shift):
+    """The tensor-core kernel's form of row 15 against the Pallas kernel:
+    no shift and shift 3, batch 2, non-square maps, and the edge maps
+    Hp = 7 and Wp = 7, where every window lies in the last window row or
+    column and wraps."""
+    rs = np.random.RandomState(5)
+    nh, hd, ws = 2, 16, 7
+    c = nh * hd
+    qkv = rs.randn(b, hp, wp, 3 * c).astype(np.float32)
+    bias = rs.randn(nh, ws * ws, ws * ws).astype(np.float32)
+    want = jax_swin_window_attention(jnp.asarray(qkv), jnp.asarray(bias), ws,
+                                     shift, nh, interpret=True)
+    got = swin_attention_kernel_form(torch.from_numpy(qkv),
+                                     torch.from_numpy(bias), ws, shift, nh)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (b, hp, wp, c)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_swin_attention_kernel_form_matches_pallas_in_bf16():
+    """The same in bf16 on both sides (logits and softmax in fp32, P
+    rounded to bf16 before the product with v), held at 2e-2."""
+    rs = np.random.RandomState(6)
+    b, hp, wp, nh, hd, ws, shift = 2, 14, 21, 2, 16, 7, 3
+    c = nh * hd
+    qkv = jnp.asarray(rs.randn(b, hp, wp, 3 * c).astype(np.float32),
+                      jnp.bfloat16)
+    bias = rs.randn(nh, ws * ws, ws * ws).astype(np.float32)
+    want = jax_swin_window_attention(qkv, jnp.asarray(bias), ws, shift, nh,
+                                     interpret=True)
+    got = swin_attention_kernel_form(
+        torch.from_numpy(np.asarray(qkv, np.float32)).bfloat16(),
+        torch.from_numpy(bias), ws, shift, nh)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (b, hp, wp, c)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=2e-2,
+                               atol=2e-2)
 
 
 def test_swin_attention_matches_the_blockwise_path():

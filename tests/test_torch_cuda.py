@@ -378,9 +378,9 @@ def test_window_attention_picks_its_kernel(gen, dtype, b_, n, c, nh,
 
 
 def test_bf16_window_attention_refuses_misaligned_rows(gen):
-    """The tensor-core kernels copy rows in 16-byte pieces: a bf16 qkv or
-    g that does not start on a 16-byte boundary is refused, not run on
-    the SIMT kernels."""
+    """The tensor-core kernels copy rows in 16-byte pieces: a bf16 qkv
+    (rows 2, 6 and 15) or g that does not start on a 16-byte boundary is
+    refused, not run on the SIMT kernels."""
     flat = _randn(gen, 4 * 49 * 288 + 1, dtype=torch.bfloat16)
     qkv = flat[1:].view(4, 49, 288)
     assert qkv.is_contiguous() and qkv.data_ptr() % 16
@@ -389,6 +389,9 @@ def test_bf16_window_attention_refuses_misaligned_rows(gen):
         window_attention_v3(qkv, bias, None, 3)
     with pytest.raises(ValueError):
         window_attention_fwd_p(qkv, bias, None, 3)
+    # row 15 copies a pixel's row in the same 16-byte pieces
+    with pytest.raises(ValueError):
+        swin_window_attention(qkv.view(1, 14, 14, 288), bias, 7, 3, 3)
     good = qkv.clone()
     p = torch.full((3, 4, 49, 49), 1 / 49).cuda()
     gflat = _randn(gen, 4 * 49 * 96 + 1, dtype=torch.bfloat16)
@@ -781,12 +784,24 @@ def test_window_attention_v1(gen, dtype, b_, n, c, nh, nw):
 @pytest.mark.parametrize('dtype', DTYPES)
 @pytest.mark.parametrize('b,hp,wp,c,nh,shift', [
     (2, 21, 28, 32, 2, 0), (2, 21, 28, 32, 2, 3), (1, 28, 14, 96, 3, 3),
-    (1, 14, 14, 768, 24, 3)])
+    (1, 14, 14, 768, 24, 3), (1, 203, 336, 96, 3, 3),
+    (1, 105, 168, 192, 6, 3), (1, 56, 84, 384, 12, 3),
+    (1, 28, 42, 768, 24, 3), (1, 56, 84, 128, 4, 3), (2, 7, 21, 96, 3, 3),
+    (1, 7, 7, 96, 3, 3), (1, 14, 21, 72, 3, 3)])
 def test_swin_window_attention(gen, dtype, b, hp, wp, c, nh, shift):
+    """Row 15 at small maps, at the four Swin-T stages of an 800x1344
+    canvas, at Swin-B's stage-1 width (C 128, 4 heads) and on the edge maps
+    Hp = 7 and Hp = Wp = 7, whose every window wraps: in bf16 with hd in
+    {16, 32, 48, 64} each launch is the tensor-core kernel's, in fp32 and
+    at hd 24 the SIMT kernel's."""
     qkv = _randn(gen, b, hp, wp, 3 * c, dtype=dtype)
     bias = _randn(gen, nh, 49, 49, scale=0.5)
+    reset_launch_counts()
     _close(swin_window_attention(qkv, bias, 7, shift, nh),
            swin_attention_reference(qkv, bias, 7, shift, nh), dtype)
+    tc = int(dtype == torch.bfloat16 and c // nh in (16, 32, 48, 64))
+    assert swin_window_attention.launches == 1
+    assert tc_launch_counts()['swin_window_attention'] == tc
     # a map height that is no multiple of the window
     with pytest.raises(ValueError):
         swin_window_attention(qkv[:, :hp - 1].contiguous(), bias, 7, shift,

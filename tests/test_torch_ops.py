@@ -239,6 +239,19 @@ def test_tc_fwd_p_grid_and_smem_at_the_training_shapes(windows, heads):
         assert 2 * (smem + 1024) <= 228 * 1024
 
 
+@pytest.mark.parametrize('windows,heads', MAIN_ATTN_STAGES)
+def test_swin_tc_block_smem_at_the_main_stages(windows, heads):
+    """Row 15's tensor-core block at the windows of one 800x1344 map:
+    no mask tile, the window's 49 region ids (a byte each) in its place,
+    so two blocks (each with the 1 KB the card reserves a block) fit an
+    SM's 228 KB."""
+    group = fwd_geometry(windows, heads, 132)
+    smem = tc_fwd_smem(32, group, 49, False, regions=True)
+    assert smem == tc_fwd_smem(32, group, 49, False) + 49
+    assert smem < tc_fwd_smem(32, group, 49, True)
+    assert 2 * (smem + 1024) <= 228 * 1024
+
+
 @pytest.mark.parametrize('hd', TC_HEAD_DIMS)
 @pytest.mark.parametrize('heads', [1, 2, 3])
 def test_tc_fwd_p_smem_fits_every_shape(hd, heads):
@@ -255,19 +268,20 @@ def test_tc_fwd_p_smem_fits_every_shape(hd, heads):
             assert smem >= tiles // 3 * 2 + 4 * heads * 4 * 16 * n
 
 
-@pytest.mark.parametrize('kind', ['fwd', 'fwd_p', 'bwd', 'heads'])
+@pytest.mark.parametrize('kind', ['fwd', 'fwd_p', 'bwd', 'heads', 'swin'])
 @pytest.mark.parametrize('dtype,hd,want', [
     (torch.bfloat16, 32, True), (torch.bfloat16, 16, True),
     (torch.bfloat16, 64, True), (torch.bfloat16, 24, False),
     (torch.float32, 32, False), (torch.float32, 64, False)])
 def test_tc_attention_kernel_symbols(kind, dtype, hd, want):
-    """Each of the four wrappers (rows 2, 6, 7 and 14) launches its
+    """Each of the five wrappers (rows 2, 6, 7, 14 and 15) launches its
     tensor-core entry point exactly where uses_tensor_cores holds, and its
     SIMT one otherwise."""
     name = {'fwd': 'swindet_window_attention', 'fwd_p':
             'swindet_window_attention_fwd_p',
             'bwd': 'swindet_window_attention_bwd',
-            'heads': 'swindet_window_attention_heads'}[kind]
+            'heads': 'swindet_window_attention_heads',
+            'swin': 'swindet_swin_attention'}[kind]
     assert kernel_symbol(kind, dtype, hd) == name + ('_tc' if want else '')
 
 

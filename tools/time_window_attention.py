@@ -2,9 +2,10 @@
 the main path, in bf16, on one CUDA card: the v3 inference forward, the
 training forward that saves P and the backward (rows 2, 6 and 7), the
 v4 forward and backward with both projections folded in (rows 12 and 13),
-and the v1 forward over head-major q, k, v (row 14).
+the v1 forward over head-major q, k, v (row 14), and the full-map shifted
+attention (row 15).
 
-    python tools/time_window_attention.py [--rows v1|v3|v4|all] [REPO_ROOT ...]
+    python tools/time_window_attention.py [--rows v1|v3|v4|swin|all] [REPO_ROOT ...]
 
 Each REPO_ROOT (default: this checkout) names a checkout whose
 ``swindet_tpu_torch`` is timed, each in a process of its own, so two
@@ -21,7 +22,19 @@ wrapper makes the head-major copy of q, k and v before the kernel, and
 ``copy_device_ms`` gives that copy's device time apart (every kernel
 outside the ``swindet`` namespace), ``sdpa_ms`` the CUDA-event ms of
 ``F.scaled_dot_product_attention`` on the same q, k, v and the additive
-bias and mask in bf16 (a yardstick; the port never calls it).
+bias and mask in bf16 (a yardstick; the port never calls it). The swin
+rows take the stage's padded qkv map of one image, (1, Hp, Wp, 3C), with
+shift 3, and ``swin`` gives two yardsticks beside row 15 on the same map,
+each with its CUDA-event ms, device ms (all its kernels) and max |d| from
+row 15's output, both taken from this checkout's chip_smoke.py: ``chain``,
+the unfused chain ``torch.roll`` -> window partition ->
+``F.scaled_dot_product_attention`` with bias + shift mask as one bf16
+additive mask -> window reverse, in rolled coordinates as row 15 (the
+table's library column; the port never calls it); ``blockwise``, the
+port's own path for the same attention, the ``window_gather_indices``
+gather of the map's qkv, row 2 (``window_attention_v3``) with the shift
+mask and the inverse gather, which un-rolls, beside ``unrolled``, row 15
+followed by the ``torch.roll`` that un-rolls its output.
 Prints one JSON line per checkout: the card's name and power limit as
 nvidia-smi reports them; ``ms``, the mean ms of 20 calls after 3
 warm-ups by CUDA events around them (as chip_smoke.py phase 3 times a
@@ -38,12 +51,14 @@ times a parent checkout (unpacked with ``git archive`` into
 ``build/parent/``) and this one in turns.
 """
 import argparse
+import importlib.util
 import json
 import os
 import re
 import subprocess
 import sys
 
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (windows of one image, C, heads, padded map (Hp, Wp)) at stages 1-4
 STAGES = ((1392, 96, 3, (203, 336)), (360, 192, 6, (105, 168)),
           (96, 384, 12, (56, 84)), (24, 768, 24, (28, 42)))
@@ -131,6 +146,46 @@ def run_v4(randn, torch, mask, b_, c, nh, out, dev, kernels):
         dev[key], kernels[key], _ = _device_ms(fn)
 
 
+def _chip_smoke():
+    """This checkout's chip_smoke.py, its imports of swindet_tpu_torch
+    resolved in the checkout that is timed."""
+    spec = importlib.util.spec_from_file_location(
+        'chip_smoke', os.path.join(HERE, 'chip_smoke.py'))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_swin(randn, torch, mask, hw, c, nh, out, dev, kernels, swin):
+    """Row 15 at one stage on the padded map of one image, shift 3, with
+    the unfused chain and the port's blockwise path beside it (both
+    chip_smoke.py's)."""
+    from swindet_tpu_torch.ops import swin_window_attention
+    cs = _chip_smoke()
+    (hp, wp), shift = hw, 3
+    bias = randn(nh, 49, 49, scale=0.5, dtype=torch.float32)
+    qmap = randn(1, hp, wp, 3 * c)
+    key = f'swin_window_attention (1, {hp}, {wp}, 3x{c}) shift {shift}'
+    fn = lambda: swin_window_attention(qmap, bias, 7, shift, nh)  # noqa
+    got = fn()
+    out[key] = _time(fn)
+    dev[key], kernels[key], _ = _device_ms(fn)
+    unrolled = torch.roll(got, (shift, shift), (1, 2))
+    row = {}
+    for name, f, want in (
+            ('unrolled', lambda: torch.roll(fn(), (shift, shift), (1, 2)),
+             unrolled),
+            ('chain', cs._swin_chain(qmap, bias, mask, nh, shift), got),
+            ('blockwise', cs._swin_blockwise(qmap, bias, mask, nh, shift),
+             unrolled)):
+        row[f'{name}_max_abs'] = (f().float() - want.float()).abs().max() \
+            .item()
+        row[f'{name}_ms'] = _time(f)
+        mine, _, other = _device_ms(f)
+        row[f'{name}_device_ms'] = mine + other
+    swin[key] = row
+
+
 def run(root: str, rows: str) -> None:
     sys.path.insert(0, root)
     import torch
@@ -147,7 +202,7 @@ def run(root: str, rows: str) -> None:
     def randn(*shape, scale=1.0, dtype=torch.bfloat16):
         return (torch.randn(*shape, generator=gen) * scale).cuda().to(dtype)
 
-    out, dev, kernels, copy, sdpa = {}, {}, {}, {}, {}
+    out, dev, kernels, copy, sdpa, swin = {}, {}, {}, {}, {}, {}
     for b_, c, nh, (hp, wp) in STAGES:
         mask = torch.from_numpy(shifted_window_attn_mask(hp, wp, 7, 3)).cuda()
         if rows in ('v4', 'all'):
@@ -155,7 +210,10 @@ def run(root: str, rows: str) -> None:
         if rows in ('v1', 'all'):
             run_v1(randn, torch, mask, b_, c, nh, out, dev, kernels, copy,
                    sdpa)
-        if rows in ('v1', 'v4'):
+        if rows in ('swin', 'all'):
+            run_swin(randn, torch, mask, (hp, wp), c, nh, out, dev, kernels,
+                     swin)
+        if rows in ('v1', 'v4', 'swin'):
             continue
         bias = randn(nh, 49, 49, scale=0.5, dtype=torch.float32)
         qkv = randn(b_, 49, 3 * c)
@@ -177,17 +235,17 @@ def run(root: str, rows: str) -> None:
                          text=True, timeout=60).stdout.strip()
     print(json.dumps({'root': root, 'card': smi, 'ms': out,
                       'device_ms': dev, 'kernels': kernels,
-                      'copy_device_ms': copy, 'sdpa_ms': sdpa}), flush=True)
+                      'copy_device_ms': copy, 'sdpa_ms': sdpa,
+                      'swin': swin}), flush=True)
 
 
 def main() -> None:
-    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), '..')
     ap = argparse.ArgumentParser()
-    ap.add_argument('--rows', choices=('v1', 'v3', 'v4', 'all'),
+    ap.add_argument('--rows', choices=('v1', 'v3', 'v4', 'swin', 'all'),
                     default='all')
     ap.add_argument('roots', nargs='*')
     args = ap.parse_args()
-    roots = [os.path.abspath(r) for r in args.roots] or [here]
+    roots = [os.path.abspath(r) for r in args.roots] or [HERE]
     if len(roots) == 1:
         run(roots[0], args.rows)
         return
