@@ -125,6 +125,33 @@ before the last line:
               backward 12 times a step, every bf16 launch a tensor-core
               one, every fp32 one SIMT, and none of the v3 attention
               kernels runs. The card-vs-CPU checks hold the same limits.
+10. loop  -- training from files through the port's train_detector: a
+              synthetic COCO-style dataset of 8 PNG images (4 landscape,
+              4 portrait, 480-1600 px, 3-8 painted polygons each, one
+              concave), Mask R-CNN Swin-T from the flagship config in
+              bf16 with its own train pipeline (flip, both AutoAugment
+              branches), 2 images a batch on 2 loader threads: 1 epoch
+              (4 iterations), then a second resumed from epoch_1.pth.
+              Every logged value must be finite and every gradient
+              norm under 1e4, epoch_1.pth and latest.pth must exist, the resumed run must log epoch 2
+              alone, every training kernel of the default configuration
+              must launch in the first epoch (rows 1 and 3-9; row 2, the
+              inference forward, must not), every bf16 conv and attention
+              launch must be a tensor-core one, and both the landscape
+              (800x1344) and the portrait (1344x800) canvases must run.
+              Prints the canvases, each iteration's data_time and
+              step_time with their medians, the loader's own time for
+              one batch, one batch's host-to-device copy (CUDA events)
+              with its gt_masks bytes, and peak device memory. Then
+              phase 7's fp32 check once more, default configuration, on
+              one batch of the loader at a 320x224 (H x W) portrait
+              canvas whose two samples have different pad shapes, the
+              card reading the CPU's RPN outputs; apart and unpinned,
+              the card's RPN outputs against the CPU's, its proposal
+              step on them against the plain step, and its proposals
+              against the CPU's as sets.
+
+Each phase's wall time is logged under [time].
 
 Then one JSON line of per-kernel results (``launches``: the serving
 and the training runs' counts of the three configurations, each from its
@@ -146,15 +173,23 @@ import contextlib
 import json
 import os
 import re
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from swindet_tpu_torch import inference_detector, init_detector
+from swindet_tpu_torch.apis import train_detector
+from swindet_tpu_torch.core.class_names import COCO_CLASSES
+from swindet_tpu_torch.datasets import (build_dataloader, build_dataset,
+                                        derive_canvas)
 from swindet_tpu_torch.engine import (build_lr_schedule, build_optimizer,
                                       make_train_step)
 from swindet_tpu_torch.ops import (FUSED_MLP_KERNELS, INFERENCE_KERNELS,
@@ -185,6 +220,7 @@ from swindet_tpu_torch.ops import (FUSED_MLP_KERNELS, INFERENCE_KERNELS,
                                    window_attention_v4_bwd_reference,
                                    window_attention_v4_reference)
 from swindet_tpu_torch.ops.roi_align import _flat_layout, _taps, map_roi_levels
+from swindet_tpu_torch.models import build_detector
 from swindet_tpu_torch.models.backbones.swin import (WindowAttention,
                                                      shifted_window_attn_mask,
                                                      window_gather_indices)
@@ -1799,6 +1835,18 @@ LOSS_PARTS = {'rpn': ('loss_rpn_cls', 'loss_rpn_bbox'),
 # 256 anchors sampled per image.
 TOL_TRAIN_LOSS = 2e-6
 TOL_TRAIN_GRAD = {'rpn': 1e-4, 'bbox': 6e-3, 'mask': 6e-3}
+# The portrait check's proposal chain: the card's RPN scores and deltas
+# against the CPU's, max |d| over the largest entry (fp32 sums in another
+# order; the bf16 control reads 1e-3 and more); and the card's proposal
+# step against the plain one on the same RPN outputs, boxes in px (the
+# decode's exp and products in another order).
+TOL_RPN_OUT = 2e-5
+TOL_PROPOSAL_PX = 1e-3
+# The card's unpinned proposals against the CPU run's, slot order aside:
+# noise can trade a few near-tied proposals at the top-k and NMS
+# boundaries (the card read all 2,000 matched); a fault in the RPN head,
+# the decode or NMS moves far more.
+MIN_PROPOSAL_SHARE = 0.99
 
 
 def _record(model):
@@ -1907,17 +1955,101 @@ def _check_train(loss, grad, what):
     return over
 
 
+@contextlib.contextmanager
+def rpn_outputs(model, reference=None):
+    """Record, in the list it yields, the RPN class scores and box deltas
+    that ``model``'s RPN head gives its proposal step, on the CPU; with
+    ``reference`` (such a list) the step reads those in place of the
+    model's own, on its device."""
+    get = model.rpn_head.get_proposals
+    seen = []
+
+    def step(cls_scores, bbox_preds, *args, **kw):
+        seen.append(([t.cpu() for t in cls_scores],
+                     [t.cpu() for t in bbox_preds]))
+        if reference is not None:
+            dev = cls_scores[0].device
+            cls_scores, bbox_preds = ([t.to(dev) for t in ts]
+                                      for ts in reference[0])
+        return get(cls_scores, bbox_preds, *args, **kw)
+    model.rpn_head.get_proposals = step
+    try:
+        yield seen
+    finally:
+        del model.rpn_head.get_proposals
+
+
+def _rpn_error(want, got):
+    """Max |d| of the RPN class scores and of the box deltas, each over
+    its largest entry in ``want`` ((scores, deltas) per level)."""
+    return tuple(max(float((g.float() - w).abs().max()) for w, g in
+                     zip(ws, gs)) / max(float(w.abs().max()) for w in ws)
+                 for ws, gs in zip(want, got))
+
+
+def check_proposal_chain(cpu, gpu, batch, own, device):
+    """The card's proposal step (box decode, top-k, NMS kernel) on the
+    card's own RPN outputs ``own``, held to the plain step on the CPU on
+    the same outputs: equal validity and scores, boxes within
+    TOL_PROPOSAL_PX. Returns the card's proposals, on the CPU."""
+    cfg = dict(cpu.train_cfg.get('rpn_proposal',
+                                 dict(cpu.test_cfg)['rpn']))
+    shapes = torch.from_numpy(batch['img_shapes'])
+    with torch.no_grad():
+        got = gpu.rpn_head.get_proposals(
+            *([t.to(device) for t in ts] for ts in own), shapes.to(device),
+            cfg)
+        want = cpu.rpn_head.get_proposals(*own, shapes, cfg)
+    got = [t.cpu() for t in got]
+    if not torch.equal(got[2], want[2]):
+        raise AssertionError('the card\'s proposal validity differs from '
+                             'the plain step\'s on the same RPN outputs')
+    ok = want[2]
+    d_box = float((got[0] - want[0]).abs()[ok].max())
+    d_score = float((got[1] - want[1]).abs()[ok].max())
+    log('train-check', f'proposal step on the card\'s RPN outputs: card vs '
+                       f'plain, {int(ok.sum())} valid, boxes max |d| '
+                       f'{d_box:.3g} px, scores max |d| {d_score:.3g}')
+    if not (d_box <= TOL_PROPOSAL_PX and d_score <= 1e-6):
+        raise AssertionError('the card\'s proposal step departs from the '
+                             'plain one on the same RPN outputs')
+    return got
+
+
+def _matched_share(want, got):
+    """Share of ``want``'s valid proposals with a valid proposal of ``got``
+    in the same image within TOL_PROPOSAL_PX on every coordinate."""
+    hit = total = 0
+    for wb, wv, gb, gv in zip(want[0], want[2], got[0], got[2]):
+        d = (wb[wv][:, None] - gb[gv][None]).abs().amax(-1)
+        hit += int((d.amin(1) <= TOL_PROPOSAL_PX).sum())
+        total += int(wv.sum())
+    return hit / total
+
+
 def phase_train_check(device: str = 'cuda', fused: bool = False,
-                      v4: bool = False):
+                      v4: bool = False, batch=None,
+                      pin_proposals: bool = False):
     """forward_train of the full-width detector in fp32 on a 224x320
-    canvas, on the card (kernels) and on the CPU (plain versions): same
+    canvas (or on ``batch``), on the card (kernels) and on the CPU (plain
+    versions): same
     seeded weights with rpn_cls and fc_cls scaled to std 1 (no top-k, NMS
     or IoU boundary within fp32 noise), same batch, same sampler keys,
     no stochastic depth. The losses and the listed gradients of each
     group of loss terms must agree within TOL_TRAIN_*. A control run of
     the same detector in bf16 on the card, held to the same CPU run, must
     exceed the loss limit and each group's gradient limit: the check
-    tells a card run that lost precision from a sound one."""
+    tells a card run that lost precision from a sound one.
+
+    ``pin_proposals``: for the losses and gradients, the card runs'
+    proposal steps read the CPU run's RPN scores and box deltas. On a
+    canvas of real images the card's own proposals are the CPU run's set
+    in another slot order (fp32 noise reorders near-tied scores), and
+    the samplers' keys go by slot. So the chain is checked apart,
+    unpinned: the card's own RPN outputs against the CPU's (TOL_RPN_OUT,
+    which the bf16 control must exceed), the card's proposal step on
+    them against the plain step (check_proposal_chain), and the card's
+    own proposals against the CPU run's as sets (MIN_PROPOSAL_SHARE)."""
     opts = {'bf16': False, 'model.backbone.drop_path_rate': 0.0}
     cpu = init_detector(CONFIG, device='cpu', cfg_options=opts, seed=1)
     with torch.no_grad():
@@ -1932,7 +2064,7 @@ def phase_train_check(device: str = 'cuda', fused: bool = False,
     ctl = ctl.to(device)
     _check_blocks(gpu, fused, v4)
     _check_blocks(ctl, fused, v4)
-    batch = train_check_batch()
+    batch = train_check_batch() if batch is None else batch
     h, w = batch['img'].shape[1:3]
     n_rpn = 3 * sum(-(-h // s) * -(-w // s) for s in (4, 8, 16, 32, 64))
     n_rcnn = batch['gt_bboxes'].shape[1] + \
@@ -1941,9 +2073,15 @@ def phase_train_check(device: str = 'cuda', fused: bool = False,
     keys = {name: [tuple(rs.rand(n).astype(np.float32) for _ in range(2))
                    for _ in range(batch['img'].shape[0])]
             for name, n in (('rpn', n_rpn), ('rcnn', n_rcnn))}
-    ref = _train_grads(cpu, batch, keys, 'cpu')
+
+    def pin(model, reference=None):
+        return rpn_outputs(model, reference) if pin_proposals \
+            else contextlib.nullcontext()
+    with pin(cpu) as seen:
+        ref = _train_grads(cpu, batch, keys, 'cpu')
     reset_launch_counts()
-    sound = _train_errors(ref, _train_grads(gpu, batch, keys, device))
+    with pin(gpu, seen) as own:
+        sound = _train_errors(ref, _train_grads(gpu, batch, keys, device))
     if device == 'cuda' and bool(window_attention_v4_bwd.launches) != v4:
         raise AssertionError(f'launches against the configuration: '
                              f'{launch_counts()}')
@@ -1951,7 +2089,8 @@ def phase_train_check(device: str = 'cuda', fused: bool = False,
         _check_tc('train-check', launch_counts(), False,
                   _tc_kernels(fused, v4=v4))
     _log_errors(f'{h}x{w} fp32 card vs CPU', *sound)
-    control = _train_errors(ref, _train_grads(ctl, batch, keys, device))
+    with pin(ctl, seen) as ctl_own:
+        control = _train_errors(ref, _train_grads(ctl, batch, keys, device))
     _log_errors(f'{h}x{w} control, bf16 card vs fp32 CPU', *control)
     for name in TRAIN_GRADS:
         if all(sound[1][part][name] is None for part in LOSS_PARTS):
@@ -1965,6 +2104,28 @@ def phase_train_check(device: str = 'cuda', fused: bool = False,
     if missed or not any(k in over for k in control[0] if 'loss' in k):
         raise AssertionError(f'the bf16 control passes the loss limit or '
                              f'the gradient limit of {missed}')
+    if pin_proposals:
+        err, ctl_err = _rpn_error(seen[0], own[0]), \
+            _rpn_error(seen[0], ctl_own[0])
+        log('train-check', f'RPN outputs card vs CPU, max |d| over the '
+                           f'largest entry: scores {err[0]:.3g}, deltas '
+                           f'{err[1]:.3g}; bf16 control {ctl_err[0]:.3g}, '
+                           f'{ctl_err[1]:.3g}')
+        if not max(err) <= TOL_RPN_OUT < min(ctl_err):
+            raise AssertionError('the RPN outputs are over their limit, or '
+                                 'the bf16 control is within it')
+        got = check_proposal_chain(cpu, gpu, batch, own[0], device)
+        with torch.no_grad():
+            want = cpu.rpn_head.get_proposals(
+                *seen[0], torch.from_numpy(batch['img_shapes']),
+                dict(cpu.train_cfg['rpn_proposal']))
+        share = _matched_share(want, got)
+        log('train-check', f'unpinned: {share:.4f} of the CPU run\'s '
+                           f'proposals within {TOL_PROPOSAL_PX} px of one '
+                           f'of the card\'s')
+        if not share >= MIN_PROPOSAL_SHARE:
+            raise AssertionError('the card\'s own proposals depart from '
+                                 'the CPU run\'s')
 
 
 def _run_config(name, **flags):
@@ -1972,13 +2133,342 @@ def _run_config(name, **flags):
     latencies, training launches, step times, peak memory and busy
     share."""
     phase = '' if not flags else f'{name}-'
+    t0 = time.perf_counter()
     serve, lat, serve_tc = phase_main(f'{phase}main', **flags)
+    t1 = time.perf_counter()
     phase_check(phase=f'{phase}check', **flags)
+    t2 = time.perf_counter()
     train, times, peak, busy, train_tc = phase_train(f'{phase}train',
                                                      **flags)
+    t3 = time.perf_counter()
     phase_train_check(**flags)
+    log('time', f'{name}: phase 4 {t1 - t0:.1f} s, 5 {t2 - t1:.1f}, 6 '
+                f'{t3 - t2:.1f}, 7 {time.perf_counter() - t3:.1f}')
     return dict(serve=serve, lat=lat, train=train, times=times, peak=peak,
                 busy=busy, serve_tc=serve_tc, train_tc=train_tc)
+
+
+# ------------------------------------------------------------- phase 10
+def png_bytes(bgr: np.ndarray, filter_type: Optional[int] = None,
+              level: int = 1) -> bytes:
+    """A BGR uint8 (H, W, 3) image as an 8-bit RGB PNG, deflated at zlib
+    ``level``: an encoder for the card's machine, which has neither cv2
+    nor PIL. Every row takes PNG filter ``filter_type`` (0 None, 1 Sub, 2
+    Up, 3 Average, 4 Paeth), or with None the filter libpng's encoder
+    picks for it: the least sum of the filtered bytes read as signed."""
+    rgb = np.ascontiguousarray(bgr[..., ::-1]).astype(np.int16)
+    h, w, _ = rgb.shape
+    a = np.zeros_like(rgb)          # the left pixel
+    a[:, 1:] = rgb[:, :-1]
+    b = np.zeros_like(rgb)          # the pixel above
+    b[1:] = rgb[:-1]
+    c = np.zeros_like(rgb)          # above and to the left
+    c[1:, 1:] = rgb[:-1, :-1]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    preds = (np.zeros_like(rgb), a, b, (a + b) >> 1,
+             np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c)))
+    rows = np.stack([((rgb - pred) & 0xff).astype(np.uint8).reshape(h, -1)
+                     for pred in preds])
+    if filter_type is None:
+        cost = np.abs(rows.astype(np.int8).astype(np.int64)).sum(-1)
+        kinds = cost.argmin(0)
+    elif 0 <= filter_type <= 4:
+        kinds = np.full(h, filter_type)
+    else:
+        raise ValueError(f'PNG filter type {filter_type}')
+    raw = np.concatenate([kinds.astype(np.uint8)[:, None],
+                          rows[kinds, np.arange(h)]], 1)
+
+    def chunk(kind, body):
+        return (struct.pack('>I', len(body)) + kind + body
+                + struct.pack('>I', zlib.crc32(kind + body)))
+    return (b'\x89PNG\r\n\x1a\n'
+            + chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, 2, 0, 0, 0))
+            + chunk(b'IDAT', zlib.compress(raw.tobytes(), level))
+            + chunk(b'IEND', b''))
+
+
+def _polygon(rs, cx, cy, r, concave):
+    """A simple polygon around (cx, cy) of radius about r at fractional
+    coordinates: a five-pointed star when ``concave``, else 3-8 points at
+    sorted angles."""
+    if concave:
+        ang = np.arange(10) * np.pi / 5 + rs.uniform(0, np.pi)
+        rad = np.where(np.arange(10) % 2, 0.4 * r, r)
+    else:
+        k = rs.randint(3, 9)
+        ang = np.sort(rs.uniform(0, 2 * np.pi, k))
+        rad = rs.uniform(0.6, 1.0, k) * r
+    return np.stack([cx + rad * np.cos(ang), cy + rad * np.sin(ang)], 1)
+
+
+def write_synthetic_coco(root: str, sizes, seed: int = 0,
+                         class_names=COCO_CLASSES) -> tuple:
+    """A COCO-style dataset under ``root``: one PNG per (h, w) of
+    ``sizes`` (seeded noise) with 3-8 painted polygons, the first of them
+    a concave star, each with its annotation (polygon segmentation, xywh
+    box, area, one of ``class_names`` as category). Returns (ann_file,
+    img_prefix)."""
+    from swindet_tpu_torch.core.masks import poly2mask
+    rs = np.random.RandomState(seed)
+    img_dir = os.path.join(root, 'images')
+    os.makedirs(img_dir, exist_ok=True)
+    images, anns = [], []
+    for i, (h, w) in enumerate(sizes):
+        img = rs.randint(0, 64, (h, w, 3)).astype(np.uint8)
+        for j in range(rs.randint(3, 9)):
+            r = rs.uniform(0.08, 0.25) * min(h, w)
+            cx, cy = rs.uniform(r, w - r), rs.uniform(r, h - r)
+            poly = _polygon(rs, cx, cy, r, concave=j == 0)
+            mask = poly2mask([poly.ravel().tolist()], h, w)
+            img[mask] = rs.randint(64, 256, 3)
+            x1, y1 = poly.min(0)
+            x2, y2 = poly.max(0)
+            anns.append(dict(
+                id=len(anns) + 1, image_id=i + 1,
+                category_id=int(rs.randint(len(class_names))) + 1,
+                segmentation=[poly.ravel().round(2).tolist()],
+                bbox=[round(float(x1), 2), round(float(y1), 2),
+                      round(float(x2 - x1), 2), round(float(y2 - y1), 2)],
+                area=float(mask.sum()), iscrowd=0))
+        name = f'{i:04d}.png'
+        with open(os.path.join(img_dir, name), 'wb') as f:
+            f.write(png_bytes(img))
+        images.append(dict(id=i + 1, file_name=name, height=h, width=w))
+    ann_file = os.path.join(root, 'annotations.json')
+    with open(ann_file, 'w') as f:
+        json.dump(dict(images=images, annotations=anns, categories=[
+            dict(id=k + 1, name=n) for k, n in enumerate(class_names)]), f)
+    return ann_file, img_dir + os.sep
+
+
+# the loop phase's dataset: 4 landscape and 4 portrait images, 480-1600 px
+LOOP_SIZES = ((480, 640), (600, 1000), (800, 1200), (1200, 1600),
+              (640, 480), (1000, 600), (1200, 800), (1600, 1200))
+# the loop's seed: in epoch 1 its sampler and pipelines draw landscape and
+# portrait batches, and in epoch 2 also a batch on the square canvas (a
+# crop turned a sample round)
+LOOP_SEED = 2
+# the loop's gradient norms stay below this: a seeded Mask R-CNN Swin-T
+# reads tens to hundreds (on an H100 the loop 33-38, phase 6's step
+# 200-250); a zero patchify bias made every padded patch a zero vector,
+# whose LayerNorms scale its gradient by eps ** -0.5 each, and read 1e9
+# and more, or inf
+LOOP_GRAD_NORM_LIMIT = 1e4
+# the portrait card-vs-CPU check's dataset: two portrait images whose
+# keep-ratio resize to (320, 224) leaves different pad shapes
+PORTRAIT_SIZES = ((230, 150), (250, 130))
+PORTRAIT_PIPELINE = [
+    dict(type='LoadImageFromFile'),
+    dict(type='LoadAnnotations', with_bbox=True, with_mask=True),
+    dict(type='Resize', img_scale=(320, 224), keep_ratio=True),
+    dict(type='RandomFlip', flip_ratio=0.5),
+    dict(type='Normalize', mean=IMG_MEAN.tolist(), std=IMG_STD.tolist(),
+         to_rgb=True),
+    dict(type='Pad', size_divisor=32),
+    dict(type='DefaultFormatBundle'),
+    dict(type='Collect', keys=['img', 'gt_bboxes', 'gt_labels', 'gt_masks'])]
+
+
+def loop_config(ann_file, img_prefix, work_dir, max_epochs=1,
+                seed=LOOP_SEED):
+    """The flagship config with data.train pointed at a synthetic dataset:
+    2 images a batch, 2 loader threads, a log line every iteration."""
+    cfg = Config.fromfile(CONFIG)
+    cfg.data.train.ann_file = ann_file
+    cfg.data.train.img_prefix = img_prefix
+    cfg.data.samples_per_gpu = 2
+    cfg.data.workers_per_gpu = 2
+    cfg.runner.max_epochs = max_epochs
+    cfg.log_config.interval = 1
+    cfg.work_dir = work_dir
+    cfg.seed = seed
+    return cfg
+
+
+def portrait_batch(root):
+    """One batch of the port's loader on a 320x224 (H x W) portrait canvas:
+    two portrait images with different pad shapes."""
+    ann_file, prefix = write_synthetic_coco(root, PORTRAIT_SIZES, seed=3)
+    dataset = build_dataset(dict(type='CocoDataset', ann_file=ann_file,
+                                 img_prefix=prefix,
+                                 pipeline=PORTRAIT_PIPELINE))
+    long, short = derive_canvas(PORTRAIT_PIPELINE)
+    loader = build_dataloader(dataset, samples_per_gpu=2, workers_per_gpu=1,
+                              canvas_long=long, canvas_short=short)
+    batch = next(iter(loader))
+    batch.pop('img_metas')
+    if batch['img'].shape[1:3] != (320, 224) \
+            or (batch['pad_shapes'][0] == batch['pad_shapes'][1]).all():
+        raise AssertionError(f'portrait batch: canvas '
+                             f'{batch["img"].shape[1:3]}, pad shapes '
+                             f'{batch["pad_shapes"].tolist()}')
+    return batch
+
+
+def _h2d_ms(batch, iters=5):
+    """Device ms of one batch's ``.to('cuda')`` (pageable host memory), by
+    CUDA events around ``iters`` copies, and the batch's bytes."""
+    host = {k: torch.from_numpy(v) for k, v in batch.items()}
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        {k: v.to('cuda') for k, v in host.items()}
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, sum(v.nbytes
+                                                for v in batch.values())
+
+
+def phase_loop(phase='loop'):
+    """train_detector from files: Mask R-CNN Swin-T (the flagship config,
+    bf16, its own train pipeline with both AutoAugment branches) on a
+    synthetic COCO-style dataset of 8 PNGs, 1 epoch of 4 iterations, then
+    a second epoch resumed from epoch_1.pth; then the fp32 card-vs-CPU
+    training check on a portrait batch of the loader."""
+    build_dir = os.path.join(REPO, 'build')
+    os.makedirs(build_dir, exist_ok=True)
+    start = time.perf_counter()
+
+    def lap(what):
+        log(phase, f'{what}: {time.perf_counter() - start:.1f} s into the '
+                   f'phase')
+    with tempfile.TemporaryDirectory(dir=build_dir) as root:
+        ann_file, prefix = write_synthetic_coco(root, LOOP_SIZES)
+        lap('dataset written')
+        work = os.path.join(root, 'work')
+        cfg = loop_config(ann_file, prefix, work)
+        dataset = build_dataset(cfg.data.train)
+        model_cfg = dict(cfg.model, dtype='bfloat16')
+        model_cfg.pop('pretrained', None)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        first = train_detector(build_detector(model_cfg), dataset, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        log(phase, f'epoch 1: {len(first.log_vars)} iterations in '
+                   f'{wall:.1f} s; kernel launches {launches}')
+        lap('epoch 1')
+        tc = _check_tc(phase, launches, True, _tc_kernels(False))
+        log(phase, f'of which tensor-core kernels: {tc}')
+        idle = [fn.__name__ for fn in KERNEL_WRAPPERS
+                if fn is not window_attention_v3
+                and fn not in OP_ONLY_KERNELS + FUSED_MLP_KERNELS
+                + WATTN_V4_KERNELS and not launches[fn.__name__]]
+        if idle or launches['window_attention_v3']:
+            raise AssertionError(f'kernels not launched in training: {idle}')
+        for name in ('epoch_1.pth', 'latest.pth'):
+            if not os.path.isfile(os.path.join(work, name)):
+                raise AssertionError(f'{name} missing from the work dir')
+        cfg = loop_config(ann_file, prefix, work, max_epochs=2)
+        cfg.resume_from = os.path.join(work, 'epoch_1.pth')
+        second = train_detector(build_detector(model_cfg), dataset, cfg)
+        lap('epoch 2 resumed')
+        runs = (first, second)
+        canvases = [c for r in runs for c in r.canvases]
+        log(phase, f'canvases (H, W) of the 8 iterations: {canvases}')
+        times = {k: [t for r in runs for t in r.times[k]]
+                 for k in ('data_time', 'step_time')}
+        for k, v in times.items():
+            log(phase, f'{k} per iteration (s): '
+                       + ', '.join(f'{t:.4f}' for t in v)
+                       + f'; median {np.median(v):.4f}')
+        for key in ('loss', 'grad_norm'):
+            log(phase, f'{key} per iteration: ' + ', '.join(
+                f'{v[key]:.4g}' for r in runs for v in r.log_vars))
+        peak = torch.cuda.max_memory_allocated()
+        log(phase, f'peak device memory {peak / 2 ** 30:.2f} GiB')
+        long, short = derive_canvas(cfg.data.train.pipeline)
+        loader = build_dataloader(dataset, 2, 1, seed=LOOP_SEED,
+                                  canvas_long=long, canvas_short=short)
+        t0 = time.perf_counter()
+        batch = next(iter(loader))
+        log(phase, f'the loader\'s own time for one batch, one thread: '
+                   f'{time.perf_counter() - t0:.3f} s')
+        batch.pop('img_metas')
+        ms, nbytes = _h2d_ms(batch)
+        log(phase, f'host-to-device copy of one batch (canvas '
+                   f'{batch["img"].shape[1:3]}): {ms:.3f} ms for '
+                   f'{nbytes} bytes, of which gt_masks '
+                   f'{batch["gt_masks"].nbytes} bytes')
+        with open(second.json_log) as f:
+            epochs = {json.loads(line)['epoch'] for line in f}
+        if epochs != {2} or second.epoch != 2:
+            raise AssertionError(f'the resumed run logged epochs {epochs}')
+        bad = [v for r in runs for v in r.log_vars
+               if not all(np.isfinite(x) for x in v.values())
+               or not v['grad_norm'] < LOOP_GRAD_NORM_LIMIT]
+        if bad:
+            raise AssertionError(f'non-finite log values or a gradient norm '
+                                 f'over {LOOP_GRAD_NORM_LIMIT:g}: {bad}')
+        if not {(800, 1344), (1344, 800)} <= set(canvases):
+            raise AssertionError('the landscape and portrait canvases did '
+                                 'not both run')
+        if (1344, 1344) not in canvases:
+            log(phase, 'no batch ran on the square canvas')
+        check = portrait_batch(os.path.join(root, 'portrait'))
+    log(phase, f'portrait batch: canvas {check["img"].shape[1:3]}, pad '
+               f'shapes {check["pad_shapes"].tolist()}, image shapes '
+               f'{check["img_shapes"].tolist()}')
+    lap('loop checked')
+    phase_train_check(batch=check, pin_proposals=True)
+    lap('portrait check done')
+
+
+def loop_grad_norms(phase='grad-norms'):
+    """Not a phase of main(): each parameter's gradient norm of one loop
+    batch (the loader's first, on the 800x1344 canvas) on the card, in
+    bf16 and fp32, with the port's seeded init and with its patchify bias
+    zeroed (the JAX package's init): the total, the largest element and
+    the four largest leaves of each.
+
+        python3 -c "import chip_smoke as cs; cs.phase_build();
+                    cs.loop_grad_norms()"
+    """
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, 'build')) as root:
+        ann_file, prefix = write_synthetic_coco(root, LOOP_SIZES)
+        cfg = loop_config(ann_file, prefix, os.path.join(root, 'work'))
+        long, short = derive_canvas(cfg.data.train.pipeline)
+        loader = build_dataloader(build_dataset(cfg.data.train), 2, 1,
+                                  seed=LOOP_SEED, canvas_long=long,
+                                  canvas_short=short)
+        batch = next(iter(loader))
+    batch.pop('img_metas')
+    log(phase, f'batch: canvas {batch["img"].shape[1:3]}, image shapes '
+               f'{batch["img_shapes"].tolist()}, pad shapes '
+               f'{batch["pad_shapes"].tolist()}')
+    tb = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    for dtype in ('bfloat16', 'float32'):
+        for zero_bias in (False, True):
+            model_cfg = dict(cfg.model, dtype=dtype)
+            model_cfg.pop('pretrained', None)
+            model = build_detector(model_cfg)
+            model.init_weights(cfg.seed)
+            if zero_bias:
+                with torch.no_grad():
+                    model.backbone.patch_embed.proj.bias.zero_()
+            model = model.cuda().train()
+            losses = model.forward_train(
+                tb['img'], tb['img_shapes'], tb['pad_shapes'],
+                tb['gt_bboxes'], tb['gt_valid'], tb['gt_labels'],
+                tb['gt_masks'], gen=torch.Generator('cuda').manual_seed(0))
+            sum(v.float().sum() for k, v in losses.items()
+                if 'loss' in k).backward()
+            grads = {n: p.grad.float() for n, p in model.named_parameters()
+                     if p.grad is not None}
+            norms = {n: float(g.norm()) for n, g in grads.items()}
+            top = sorted(norms, key=norms.get, reverse=True)[:4]
+            total = float(torch.tensor(list(norms.values())).norm())
+            largest = max(float(g.abs().max()) for g in grads.values())
+            log(phase, f'{dtype}, {"zero" if zero_bias else "seeded"} '
+                       f'patchify bias: total {total:.4g}, largest element '
+                       f'{largest:.4g}; '
+                       + ', '.join(f'{n} {norms[n]:.4g}' for n in top))
+            del model, grads
+            torch.cuda.empty_cache()
 
 
 # phase 3's further readings of a kernel's main row that the JSON line
@@ -1993,16 +2483,27 @@ def main() -> int:
     # the default configuration is the config as it stands
     os.environ.pop('SWINDET_FUSED_MLP', None)
     os.environ.pop('SWINDET_WATTN_V4', None)
+    start = time.perf_counter()
+
+    def lap(what):
+        log('time', f'{what}: {time.perf_counter() - start:.1f} s since '
+                    f'the start')
     smi = phase_device()
     phase_build()
+    lap('phases 1-2')
     kernels = phase_kernels()
+    lap('phase 3')
     runs = {'default': _run_config('default')}
+    lap('phases 4-7, default')
     for key, name, switch, flag in (
             ('fused', 'fused', 'SWINDET_FUSED_MLP', 'fused'),
             ('wattn_v4', 'wattn-v4', 'SWINDET_WATTN_V4', 'v4')):
         log(name, f'phases 4-7 again with {switch}=1')
         with env_switch(switch):
             runs[key] = _run_config(name, **{flag: True})
+        lap(f'phases 4-7, {name}')
+    phase_loop()
+    lap('phase 10')
     for what, key, fmt in (('request latency (s)', 'lat', '.4f'),
                            ('training step (ms)', 'times', '.1f')):
         log('configs', f'{what}, median of the timed runs: ' + ', '.join(

@@ -1,0 +1,164 @@
+"""Training API (counterpart of ``swindet_tpu/apis/train.py``:
+``set_random_seed`` :27, the weight initialisation :34-53,
+``train_detector`` :56; reference mmdet/apis/train.py:42): the loader,
+the optimizer and schedule, the training step, resume, and the runner,
+on one device.
+"""
+from __future__ import annotations
+
+import logging
+import os
+import os.path as osp
+import random
+import time
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from ..checkpoint import load_weights, resume, save_checkpoint
+from ..datasets.builder import build_dataloader, derive_canvas
+from ..engine import build_lr_schedule, build_optimizer, make_train_step
+from ..engine.runner import EpochBasedRunner
+from ..utils.logger import LOG_FORMAT, get_root_logger
+
+
+def set_random_seed(seed: int, deterministic: bool = False) -> None:
+    """Seed Python's, numpy's and torch's global generators (the loader
+    and the step draw from their own, seeded from the config's seed)."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    if deterministic:
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+
+
+def init_detector_weights(model: torch.nn.Module, cfg, logger,
+                          seed: int = 0) -> None:
+    """Seeded weights, then ``model.pretrained`` (a backbone's or a
+    whole detector's ``.pth``) and ``load_from`` over them."""
+    model.init_weights(seed)
+    pretrained = dict(cfg.model).get('pretrained')
+    if pretrained:
+        logger.info(f'Loading pretrained weights from {pretrained}')
+        load_weights(model, pretrained, logger)
+    if cfg.get('load_from'):
+        logger.info(f'load_from {cfg.load_from}')
+        load_weights(model, cfg.load_from, logger)
+
+
+def _not_ported(what: str, item: int = 5):
+    raise NotImplementedError(f'train_detector: {what} is not ported '
+                              f'(ROADMAP §1 item {item})')
+
+
+def train_detector(model: torch.nn.Module, dataset, cfg,
+                   distributed: bool = False, validate: bool = False,
+                   timestamp: Optional[str] = None,
+                   meta: Optional[dict] = None,
+                   device: Union[str, torch.device] = 'cuda'
+                   ) -> EpochBasedRunner:
+    """Train ``model`` (built from ``cfg.model``; its weights are set here
+    from ``cfg.seed``, ``pretrained`` and ``load_from``) on ``dataset``
+    for ``cfg.runner.max_epochs`` epochs on ``device``, resuming from
+    ``cfg.resume_from`` when it is set. Writes the text log, the
+    ``.log.json`` lines and ``epoch_N.pth`` / ``latest.pth`` to
+    ``cfg.work_dir``. Returns the runner, which holds each iteration's
+    times and log values."""
+    if distributed:
+        _not_ported('distributed training (DDP)')
+    if validate:
+        _not_ported('validation (the eval hook with COCOeval)')
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError('train_detector: no CUDA device; pass '
+                           "device='cpu' to train on the CPU")
+    timestamp = timestamp or time.strftime('%Y%m%d_%H%M%S')
+    os.makedirs(cfg.work_dir, exist_ok=True)
+    logger = get_root_logger(log_level=getattr(
+        logging, str(cfg.get('log_level', 'INFO')), logging.INFO))
+    log_file = logging.FileHandler(
+        osp.join(cfg.work_dir, f'{timestamp}.log'), 'w')
+    log_file.setFormatter(logging.Formatter(LOG_FORMAT))
+    logger.addHandler(log_file)
+    try:
+        return _train(model, dataset, cfg, device, timestamp, meta, logger)
+    finally:
+        logger.removeHandler(log_file)
+        log_file.close()
+
+
+def _train(model, dataset, cfg, device, timestamp, meta, logger):
+    """train_detector's body, its text log file open."""
+    workflow = cfg.get('workflow')
+    if workflow:
+        phases = {p[0] if isinstance(p, (tuple, list)) else p
+                  for p in workflow}
+        if phases - {'train'}:
+            raise ValueError(f"workflow={workflow!r}: only [('train', N)] "
+                             'is supported')
+    for hook in cfg.get('custom_hooks') or []:
+        if dict(hook).get('type') == 'EMAHook':
+            _not_ported('EMAHook')
+    opt_config = dict(cfg.get('optimizer_config', {}) or {})
+    if int(opt_config.get('update_interval', 1)) > 1:
+        _not_ported('gradient accumulation (update_interval > 1)')
+
+    seed = cfg.get('seed', 0) or 0
+    # the static canvas from the train pipeline's declared geometry; a
+    # wrapper (RepeatDataset, ...) keeps it on its nested 'dataset'
+    train_ds_cfg = cfg.data.train
+    while 'pipeline' not in train_ds_cfg and 'dataset' in train_ds_cfg:
+        train_ds_cfg = train_ds_cfg['dataset']
+    pipeline = train_ds_cfg.get('pipeline', [])
+    canvas_long, canvas_short = derive_canvas(pipeline)
+    loader_cfg = dict(cfg.data.get('train_dataloader', {}))
+    loader_cfg.setdefault('canvas_long', canvas_long)
+    loader_cfg.setdefault('canvas_short', canvas_short)
+    logger.info(f'Train canvas: {loader_cfg["canvas_long"]}x'
+                f'{loader_cfg["canvas_short"]} (landscape; derived from '
+                f'the pipeline)')
+    loader = build_dataloader(
+        dataset, samples_per_gpu=cfg.data.samples_per_gpu,
+        workers_per_gpu=cfg.data.workers_per_gpu, seed=seed,
+        with_mask=any('gt_masks' in str(p) for p in pipeline),
+        **loader_cfg)
+
+    init_detector_weights(model, cfg, logger, seed)
+    model.to(device)
+    optimizer = build_optimizer(model, dict(cfg.optimizer))
+    schedule = build_lr_schedule(dict(cfg.lr_config), cfg.optimizer['lr'],
+                                 len(loader))
+    resume_epoch = resume_iter = 0
+    if cfg.get('resume_from'):
+        ckpt_meta = resume(cfg.resume_from, model, optimizer)
+        resume_epoch = int(ckpt_meta.get('epoch', 0))
+        resume_iter = int(ckpt_meta.get('iter', 0))
+        logger.info(f'Resumed from {cfg.resume_from} (epoch '
+                    f'{resume_epoch}, iter {resume_iter})')
+    step = make_train_step(model, optimizer, schedule,
+                           opt_config.get('grad_clip'),
+                           start_iter=resume_iter)
+    meta = dict(meta or {}, CLASSES=getattr(dataset, 'CLASSES', None))
+
+    def save_fn(path, ckpt_meta):
+        save_checkpoint(path, model, optimizer, dict(meta, **ckpt_meta))
+
+    log_config = dict(cfg.get('log_config', {}) or {})
+    runner = EpochBasedRunner(
+        train_step=step, work_dir=cfg.work_dir, logger=logger,
+        max_epochs=dict(cfg.runner)['max_epochs'], device=device,
+        checkpoint_interval=dict(cfg.get('checkpoint_config', {})
+                                 or {}).get('interval', 1),
+        log_interval=log_config.get('interval', 50),
+        save_fn=save_fn, meta=meta,
+        tensorboard=any(dict(h).get('type') == 'TensorboardLoggerHook'
+                        for h in log_config.get('hooks', [])),
+        timestamp=timestamp)
+    logger.info(f'Start training on {device}: batch '
+                f'{cfg.data.samples_per_gpu}, {len(loader)} iters/epoch, '
+                f'epochs {resume_epoch + 1}-{runner.max_epochs}')
+    runner.run(loader, torch.Generator(device=device), seed, resume_epoch,
+               resume_iter)
+    return runner

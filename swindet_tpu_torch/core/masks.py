@@ -1,10 +1,24 @@
-"""Host-side mask pasting (counterpart of
-``swindet_tpu/core/masks.py:148``, numpy path): (N, s, s) mask probs into
-the full image at their boxes, grid_sample align_corners=False semantics
-with zero padding (reference fcn_mask_head.py:306 ``_do_paste_mask``)."""
+"""Host-side mask work (counterpart of ``swindet_tpu/core/masks.py``),
+numpy only.
+
+- :func:`paste_masks` (:148, numpy path): (N, s, s) mask probs into the
+  full image at their boxes, grid_sample align_corners=False semantics
+  with zero padding (reference fcn_mask_head.py:306 ``_do_paste_mask``).
+- :func:`poly2mask` (:134): COCO polygons to a bitmap, equal bit for bit
+  to the JAX package's ``cv2.fillPoly`` (opencv 5.0): every edge drawn as
+  an 8-connected line, then the even-odd scanline fill of cv2's
+  ``FillEdgeCollection`` with its 16-bit fixed-point edges.
+- :func:`rle_to_mask` (:52) and :func:`_rle_decode_counts` (:68): COCO
+  RLE to a bitmap.
+"""
 from __future__ import annotations
 
+from typing import Dict, List, Sequence, Tuple
+
 import numpy as np
+
+# cv2's drawing.cpp keeps polygon edge x in fixed point with 16 fraction bits
+XY_SHIFT = 16
 
 
 def paste_masks(mask_probs: np.ndarray, boxes: np.ndarray, img_h: int,
@@ -53,3 +67,185 @@ def _bilinear_2d(img: np.ndarray, ys: np.ndarray,
             + tap(y0, x0 + 1) * np.outer(1 - wy, wx)
             + tap(y0 + 1, x0) * np.outer(wy, 1 - wx)
             + tap(y0 + 1, x0 + 1) * np.outer(wy, wx))
+
+
+# ------------------------------------------------------------------- RLE
+def rle_to_mask(rle: Dict) -> np.ndarray:
+    """COCO RLE dict (compressed bytes/str or uncompressed list) to a
+    binary (H, W) mask."""
+    h, w = rle['size']
+    counts = rle['counts']
+    if isinstance(counts, (bytes, str)):
+        counts = _rle_decode_counts(
+            counts if isinstance(counts, bytes) else counts.encode())
+    counts = np.asarray(counts, np.int64)
+    vals = np.zeros(len(counts), np.uint8)
+    vals[1::2] = 1
+    flat = np.repeat(vals, counts)
+    flat = np.pad(flat, (0, h * w - len(flat)))
+    return flat.reshape(w, h).T.astype(bool)
+
+
+def _rle_decode_counts(s: bytes) -> List[int]:
+    """pycocotools' rleFrString: LEB128-style 5-bit groups offset by 48,
+    each count after the second delta-coded against the one two back."""
+    cnts: List[int] = []
+    i = 0
+    while i < len(s):
+        x = 0
+        k = 0
+        more = True
+        while more:
+            c = s[i] - 48
+            x |= (c & 0x1f) << (5 * k)
+            more = bool(c & 0x20)
+            i += 1
+            if not more and (c & 0x10):
+                x |= -1 << (5 * (k + 1))
+            k += 1
+        if len(cnts) > 2:
+            x += cnts[-2]
+        cnts.append(x)
+    return cnts
+
+
+# -------------------------------------------------------------- polygons
+def poly2mask(polygons: Sequence[Sequence[float]], h: int,
+              w: int) -> np.ndarray:
+    """COCO polygon(s) of one object to an (h, w) bool mask: vertices
+    rounded half to even, polygons with fewer than 3 points dropped, all
+    of them filled together (even-odd, as ``cv2.fillPoly``)."""
+    mask = np.zeros((h, w), np.uint8)
+    pts = [np.asarray(p, np.float64).reshape(-1, 2).round()
+           .astype(np.int32).astype(np.int64)
+           for p in polygons if len(p) >= 6]
+    if pts:
+        _fill_poly(mask, pts)
+    return mask.astype(bool)
+
+
+def _outside(w: int, h: int, x0: int, y0: int, x1: int, y1: int) -> bool:
+    return not (0 <= x0 < w and 0 <= x1 < w and 0 <= y0 < h and 0 <= y1 < h)
+
+
+def _clip_line(w: int, h: int, x1: int, y1: int, x2: int, y2: int
+               ) -> Tuple[bool, int, int, int, int]:
+    """cv2.clipLine to the (w, h) image: Cohen-Sutherland with cv2's
+    double arithmetic truncated toward zero. Returns (inside, x1, y1, x2,
+    y2); a line wholly outside may come back partly moved, as in cv2."""
+    right, bottom = w - 1, h - 1
+    c1 = (x1 < 0) + (x1 > right) * 2 + (y1 < 0) * 4 + (y1 > bottom) * 8
+    c2 = (x2 < 0) + (x2 > right) * 2 + (y2 < 0) * 4 + (y2 > bottom) * 8
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int(float(a - y1) * (x2 - x1) / (y2 - y1))
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int(float(a - y2) * (x2 - x1) / (y2 - y1))
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int(float(a - x1) * (y2 - y1) / (x2 - x1))
+                x1 = a
+                c1 = 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int(float(a - x2) * (y2 - y1) / (x2 - x1))
+                x2 = a
+                c2 = 0
+    return (c1 | c2) == 0, x1, y1, x2, y2
+
+
+def _draw_line(mask: np.ndarray, x1: int, y1: int, x2: int, y2: int
+               ) -> None:
+    """cv2.line of thickness 1, LINE_8: clipped to the image, drawn left
+    to right; the minor axis steps where Bresenham's error (dx - 2 dy,
+    less 2 dy a step, plus 2 dx a minor step) was negative, which is
+    minor offset ceil((2 dy k - dx) / (2 dx)) after k steps."""
+    h, w = mask.shape
+    if _outside(w, h, x1, y1, x2, y2):
+        inside, x1, y1, x2, y2 = _clip_line(w, h, x1, y1, x2, y2)
+        if not inside:
+            return
+    if x2 < x1:
+        x1, y1, x2, y2 = x2, y2, x1, y1
+    dx, dy = x2 - x1, abs(y2 - y1)
+    sy = -1 if y2 < y1 else 1
+    major, minor = max(dx, dy), min(dx, dy)
+    k = np.arange(major + 1, dtype=np.int64)
+    m = -((major - 2 * minor * k) // (2 * major)) if major else k
+    if dy > dx:
+        mask[y1 + sy * k, x1 + m] = 1
+    else:
+        mask[y1 + sy * m, x1 + k] = 1
+
+
+def _trunc_div(a: int, b: int) -> int:
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b >= 0) else -q
+
+
+def _fill_poly(mask: np.ndarray, polys: List[np.ndarray]) -> None:
+    """cv2.fillPoly(mask, polys, 1) with LINE_8 and shift 0.
+
+    cv2's CollectPolyEdges draws each edge as a line; an edge with an end
+    off the image takes the clipped line's x ends (and its y ends where
+    they differ) for its slope and start, in fixed point. Each edge is
+    half-open in y, [y0, y1), and horizontal ones are dropped; on each
+    row the active edges, ordered by x, pair up, and a pair fills from the
+    left edge's x rounded up to the right edge's x rounded down, clipped
+    to the row."""
+    h, w = mask.shape
+    ey0, ey1, ex, edx = [], [], [], []
+    for poly in polys:
+        for i in range(len(poly)):
+            x0, y0 = (int(v) for v in poly[i - 1])
+            x1, y1 = (int(v) for v in poly[i])
+            _draw_line(mask, x0, y0, x1, y1)
+            c0x, c0y, c1x, c1y = x0, y0, x1, y1
+            if _outside(w, h, x0, y0, x1, y1):
+                _, c0x, t0y, c1x, t1y = _clip_line(w, h, x0, y0, x1, y1)
+                if t0y != t1y:
+                    c0y, c1y = t0y, t1y
+            if y0 == y1:
+                continue
+            dx = _trunc_div((c1x - c0x) << XY_SHIFT, c1y - c0y)
+            if y0 < y1:
+                ey0.append(y0)
+                ey1.append(y1)
+                ex.append((c0x << XY_SHIFT) + (y0 - c0y) * dx)
+            else:
+                ey0.append(y1)
+                ey1.append(y0)
+                ex.append((c1x << XY_SHIFT) + (y1 - c1y) * dx)
+            edx.append(dx)
+    if len(ey0) < 2:
+        return
+    y0, y1 = np.array(ey0, np.int64), np.array(ey1, np.int64)
+    x, dx = np.array(ex, np.int64), np.array(edx, np.int64)
+    lo, hi = np.clip(y0, 0, h), np.clip(y1, 0, h)
+    n = np.maximum(hi - lo, 0)
+    if not n.sum():
+        return
+    # one (row, x) entry per edge per row it is active on the image
+    edge = np.repeat(np.arange(len(n)), n)
+    rows = lo[edge] + np.arange(n.sum()) - np.repeat(np.cumsum(n) - n, n)
+    xs = x[edge] + (rows - y0[edge]) * dx[edge]
+    order = np.lexsort((xs, rows))
+    rows, xs = rows[order], xs[order]
+    # every row holds an even number of edges, so pairs are consecutive
+    r = rows[0::2]
+    left = (xs[0::2] + (1 << XY_SHIFT) - 1) >> XY_SHIFT
+    right = xs[1::2] >> XY_SHIFT
+    keep = (left < w) & (right >= 0)
+    r, left, right = r[keep], np.maximum(left[keep], 0), \
+        np.minimum(right[keep], w - 1)
+    diff = np.zeros((h, w + 1), np.int32)
+    np.add.at(diff, (r, left), 1)
+    np.add.at(diff, (r, right + 1), -1)
+    mask[np.cumsum(diff[:, :w], 1) > 0] = 1

@@ -34,7 +34,8 @@ def parse_losses(losses: Dict[str, torch.Tensor]
 def make_train_step(model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer,
                     schedule: Callable[[int], float],
-                    grad_clip: Optional[dict] = None) -> Callable:
+                    grad_clip: Optional[dict] = None,
+                    start_iter: int = 0) -> Callable:
     """Build ``step(batch, gen, sampler_keys=None) -> log_vars``.
 
     ``batch`` holds img, img_shapes, pad_shapes, gt_bboxes, gt_valid,
@@ -43,7 +44,8 @@ def make_train_step(model: torch.nn.Module,
     and sampling; ``sampler_keys`` injects the samplers' keys (see
     ``TwoStageDetector.forward_train``). ``log_vars`` maps 'loss', each
     loss term and 'grad_norm' (the global norm before clipping) to
-    floats. The model is put in training mode."""
+    floats. The model is put in training mode. ``start_iter`` is the
+    schedule's iteration at the first step (a resumed run's)."""
     model.train()
     params = [p for p in model.parameters() if p.requires_grad]
     max_norm = None
@@ -51,7 +53,7 @@ def make_train_step(model: torch.nn.Module,
         if int(grad_clip.get('norm_type', 2)) != 2:
             raise ValueError('only norm_type=2 grad clipping is supported')
         max_norm = float(grad_clip['max_norm'])
-    iteration = [0]
+    iteration = [start_iter]
 
     def step(batch: Dict[str, torch.Tensor], gen: torch.Generator,
              sampler_keys: Optional[Dict[str, Sequence]] = None

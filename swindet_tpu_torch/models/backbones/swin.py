@@ -26,7 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..layers import (DropPath, Linear, Mlp, lecun_normal_, resolve_dtype,
-                      trunc_normal_)
+                      trunc_normal_, uniform_)
 from ...ops.layer_norm import layer_norm_op
 from ...ops.swin_attention import shifted_window_attn_mask
 from ...ops.window_attention_v3 import window_attention_op
@@ -129,9 +129,16 @@ class PatchEmbed(nn.Module):
         return self.norm(y) if self.norm is not None else y.contiguous()
 
     def init_weights(self, gen):
-        lecun_normal_(self.proj.weight,
-                      self.proj.in_channels * self.patch_size ** 2, gen)
-        nn.init.zeros_(self.proj.bias)
+        """The JAX package's lecun-normal kernel; the bias as PyTorch's
+        Conv2d draws it (uniform within 1 / sqrt(fan_in)), which the
+        reference's init leaves in place. The JAX package's zero bias
+        makes every patch of a zero-padded canvas an exact zero vector:
+        patch_norm then scales its gradient by eps ** -0.5 (316), as does
+        every later LayerNorm of a token still zero, and a seeded model's
+        gradient norm on a padded canvas reads 1e9 and more."""
+        fan_in = self.proj.in_channels * self.patch_size ** 2
+        lecun_normal_(self.proj.weight, fan_in, gen)
+        uniform_(self.proj.bias, fan_in ** -0.5, gen)
 
 
 class WindowAttention(nn.Module):
@@ -315,7 +322,8 @@ class SwinTransformer(nn.Module):
         return tuple(outs)
 
     def init_weights(self, gen: torch.Generator):
-        """The JAX package's init: lecun-normal patchify, trunc-normal
+        """The JAX package's init (but for the patchify bias, see
+        PatchEmbed.init_weights): lecun-normal patchify, trunc-normal
         (0.02) Linears and bias table, unit / zero norms."""
         self.patch_embed.init_weights(gen)
         for layer in self.layers:

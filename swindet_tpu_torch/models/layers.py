@@ -46,12 +46,16 @@ def lecun_normal_(t: torch.Tensor, fan_in: int, gen: torch.Generator):
     return trunc_normal_(t, math.sqrt(1.0 / fan_in) / _TRUNC_STD, gen)
 
 
-def xavier_uniform_(t: torch.Tensor, fan_in: int, fan_out: int,
-                    gen: torch.Generator):
-    a = math.sqrt(6.0 / (fan_in + fan_out))
+def uniform_(t: torch.Tensor, a: float, gen: torch.Generator):
+    """Uniform(-a, a)."""
     with torch.no_grad():
         t.copy_(torch.rand(t.shape, generator=gen) * (2 * a) - a)
     return t
+
+
+def xavier_uniform_(t: torch.Tensor, fan_in: int, fan_out: int,
+                    gen: torch.Generator):
+    return uniform_(t, math.sqrt(6.0 / (fan_in + fan_out)), gen)
 
 
 def resolve_dtype(dtype) -> torch.dtype:

@@ -13,3 +13,4 @@ BBOX_ASSIGNERS = Registry('bbox_assigner')
 BBOX_SAMPLERS = Registry('bbox_sampler')
 LOSSES = Registry('loss')
 PIPELINES = Registry('pipeline')
+DATASETS = Registry('dataset')

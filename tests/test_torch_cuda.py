@@ -806,3 +806,33 @@ def test_swin_window_attention(gen, dtype, b, hp, wp, c, nh, shift):
     with pytest.raises(ValueError):
         swin_window_attention(qkv[:, :hp - 1].contiguous(), bias, 7, shift,
                               nh)
+
+
+def test_loader_batch_trains_on_a_portrait_canvas(gen, tmp_path):
+    """The port's loader makes one batch on a 320x224 (H x W) portrait
+    canvas from PNG files (two samples with different pad shapes), and
+    make_train_step trains the flagship Mask R-CNN Swin-T (bf16) on it on
+    the card: every logged value is finite and every training kernel of
+    the default configuration launches."""
+    from chip_smoke import CONFIG, portrait_batch
+    from swindet_tpu_torch import init_detector
+    from swindet_tpu_torch.engine import (build_lr_schedule,
+                                          build_optimizer, make_train_step)
+    from swindet_tpu_torch.ops import (KERNEL_WRAPPERS, OP_ONLY_KERNELS,
+                                       TRAINING_KERNELS)
+    batch = portrait_batch(str(tmp_path))
+    model = init_detector(CONFIG, device='cuda', seed=0)
+    cfg = model.cfg
+    step = make_train_step(
+        model, build_optimizer(model, dict(cfg.optimizer)),
+        build_lr_schedule(dict(cfg.lr_config), cfg.optimizer['lr'], 100))
+    reset_launch_counts()
+    log = step({k: torch.from_numpy(v).cuda() for k, v in batch.items()},
+               torch.Generator(device='cuda').manual_seed(0))
+    assert log and all(torch.isfinite(torch.tensor(v)) for v in log.values())
+    counts = launch_counts()
+    for fn in TRAINING_KERNELS + (layer_norm, conv3x3, roi_align,
+                                  nms_sorted):
+        assert counts[fn.__name__] > 0, fn.__name__
+    assert all(counts[fn.__name__] == 0 for fn in OP_ONLY_KERNELS)
+    assert len(KERNEL_WRAPPERS) == 15

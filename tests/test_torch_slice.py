@@ -98,11 +98,11 @@ def test_inference_detector_numpy_image():
 
 
 def test_port_imports_without_jax_flax_cv2():
-    """The port and chip_smoke.py import with jax, flax, cv2 and the JAX
-    package made unimportable, as on the machine with the card."""
+    """The port and chip_smoke.py import with jax, flax, cv2, PIL and the
+    JAX package made unimportable, as on the machine with the card."""
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'cv2', 'swindet_tpu'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'cv2', 'PIL', 'swindet_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import swindet_tpu_torch, swindet_tpu_torch.models\n"
         "import swindet_tpu_torch.ops, swindet_tpu_torch.checkpoint\n"
@@ -110,9 +110,15 @@ def test_port_imports_without_jax_flax_cv2():
         "import swindet_tpu_torch.ops.window_attention_v4\n"
         "import swindet_tpu_torch.ops.window_attention\n"
         "import swindet_tpu_torch.ops.swin_attention\n"
+        "import swindet_tpu_torch.core.masks\n"
+        "import swindet_tpu_torch.datasets, swindet_tpu_torch.apis\n"
+        "import swindet_tpu_torch.datasets.api.coco_api\n"
+        "import swindet_tpu_torch.datasets.image_io\n"
+        "import swindet_tpu_torch.engine.runner\n"
+        "import swindet_tpu_torch.utils.logger\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'jaxlib', 'flax', 'cv2', 'swindet_tpu')\n"
+        "       ('jax', 'jaxlib', 'flax', 'cv2', 'PIL', 'swindet_tpu')\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
