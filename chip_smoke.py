@@ -149,13 +149,42 @@ before the last line:
               card reading the CPU's RPN outputs; apart and unpinned,
               the card's RPN outputs against the CPU's, its proposal
               step on them against the plain step, and its proposals
-              against the CPU's as sets.
+              against the CPU's as sets. The resumed epoch runs the eval
+              hook (validate=True, bbox and segm, save_best 'auto') on
+              the same PNGs in test mode: its log must hold one finite
+              'mode: val' line and best_bbox_mAP_epoch_2.pth must exist.
+11. eval  -- evaluation and test tools. COCOeval and the g++ host
+              library on this machine: phase 10's PNG dataset with its
+              own ground truth as detections reads 1 for every AP and
+              AR in bbox and segm (AR at 1 detection what an image's
+              duplicate categories allow), the half-correct case of
+              tests/test_data/test_coco_dataset.py 0.5, and the
+              library's paste, RLE and IoU equal their numpy versions.
+              Then the flagship in bf16 (seeded weights from a .pth)
+              through swindet_tpu_torch.tools.test's main on the 8 PNGs
+              as data.test, 2 images a batch, --eval bbox segm,
+              score_thr 0: after a warm-up run, img/s, 100 detections
+              an image and the host split (pipeline and decode, device,
+              paste, RLE encode, COCOeval); rows 1-5 launch (NMS twice
+              a batch), no training kernel, every conv and attention
+              launch a tensor-core one. The same with test-time
+              augmentation, flip and the scales (1333, 800) and (1333,
+              640): 4 augmentations, NMS 6 times a batch (4 RPN, the
+              merged proposals, the final one). Last, fp32 with phase
+              5's spread heads on 4 PNGs at test scale (320, 224) and
+              with augmentation (flip, (320, 224) and (320, 192)): the
+              card (kernels, no tensor-core launch) against the CPU
+              (plain versions), labels equal, boxes within 1e-2 px,
+              masks equal off the pixels whose CPU probability lies
+              within 1e-3 of the threshold, metrics within 1e-4; a bf16
+              control must exceed the box limit.
 
 Each phase's wall time is logged under [time].
 
 Then one JSON line of per-kernel results (``launches``: the serving
-and the training runs' counts of the three configurations, each from its
-own reset, summed; each also apart; for the conv, fused-MLP and v1, v3,
+and the training runs' counts of the three configurations and phase
+11's test and TTA runs, each from its own reset, summed; each also apart,
+phase 11's as ``eval_launches`` and ``tta_launches``; for the conv, fused-MLP and v1, v3,
 v4 and full-map attention rows also ``tc_launches``, counted the same
 way; ``shapes``, the bf16 readings at every main-path shape, for those,
 LayerNorm, RoIAlign and its backward and NMS; ``device_ms`` for
@@ -186,10 +215,15 @@ import torch
 import torch.nn.functional as F
 
 from swindet_tpu_torch import inference_detector, init_detector
-from swindet_tpu_torch.apis import train_detector
+from swindet_tpu_torch.apis import format_results, train_detector
+from swindet_tpu_torch.apis.test import eval_batches
+from swindet_tpu_torch.checkpoint import save_checkpoint
+from swindet_tpu_torch.core import host_ops, rle
+from swindet_tpu_torch.core import masks as mask_ops
 from swindet_tpu_torch.core.class_names import COCO_CLASSES
 from swindet_tpu_torch.datasets import (build_dataloader, build_dataset,
                                         derive_canvas)
+from swindet_tpu_torch.datasets.api import COCO, COCOeval
 from swindet_tpu_torch.engine import (build_lr_schedule, build_optimizer,
                                       make_train_step)
 from swindet_tpu_torch.ops import (FUSED_MLP_KERNELS, INFERENCE_KERNELS,
@@ -225,6 +259,7 @@ from swindet_tpu_torch.models.backbones.swin import (WindowAttention,
                                                      shifted_window_attn_mask,
                                                      window_gather_indices)
 from swindet_tpu_torch.models.dense_heads import rpn_head as rpn_head_module
+from swindet_tpu_torch.tools import test as test_cli
 from swindet_tpu_torch.utils import Config
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -2365,8 +2400,14 @@ def phase_loop(phase='loop'):
                 raise AssertionError(f'{name} missing from the work dir')
         cfg = loop_config(ann_file, prefix, work, max_epochs=2)
         cfg.resume_from = os.path.join(work, 'epoch_1.pth')
-        second = train_detector(build_detector(model_cfg), dataset, cfg)
-        lap('epoch 2 resumed')
+        # the resumed epoch evaluates on the same PNGs (test mode)
+        cfg.data.val.ann_file = ann_file
+        cfg.data.val.img_prefix = prefix
+        cfg.evaluation = dict(interval=1, metric=['bbox', 'segm'],
+                              save_best='auto')
+        second = train_detector(build_detector(model_cfg), dataset, cfg,
+                                validate=True)
+        lap('epoch 2 resumed, with its evaluation')
         runs = (first, second)
         canvases = [c for r in runs for c in r.canvases]
         log(phase, f'canvases (H, W) of the 8 iterations: {canvases}')
@@ -2395,9 +2436,18 @@ def phase_loop(phase='loop'):
                    f'{nbytes} bytes, of which gt_masks '
                    f'{batch["gt_masks"].nbytes} bytes')
         with open(second.json_log) as f:
-            epochs = {json.loads(line)['epoch'] for line in f}
+            lines = [json.loads(line) for line in f]
+        epochs = {r['epoch'] for r in lines}
         if epochs != {2} or second.epoch != 2:
             raise AssertionError(f'the resumed run logged epochs {epochs}')
+        val = [r for r in lines if r['mode'] == 'val']
+        log(phase, f'epoch 2 evaluation: {val}')
+        best = os.path.join(work, 'best_bbox_mAP_epoch_2.pth')
+        if len(val) != 1 or not all(
+                np.isfinite(v) for k, v in val[0].items() if k != 'mode') \
+                or not os.path.isfile(best):
+            raise AssertionError(f'the resumed run\'s evaluation: {val}, '
+                                 f'best checkpoint {os.path.isfile(best)}')
         bad = [v for r in runs for v in r.log_vars
                if not all(np.isfinite(x) for x in v.values())
                or not v['grad_norm'] < LOOP_GRAD_NORM_LIMIT]
@@ -2471,6 +2521,354 @@ def loop_grad_norms(phase='grad-norms'):
             torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------- phase 11
+# the test-time augmentation of phase 11: flip and two scales, 4
+# augmentations a batch (full width), and its fp32 check's scales
+TTA_SCALES = [(1333, 800), (1333, 640)]
+CHECK_SCALES = [(320, 224), (320, 192)]
+# card against CPU in fp32 (phase 5's limits): boxes within 1e-2 px,
+# pasted masks equal but at pixels whose CPU probability lies within
+# 1e-3 of mask_thr_binary, metrics within 1e-4
+TOL_EVAL_BOX = 1e-2
+TOL_EVAL_PROB = 1e-3
+TOL_EVAL_METRIC = 1e-4
+# the half-correct case of tests/test_data/test_coco_dataset.py:124: three
+# 64x48 images with two 15x15 gts each, the first of each detected
+HALF_IMAGES = [dict(id=i, file_name=f'img{i}.jpg', width=64, height=48)
+               for i in (1, 2, 3)]
+HALF_ANNS = [dict(id=2 * (i - 1) + j + 1, image_id=i, category_id=1,
+                  bbox=[5 + 20 * j, 5 + 10 * j, 15, 15], area=225,
+                  iscrowd=0,
+                  segmentation=[[5 + 20 * j, 5 + 10 * j, 20 + 20 * j,
+                                 5 + 10 * j, 20 + 20 * j, 20 + 10 * j,
+                                 5 + 20 * j, 20 + 10 * j]])
+             for i in (1, 2, 3) for j in (0, 1)]
+
+
+def eval_config(ann_file, prefix, scales=None, flip=False):
+    """The flagship config with data.test pointed at a synthetic dataset;
+    with ``scales``, its MultiScaleFlipAug takes them and ``flip``."""
+    cfg = Config.fromfile(CONFIG)
+    for part in (cfg.data.test, cfg.data.val):
+        part.ann_file = ann_file
+        part.img_prefix = prefix
+        if scales is not None:
+            part.pipeline[1].img_scale = scales
+            part.pipeline[1].flip = flip
+    return cfg
+
+
+def _stats(coco, dets, iou_type):
+    ev = COCOeval(coco, coco.loadRes(dets), iou_type)
+    with contextlib.redirect_stdout(None):
+        ev.evaluate()
+        ev.accumulate()
+        ev.summarize()
+    return ev.stats
+
+
+def eval_checks(root, phase):
+    """COCOeval and the host library on this machine: the dataset's own
+    ground truth as detections reads 1 for every AP and AR, the
+    half-correct case 0.5, and the library's IoU and paste equal their
+    numpy versions."""
+    ann_file, prefix = write_synthetic_coco(root, LOOP_SIZES)
+    ds = build_dataset(dict(eval_config(ann_file, prefix).data.test,
+                            test_mode=True))
+    results = []
+    for i in range(len(ds)):
+        anns = ds.coco.loadAnns(ds.coco.getAnnIds(imgIds=[ds.img_ids[i]]))
+        bbox = [np.zeros((0, 5), np.float32) for _ in ds.CLASSES]
+        segm = [[] for _ in ds.CLASSES]
+        for a in anns:
+            c = ds.cat2label[a['category_id']]
+            x, y, w, h = a['bbox']
+            bbox[c] = np.concatenate(
+                [bbox[c], np.array([[x, y, x + w, y + h, 1.0]], np.float32)])
+            segm[c].append(ds.coco.annToMask(a).astype(bool))
+        results.append((bbox, segm))
+    bbox_json, segm_json = ds._segm2json(results)
+    # AR at 1 detection an image: an image with n gts of a category finds
+    # one of them, so a category reads (its images) / (its gts)
+    cats = {}
+    for a in ds.coco.anns.values():
+        imgs, n = cats.get(a['category_id'], (set(), 0))
+        cats[a['category_id']] = (imgs | {a['image_id']}, n + 1)
+    ar1 = float(np.mean([len(i) / n for i, n in cats.values()]))
+    for iou_type, dets in (('bbox', bbox_json), ('segm', segm_json)):
+        stats = _stats(ds.coco, dets, iou_type)
+        log(phase, f'ground truth as detections, {iou_type}: stats '
+                   f'{[round(float(s), 3) for s in stats]} (AR@1 expected '
+                   f'{ar1:.3f})')
+        rest = np.delete(stats, 6)
+        if rest[0] != 1.0 or not all(s in (1.0, -1.0) for s in rest) \
+                or abs(stats[6] - ar1) > 1e-12:
+            raise AssertionError(f'{iou_type}: ground truth as detections '
+                                 f'reads {stats}')
+    half_file = os.path.join(root, 'half.json')
+    with open(half_file, 'w') as f:
+        json.dump(dict(images=HALF_IMAGES, annotations=HALF_ANNS,
+                       categories=[dict(id=1, name='person'),
+                                   dict(id=2, name='bicycle')]), f)
+    half = build_dataset(dict(type='CocoDataset', ann_file=half_file,
+                              pipeline=[], classes=('person', 'bicycle'),
+                              test_mode=True))
+    dets = [[np.array([[5, 5, 20, 20, 1.0]], np.float32),
+             np.zeros((0, 5), np.float32)] for _ in range(3)]
+    with contextlib.redirect_stdout(None):
+        got = half.evaluate(dets, metric='bbox')['bbox_mAP']
+    log(phase, f'half-correct case: bbox_mAP {got}')
+    if abs(got - 0.5) > 0.01:
+        raise AssertionError(f'half-correct case reads {got}, not 0.5')
+    # the g++ library against its numpy versions on this machine's build
+    rs = np.random.RandomState(11)
+    xy = rs.uniform(-40, 700, (100, 2))
+    boxes = np.concatenate([xy, xy + rs.uniform(0.5, 400, (100, 2))], 1) \
+        .astype(np.float32)
+    probs = rs.rand(100, 28, 28).astype(np.float32)
+    got = mask_ops.paste_masks(probs, boxes, 600, 1000)
+    want = mask_ops.paste_masks_reference(probs, boxes, 600, 1000)
+    dts = [mask_ops.mask_to_rle(m) for m in got[:60]]
+    gts = [rle.encode(m.astype(np.uint8)) for m in want[60:]]
+    if dts != [rle.encode(m.astype(np.uint8)) for m in want[:60]]:
+        raise AssertionError('host library RLE differs from numpy')
+    crowd = rs.rand(len(gts)) > 0.7
+    iou_err = float(np.abs(mask_ops.rle_iou(dts, gts, crowd)
+                           - rle.iou(dts, gts, crowd)).max())
+    log(phase, f'host library {host_ops.library_path().name}: paste of 100 '
+               f'masks at 600x1000 equal to numpy: {np.array_equal(got, want)}'
+               f' ({int(got.sum())} pixels); RLE equal; IoU max|d| {iou_err}')
+    if not np.array_equal(got, want) or iou_err > 1e-6:
+        raise AssertionError('host library paste or IoU differs from numpy')
+    return ann_file, prefix
+
+
+def _checkpoint(path):
+    """A seeded Mask R-CNN Swin-T checkpoint (the flagship config)."""
+    model = init_detector(CONFIG, device='cpu', seed=0)
+    save_checkpoint(path, model, meta=dict(CLASSES=list(COCO_CLASSES)))
+
+
+def _cli_run(phase, argv, what):
+    """tools.test's main on ``argv``: its launches, counted from a reset,
+    and what it returned, with the stages' seconds logged."""
+    reset_launch_counts()
+    with contextlib.redirect_stdout(None):
+        ran = test_cli.main(argv)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    times = ran['times']
+    n = len(ran['results'])
+    dets = [sum(len(b) for b in r[0]) for r in ran['results']]
+    log(phase, f'{what}: {n} images, {n / times["test"]:.3f} img/s '
+               f'({times["test"]:.3f} s); detections per image {dets}; host '
+               f'split (s): pipeline and decode {times["pipeline"]:.3f}, '
+               f'device {times["device"]:.3f}, paste {times["paste"]:.3f}, '
+               f'RLE encode {times["encode"]:.3f}, COCOeval '
+               f'{times.get("evaluate", 0.0):.3f}')
+    log(phase, f'{what}: kernel launches {launches}')
+    return ran, launches, dets
+
+
+def _check_eval_launches(phase, launches, nms_per_batch, batches):
+    tc = _check_tc(phase, launches, True, _tc_kernels(False, False))
+    idle = [fn.__name__ for fn in INFERENCE_KERNELS
+            if not launches[fn.__name__]]
+    trained = [fn.__name__ for fn in NOT_SERVING if launches[fn.__name__]]
+    if idle or trained:
+        raise AssertionError(f'{phase}: not launched {idle}, training '
+                             f'kernels launched {trained}')
+    if launches['nms_sorted'] != nms_per_batch * batches:
+        raise AssertionError(f'{phase}: {launches["nms_sorted"]} NMS '
+                             f'launches, expected {nms_per_batch} a batch')
+    return tc
+
+
+def _eval_outputs(model, dataset):
+    """eval_batches' outputs of ``model`` on ``dataset`` (2 images a
+    batch) and the formatted, RLE-encoded results."""
+    batches, results = [], [None] * len(dataset)
+    for chunk, out, metas in eval_batches(model, dataset, 2):
+        batches.append((chunk, out, metas))
+        for i, (b, m) in zip(chunk, format_results(out, metas, 80)):
+            results[i] = (b, mask_ops.encode_mask_results(m))
+    return batches, results
+
+
+def _compare_eval(cpu, card, thr=0.5):
+    """Card against CPU outputs, batch by batch: (box max|d|, mask pixels
+    that differ where the CPU's pasted probability is not within
+    TOL_EVAL_PROB of ``thr``, those near it, detections), or None for the
+    box error where labels or slots differ."""
+    box_err, bad, near, n = 0.0, 0, 0, 0
+    for (chunk, want, metas), (_, got, _) in zip(cpu, card):
+        if not (np.array_equal(want['det_valid'], got['det_valid'])
+                and np.array_equal(want['labels'], got['labels'])):
+            return None, None, None, None
+        v = want['det_valid']
+        box_err = max(box_err, float(np.abs(want['dets'][v]
+                                            - got['dets'][v]).max()))
+        for j, meta in enumerate(metas):
+            h, w = meta['ori_shape'][:2]
+            vj = v[j]
+            p = mask_ops.paste_masks_reference(want['mask_probs'][j][vj],
+                                      want['dets'][j][vj, :4], h, w,
+                                      probs=True)
+            sure = np.abs(p - thr) > TOL_EVAL_PROB
+            diff = mask_ops.paste_masks(want['mask_probs'][j][vj],
+                                     want['dets'][j][vj, :4], h, w, thr) \
+                ^ mask_ops.paste_masks(got['mask_probs'][j][vj],
+                                    got['dets'][j][vj, :4], h, w, thr)
+            bad += int((diff & sure).sum())
+            near += int((diff & ~sure).sum())
+            n += int(vj.sum())
+    return box_err, bad, near, n
+
+
+def _scored_against(ds, truth, results):
+    """COCOeval stats (bbox, segm) of ``results`` with the detections of
+    ``truth`` as ground truth: 1 where the two agree."""
+    _, segm = ds._segm2json(truth)
+    gt = COCO()
+    gt.dataset = dict(images=ds.coco.dataset['images'],
+                      categories=ds.coco.dataset['categories'],
+                      annotations=[dict(s, id=k + 1, iscrowd=0,
+                                        area=mask_ops.rle_area(
+                                            s['segmentation']))
+                                   for k, s in enumerate(segm)])
+    gt.createIndex()
+    dets = ds._segm2json(results)
+    return {t: _stats(gt, d, t) for t, d in zip(('bbox', 'segm'), dets)}
+
+
+def eval_card_check(phase, root):
+    """fp32 Mask R-CNN Swin-T with phase 5's spread heads on 4 of the PNGs
+    at a 320x224 test scale, single_gpu_test's batches and the
+    4-augmentation test's on the card (kernels) and on the CPU (plain
+    versions): equal labels, boxes within TOL_EVAL_BOX, masks equal off
+    the pixels near the threshold, metrics within TOL_EVAL_METRIC; a bf16
+    control on the card must exceed the box limit."""
+    sizes = LOOP_SIZES[:2] + LOOP_SIZES[4:6]
+    ann_file, prefix = write_synthetic_coco(os.path.join(root, 'check'),
+                                            sizes)
+    opts = {'bf16': False, 'model.test_cfg.rpn.nms_pre': 1000,
+            'model.test_cfg.rpn.max_per_img': 1000}
+    cpu = init_detector(CONFIG, device='cpu', cfg_options=opts, seed=1)
+    with torch.no_grad():
+        cpu.rpn_head.rpn_cls.weight.mul_(100.0)
+        cpu.roi_head.bbox_head.fc_cls.weight.mul_(100.0)
+    card = init_detector(CONFIG, device='cpu', cfg_options=opts, seed=1)
+    card.load_state_dict(cpu.state_dict())
+    card = card.cuda()
+    cpu_single = None
+    for what, flip, scales in (('single', False, CHECK_SCALES[:1]),
+                               ('tta', True, CHECK_SCALES)):
+        t0 = time.perf_counter()
+        cfg = eval_config(ann_file, prefix, scales, flip)
+        ds = build_dataset(dict(cfg.data.test, test_mode=True))
+        reset_launch_counts()
+        got_b, got_r = _eval_outputs(card, ds)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        _check_tc(f'{phase} fp32 {what}', launches, False,
+                  _tc_kernels(False, False))
+        if not all(launches[fn.__name__] for fn in INFERENCE_KERNELS):
+            raise AssertionError(f'fp32 {what}: launches {launches}')
+        want_b, want_r = _eval_outputs(cpu, ds)
+        cpu_single = cpu_single or want_b
+        box_err, bad, near, n = _compare_eval(want_b, got_b)
+        if box_err is None or n == 0 or box_err > TOL_EVAL_BOX or bad:
+            raise AssertionError(f'fp32 {what}: card against CPU: {n} '
+                                 f'dets, box max|d| {box_err} (limit '
+                                 f'{TOL_EVAL_BOX}), {bad} mask pixels off')
+        with contextlib.redirect_stdout(None):
+            m_cpu = ds.evaluate(want_r, metric=['bbox', 'segm'])
+            m_card = ds.evaluate(got_r, metric=['bbox', 'segm'])
+        m_err = max(abs(m_cpu[k] - m_card[k]) for k in m_cpu
+                    if isinstance(m_cpu[k], float))
+        log(phase, f'fp32 {what} ({len(scales) * (1 + flip)} augmentation'
+                   f'(s)), card against CPU: {n} dets, labels equal, box '
+                   f'max|d| {box_err:.3g} px, {near} mask pixels differ '
+                   f'within {TOL_EVAL_PROB} of the threshold and none '
+                   f'elsewhere, metrics max|d| {m_err:.3g} (bbox_mAP '
+                   f'{m_card["bbox_mAP"]}, segm_mAP {m_card["segm_mAP"]}); '
+                   f'{time.perf_counter() - t0:.1f} s')
+        # the CPU's detections as ground truth: itself reads 1, the card
+        # must read within TOL_EVAL_METRIC of it
+        scored = {who: _scored_against(ds, want_r, r)
+                  for who, r in (('cpu', want_r), ('card', got_r))}
+        s_err = max(float(np.abs(scored['cpu'][t] - scored['card'][t]).max())
+                    for t in ('bbox', 'segm'))
+        log(phase, f'fp32 {what}: the card scored with the CPU\'s '
+                   f'detections as ground truth, AP bbox '
+                   f'{scored["card"]["bbox"][0]:.5f}, segm '
+                   f'{scored["card"]["segm"][0]:.5f}; stats max|d| against '
+                   f'the CPU scored so {s_err:.3g}')
+        if m_err > TOL_EVAL_METRIC + 1e-9 or s_err > TOL_EVAL_METRIC \
+                or scored['cpu']['bbox'][0] != 1.0:
+            raise AssertionError(f'fp32 {what}: metrics differ by {m_err}, '
+                                 f'scored against the CPU by {s_err}')
+    # the bf16 control: the same weights computing in bf16 on the card
+    cfg = eval_config(ann_file, prefix, CHECK_SCALES[:1])
+    ds = build_dataset(dict(cfg.data.test, test_mode=True))
+    control = init_detector(CONFIG, device='cpu', seed=1, cfg_options=dict(
+        opts, bf16=True))
+    control.load_state_dict(cpu.state_dict())
+    control_b, _ = _eval_outputs(control.cuda(), ds)
+    box_err, _, _, _ = _compare_eval(cpu_single, control_b)
+    log(phase, f'bf16 control, card against CPU: box max|d| {box_err} '
+               f'(None: the detections differ)')
+    if box_err is not None and box_err <= TOL_EVAL_BOX:
+        raise AssertionError(f'bf16 control within the fp32 box limit: '
+                             f'{box_err}')
+
+
+def phase_eval(phase='eval'):
+    """Evaluation and test tools: COCOeval and the host library on this
+    machine; the flagship in bf16 through tools.test on phase 10's 8 PNGs
+    (score_thr 0, 100 detections an image), after a warm-up; the same
+    with test-time augmentation (flip, 2 scales); then the fp32 card
+    against CPU check. Returns the eval and TTA launches."""
+    build_dir = os.path.join(REPO, 'build')
+    os.makedirs(build_dir, exist_ok=True)
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build_dir) as root:
+        ann_file, prefix = eval_checks(root, phase)
+        log(phase, f'evaluator checks: {time.perf_counter() - start:.1f} s')
+        cfg_file = os.path.join(root, 'eval_cfg.py')
+        eval_config(ann_file, prefix).dump(cfg_file)
+        ckpt = os.path.join(root, 'seeded.pth')
+        _checkpoint(ckpt)
+        base = [cfg_file, ckpt, '--samples-per-gpu', '2', '--cfg-options',
+                'model.test_cfg.rcnn.score_thr=0.0']
+        _cli_run(phase, base + ['--out', os.path.join(root, 'warm.pkl')],
+                 'warm-up')
+        ran, launches, dets = _cli_run(phase, base + ['--eval', 'bbox',
+                                                      'segm'], 'bf16 test')
+        if dets != [100] * 8 or not all(
+                np.isfinite(v) for v in ran['metrics'].values()
+                if isinstance(v, float)):
+            raise AssertionError(f'bf16 test: detections {dets}, metrics '
+                                 f'{ran["metrics"]}')
+        tc = _check_eval_launches(phase, launches, 2, 4)
+        log(phase, f'bf16 test: metrics {dict(ran["metrics"])}; '
+                   f'tensor-core launches {tc}')
+        tta = ['data.test.pipeline.1.img_scale=' + repr(TTA_SCALES),
+               'data.test.pipeline.1.flip=True']
+        ran, tta_launches, dets = _cli_run(
+            phase, base + tta + ['--eval', 'bbox', 'segm'], 'bf16 TTA')
+        if dets != [100] * 8:
+            raise AssertionError(f'bf16 TTA: detections {dets}')
+        # a batch: 4 RPN NMS, the merged proposals' and the final one
+        _check_eval_launches(phase, tta_launches, 6, 4)
+        log(phase, f'bf16 TTA: metrics {dict(ran["metrics"])}')
+        log(phase, f'bf16 test and TTA: {time.perf_counter() - start:.1f} s '
+                   f'into the phase')
+        eval_card_check(phase, root)
+    log(phase, f'done: {time.perf_counter() - start:.1f} s')
+    return launches, tta_launches
+
+
 # phase 3's further readings of a kernel's main row that the JSON line
 # carries: the kernel's own device ms (rows 1, 14 and 15), row 14's
 # head-major copy, row 1's first kernel off the vector path, and row 15's
@@ -2504,6 +2902,8 @@ def main() -> int:
         lap(f'phases 4-7, {name}')
     phase_loop()
     lap('phase 10')
+    eval_launches, tta_launches = phase_eval()
+    lap('phase 11')
     for what, key, fmt in (('request latency (s)', 'lat', '.4f'),
                            ('training step (ms)', 'times', '.1f')):
         log('configs', f'{what}, median of the timed runs: ' + ', '.join(
@@ -2526,6 +2926,9 @@ def main() -> int:
             if fn in TENSOR_CORE_KERNELS:
                 tc[f'{pre}serve_tc_launches'] = r['serve_tc'][name]
                 tc[f'{pre}train_tc_launches'] = r['train_tc'][name]
+        # phase 11's test and test-time augmentation runs
+        counts['eval_launches'] = eval_launches[name]
+        counts['tta_launches'] = tta_launches[name]
         if tc:
             tc = dict(tc_launches=sum(tc.values()), **tc)
         if 'shapes' in main_row:

@@ -1,6 +1,7 @@
 """Inference API (counterpart of ``swindet_tpu/apis/inference.py``:
 ``init_detector`` :47, ``preprocess_images`` :104, ``format_results``
-:160, ``inference_detector`` :212; reference mmdet/apis/inference.py).
+:160, ``_load_raw`` :203, ``inference_detector`` :212; reference
+mmdet/apis/inference.py).
 
 The model is an ``nn.Module`` carrying its config (``model.cfg``) and
 class names (``model.CLASSES``), as in mmdet. Images run through the
@@ -19,7 +20,8 @@ from ..checkpoint import load_checkpoint
 from ..core.bbox import bbox2result
 from ..core.class_names import COCO_CLASSES
 from ..core.masks import paste_masks
-from ..datasets.pipelines import Compose
+from ..datasets.pipelines import (Compose, LoadImageFromFile,
+                                  LoadImageFromWebcam, MultiScaleFlipAug)
 from ..models import build_detector
 from ..utils import Config
 
@@ -51,16 +53,14 @@ def init_detector(config: Union[str, Config],
 
 
 def _test_pipeline(cfg: Config) -> Tuple[Compose, Any]:
-    """The test pipeline after its load step, and the test scale."""
+    """The test pipeline after its load step (its MultiScaleFlipAug
+    included), and the test scale: the first of MultiScaleFlipAug's."""
     steps = [dict(p) for p in cfg.data.test.pipeline]
     if steps[0]['type'] not in ('LoadImageFromFile', 'LoadImageFromWebcam'):
         raise ValueError(f'test pipeline starts with {steps[0]["type"]}')
-    for p in steps[1:]:
-        if p['type'] == 'MultiScaleFlipAug':
-            scale = p.get('img_scale')
-            scale = scale[0] if isinstance(scale, list) else scale
-            return Compose([dict(t) for t in p['transforms']]), scale
-    return Compose(steps[1:]), None
+    pipeline = Compose(steps[1:])
+    fan = [t for t in pipeline.transforms if isinstance(t, MultiScaleFlipAug)]
+    return pipeline, fan[0].img_scale[0] if fan else None
 
 
 def _canvas_for(scale: Tuple[int, int], divisor: int = 32
@@ -70,19 +70,29 @@ def _canvas_for(scale: Tuple[int, int], divisor: int = 32
     return rup(min(scale)), rup(max(scale))
 
 
-def preprocess_images(imgs: Sequence[np.ndarray],
+def _load_raw(img: Union[str, np.ndarray]) -> Dict[str, Any]:
+    """A file path (read by ``image_io.imread``) or a BGR uint8 array as
+    the load step leaves it."""
+    if isinstance(img, str):
+        return LoadImageFromFile()(dict(img_info=dict(filename=img),
+                                        img_prefix=None))
+    return LoadImageFromWebcam()(dict(img=img))
+
+
+def preprocess_images(imgs: Sequence[Union[str, np.ndarray]],
                       cfg: Config) -> Dict[str, Any]:
-    """Run the test pipeline on BGR uint8 images and pad them onto the
-    test scale's canvas. Returns numpy img (B, H, W, 3), img_shapes
-    (B, 2), scale_factors (B, 4) and per-image metas."""
+    """Run the test pipeline on image files or BGR uint8 images and pad
+    them onto the test scale's canvas: the first augmentation of
+    MultiScaleFlipAug (its first scale, unflipped). Returns numpy img
+    (B, H, W, 3), img_shapes (B, 2), scale_factors (B, 4) and per-image
+    metas."""
     pipeline, scale = _test_pipeline(cfg)
     processed = []
     for img in imgs:
-        results = dict(img=img, img_shape=img.shape, ori_shape=img.shape)
-        if scale is not None:
-            results['scale'] = tuple(scale)
-        results['flip'] = False
-        processed.append(pipeline(results))
+        r = pipeline(_load_raw(img))
+        if isinstance(r['img'], list):
+            r = {k: v[0] for k, v in r.items()}
+        processed.append(r)
     if scale is not None:
         ch, cw = _canvas_for(scale)
     else:
@@ -147,10 +157,11 @@ def run_batch(model: torch.nn.Module, batch: Dict[str, Any]
 
 
 def inference_detector(model: torch.nn.Module,
-                       imgs: Union[np.ndarray, Sequence[np.ndarray]]):
-    """Detect on BGR uint8 image(s); returns reference-format results
-    (one per image, or one for a single image)."""
-    single = isinstance(imgs, np.ndarray)
+                       imgs: Union[str, np.ndarray,
+                                   Sequence[Union[str, np.ndarray]]]):
+    """Detect on image file(s) or BGR uint8 image(s); returns
+    reference-format results (one per image, or one for a single image)."""
+    single = isinstance(imgs, (str, np.ndarray))
     if single:
         imgs = [imgs]
     rcnn = dict(model.cfg.model.test_cfg).get('rcnn') or {}

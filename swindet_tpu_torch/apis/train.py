@@ -1,7 +1,8 @@
 """Training API (counterpart of ``swindet_tpu/apis/train.py``:
 ``set_random_seed`` :27, the weight initialisation :34-53,
-``train_detector`` :56; reference mmdet/apis/train.py:42): the loader,
-the optimizer and schedule, the training step, resume, and the runner,
+``train_detector`` :56, the eval hook :175-213; reference
+mmdet/apis/train.py:42): the loader, the optimizer and schedule, the
+training step, resume, the runner and, with ``validate``, the eval hook,
 on one device.
 """
 from __future__ import annotations
@@ -17,10 +18,11 @@ import numpy as np
 import torch
 
 from ..checkpoint import load_weights, resume, save_checkpoint
-from ..datasets.builder import build_dataloader, derive_canvas
+from ..datasets.builder import build_dataloader, build_dataset, derive_canvas
 from ..engine import build_lr_schedule, build_optimizer, make_train_step
 from ..engine.runner import EpochBasedRunner
 from ..utils.logger import LOG_FORMAT, get_root_logger
+from .test import single_gpu_test
 
 
 def set_random_seed(seed: int, deterministic: bool = False) -> None:
@@ -64,12 +66,16 @@ def train_detector(model: torch.nn.Module, dataset, cfg,
     for ``cfg.runner.max_epochs`` epochs on ``device``, resuming from
     ``cfg.resume_from`` when it is set. Writes the text log, the
     ``.log.json`` lines and ``epoch_N.pth`` / ``latest.pth`` to
-    ``cfg.work_dir``. Returns the runner, which holds each iteration's
-    times and log values."""
+    ``cfg.work_dir``. With ``validate``, every ``evaluation.interval``
+    epochs the model is evaluated on ``cfg.data.val`` (test mode) by
+    ``evaluation.metric``, logged as a ``mode: val`` line, and
+    ``evaluation.save_best`` keeps the best checkpoint. Returns the runner,
+    which holds each iteration's times, log values and eval results."""
     if distributed:
         _not_ported('distributed training (DDP)')
-    if validate:
-        _not_ported('validation (the eval hook with COCOeval)')
+    if validate and os.environ.get('SWINDET_NATIVE_IMAGE') == '1':
+        _not_ported('the native batched test loader '
+                    '(SWINDET_NATIVE_IMAGE=1)', 4)
     device = torch.device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('train_detector: no CUDA device; pass '
@@ -83,13 +89,15 @@ def train_detector(model: torch.nn.Module, dataset, cfg,
     log_file.setFormatter(logging.Formatter(LOG_FORMAT))
     logger.addHandler(log_file)
     try:
-        return _train(model, dataset, cfg, device, timestamp, meta, logger)
+        return _train(model, dataset, cfg, device, timestamp, meta, logger,
+                      validate)
     finally:
         logger.removeHandler(log_file)
         log_file.close()
 
 
-def _train(model, dataset, cfg, device, timestamp, meta, logger):
+def _train(model, dataset, cfg, device, timestamp, meta, logger,
+           validate):
     """train_detector's body, its text log file open."""
     workflow = cfg.get('workflow')
     if workflow:
@@ -145,6 +153,8 @@ def _train(model, dataset, cfg, device, timestamp, meta, logger):
     def save_fn(path, ckpt_meta):
         save_checkpoint(path, model, optimizer, dict(meta, **ckpt_meta))
 
+    eval_cfg = dict(cfg.get('evaluation', {}) or {})
+    eval_fn = _eval_hook(model, cfg, eval_cfg, logger) if validate else None
     log_config = dict(cfg.get('log_config', {}) or {})
     runner = EpochBasedRunner(
         train_step=step, work_dir=cfg.work_dir, logger=logger,
@@ -155,10 +165,33 @@ def _train(model, dataset, cfg, device, timestamp, meta, logger):
         save_fn=save_fn, meta=meta,
         tensorboard=any(dict(h).get('type') == 'TensorboardLoggerHook'
                         for h in log_config.get('hooks', [])),
-        timestamp=timestamp)
+        timestamp=timestamp, eval_fn=eval_fn,
+        eval_interval=eval_cfg.get('interval', 1),
+        save_best=eval_cfg.get('save_best'),
+        save_best_rule=eval_cfg.get('rule', 'auto'))
     logger.info(f'Start training on {device}: batch '
                 f'{cfg.data.samples_per_gpu}, {len(loader)} iters/epoch, '
                 f'epochs {resume_epoch + 1}-{runner.max_epochs}')
     runner.run(loader, torch.Generator(device=device), seed, resume_epoch,
                resume_iter)
     return runner
+
+
+def _eval_hook(model, cfg, eval_cfg, logger):
+    """eval_fn(epoch) of the runner: ``single_gpu_test`` of the model, in
+    eval mode and the config's dtype, on ``cfg.data.val`` in test mode,
+    then the dataset's COCO metrics. It draws from no training generator,
+    so a resumed run trains as an uninterrupted one."""
+    val_dataset = build_dataset(dict(cfg.data.val, test_mode=True))
+    batch_size = cfg.data.get('val_samples_per_gpu', cfg.data.samples_per_gpu)
+    metric = eval_cfg.get('metric', 'bbox')
+
+    def eval_fn(epoch):
+        model.eval()
+        try:
+            results = single_gpu_test(model, val_dataset, batch_size,
+                                      logger=logger)
+        finally:
+            model.train()
+        return val_dataset.evaluate(results, metric=metric, logger=logger)
+    return eval_fn

@@ -1,15 +1,19 @@
-"""Host-side mask work (counterpart of ``swindet_tpu/core/masks.py``),
-numpy only.
+"""Host-side mask work (counterpart of ``swindet_tpu/core/masks.py``).
 
-- :func:`paste_masks` (:148, numpy path): (N, s, s) mask probs into the
-  full image at their boxes, grid_sample align_corners=False semantics
-  with zero padding (reference fcn_mask_head.py:306 ``_do_paste_mask``).
-- :func:`poly2mask` (:134): COCO polygons to a bitmap, equal bit for bit
-  to the JAX package's ``cv2.fillPoly`` (opencv 5.0): every edge drawn as
-  an 8-connected line, then the even-odd scanline fill of cv2's
+- :func:`paste_masks`: (N, s, s) mask probs into the full image at their
+  boxes, grid_sample align_corners=False semantics with zero padding
+  (reference fcn_mask_head.py:306 ``_do_paste_mask``), through the host
+  library ``core/host_ops.py``; :func:`paste_masks_reference` is its plain
+  numpy version.
+- :func:`mask_to_rle` (:20 there), :func:`rle_iou` (:105) and
+  :func:`encode_mask_results` (:210): COCO RLE of a bitmap and the
+  pairwise mask IoU, through the same library; their plain versions are
+  ``core/rle.py``'s numpy codec.
+- :func:`poly2mask`: COCO polygons to a bitmap, equal bit for bit to the
+  JAX package's ``cv2.fillPoly`` (opencv 5.0): every edge drawn as an
+  8-connected line, then the even-odd scanline fill of cv2's
   ``FillEdgeCollection`` with its 16-bit fixed-point edges.
-- :func:`rle_to_mask` (:52) and :func:`_rle_decode_counts` (:68): COCO
-  RLE to a bitmap.
+- :func:`rle_to_mask`: COCO RLE to a bitmap, for the train pipeline.
 """
 from __future__ import annotations
 
@@ -17,18 +21,31 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from . import host_ops
+
 # cv2's drawing.cpp keeps polygon edge x in fixed point with 16 fraction bits
 XY_SHIFT = 16
 
 
 def paste_masks(mask_probs: np.ndarray, boxes: np.ndarray, img_h: int,
                 img_w: int, threshold: float = 0.5) -> np.ndarray:
-    """Returns (N, img_h, img_w) bool masks."""
+    """Returns (N, img_h, img_w) bool masks (the host library)."""
+    return host_ops.paste_masks(mask_probs, boxes, img_h, img_w, threshold)
+
+
+def paste_masks_reference(mask_probs: np.ndarray, boxes: np.ndarray,
+                          img_h: int, img_w: int, threshold: float = 0.5,
+                          probs: bool = False) -> np.ndarray:
+    """The plain version of :func:`paste_masks`, in numpy (float64 sample
+    positions and weights, fp32 box sizes). With ``probs``, the sampled
+    probabilities (float64, 0 outside each box's window) in place of the
+    thresholded masks."""
+    boxes = np.asarray(boxes, np.float32)
     n = mask_probs.shape[0]
     s = mask_probs.shape[1] if n else 0
-    out = np.zeros((n, img_h, img_w), bool)
+    out = np.zeros((n, img_h, img_w), np.float64 if probs else bool)
     for i in range(n):
-        x1, y1, x2, y2 = boxes[i]
+        x1, y1, x2, y2 = boxes[i, :4]
         w = x2 - x1
         h = y2 - y1
         if w <= 0 or h <= 0:
@@ -42,8 +59,8 @@ def paste_masks(mask_probs: np.ndarray, boxes: np.ndarray, img_h: int,
             continue
         ys = (np.arange(iy1, iy2) + 0.5 - y1) / h * s - 0.5
         xs = (np.arange(ix1, ix2) + 0.5 - x1) / w * s - 0.5
-        out[i, iy1:iy2, ix1:ix2] = _bilinear_2d(
-            mask_probs[i], ys, xs) >= threshold
+        val = _bilinear_2d(mask_probs[i], ys, xs)
+        out[i, iy1:iy2, ix1:ix2] = val if probs else val >= threshold
     return out
 
 
@@ -70,43 +87,49 @@ def _bilinear_2d(img: np.ndarray, ys: np.ndarray,
 
 
 # ------------------------------------------------------------------- RLE
+def mask_to_rle(mask: np.ndarray) -> Dict:
+    """Binary (H, W) mask -> COCO compressed RLE dict (the host library;
+    ``core/rle.py`` ``encode`` is the plain version)."""
+    h, w = mask.shape
+    return {'size': [int(h), int(w)],
+            'counts': host_ops.rle_to_string(host_ops.rle_encode(mask))}
+
+
+def encode_mask_results(mask_results: List[List[np.ndarray]]) -> List[List]:
+    """Per-class lists of full-image masks -> per-class lists of RLE dicts
+    (reference core/mask/utils.py:36)."""
+    return [[mask_to_rle(m) for m in cls_masks] for cls_masks in mask_results]
+
+
+def rle_counts(rle: Dict) -> np.ndarray:
+    """The uncompressed counts of a compressed or uncompressed RLE dict."""
+    counts = rle['counts']
+    if isinstance(counts, str):
+        counts = counts.encode()
+    if isinstance(counts, bytes):
+        return host_ops.rle_from_string(counts)
+    return np.asarray(counts, np.int64)
+
+
+def rle_area(rle: Dict) -> int:
+    """Foreground pixels of an RLE dict."""
+    return int(rle_counts(rle)[1::2].sum())
+
+
+def rle_iou(dt: Sequence[Dict], gt: Sequence[Dict],
+            iscrowd: Sequence[bool]) -> np.ndarray:
+    """Pairwise mask IoU, pycocotools maskUtils.iou semantics: a crowd gt's
+    union is the detection's area (the host library, a sweep of the run
+    lists; ``core/rle.py`` ``iou`` is the plain version)."""
+    return host_ops.rle_iou([rle_counts(d) for d in dt],
+                            [rle_counts(g) for g in gt], iscrowd)
+
+
 def rle_to_mask(rle: Dict) -> np.ndarray:
-    """COCO RLE dict (compressed bytes/str or uncompressed list) to a
+    """COCO RLE dict (compressed bytes / str or uncompressed list) to a
     binary (H, W) mask."""
     h, w = rle['size']
-    counts = rle['counts']
-    if isinstance(counts, (bytes, str)):
-        counts = _rle_decode_counts(
-            counts if isinstance(counts, bytes) else counts.encode())
-    counts = np.asarray(counts, np.int64)
-    vals = np.zeros(len(counts), np.uint8)
-    vals[1::2] = 1
-    flat = np.repeat(vals, counts)
-    flat = np.pad(flat, (0, h * w - len(flat)))
-    return flat.reshape(w, h).T.astype(bool)
-
-
-def _rle_decode_counts(s: bytes) -> List[int]:
-    """pycocotools' rleFrString: LEB128-style 5-bit groups offset by 48,
-    each count after the second delta-coded against the one two back."""
-    cnts: List[int] = []
-    i = 0
-    while i < len(s):
-        x = 0
-        k = 0
-        more = True
-        while more:
-            c = s[i] - 48
-            x |= (c & 0x1f) << (5 * k)
-            more = bool(c & 0x20)
-            i += 1
-            if not more and (c & 0x10):
-                x |= -1 << (5 * (k + 1))
-            k += 1
-        if len(cnts) > 2:
-            x += cnts[-2]
-        cnts.append(x)
-    return cnts
+    return host_ops.rle_decode(rle_counts(rle), h, w)
 
 
 # -------------------------------------------------------------- polygons

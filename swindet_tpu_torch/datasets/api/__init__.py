@@ -1,3 +1,4 @@
 from .coco_api import COCO
+from .cocoeval import COCOeval, Params
 
-__all__ = ['COCO']
+__all__ = ['COCO', 'COCOeval', 'Params']

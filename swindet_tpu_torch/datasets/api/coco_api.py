@@ -1,15 +1,19 @@
 """COCO annotation index (counterpart of
 ``swindet_tpu/datasets/api/coco_api.py:19``, itself a drop-in for
-pycocotools' ``COCO``): the JSON load, ``createIndex`` and the queries a
-training dataset makes. Result loading and evaluation are not ported
-(ROADMAP §1 item 6)."""
+pycocotools' ``COCO``): the JSON load, ``createIndex``, the queries,
+``loadRes`` for detections and ``annToRLE`` / ``annToMask``, what
+``COCOeval`` reads."""
 from __future__ import annotations
 
+import copy
 import json
 from collections import defaultdict
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import numpy as np
+
+from ...core import rle as maskUtils
+from ...core.masks import rle_area
 
 
 class COCO:
@@ -98,3 +102,61 @@ class COCO:
 
     def loadCats(self, ids=()):
         return [self.cats[i] for i in self._as_list(ids)]
+
+    # ------------------------------------------------------------- results
+    def loadRes(self, resFile: Union[str, list]) -> 'COCO':
+        """Detections (a json file or its list) -> a COCO of results over
+        this one's images (pycocotools loadRes)."""
+        res = COCO()
+        res.dataset['images'] = list(self.dataset.get('images', []))
+        if isinstance(resFile, str):
+            with open(resFile) as f:
+                anns = json.load(f)
+        else:
+            anns = resFile
+        if not isinstance(anns, list):
+            raise TypeError('results must be a list of annotations')
+        res.dataset['categories'] = copy.deepcopy(
+            self.dataset.get('categories', []))
+        if anns:
+            if not {a['image_id'] for a in anns} <= set(self.getImgIds()):
+                raise ValueError('Results do not correspond to current '
+                                 'coco set')
+            if 'bbox' in anns[0] and anns[0]['bbox'] != []:
+                for aid, ann in enumerate(anns):
+                    bb = ann['bbox']
+                    if 'segmentation' not in ann:
+                        x1, y1, w, h = bb
+                        ann['segmentation'] = [[x1, y1, x1, y1 + h,
+                                                x1 + w, y1 + h, x1 + w, y1]]
+                    ann['area'] = bb[2] * bb[3]
+                    ann['id'] = aid + 1
+                    ann['iscrowd'] = 0
+            elif 'segmentation' in anns[0]:
+                for aid, ann in enumerate(anns):
+                    ann['area'] = rle_area(ann['segmentation'])
+                    if 'bbox' not in ann:
+                        ann['bbox'] = maskUtils.to_bbox(
+                            ann['segmentation']).tolist()
+                    ann['id'] = aid + 1
+                    ann['iscrowd'] = 0
+        res.dataset['annotations'] = anns
+        res.createIndex()
+        return res
+
+    # --------------------------------------------------------------- masks
+    def annToRLE(self, ann):
+        """An annotation's segmentation as compressed RLE."""
+        img = self.imgs[ann['image_id']]
+        h, w = img['height'], img['width']
+        segm = ann['segmentation']
+        if isinstance(segm, list):
+            rles = maskUtils.frPyObjects(segm, h, w)
+            return maskUtils.merge(rles if isinstance(rles, list)
+                                   else [rles])
+        if isinstance(segm['counts'], list):
+            return maskUtils.frPyObjects(segm, h, w)
+        return segm
+
+    def annToMask(self, ann):
+        return maskUtils.decode(self.annToRLE(ann))

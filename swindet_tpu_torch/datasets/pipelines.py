@@ -1,7 +1,8 @@
 """Pipeline steps (counterparts of
 ``swindet_tpu/datasets/pipelines/transforms.py``), numpy and torch only:
 loading, the train-time Resize, RandomFlip, RandomCrop and AutoAugment,
-Normalize, Pad, the format steps and FilterAnnotations.
+Normalize, Pad, the format steps, FilterAnnotations and the test-time
+fan-out MultiScaleFlipAug.
 
 The image resize is cv2's INTER_LINEAR: bilinear with half-pixel centres
 and no antialiasing. A uint8 image goes through cv2's fixed-point
@@ -164,6 +165,23 @@ class LoadImageFromFile:
             img = img.astype(np.float32)
         results['filename'] = filename
         results['ori_filename'] = info['filename']
+        results['img'] = img
+        results['img_shape'] = img.shape
+        results['ori_shape'] = img.shape
+        results['img_fields'] = ['img']
+        return results
+
+
+@PIPELINES.register_module()
+class LoadImageFromWebcam(LoadImageFromFile):
+    """The image already in ``results['img']`` (reference loading.py:81)."""
+
+    def __call__(self, results):
+        img = results['img']
+        if self.to_float32:
+            img = img.astype(np.float32)
+        results['filename'] = None
+        results['ori_filename'] = None
         results['img'] = img
         results['img_shape'] = img.shape
         results['ori_shape'] = img.shape
@@ -478,6 +496,42 @@ class Pad:
         results['pad_fixed_size'] = self.size
         results['pad_size_divisor'] = self.size_divisor
         return results
+
+
+@PIPELINES.register_module()
+class MultiScaleFlipAug:
+    """Test-time fan-out (reference test_time_aug.py:10): ``transforms`` run
+    once for every scale and flip, scales outer and the unflipped one first
+    within a scale. Returns a dict of lists, one entry per augmentation."""
+
+    def __init__(self, transforms: Sequence[dict], img_scale=None,
+                 scale_factor=None, flip: bool = False,
+                 flip_direction='horizontal'):
+        self.transforms = Compose([dict(t) for t in transforms])
+        scales = img_scale if img_scale is not None else scale_factor
+        if not isinstance(scales, list):
+            scales = [scales]
+        self.img_scale = [tuple(s) if isinstance(s, (list, tuple)) else s
+                          for s in scales]
+        self.flip = flip
+        self.flip_direction = (flip_direction if isinstance(
+            flip_direction, list) else [flip_direction])
+
+    def __call__(self, results):
+        aug_data = []
+        flips = [(False, None)]
+        if self.flip:
+            flips += [(True, d) for d in self.flip_direction]
+        for scale in self.img_scale:
+            for f, d in flips:
+                r = dict(results)
+                r['scale'] = scale
+                r['flip'] = f
+                r['flip_direction'] = d or 'horizontal'
+                out = self.transforms(r)
+                if out is not None:
+                    aug_data.append(out)
+        return {k: [d[k] for d in aug_data] for k in aug_data[0]}
 
 
 @PIPELINES.register_module()

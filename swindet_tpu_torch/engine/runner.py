@@ -1,8 +1,10 @@
 """Epoch-based training runner (counterpart of
 ``swindet_tpu/engine/runner.py:24``; reference mmcv's EpochBasedRunner and
 the hooks of mmdet/apis/train.py): draws the loader's batches, moves
-them to the device, calls the training step, logs, and checkpoints. The
-eval hook (and with it ``save_best``) is not ported (ROADMAP §1 item 5).
+them to the device, calls the training step, logs, checkpoints, and every
+``eval_interval`` epochs runs the eval hook (``eval_fn``, :34-49 and
+:138-152 there), keeping the best checkpoint by ``save_best``
+(``_maybe_save_best`` :155-186).
 
 Each iteration's ``data_time`` (waiting for the loader) and
 ``step_time`` (``.to(device)`` and the step, which ends in a host read)
@@ -42,7 +44,11 @@ class EpochBasedRunner:
                  save_fn: Optional[Callable] = None,
                  meta: Optional[dict] = None,
                  tensorboard: bool = False,
-                 timestamp: Optional[str] = None):
+                 timestamp: Optional[str] = None,
+                 eval_fn: Optional[Callable] = None,
+                 eval_interval: int = 1,
+                 save_best: Optional[str] = None,
+                 save_best_rule: str = 'auto'):
         self.train_step = train_step
         self.work_dir = work_dir
         self.logger = logger
@@ -52,6 +58,16 @@ class EpochBasedRunner:
         self.log_interval = log_interval
         self.save_fn = save_fn
         self.meta = meta or {}
+        # the eval hook: eval_fn(epoch) -> metrics; save_best names the
+        # metric whose best value keeps a checkpoint ('auto': the first
+        # numeric one), rule 'auto' is 'less' for a loss, else 'greater'
+        # (reference mmcv EvalHook)
+        self.eval_fn = eval_fn
+        self.eval_interval = eval_interval
+        self.save_best = save_best
+        self.save_best_rule = save_best_rule
+        self.best_score: Optional[float] = None
+        self.eval_results: List[Dict[str, float]] = []
         self.epoch = 0
         self.iter = 0
         self.times: Dict[str, List[float]] = {'data_time': [],
@@ -131,6 +147,8 @@ class EpochBasedRunner:
             self.epoch += 1
             if self.save_fn and self.epoch % self.checkpoint_interval == 0:
                 self._save()
+            if self.eval_fn and self.epoch % self.eval_interval == 0:
+                self._evaluate()
         if self._tb is not None:
             self._tb.close()
 
@@ -145,3 +163,56 @@ class EpochBasedRunner:
             os.remove(latest)
         os.symlink(name, latest)
         self.logger.info(f'Saved checkpoint {path}')
+
+    def _evaluate(self) -> None:
+        """Run the eval hook, log its metrics (text, and the numeric ones
+        as a ``mode: val`` JSON line) and keep the best checkpoint."""
+        metrics = self.eval_fn(self.epoch)
+        if not metrics:
+            return
+        self.logger.info('Eval: ' + ' '.join(f'{k}: {v}'
+                                             for k, v in metrics.items()))
+        numeric = {}
+        for k, v in metrics.items():
+            try:
+                numeric[k] = float(v)
+            except (TypeError, ValueError):
+                pass  # the mAP_copypaste strings
+        self.eval_results.append(numeric)
+        self._log_json(dict(mode='val', epoch=self.epoch, iter=self.iter,
+                            **numeric))
+        self._maybe_save_best(numeric)
+
+    def _maybe_save_best(self, numeric: Dict[str, float]) -> None:
+        """Keep ``best_<key>_epoch_<n>.pth`` and the ``best_<key>`` link to
+        it when the metric ``save_best`` improves."""
+        if not (self.save_best and self.save_fn and numeric):
+            return
+        if self.save_best == 'auto':
+            self.save_best = next(iter(numeric))
+        if self.save_best_rule == 'auto':
+            self.save_best_rule = ('less' if 'loss' in self.save_best
+                                   else 'greater')
+        if self.save_best not in numeric:
+            raise KeyError(f'save_best: no metric {self.save_best!r} in '
+                           f'{sorted(numeric)}')
+        score = numeric[self.save_best]
+        if self.best_score is not None and not (
+                score > self.best_score if self.save_best_rule == 'greater'
+                else score < self.best_score):
+            return
+        self.best_score = score
+        key = self.save_best.replace('/', '_')
+        name = f'best_{key}_epoch_{self.epoch}.pth'
+        path = osp.join(self.work_dir, name)
+        self.save_fn(path, dict(self.meta, epoch=self.epoch, iter=self.iter,
+                                best_score=score))
+        link = osp.join(self.work_dir, f'best_{key}')
+        if osp.lexists(link):
+            old = osp.join(self.work_dir, os.readlink(link))
+            os.remove(link)
+            if old != path and osp.isfile(old):
+                os.remove(old)
+        os.symlink(name, link)
+        self.logger.info(f'Best {self.save_best} = {score:.4f} at epoch '
+                         f'{self.epoch}; saved {path}')

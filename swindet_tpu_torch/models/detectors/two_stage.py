@@ -1,6 +1,7 @@
 """Two-stage detector (counterpart of
 ``swindet_tpu/models/detectors/two_stage.py``: ``forward_train`` :92,
-``simple_test`` :127, ``MaskRCNN`` :171; reference
+``simple_test`` :127, the per-augmentation halves ``aug_rpn_test``,
+``aug_bbox_test`` and ``aug_mask_test`` :144-162, ``MaskRCNN`` :171; reference
 mmdet/models/detectors/two_stage.py:10).
 
 The ``state_dict`` uses mmdet's key names (``backbone.``, ``neck.``,
@@ -101,6 +102,31 @@ class TwoStageDetector(nn.Module):
                                          img_shapes, scale_factors,
                                          rescale=rescale)
 
+
+    # The per-augmentation halves of test-time augmentation
+    # (apis/aug_test.py maps boxes between frames and merges the
+    # augmentations). Each takes the augmentation's features when the
+    # caller has them: the JAX halves extract them again each time.
+    def aug_rpn_test(self, img, img_shapes, feats=None):
+        """One augmentation's proposals in its own frame: (proposals
+        (B, P, 4), scores (B, P), valid (B, P))."""
+        feats = self.extract_feat(img) if feats is None else feats
+        cls_scores, bbox_preds = self.rpn_head(feats)
+        return self.rpn_head.get_proposals(cls_scores, bbox_preds,
+                                           img_shapes,
+                                           dict(dict(self.test_cfg)['rpn']))
+
+    def aug_bbox_test(self, img, proposals, img_shapes, feats=None):
+        """The bbox branch on given proposals (the augmentation's frame, no
+        NMS): (scores (B, P, K+1), boxes (B, P, 4K))."""
+        feats = self.extract_feat(img) if feats is None else feats
+        return self.roi_head.bbox_test(feats, proposals, img_shapes)
+
+    def aug_mask_test(self, img, det_boxes, det_labels, feats=None):
+        """Mask probabilities (B, M, s, s) of boxes in the augmentation's
+        frame."""
+        feats = self.extract_feat(img) if feats is None else feats
+        return self.roi_head.mask_test(feats, det_boxes, det_labels)
 
 @DETECTORS.register_module()
 class MaskRCNN(TwoStageDetector):

@@ -1,6 +1,7 @@
 """Shared2FC bbox head (counterpart of
 ``swindet_tpu/models/roi_heads/bbox_heads.py``: ``ConvFCBBoxHead`` :24,
-``get_targets`` :97, ``loss`` :118, ``get_bboxes`` :160,
+``get_targets`` :97, ``loss`` :118, ``get_bboxes`` :160 (here
+``decode`` and ``nms``),
 ``Shared2FCBBoxHead`` :203; reference convfc_bbox_head.py:9,177,
 bbox_head.py:151,219).
 
@@ -110,14 +111,20 @@ class ConvFCBBoxHead(nn.Module):
                                              avg_factor=avg)
         return losses
 
-    def get_bboxes(self, rois, cls_score, bbox_pred, img_shapes,
-                   scale_factors, rescale: bool, cfg: dict, roi_valid=None):
-        """Batched decode + multiclass NMS. rois (B, P, 5), cls_score
-        (B, P, K+1), bbox_pred (B, P, 4K), img_shapes (B, 2),
-        scale_factors (B, 4). Returns a MulticlassNMSResult."""
+    def decode(self, rois, cls_score, bbox_pred, img_shapes):
+        """Class scores (softmax, fp32) and decoded boxes clipped to
+        ``img_shapes``. rois (B, P, 5), cls_score (B, P, K+1), bbox_pred
+        (B, P, 4K), img_shapes (B, 2)."""
         scores = torch.softmax(cls_score.float(), dim=-1)
         boxes = self.bbox_coder.decode(rois[..., 1:], bbox_pred.float(),
                                        max_shape=img_shapes[:, None, :])
+        return scores, boxes
+
+    def nms(self, scores, boxes, scale_factors, rescale: bool, cfg: dict,
+            roi_valid=None):
+        """Decoded boxes back to the original image (``rescale``), the
+        scores of invalid rois zeroed, then multiclass NMS. Returns a
+        MulticlassNMSResult."""
         if rescale:
             b, p = boxes.shape[:2]
             boxes = (boxes.reshape(b, p, -1, 4)
@@ -126,7 +133,6 @@ class ConvFCBBoxHead(nn.Module):
             scores = torch.where(roi_valid[..., None], scores, 0.0)
         return multiclass_nms(boxes, scores, cfg['score_thr'],
                               dict(cfg['nms']), cfg['max_per_img'])
-
 
 @HEADS.register_module()
 class Shared2FCBBoxHead(ConvFCBBoxHead):

@@ -1,6 +1,7 @@
 """StandardRoIHead (counterpart of
 ``swindet_tpu/models/roi_heads/standard_roi_head.py``: ``forward_train`` /
-``_forward_train_impl`` :223-316, ``simple_test`` :349; reference
+``_forward_train_impl`` :223-316, ``bbox_test`` :319, ``mask_test`` :337,
+``simple_test`` :349; reference
 mmdet/models/roi_heads/standard_roi_head.py:10).
 
 Train: per-image assignment and sampling of the padded proposals with the
@@ -9,8 +10,9 @@ then the mask branch on the first ``num * pos_fraction`` slots, where the
 sampler packs the positives. The default path only: no OHEM, no
 score-HLR.
 
-Test: padded proposals -> bbox head -> per-image multiclass NMS -> mask
-probs of the kept detections, batched over images.
+Test: padded proposals -> bbox head (``bbox_test``) -> per-image
+multiclass NMS -> mask probs of the kept detections (``mask_test``),
+batched over images; test-time augmentation runs the two halves apart.
 """
 from __future__ import annotations
 
@@ -67,7 +69,6 @@ class StandardRoIHead(nn.Module):
         draw them from ``gen``."""
         b = proposals.shape[0]
         num = self.sampler.num
-        dev = proposals.device
         samples = []
         for i in range(b):
             assign = self.assigner.assign(proposals[i], gt_bboxes[i],
@@ -79,9 +80,7 @@ class StandardRoIHead(nn.Module):
                 keys=None if keys is None else keys[i]))
         samp = type(samples[0])(*[torch.stack(t) for t in zip(*samples)])
 
-        batch_col = torch.arange(b, dtype=torch.float32, device=dev) \
-            .repeat_interleave(num)
-        rois = torch.cat([batch_col[:, None], samp.bboxes.reshape(-1, 4)], 1)
+        rois = self._rois(samp.bboxes)
         cls_score, bbox_pred = self.bbox_head(
             self.bbox_roi_extractor(feats, rois))
         labels, label_weights, bbox_targets, bbox_weights = \
@@ -97,12 +96,8 @@ class StandardRoIHead(nn.Module):
             pos_inds = samp.pos_gt_inds[:, :m]
             pos_mask = samp.is_pos[:, :m]
             pos_labels = samp.pos_gt_labels[:, :m].clamp(min=0)
-            mask_col = torch.arange(b, dtype=torch.float32, device=dev) \
-                .repeat_interleave(m)
-            mask_rois = torch.cat([mask_col[:, None],
-                                   pos_boxes.reshape(-1, 4)], 1)
             mask_pred = self.mask_head(
-                self.mask_roi_extractor(feats, mask_rois))
+                self.mask_roi_extractor(feats, self._rois(pos_boxes)))
             size = self.train_cfg.get('mask_size', 28)
             targets = torch.stack([
                 self.mask_head.get_targets(gt_masks[i], pos_boxes[i],
@@ -113,35 +108,46 @@ class StandardRoIHead(nn.Module):
                 pos_labels.reshape(-1), pos_mask.reshape(-1).float()))
         return losses
 
+    def _rois(self, boxes: torch.Tensor) -> torch.Tensor:
+        """(B, P, 4) boxes -> (B * P, 5) rois with their image index."""
+        b, p = boxes.shape[:2]
+        col = torch.arange(b, device=boxes.device, dtype=torch.float32) \
+            .repeat_interleave(p)
+        return torch.cat([col[:, None], boxes.reshape(-1, 4)], 1)
+
+    def bbox_test(self, feats, proposals, img_shapes):
+        """Per-proposal class scores (B, P, K+1) (softmax, fp32) and boxes
+        (B, P, 4K) decoded in the frame of ``img_shapes``, before NMS and
+        rescale: the per-augmentation half of test-time augmentation."""
+        b, p = proposals.shape[:2]
+        rois = self._rois(proposals)
+        cls_score, bbox_pred = self.bbox_head(self.bbox_roi_extractor(feats,
+                                                                      rois))
+        return self.bbox_head.decode(rois.view(b, p, 5),
+                                     cls_score.view(b, p, -1),
+                                     bbox_pred.view(b, p, -1), img_shapes)
+
+    def mask_test(self, feats, det_boxes, det_labels):
+        """Mask probabilities (B, M, 2s, 2s) of each box's own class, for
+        (B, M, 4) boxes in the frame of ``feats``."""
+        b, m = det_boxes.shape[:2]
+        mask_pred = self.mask_head(self.mask_roi_extractor(
+            feats, self._rois(det_boxes)))
+        probs = self.mask_head.get_mask_probs(mask_pred,
+                                              det_labels.reshape(-1))
+        return probs.view(b, m, *probs.shape[1:])
+
     def simple_test(self, feats, proposals, proposal_valid, img_shapes,
                     scale_factors, rescale: bool = True):
         """Returns dets (B, max, 5), labels (B, max), det_valid (B, max)
         and, with a mask head, mask_probs (B, max, 2s, 2s)."""
-        cfg = self.test_cfg
-        b, p = proposals.shape[:2]
-        dev = proposals.device
-        batch_col = torch.arange(b, device=dev, dtype=torch.float32) \
-            .repeat_interleave(p)
-        rois = torch.cat([batch_col[:, None], proposals.reshape(-1, 4)], 1)
-        cls_score, bbox_pred = self.bbox_head(
-            self.bbox_roi_extractor(feats, rois))
-        res = self.bbox_head.get_bboxes(
-            rois.view(b, p, 5), cls_score.view(b, p, -1),
-            bbox_pred.view(b, p, -1), img_shapes, scale_factors, rescale,
-            cfg, roi_valid=proposal_valid)
+        scores, boxes = self.bbox_test(feats, proposals, img_shapes)
+        res = self.bbox_head.nms(scores, boxes, scale_factors, rescale,
+                                 self.test_cfg, roi_valid=proposal_valid)
         out = dict(dets=res.dets, labels=res.labels, det_valid=res.valid)
         if self.with_mask:
-            max_out = res.dets.shape[1]
             det_boxes = res.dets[..., :4]
             if rescale:  # the mask RoIAlign runs at input scale
                 det_boxes = det_boxes * scale_factors[:, None, :4]
-            mask_col = torch.arange(b, device=dev, dtype=torch.float32) \
-                .repeat_interleave(max_out)
-            mask_rois = torch.cat([mask_col[:, None],
-                                   det_boxes.reshape(-1, 4)], 1)
-            mask_pred = self.mask_head(
-                self.mask_roi_extractor(feats, mask_rois))
-            probs = self.mask_head.get_mask_probs(mask_pred,
-                                                  res.labels.reshape(-1))
-            out['mask_probs'] = probs.view(b, max_out, *probs.shape[1:])
+            out['mask_probs'] = self.mask_test(feats, det_boxes, res.labels)
         return out

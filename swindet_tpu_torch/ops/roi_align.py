@@ -122,7 +122,11 @@ def _taps(rois, lvl, shapes, offsets, strides, total, out_size,
         w_y = torch.full((n, r), 1.0 / r, device=dev)
         w_x = w_y
     else:
-        r = SR0_GMAX
+        # the chunk's largest adaptive grid: the slots past it weigh 0 in
+        # every roi, so they are not sampled
+        g = torch.ceil(torch.maximum(y2 - y1, x2 - x1) / out_size) \
+            .clamp(1, SR0_GMAX)
+        r = int(torch.nan_to_num(g, nan=1.0).max()) if n else 1
         sub_y, w_y, _ = adaptive_grid(y2 - y1, out_size, r)
         sub_x, w_x, _ = adaptive_grid(x2 - x1, out_size, r)
 
@@ -219,12 +223,19 @@ def multilevel_roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor,
     rois = rois.float()
     lvl = map_roi_levels(rois, num_levels, finest_scale)
     chunk = _plain_chunk(out_size, sampling_ratio, c)
-    outs = [_align_chunk(feat_flat, rois[s:s + chunk], lvl[s:s + chunk],
-                         shapes, offsets, strides, total, out_size,
-                         sampling_ratio)
+    # rois in the order of their extent in cells, so that each chunk's
+    # adaptive grid (its largest roi's) is close to what its rois need
+    ext = torch.maximum(rois[:, 3] - rois[:, 1], rois[:, 4] - rois[:, 2]) \
+        / torch.tensor([float(s) for s in strides], device=rois.device)[lvl]
+    order = torch.argsort(ext, stable=True)
+    outs = [_align_chunk(feat_flat, rois[order[s:s + chunk]],
+                         lvl[order[s:s + chunk]], shapes, offsets, strides,
+                         total, out_size, sampling_ratio)
             for s in range(0, rois.shape[0], chunk)]
-    out = torch.cat(outs) if outs else feat_flat.new_zeros(
-        (0, out_size, out_size, c), dtype=torch.float32)
+    out = feat_flat.new_zeros((rois.shape[0], out_size, out_size, c),
+                              dtype=torch.float32)
+    if outs:
+        out[order] = torch.cat(outs)
     if roi_valid is not None:
         out = torch.where(roi_valid[:, None, None, None], out, 0.0)
     return out.to(feats[0].dtype)

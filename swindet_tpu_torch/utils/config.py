@@ -4,14 +4,17 @@ Re-implements the config surface the reference relies on (reference:
 mmcv Config used at tools/train.py:89, configs/**/*.py): python files whose
 top-level names become config keys, a ``_base_`` list of parent files
 deep-merged in order, ``_delete_=True`` replacing instead of merging, and
-``merge_from_dict`` for ``--cfg-options a.b.c=v`` CLI overrides.
+``merge_from_dict`` for ``--cfg-options a.b.c=v`` CLI overrides, parsed
+by :class:`DictAction` (``swindet_tpu/utils/config.py:269``).
 
 No mmcv dependency; pure stdlib.
 """
 from __future__ import annotations
 
+import argparse
 import ast
 import os.path as osp
+import pprint
 import types
 from typing import Any, Dict, Optional
 
@@ -135,6 +138,17 @@ class Config:
     def get(self, key: str, default: Any = None) -> Any:
         return self._cfg_dict.get(key, default)
 
+    @property
+    def pretty_text(self) -> str:
+        """The config as a python file: one ``key = value`` line per
+        top-level key, which ``fromfile`` reads back."""
+        return ''.join(f'{k} = {pprint.pformat(v)}\n'
+                       for k, v in _unwrap(self._cfg_dict).items())
+
+    def dump(self, filename: str) -> None:
+        with open(filename, 'w') as f:
+            f.write(self.pretty_text)
+
     # --------------------------------------------------------------- merging
     def merge_from_dict(self, options: Dict[str, Any]) -> None:
         """Merge ``{'a.b.c': v}``-style CLI options into the config
@@ -180,3 +194,33 @@ def _unwrap(obj: Any) -> Any:
     if isinstance(obj, (list, tuple)):
         return type(obj)(_unwrap(v) for v in obj)
     return obj
+
+
+class DictAction(argparse.Action):
+    """argparse action for ``KEY=VALUE`` pairs with dotted keys and
+    python-literal values (reference: mmcv DictAction used by
+    tools/train.py:55-64)."""
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        options = getattr(namespace, self.dest, None) or {}
+        for kv in values:
+            key, _, val = kv.partition('=')
+            options[key] = parse_value(val)
+        setattr(namespace, self.dest, options)
+
+
+def parse_value(val: str) -> Any:
+    """A CLI value string as a python literal (int, float, bool, None,
+    tuple, list or str)."""
+    try:
+        return ast.literal_eval(val)
+    except (ValueError, SyntaxError):
+        pass
+    low = val.lower()
+    if low in ('true', 'false'):
+        return low == 'true'
+    if low in ('none', 'null'):
+        return None
+    if ',' in val:
+        return tuple(parse_value(v) for v in val.split(','))
+    return val

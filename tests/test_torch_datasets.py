@@ -258,8 +258,14 @@ def test_coco_dataset_equals_jax(tmp_path, min_size_filter):
             else:
                 assert a[k] == b[k], k
         assert port.get_cat_ids(i) == jax_ds.get_cat_ids(i)
-    with pytest.raises(NotImplementedError, match='§1 item 6'):
-        port.evaluate([])
+    # evaluation is ported: the gts as detections score as in the JAX
+    # package
+    results = [[np.hstack([port.get_ann_info(i)['bboxes'],
+                           np.ones((len(port.get_ann_info(i)['bboxes']), 1),
+                                   np.float32)]),
+                np.zeros((0, 5), np.float32)] for i in range(len(port))]
+    assert port.evaluate(results, metric='bbox') == \
+        jax_ds.evaluate(results, metric='bbox')
 
 
 # -------------------------------------------------------------- pipeline

@@ -98,32 +98,34 @@ def test_inference_detector_numpy_image():
 
 
 def test_port_imports_without_jax_flax_cv2():
-    """The port and chip_smoke.py import with jax, flax, cv2, PIL and the
-    JAX package made unimportable, as on the machine with the card."""
+    """Every module of the port (its tools included) and chip_smoke.py
+    import with jax, flax, cv2, PIL, pycocotools and the JAX package made
+    unimportable, as on the machine with the card."""
     code = (
-        "import sys\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'cv2', 'PIL', 'swindet_tpu'):\n"
+        "import importlib, pkgutil, sys\n"
+        "banned = ('jax', 'jaxlib', 'flax', 'cv2', 'PIL', 'pycocotools',\n"
+        "          'swindet_tpu')\n"
+        "for m in banned:\n"
         "    sys.modules[m] = None\n"
-        "import swindet_tpu_torch, swindet_tpu_torch.models\n"
-        "import swindet_tpu_torch.ops, swindet_tpu_torch.checkpoint\n"
-        "import swindet_tpu_torch.engine\n"
-        "import swindet_tpu_torch.ops.window_attention_v4\n"
-        "import swindet_tpu_torch.ops.window_attention\n"
-        "import swindet_tpu_torch.ops.swin_attention\n"
-        "import swindet_tpu_torch.core.masks\n"
-        "import swindet_tpu_torch.datasets, swindet_tpu_torch.apis\n"
-        "import swindet_tpu_torch.datasets.api.coco_api\n"
-        "import swindet_tpu_torch.datasets.image_io\n"
-        "import swindet_tpu_torch.engine.runner\n"
-        "import swindet_tpu_torch.utils.logger\n"
+        "import swindet_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    swindet_tpu_torch.__path__, 'swindet_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "import chip_smoke\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'jaxlib', 'flax', 'cv2', 'PIL', 'swindet_tpu')\n"
+        "for name in ('swindet_tpu_torch.tools.test',\n"
+        "             'swindet_tpu_torch.tools.train',\n"
+        "             'swindet_tpu_torch.datasets.api.cocoeval',\n"
+        "             'swindet_tpu_torch.core.rle',\n"
+        "             'swindet_tpu_torch.apis.aug_test'):\n"
+        "    assert name in names, name\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in banned\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
-        "print('ok')\n")
+        "print('ok', len(names))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip().endswith('ok')
+    assert res.stdout.strip().split()[0] == 'ok'
+    assert int(res.stdout.split()[-1]) > 60
