@@ -30,6 +30,7 @@ before the last line:
               each kernel's bound from the bytes and operations of its
               inputs. LayerNorm runs at the seven shapes of a request's
               32 norms, each with its kernel's profiler device ms, and
+              at Swin-B's seven (the cascade's 56 norms), and
               its first kernel (a warp a row, for other widths and bases
               off 16 bytes) at the first of them, on a copy of x one
               element past a 16-byte boundary, which the profiler must
@@ -51,7 +52,8 @@ before the last line:
               bf16 (tensor cores) at every Swin stage's shape, the
               inference forward at a request's windows, the training
               forward and the backward at a training batch's, and in
-              fp32 (SIMT) at stages 1 and 4. NMS runs at its three
+              fp32 (SIMT) at stages 1 and 4, for Swin-T and again for
+              Swin-B (C 128-1,024, 4-32 heads). NMS runs at its three
               shapes with the device time of its mask and scan kernels
               apart (torch.profiler) and the number of 64-box blocks the
               scan visited. The v4 attention (rows 12 and 13) runs in
@@ -178,16 +180,42 @@ before the last line:
               masks equal off the pixels whose CPU probability lies
               within 1e-3 of the threshold, metrics within 1e-4; a bf16
               control must exceed the box limit.
+12. cascade -- Cascade Mask R-CNN Swin-B from its config
+              (configs/swin/cascade_mask_rcnn_swin_base_*_giou_4conv1f_*):
+              bf16 serving, a warm-up and 3 requests at 800x1333 through
+              init_detector and inference_detector, every kernel's
+              launches equal to what cascade_launches derives from the
+              built model (a request: LayerNorm 56, attention 24, conv3x3
+              21, RoIAlign 4, NMS 2; the bbox heads' normed convs run
+              F.conv2d); phase 5's fp32 card-vs-CPU check on it with all
+              three fc_cls spread and a bf16 control that must fail it;
+              1 + 5 make_train_step steps at batch 2 on 800x1344 (a step:
+              LayerNorm 56, attention forward-with-P and backward 24
+              each, conv3x3 42, its filter gradient 21, RoIAlign forward
+              and backward 6 each, NMS 1), the BN running statistics
+              moved by a step and left by a validation pass, 2 profiled
+              steps; phase 7's fp32 check with pinned proposals, its
+              sampler keys per stage, gradients of CASCADE_TRAIN_GRADS;
+              then train_detector for 2 iterations on 4 of phase 10's
+              PNGs with the config's own train pipeline, and tools.test
+              with the trained checkpoint on 2 of them, plain and with
+              test-time augmentation, --eval bbox segm, score_thr 0 (100
+              detections an image).
 
 Each phase's wall time is logged under [time].
 
 Then one JSON line of per-kernel results (``launches``: the serving
-and the training runs' counts of the three configurations and phase
-11's test and TTA runs, each from its own reset, summed; each also apart,
-phase 11's as ``eval_launches`` and ``tta_launches``; for the conv, fused-MLP and v1, v3,
+and the training runs' counts of the three configurations, phase 11's
+test and TTA runs and phase 12's cascade serving and training, each
+from its own reset, summed; each also apart, phase 11's as
+``eval_launches`` and ``tta_launches``, phase 12's as
+``cascade_serve_launches`` and ``cascade_train_launches``; for the conv,
+fused-MLP and v1, v3,
 v4 and full-map attention rows also ``tc_launches``, counted the same
 way; ``shapes``, the bf16 readings at every main-path shape, for those,
-LayerNorm, RoIAlign and its backward and NMS; ``device_ms`` for
+LayerNorm, RoIAlign and its backward and NMS; ``swin_b_shapes``, the
+readings at Swin-B's shapes, for LayerNorm and rows 2, 6 and 7;
+``device_ms`` for
 LayerNorm and the v1 and full-map attentions, for the v1 one
 ``copy_device_ms``, for the full-map one ``unfused_ms``,
 ``unfused_device_ms``, ``blockwise_ms`` and ``blockwise_device_ms``, and
@@ -372,6 +400,12 @@ ATTN_STAGES = ((1392, 96, 3, (203, 336)), (360, 192, 6, (105, 168)),
 # norm, stage 4's (5)
 LN_SHAPES = ((67200, 96), (16800, 384), (16800, 192), (4200, 768),
              (4200, 384), (1050, 1536), (1050, 768))
+# the same for Swin-B (C 128, heads 4-32), the cascade's backbone: its
+# stages' windows, C and heads, and its 56 norms' seven (rows, C)
+SWINB_ATTN_STAGES = ((1392, 128, 4, (203, 336)), (360, 256, 8, (105, 168)),
+                     (96, 512, 16, (56, 84)), (24, 1024, 32, (28, 42)))
+SWINB_LN_SHAPES = ((67200, 128), (16800, 512), (16800, 256), (4200, 1024),
+                   (4200, 512), (1050, 2048), (1050, 1024))
 # H100 SXM data-sheet rates (dense bf16 tensor cores, fp32 outside the
 # tensor cores, HBM3)
 PEAK_FLOPS = 989e12
@@ -410,7 +444,12 @@ def cuda_ms(fn, warmup: int = 2, iters: int = 10) -> float:
 
 
 # ------------------------------------------------------------- phase 1
+# the card's name and power limit as nvidia-smi gives them (phase_device)
+CARD = 'not read'
+
+
 def phase_device() -> str:
+    global CARD
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: no CUDA device; the port is measured '
                          'on a GPU only')
@@ -418,6 +457,7 @@ def phase_device() -> str:
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+    CARD = smi
     print(smi, flush=True)
     nvcc = subprocess.run([build.nvcc_path(), '--version'],
                           capture_output=True, text=True, timeout=60,
@@ -765,15 +805,21 @@ def _nms_blocks(args, out, max_out):
 def _kernel_device_ms(fn, keys, iters=10):
     """Device ms per call of fn() by kernel, from torch.profiler over
     ``iters`` calls: {key: the summed time of the kernels whose name holds
-    keys[key]}."""
+    keys[key]}. A session that records no device event at all (the
+    profiler has dropped a whole session on the card) is taken again, up
+    to twice."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_time_total > 0]
+        if events:
+            break
+        log('kernels', '  the profiler recorded no device event; again')
     return {key: sum(e.device_time_total for e in events if name in e.key)
             / 1e3 / iters for key, name in keys.items()}
 
@@ -1088,9 +1134,10 @@ def phase_kernels():
         el = torch.finfo(dtype).bits // 8
         # LayerNorm at the seven shapes of a request's 32 norms (the row's
         # main shape first: the patch embedding's and stage 1's), each with
-        # its kernel's device ms beside the wrapper's event ms
+        # its kernel's device ms beside the wrapper's event ms, then at
+        # Swin-B's seven (the cascade's 56 norms)
         rows1 = []
-        for n, c in LN_SHAPES:
+        for n, c in LN_SHAPES + SWINB_LN_SHAPES:
             x = (randn(n, c) * 2 + 0.5).to(dtype)
             w, b = randn(c), randn(c)
             wd, bd = w.to(dtype), b.to(dtype)
@@ -1100,9 +1147,10 @@ def phase_kernels():
                          work=(2 * _nbytes(x) + _nbytes(w, b),
                                8.0 * x.numel()),
                          library_fn=lambda: F.layer_norm(x, (c,), wd, bd))
-            r['device_ms'] = _kernel_device_ms(
-                lambda: layer_norm(x, w, b), {'k': 'swindet'})['k']
-            log('kernels', f'  device ms {r["device_ms"]:.4f}')
+            if (n, c) in LN_SHAPES:
+                r['device_ms'] = _kernel_device_ms(
+                    lambda: layer_norm(x, w, b), {'k': 'swindet'})['k']
+                log('kernels', f'  device ms {r["device_ms"]:.4f}')
             rows1.append(r)
         # the first kernel (a warp a row), which takes the widths that are
         # no multiple of the vector and bases off 16 bytes: the main
@@ -1125,18 +1173,22 @@ def phase_kernels():
         first['device_ms'] = dms['first']
         log('kernels', f'  device ms {first["device_ms"]:.4f} (the first '
                        'kernel)')
+        k = len(LN_SHAPES)
         results.setdefault('layer_norm', {})[dtype] = dict(
-            rows1[0], shapes=rows1, first_kernel=first)
+            rows1[0], shapes=rows1[:k], swin_b_shapes=rows1[k:],
+            first_kernel=first)
         del x, off
 
         # window attention at the shifted blocks of stages 1-4 of an
         # 800x1344 canvas: the forward (row 2) at a request's windows, the
         # training forward (row 6) and the backward (row 7) at a training
         # batch's (twice as many); in bf16 (the tensor-core kernels) at
-        # every stage, in fp32 (the SIMT kernels) at stages 1 and 4
+        # every stage, in fp32 (the SIMT kernels) at stages 1 and 4; for
+        # Swin-T, then for Swin-B
         rows2, rows6, rows7 = [], [], []
-        for b_, c, nh, hw in (ATTN_STAGES if dtype == torch.bfloat16
-                              else ATTN_STAGES[::3]):
+        stages = (ATTN_STAGES, SWINB_ATTN_STAGES) if dtype == torch.bfloat16 \
+            else (ATTN_STAGES[::3], SWINB_ATTN_STAGES[::3])
+        for b_, c, nh, hw in stages[0] + stages[1]:
             mask = torch.from_numpy(
                 shifted_window_attn_mask(*hw, 7, 3)).to(dev)
             bias = randn(nh, 49, 49, scale=0.5)
@@ -1180,12 +1232,12 @@ def phase_kernels():
             rows7.append(r)
             del qkv2, p, g
             torch.cuda.empty_cache()
-        results.setdefault('window_attention_v3', {})[dtype] = dict(
-            rows2[0], shapes=rows2)
-        results.setdefault('window_attention_fwd_p', {})[dtype] = dict(
-            rows6[0], shapes=rows6)
-        results.setdefault('window_attention_bwd', {})[dtype] = dict(
-            rows7[0], shapes=rows7)
+        k = len(stages[0])
+        for name, rows in (('window_attention_v3', rows2),
+                           ('window_attention_fwd_p', rows6),
+                           ('window_attention_bwd', rows7)):
+            results.setdefault(name, {})[dtype] = dict(
+                rows[0], shapes=rows[:k], swin_b_shapes=rows[k:])
 
         # 3x3 conv: the FPN output convs at P2 (the row's main shape) and,
         # in bf16 (the tensor-core kernel), P3-P5; in bf16 the RPN conv
@@ -1571,36 +1623,63 @@ def phase_main(phase='main', fused=False, v4=False):
 
 
 # ------------------------------------------------------------- phase 5
+def _spread_heads(model):
+    """Scale rpn_cls and every bbox head's fc_cls to std 1, so no top-k or
+    NMS boundary sits within fp32 noise (the cascade has three)."""
+    heads = model.roi_head.bbox_head
+    with torch.no_grad():
+        model.rpn_head.rpn_cls.weight.mul_(100.0)
+        for head in heads if isinstance(heads, torch.nn.ModuleList) \
+                else (heads,):
+            head.fc_cls.weight.mul_(100.0)
+
+
+def _serve_errors(cpu_out, out):
+    """FPN features' relative max |d|, and None where the detections or
+    labels differ, else (box, mask max |d|, detections)."""
+    (f_cpu, o_cpu), (f_gpu, o_gpu) = cpu_out, out
+    feat_err = max((a - b).abs().max().item() / max(a.abs().max().item(), 1)
+                   for a, b in zip(f_cpu, f_gpu))
+    if not torch.equal(o_cpu['det_valid'], o_gpu['det_valid']) \
+            or not torch.equal(o_cpu['labels'], o_gpu['labels']):
+        return feat_err, None
+    return feat_err, ((o_cpu['dets'] - o_gpu['dets']).abs().max().item(),
+                      (o_cpu['mask_probs'] - o_gpu['mask_probs']).abs()
+                      .max().item(), int(o_cpu['det_valid'].sum()))
+
+
+def _serve_outputs(model, dev, img, shapes, sf):
+    args = [torch.from_numpy(a).to(dev) for a in (img, shapes, sf)]
+    with torch.inference_mode():
+        feats = model.extract_feat(args[0])
+        out = model.simple_test(*args)
+    return ([f.cpu().float() for f in feats],
+            {k: v.cpu() for k, v in out.items()})
+
+
 def phase_check(device: str = 'cuda', phase: str = 'check',
-                fused: bool = False, v4: bool = False):
-    """fp32 Swin-T Mask R-CNN on a 224x320 canvas, on the card (kernels)
-    and on the CPU (plain versions), same seeded weights; rpn_cls and
-    fc_cls are scaled to std 1 so no top-k or NMS boundary sits within
-    fp32 noise."""
+                fused: bool = False, v4: bool = False, config=CONFIG,
+                control: bool = False):
+    """fp32 Mask R-CNN (``config``) on a 224x320 canvas, on the card
+    (kernels) and on the CPU (plain versions), same seeded weights; rpn_cls
+    and fc_cls are scaled to std 1 so no top-k or NMS boundary sits within
+    fp32 noise. With ``control``, the same detector in bf16 on the card,
+    held to the same CPU run, must exceed the limits."""
     opts = {'bf16': False, 'model.test_cfg.rpn.nms_pre': 1000,
             'model.test_cfg.rpn.max_per_img': 1000}
-    cpu = init_detector(CONFIG, device='cpu', cfg_options=opts, seed=1)
-    with torch.no_grad():
-        cpu.rpn_head.rpn_cls.weight.mul_(100.0)
-        cpu.roi_head.bbox_head.fc_cls.weight.mul_(100.0)
-    gpu = init_detector(CONFIG, device='cpu', cfg_options=opts, seed=1)
+    cpu = init_detector(config, device='cpu', cfg_options=opts, seed=1)
+    _spread_heads(cpu)
+    gpu = build_detector(dict(cpu.cfg.model, dtype='float32'))
     gpu.load_state_dict(cpu.state_dict())
-    gpu = gpu.to(device)
+    gpu = gpu.to(device).eval()
     rs = np.random.RandomState(1)
     img = rs.randn(1, 224, 320, 3).astype(np.float32)
     shapes = np.array([[224, 320]], np.int32)
     sf = np.ones((1, 4), np.float32)
     _check_blocks(gpu, fused, v4)
-    outs = []
     reset_launch_counts()
-    for model, dev in ((cpu, 'cpu'), (gpu, device)):
-        args = [torch.from_numpy(a).to(dev) for a in (img, shapes, sf)]
-        with torch.inference_mode():
-            feats = model.extract_feat(args[0])
-            out = model.simple_test(*args)
-        outs.append(([f.cpu() for f in feats],
-                     {k: v.cpu() for k, v in out.items()}))
-    (f_cpu, o_cpu), (f_gpu, o_gpu) = outs
+    want = _serve_outputs(cpu, 'cpu', img, shapes, sf)
+    got = _serve_outputs(gpu, device, img, shapes, sf)
     if device == 'cuda' and (
             bool(fused_mlp.launches) != fused
             or bool(window_attention_v4.launches) != v4
@@ -1610,23 +1689,31 @@ def phase_check(device: str = 'cuda', phase: str = 'check',
     if device == 'cuda':
         _check_tc(phase, launch_counts(), False,
                   _tc_kernels(fused, False, v4))
-    feat_err = max((a - b).abs().max().item() / max(a.abs().max().item(), 1)
-                   for a, b in zip(f_cpu, f_gpu))
-    if feat_err > 1e-3:
-        raise AssertionError(f'FPN features: card vs CPU relative max|d| '
-                             f'{feat_err:.3g} > 1e-3')
-    if not torch.equal(o_cpu['det_valid'], o_gpu['det_valid']) \
-            or not torch.equal(o_cpu['labels'], o_gpu['labels']):
+    feat_err, errs = _serve_errors(want, got)
+    if errs is None:
         raise AssertionError('detections differ between card and CPU')
-    box_err = (o_cpu['dets'] - o_gpu['dets']).abs().max().item()
-    mask_err = (o_cpu['mask_probs'] - o_gpu['mask_probs']).abs().max().item()
-    n = int(o_cpu['det_valid'].sum())
-    if n == 0 or box_err > 1e-2 or mask_err > 1e-3:
-        raise AssertionError(f'{n} dets, box max|d| {box_err:.3g} (1e-2), '
-                             f'mask max|d| {mask_err:.3g} (1e-3)')
+    box_err, mask_err, n = errs
+    if feat_err > 1e-3 or n == 0 or box_err > 1e-2 or mask_err > 1e-3:
+        raise AssertionError(f'FPN features rel max|d| {feat_err:.3g} '
+                             f'(1e-3), {n} dets, box max|d| {box_err:.3g} '
+                             f'(1e-2), mask max|d| {mask_err:.3g} (1e-3)')
     log(phase, f'224x320 fp32 card vs CPU: features rel max|d| '
                  f'{feat_err:.3g}, {n} dets equal, box max|d| '
                  f'{box_err:.3g} px, mask max|d| {mask_err:.3g}')
+    if not control:
+        return
+    ctl = build_detector(dict(cpu.cfg.model, dtype='bfloat16'))
+    ctl.load_state_dict(cpu.state_dict())
+    feat_err, errs = _serve_errors(want, _serve_outputs(
+        ctl.to(device).eval(), device, img, shapes, sf))
+    log(phase, f'bf16 control vs the fp32 CPU run: features rel max|d| '
+               f'{feat_err:.3g}, detections '
+               + ('differ' if errs is None else
+                  f'equal, box max|d| {errs[0]:.3g}, mask max|d| '
+                  f'{errs[1]:.3g}'))
+    if errs is not None and feat_err <= 1e-3 and errs[0] <= 1e-2 \
+            and errs[1] <= 1e-3:
+        raise AssertionError('the bf16 control passes the fp32 limits')
 
 
 # ------------------------------------------------------------- phase 6
@@ -1854,8 +1941,17 @@ def train_check_batch(b=2, h=224, w=320, g=4, seed=2):
                 gt_labels=rs.randint(0, 80, (b, g)), gt_masks=masks)
 
 
+# the groups of loss terms whose gradients the check holds apart, by the
+# terms' names (a cascade's are 's0.loss_cls' and so on)
 LOSS_PARTS = {'rpn': ('loss_rpn_cls', 'loss_rpn_bbox'),
               'bbox': ('loss_cls', 'loss_bbox'), 'mask': ('loss_mask',)}
+
+
+def _part_terms(losses, part):
+    """The loss terms of ``losses`` in a group of LOSS_PARTS: a term whose
+    name ends with one of the group's names."""
+    return [k for k in losses
+            if any(k.split('.')[-1] == t for t in LOSS_PARTS[part])]
 # Limits of the fp32 card-vs-CPU training check, each between the sound
 # run's reading and a bf16 control run's (H100, 224x320): the losses read
 # at most 2.0e-7 relative (fp32 sums in another order; the forward kernels
@@ -1884,30 +1980,38 @@ TOL_PROPOSAL_PX = 1e-3
 MIN_PROPOSAL_SHARE = 0.99
 
 
+def _heads(part):
+    """A RoI head's bbox or mask heads as a list (a cascade has one a
+    stage)."""
+    return list(part) if isinstance(part, torch.nn.ModuleList) else [part]
+
+
 def _record(model):
     """Keep, to count where two runs of forward_train differ, the bbox
-    labels and mask targets that the RoI head computes and which units
-    each ReLU of the heads lets through: the RPN conv's, the bbox head's
-    shared fcs' and the mask head's four convs'. Returns what it keeps and
-    a function that undoes the recording."""
+    labels and mask targets that the RoI heads compute and which units
+    each ReLU of the heads lets through: the RPN conv's, the bbox heads'
+    shared convs' and fcs' and the mask heads' convs'. Returns what it
+    keeps and a function that undoes the recording."""
     seen = {k: [] for k in ('labels', 'mask_targets', 'relu_rpn',
                             'relu_bbox', 'relu_mask')}
-    for key, head in (('labels', model.roi_head.bbox_head),
-                      ('mask_targets', model.roi_head.mask_head)):
-        def record(*args, _fn=head.get_targets, _key=key, **kw):
-            out = _fn(*args, **kw)
-            seen[_key].append((out[0] if isinstance(out, tuple) else out)
-                              .detach().cpu())
-            return out
-        head.get_targets = record
+    bbox_heads = _heads(model.roi_head.bbox_head)
+    mask_heads = _heads(model.roi_head.mask_head)
+    for key, heads in (('labels', bbox_heads), ('mask_targets', mask_heads)):
+        for head in heads:
+            def record(*args, _fn=head.get_targets, _key=key, **kw):
+                out = _fn(*args, **kw)
+                seen[_key].append((out[0] if isinstance(out, tuple)
+                                   else out).detach().cpu())
+                return out
+            head.get_targets = record
 
     def keep(key):
         return lambda mod, args, out: seen[key].append(
             (out > 0).flatten().cpu())
-    hooks = [m.register_forward_hook(keep('relu_bbox'))
-             for m in model.roi_head.bbox_head.shared_fcs]
-    hooks += [m.register_forward_hook(keep('relu_mask'))
-              for m in model.roi_head.mask_head.convs]
+    hooks = [m.register_forward_hook(keep('relu_bbox')) for h in bbox_heads
+             for m in list(h.shared_convs) + list(h.shared_fcs)]
+    hooks += [m.register_forward_hook(keep('relu_mask')) for h in mask_heads
+              for m in h.convs]
     conv_nhwc = rpn_head_module.conv_nhwc
 
     def rpn_conv(x, conv, relu, *args):
@@ -1921,36 +2025,43 @@ def _record(model):
         for h in hooks:
             h.remove()
         rpn_head_module.conv_nhwc = conv_nhwc
-        for head in (model.roi_head.bbox_head, model.roi_head.mask_head):
+        for head in bbox_heads + mask_heads:
             del head.get_targets
     return seen, undo
 
 
-def _train_grads(model, batch, keys, dev):
-    """forward_train on ``dev``: its losses, the gradients of TRAIN_GRADS
+def _to(keys, dev):
+    """Sampler keys (nested lists of numpy pairs) as tensors on ``dev``."""
+    if isinstance(keys, np.ndarray):
+        return torch.from_numpy(keys).to(dev)
+    if isinstance(keys, dict):
+        return {k: _to(v, dev) for k, v in keys.items()}
+    return type(keys)(_to(v, dev) for v in keys)
+
+
+def _train_grads(model, batch, keys, dev, names=TRAIN_GRADS):
+    """forward_train on ``dev``: its losses, the gradients of ``names``
     from each group of LOSS_PARTS on its own (zeros where a group does not
     reach a parameter), and what :func:`_record` keeps."""
     seen, undo = _record(model)
     model.train()
     tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-    tk = {name: [tuple(torch.from_numpy(k).to(dev) for k in pair)
-                 for pair in per_image] for name, per_image in keys.items()}
     try:
         losses = model.forward_train(
             tb['img'], tb['img_shapes'], tb['pad_shapes'], tb['gt_bboxes'],
             tb['gt_valid'], tb['gt_labels'], tb['gt_masks'],
-            sampler_keys=tk)
+            sampler_keys=_to(keys, dev))
     finally:
         undo()
     params = dict(model.named_parameters())
-    ps = [params[n] for n in TRAIN_GRADS]
+    ps = [params[n] for n in names]
     grads = {}
-    for i, (part, names) in enumerate(LOSS_PARTS.items()):
-        gs = torch.autograd.grad(sum(losses[k] for k in names), ps,
-                                 retain_graph=i + 1 < len(LOSS_PARTS),
-                                 allow_unused=True)
+    for i, part in enumerate(LOSS_PARTS):
+        gs = torch.autograd.grad(sum(losses[k] for k in _part_terms(
+            losses, part)), ps, retain_graph=i + 1 < len(LOSS_PARTS),
+            allow_unused=True)
         grads[part] = {n: (torch.zeros_like(p) if g is None else g)
-                       .detach().cpu() for n, p, g in zip(TRAIN_GRADS, ps, gs)}
+                       .detach().cpu() for n, p, g in zip(names, ps, gs)}
     return ({k: float(v.detach()) for k, v in losses.items()}, grads,
             {k: torch.cat(v) for k, v in seen.items()})
 
@@ -1962,10 +2073,9 @@ def _train_errors(want, got):
     differ."""
     (l_w, g_w, t_w), (l_g, g_g, t_g) = want, got
     loss = {k: abs(l_g[k] - v) / max(abs(v), 1e-30) for k, v in l_w.items()}
-    grad = {part: {n: None if not g_w[part][n].abs().max() else
-                   ((g_g[part][n] - g_w[part][n]).abs().max()
-                    / g_w[part][n].abs().max()).item()
-                   for n in TRAIN_GRADS} for part in LOSS_PARTS}
+    grad = {part: {n: None if not g.abs().max() else
+                   ((g_g[part][n] - g).abs().max() / g.abs().max()).item()
+                   for n, g in g_w[part].items()} for part in LOSS_PARTS}
     flips = {k: int((t_g[k] != t_w[k]).sum()) for k in t_w}
     return loss, grad, flips
 
@@ -1974,18 +2084,22 @@ def _log_errors(what, loss, grad, flips):
     log('train-check', f'{what}: relative loss |d| '
         + ', '.join(f'{k} {v:.3g}' for k, v in loss.items())
         + f'; targets and ReLU units that differ {flips}')
-    for n in TRAIN_GRADS:
+    for n in grad['rpn']:
         log('train-check', f'  grad |d| / max {n}: ' + ', '.join(
             f'{part} ' + ('-' if grad[part][n] is None
                           else f'{grad[part][n]:.3g}') for part in LOSS_PARTS))
 
 
-def _check_train(loss, grad, what):
-    """The names of the readings over their limits (TOL_TRAIN_*)."""
-    over = [k for k, v in loss.items() if not v <= TOL_TRAIN_LOSS]
+def _check_train(loss, grad, what, limits=None):
+    """The names of the readings over their limits: TOL_TRAIN_*, or
+    ``limits`` = (loss limits by term, where they differ; gradient limits
+    by part)."""
+    tol_loss, tol_grad = limits or ({}, TOL_TRAIN_GRAD)
+    over = [k for k, v in loss.items()
+            if not v <= tol_loss.get(k, TOL_TRAIN_LOSS)]
     for part, errs in grad.items():
         over += [f'grad {n} of the {part} losses' for n, v in errs.items()
-                 if v is not None and not v <= TOL_TRAIN_GRAD[part]]
+                 if v is not None and not v <= tol_grad[part]]
     log('train-check', f'{what}: {len(over)} readings over their limits')
     return over
 
@@ -2064,14 +2178,17 @@ def _matched_share(want, got):
 
 def phase_train_check(device: str = 'cuda', fused: bool = False,
                       v4: bool = False, batch=None,
-                      pin_proposals: bool = False):
-    """forward_train of the full-width detector in fp32 on a 224x320
-    canvas (or on ``batch``), on the card (kernels) and on the CPU (plain
-    versions): same
+                      pin_proposals: bool = False, config=CONFIG,
+                      names=TRAIN_GRADS, limits=None):
+    """forward_train of the full-width detector (``config``) in fp32 on a
+    224x320 canvas (or on ``batch``), on the card (kernels) and on the CPU
+    (plain versions): same
     seeded weights with rpn_cls and fc_cls scaled to std 1 (no top-k, NMS
-    or IoU boundary within fp32 noise), same batch, same sampler keys,
-    no stochastic depth. The losses and the listed gradients of each
-    group of loss terms must agree within TOL_TRAIN_*. A control run of
+    or IoU boundary within fp32 noise), same batch, same sampler keys
+    (a cascade's per stage), no stochastic depth. The losses and the
+    gradients of ``names`` of each group of loss terms must agree within
+    TOL_TRAIN_* (or ``limits``, as _check_train takes them). A control
+    run of
     the same detector in bf16 on the card, held to the same CPU run, must
     exceed the loss limit and each group's gradient limit: the check
     tells a card run that lost precision from a sound one.
@@ -2086,37 +2203,49 @@ def phase_train_check(device: str = 'cuda', fused: bool = False,
     them against the plain step (check_proposal_chain), and the card's
     own proposals against the CPU run's as sets (MIN_PROPOSAL_SHARE)."""
     opts = {'bf16': False, 'model.backbone.drop_path_rate': 0.0}
-    cpu = init_detector(CONFIG, device='cpu', cfg_options=opts, seed=1)
-    with torch.no_grad():
-        cpu.rpn_head.rpn_cls.weight.mul_(100.0)
-        cpu.roi_head.bbox_head.fc_cls.weight.mul_(100.0)
-    gpu = init_detector(CONFIG, device='cpu', cfg_options=opts, seed=1)
+    start = time.perf_counter()
+    cpu = init_detector(config, device='cpu', cfg_options=opts, seed=1)
+    _spread_heads(cpu)
+    gpu = build_detector(dict(cpu.cfg.model, dtype='float32'))
     gpu.load_state_dict(cpu.state_dict())
     gpu = gpu.to(device)
-    ctl = init_detector(CONFIG, device='cpu', seed=1, cfg_options={
-        'model.backbone.drop_path_rate': 0.0})
+    ctl = build_detector(dict(cpu.cfg.model, dtype='bfloat16'))
     ctl.load_state_dict(cpu.state_dict())
     ctl = ctl.to(device)
     _check_blocks(gpu, fused, v4)
     _check_blocks(ctl, fused, v4)
     batch = train_check_batch() if batch is None else batch
-    h, w = batch['img'].shape[1:3]
+    b, h, w = batch['img'].shape[:3]
+    g = batch['gt_bboxes'].shape[1]
     n_rpn = 3 * sum(-(-h // s) * -(-w // s) for s in (4, 8, 16, 32, 64))
-    n_rcnn = batch['gt_bboxes'].shape[1] + \
-        cpu.cfg.model.train_cfg.rpn_proposal.max_per_img
+    rcnn = cpu.cfg.model.train_cfg.rcnn
+    n_props = cpu.cfg.model.train_cfg.rpn_proposal.max_per_img
     rs = np.random.RandomState(7)
-    keys = {name: [tuple(rs.rand(n).astype(np.float32) for _ in range(2))
-                   for _ in range(batch['img'].shape[0])]
-            for name, n in (('rpn', n_rpn), ('rcnn', n_rcnn))}
+
+    def draw(n):
+        return [tuple(rs.rand(n).astype(np.float32) for _ in range(2))
+                for _ in range(b)]
+    keys = dict(rpn=draw(n_rpn))
+    if isinstance(rcnn, (list, tuple)):
+        # a cascade's stages: G + P candidates, then G + num
+        keys['rcnn'] = [draw(g + (n_props if i == 0 else
+                                  rcnn[i - 1]['sampler']['num']))
+                        for i in range(len(rcnn))]
+    else:
+        keys['rcnn'] = draw(g + n_props)
 
     def pin(model, reference=None):
         return rpn_outputs(model, reference) if pin_proposals \
             else contextlib.nullcontext()
+    t0 = time.perf_counter()
     with pin(cpu) as seen:
-        ref = _train_grads(cpu, batch, keys, 'cpu')
+        ref = _train_grads(cpu, batch, keys, 'cpu', names)
+    log('train-check', f'models built in {t0 - start:.1f} s; the CPU run '
+                       f'{time.perf_counter() - t0:.1f} s')
     reset_launch_counts()
     with pin(gpu, seen) as own:
-        sound = _train_errors(ref, _train_grads(gpu, batch, keys, device))
+        sound = _train_errors(ref, _train_grads(gpu, batch, keys, device,
+                                                names))
     if device == 'cuda' and bool(window_attention_v4_bwd.launches) != v4:
         raise AssertionError(f'launches against the configuration: '
                              f'{launch_counts()}')
@@ -2125,15 +2254,16 @@ def phase_train_check(device: str = 'cuda', fused: bool = False,
                   _tc_kernels(fused, v4=v4))
     _log_errors(f'{h}x{w} fp32 card vs CPU', *sound)
     with pin(ctl, seen) as ctl_own:
-        control = _train_errors(ref, _train_grads(ctl, batch, keys, device))
+        control = _train_errors(ref, _train_grads(ctl, batch, keys, device,
+                                                  names))
     _log_errors(f'{h}x{w} control, bf16 card vs fp32 CPU', *control)
-    for name in TRAIN_GRADS:
+    for name in names:
         if all(sound[1][part][name] is None for part in LOSS_PARTS):
             raise AssertionError(f'grad {name}: zero on the CPU')
-    over = _check_train(*sound[:2], 'fp32 card vs CPU')
+    over = _check_train(*sound[:2], 'fp32 card vs CPU', limits)
     if over:
         raise AssertionError(f'card vs CPU over the limits: {over}')
-    over = _check_train(*control[:2], 'control')
+    over = _check_train(*control[:2], 'control', limits)
     missed = [part for part in LOSS_PARTS
               if not any(f'of the {part} losses' in o for o in over)]
     if missed or not any(k in over for k in control[0] if 'loss' in k):
@@ -2307,10 +2437,11 @@ PORTRAIT_PIPELINE = [
 
 
 def loop_config(ann_file, img_prefix, work_dir, max_epochs=1,
-                seed=LOOP_SEED):
-    """The flagship config with data.train pointed at a synthetic dataset:
-    2 images a batch, 2 loader threads, a log line every iteration."""
-    cfg = Config.fromfile(CONFIG)
+                seed=LOOP_SEED, config=CONFIG):
+    """The flagship config (or ``config``) with data.train pointed at a
+    synthetic dataset: 2 images a batch, 2 loader threads, a log line
+    every iteration."""
+    cfg = Config.fromfile(config)
     cfg.data.train.ann_file = ann_file
     cfg.data.train.img_prefix = img_prefix
     cfg.data.samples_per_gpu = 2
@@ -2545,10 +2676,11 @@ HALF_ANNS = [dict(id=2 * (i - 1) + j + 1, image_id=i, category_id=1,
              for i in (1, 2, 3) for j in (0, 1)]
 
 
-def eval_config(ann_file, prefix, scales=None, flip=False):
-    """The flagship config with data.test pointed at a synthetic dataset;
-    with ``scales``, its MultiScaleFlipAug takes them and ``flip``."""
-    cfg = Config.fromfile(CONFIG)
+def eval_config(ann_file, prefix, scales=None, flip=False, config=CONFIG):
+    """The flagship config (or ``config``) with data.test pointed at a
+    synthetic dataset; with ``scales``, its MultiScaleFlipAug takes them
+    and ``flip``."""
+    cfg = Config.fromfile(config)
     for part in (cfg.data.test, cfg.data.val):
         part.ann_file = ann_file
         part.img_prefix = prefix
@@ -2869,12 +3001,298 @@ def phase_eval(phase='eval'):
     return launches, tta_launches
 
 
+# ------------------------------------------------------------- phase 12
+CASCADE_CONFIG = os.path.join(
+    REPO, 'configs/swin/cascade_mask_rcnn_swin_base_patch4_window7_'
+    'mstrain_480-800_giou_4conv1f_adamw_3x_coco.py')
+# the gradients the cascade's fp32 training check holds: the backbone, the
+# FPN and the RPN as phase 7's, and every stage's heads, a normed shared
+# conv and its BN of the last stage's among them
+CASCADE_TRAIN_GRADS = TRAIN_GRADS[:5] + (
+    'roi_head.bbox_head.0.fc_cls.weight',
+    'roi_head.bbox_head.1.shared_fcs.0.weight',
+    'roi_head.bbox_head.2.shared_convs.0.conv.weight',
+    'roi_head.bbox_head.2.shared_convs.0.bn.weight',
+    'roi_head.bbox_head.2.fc_reg.weight',
+    'roi_head.mask_head.1.convs.0.conv.weight')
+# Limits of the cascade's fp32 card-vs-CPU training check, where they
+# differ from phase 7's (NVIDIA H100 80GB HBM3, 700.00 W; 224x320, pinned
+# proposals, the first card runs of this check): the box losses are GIoU on decoded boxes, 1 - GIoU of
+# rois already near their gts (stage 2's loss_bbox 7e-4), where fp32
+# cancellation and the boxes' fp32 noise read 2.4e-5 relative (the bf16
+# control 5.6e-3); and the bbox group's gradients pass back through four
+# BN layers a head, whose backward amplifies the roi features' fp32
+# noise (a normed shared conv's weight read 5.6e-3, the patch
+# embedding's 3.6e-3; the control 0.09-0.67 at the same parameters; on
+# the CPU a random perturbation of 2e-5 of the features' largest entry
+# moves them by 1e-2 in float64, tests/test_torch_cascade.py).
+CASCADE_TRAIN_LIMITS = ({f's{i}.loss_bbox': 1e-4 for i in range(3)},
+                        dict(TOL_TRAIN_GRAD, bbox=2e-2))
+# the cascade's loop: 2 landscape and 2 portrait PNGs of phase 10's sizes,
+# 2 iterations of 2 images; its test run takes the first 2
+CASCADE_LOOP_SIZES = LOOP_SIZES[:2] + LOOP_SIZES[4:6]
+
+
+def cascade_launches(model, training):
+    """Each kernel's launches that one request (serving) or one step
+    (training, the whole batch at once) of the cascade makes, derived from
+    the built model: a LayerNorm launch per Swin norm (the patch
+    embedding's, two a block, the merges' and the outputs'), an attention
+    launch per block (its training forward and backward in training), a
+    conv3x3 launch per FPN output conv, per RPN level (the shared RPN conv)
+    and per mask-head conv of every stage, in training a second one each
+    for dx and a filter-gradient launch each (the bbox heads' normed convs
+    run F.conv2d, as the JAX package sends only bias-and-no-norm convs to
+    its kernel); a RoIAlign launch per stage's bbox head and one for the
+    mask heads when serving (one RoIAlign the three share), one per stage
+    for the bbox and the mask head in training, each with its backward;
+    NMS twice a request (RPN, multiclass), once a step (RPN)."""
+    from swindet_tpu_torch.models.backbones.swin import LayerNorm
+    roi = model.roi_head
+    norms = sum(isinstance(m, LayerNorm) for m in model.modules())
+    blocks = sum(isinstance(m, WindowAttention) for m in model.modules())
+    convs = sum(c.use_kernel for c in model.neck.fpn_convs) \
+        + model.neck.num_outs * model.rpn_head.conv_uses_kernel \
+        + sum(c.use_kernel for h in roi.mask_head for c in h.convs)
+    want = {fn.__name__: 0 for fn in KERNEL_WRAPPERS}
+    want['layer_norm'] = norms
+    if training:
+        want.update(window_attention_fwd_p=blocks,
+                    window_attention_bwd=blocks, conv3x3=2 * convs,
+                    conv3x3_dw=convs, roi_align=2 * roi.num_stages,
+                    roi_align_bwd=2 * roi.num_stages, nms_sorted=1)
+    else:
+        want.update(window_attention_v3=blocks, conv3x3=convs,
+                    roi_align=roi.num_stages + 1, nms_sorted=2)
+    return want
+
+
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def _check_launches(phase, got, per, times):
+    want = {k: v * times for k, v in per.items()}
+    if got != want:
+        raise AssertionError(f'{phase}: launches {_nonzero(got)}, expected '
+                             f'{_nonzero(want)}')
+
+
+def cascade_serve(phase='cascade'):
+    """Cascade Mask R-CNN Swin-B from its config, bf16, through
+    init_detector and inference_detector: a warm-up, then 3 requests at
+    800x1333 with every launch count checked."""
+    t0 = time.perf_counter()
+    model = init_detector(CASCADE_CONFIG, device='cuda', seed=0)
+    _check_blocks(model, False, False)
+    per = cascade_launches(model, training=False)
+    log(phase, f'init_detector: {type(model).__name__} '
+               f'{sum(p.numel() for p in model.parameters())} params, '
+               f'compute {model.dtype}, {per["window_attention_v3"]} Swin '
+               f'blocks, {model.roi_head.num_stages} stages, '
+               f'{time.perf_counter() - t0:.1f} s; launches per request '
+               f'{_nonzero(per)}')
+    imgs = synthetic_images(3, seed=5)
+    t0 = time.perf_counter()
+    _check_result(inference_detector(model, imgs[0]), 800, 1333)
+    torch.cuda.synchronize()
+    log(phase, f'warm-up request {time.perf_counter() - t0:.3f} s')
+    reset_launch_counts()
+    lat, counts = [], []
+    for img in imgs:
+        t0 = time.perf_counter()
+        res = inference_detector(model, img)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        counts.append(_check_result(res, 800, 1333))
+    launches = launch_counts()
+    log(phase, 'per-request latency (s): '
+               + ', '.join(f'{t:.4f}' for t in lat)
+               + f'; detections per image: {counts}; {CARD}')
+    _check_launches(phase, launches, per, len(imgs))
+    tc = _check_tc(phase, launches, True, _tc_kernels(False, False))
+    log(phase, f'kernel launches over the 3 requests {launches}, as '
+               f'derived; tensor-core {tc}')
+    return launches, lat
+
+
+def cascade_train(phase='cascade-train'):
+    """1 + 5 make_train_step steps of the cascade (its config: bf16,
+    drop_path_rate 0.3, AdamW with the Swin paramwise_cfg) at batch 2 on
+    the 800x1344 canvas, with each step's launches checked; the BN
+    buffers move in a step and not in a validation pass; 2 profiled
+    steps."""
+    cfg = Config.fromfile(CASCADE_CONFIG)
+    model = init_detector(cfg, device='cuda', seed=0)
+    opt = build_optimizer(model, dict(cfg.optimizer))
+    schedule = build_lr_schedule(dict(cfg.lr_config), cfg.optimizer['lr'],
+                                 ITERS_PER_EPOCH)
+    step = make_train_step(model, opt, schedule,
+                           dict(cfg.optimizer_config).get('grad_clip'))
+    per = cascade_launches(model, training=True)
+    batch = synthetic_train_batch()
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    stats = {k: v.clone() for k, v in model.named_buffers()
+             if k.endswith(('running_mean', 'running_var'))}
+    t0 = time.perf_counter()
+    _check_log(step(batch, gen), 'warm-up step')
+    torch.cuda.synchronize()
+    log(phase, f'warm-up step {time.perf_counter() - t0:.3f} s; launches '
+               f'per step {_nonzero(per)}')
+    moved = [k for k, v in model.named_buffers()
+             if k in stats and not torch.equal(v, stats[k])]
+    if len(moved) != len(stats) or not stats:
+        raise AssertionError(f'{len(moved)} of {len(stats)} BN running '
+                             f'statistics moved in a step')
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        out = step(batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        _check_log(out, 'timed step')
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(phase, 'per-step ms: ' + ', '.join(f'{t:.1f}' for t in times)
+               + f'; median {np.median(times):.1f}; peak memory '
+                 f'{peak / 2 ** 30:.2f} GiB; {CARD}')
+    log(phase, 'last step: ' + ', '.join(f'{k} {v:.4f}'
+                                         for k, v in out.items()))
+    _check_launches(phase, launches, per, 5)
+    tc = _check_tc(phase, launches, True, _tc_kernels(False))
+    log(phase, f'kernel launches over the 5 timed steps {launches}, as '
+               f'derived; tensor-core {tc}')
+    stats = {k: v.clone() for k, v in model.named_buffers() if k in stats}
+    with torch.inference_mode():
+        model.eval()
+        res = model.simple_test(batch['img'], batch['img_shapes'],
+                                torch.ones((2, 4), device=batch['img'].device))
+        model.train()
+    if not torch.isfinite(res['dets']).all() or any(
+            not torch.equal(v, stats[k]) for k, v in model.named_buffers()
+            if k in stats):
+        raise AssertionError('validation pass: non-finite detections or '
+                             'moved BN statistics')
+    log(phase, 'validation pass (eval mode): finite detections, BN '
+               'running statistics unchanged')
+    busy = _profile_steps(step, batch, gen, float(np.median(times)), phase)
+    log(phase, f'median step {np.median(times):.1f} ms, busy {busy:.3f}, '
+               f'peak {peak / 2 ** 30:.2f} GiB on {CARD}')
+    return launches, times, peak, busy
+
+
+def cascade_files(phase='cascade-files'):
+    """The cascade config's own train pipeline (both AutoAugment branches,
+    the absolute_range RandomCrop) through train_detector for 2
+    iterations on 4 of phase 10's PNGs, then tools.test on 2 of them with
+    the trained checkpoint, plain and with test-time augmentation, --eval
+    bbox segm, score_thr 0 (100 detections an image)."""
+    build_dir = os.path.join(REPO, 'build')
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as root:
+        ann_file, prefix = write_synthetic_coco(root, CASCADE_LOOP_SIZES)
+        work = os.path.join(root, 'work')
+        cfg = loop_config(ann_file, prefix, work, config=CASCADE_CONFIG)
+        model_cfg = dict(cfg.model, dtype='bfloat16')
+        model_cfg.pop('pretrained', None)
+        model = build_detector(model_cfg)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        run = train_detector(model, build_dataset(cfg.data.train), cfg)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        log(phase, f'train_detector: {len(run.log_vars)} iterations in '
+                   f'{time.perf_counter() - t0:.1f} s, canvases '
+                   f'{run.canvases}; loss '
+                   + ', '.join(f'{v["loss"]:.4g}' for v in run.log_vars)
+                   + '; grad_norm '
+                   + ', '.join(f'{v["grad_norm"]:.4g}' for v in run.log_vars))
+        bad = [v for v in run.log_vars
+               if not all(np.isfinite(x) for x in v.values())]
+        per = cascade_launches(model, training=True)
+        if len(run.log_vars) != 2 or bad \
+                or any(bool(launches[k]) != bool(v) for k, v in per.items()):
+            raise AssertionError(f'the loop: {len(run.log_vars)} '
+                                 f'iterations, non-finite {bad}, launches '
+                                 f'{launches}')
+        ckpt = os.path.join(work, 'epoch_1.pth')
+        test_ann = os.path.join(root, 'test.json')
+        with open(ann_file) as f:
+            coco = json.load(f)
+        keep = {im['id'] for im in coco['images'][:2]}
+        coco['images'] = coco['images'][:2]
+        coco['annotations'] = [a for a in coco['annotations']
+                               if a['image_id'] in keep]
+        with open(test_ann, 'w') as f:
+            json.dump(coco, f)
+        cfg_file = os.path.join(root, 'cascade_cfg.py')
+        eval_config(test_ann, prefix, config=CASCADE_CONFIG).dump(cfg_file)
+        # score_thr 0: 100 detections an image, as trained weights give
+        base = [cfg_file, ckpt, '--samples-per-gpu', '2', '--eval', 'bbox',
+                'segm', '--cfg-options', 'model.test_cfg.rcnn.score_thr=0.0']
+        out = {}
+        for what, nms, extra in (
+                ('test', 2, []),
+                ('TTA', 6, ['data.test.pipeline.1.img_'
+                            f'scale={TTA_SCALES!r}',
+                            'data.test.pipeline.1.flip=True'])):
+            ran, launches, dets = _cli_run(phase, base + extra, what)
+            trained = [fn.__name__ for fn in NOT_SERVING
+                       if launches[fn.__name__]]
+            if dets != [100, 100] or trained \
+                    or launches['nms_sorted'] != nms \
+                    or not launches['roi_align'] or not all(
+                        np.isfinite(v) for v in ran['metrics'].values()
+                        if isinstance(v, float)):
+                raise AssertionError(f'{what}: detections {dets}, training '
+                                     f'kernels {trained}, launches '
+                                     f'{launches}, metrics {ran["metrics"]}')
+            _check_tc(phase, launches, True, _tc_kernels(False, False))
+            log(phase, f'{what}: metrics {dict(ran["metrics"])}')
+            out[what] = launches
+    return out
+
+
+def phase_cascade():
+    """Phase 12: Cascade Mask R-CNN Swin-B serving, its fp32 serving check,
+    training, its fp32 training check and the loop and test tool from
+    files. Returns the serving and training launches."""
+    start = last = time.perf_counter()
+    laps = []
+
+    def lap(what):
+        nonlocal last
+        now = time.perf_counter()
+        laps.append(f'{what} {now - last:.1f} s')
+        log('time', f'cascade: {laps[-1]}')
+        last = now
+    serve, lat = cascade_serve()
+    lap('serving')
+    phase_check(phase='cascade-check', config=CASCADE_CONFIG, control=True)
+    lap('serving check')
+    train, times, peak, busy = cascade_train()
+    lap('training')
+    phase_train_check(config=CASCADE_CONFIG, names=CASCADE_TRAIN_GRADS,
+                      pin_proposals=True, limits=CASCADE_TRAIN_LIMITS)
+    lap('training check')
+    cascade_files()
+    lap('files')
+    log('time', f'cascade: ' + ', '.join(laps)
+                + f'; phase 12 {time.perf_counter() - start:.1f} s')
+    return dict(serve=serve, lat=lat, train=train, times=times, peak=peak,
+                busy=busy)
+
+
 # phase 3's further readings of a kernel's main row that the JSON line
 # carries: the kernel's own device ms (rows 1, 14 and 15), row 14's
-# head-major copy, row 1's first kernel off the vector path, and row 15's
-# yardsticks' device ms and its blockwise path's ms
+# head-major copy, row 1's first kernel off the vector path, row 15's
+# yardsticks' device ms and its blockwise path's ms, and rows 1, 2, 6 and
+# 7's readings at Swin-B's shapes
 PHASE3_EXTRAS = ('device_ms', 'copy_device_ms', 'first_kernel',
-                 'unfused_device_ms', 'blockwise_ms', 'blockwise_device_ms')
+                 'unfused_device_ms', 'blockwise_ms', 'blockwise_device_ms',
+                 'swin_b_shapes')
 
 
 def main() -> int:
@@ -2904,6 +3322,8 @@ def main() -> int:
     lap('phase 10')
     eval_launches, tta_launches = phase_eval()
     lap('phase 11')
+    cascade = phase_cascade()
+    lap('phase 12')
     for what, key, fmt in (('request latency (s)', 'lat', '.4f'),
                            ('training step (ms)', 'times', '.1f')):
         log('configs', f'{what}, median of the timed runs: ' + ', '.join(
@@ -2912,6 +3332,11 @@ def main() -> int:
         f'{c} {r["peak"] / 2 ** 30:.2f}' for c, r in runs.items()))
     log('configs', 'training busy share: ' + ', '.join(
         f'{c} {r["busy"]:.3f}' for c, r in runs.items()))
+    log('cascade', f'Cascade Mask R-CNN Swin-B: request latency median '
+                   f'{np.median(cascade["lat"]):.4f} s, training step median '
+                   f'{np.median(cascade["times"]):.1f} ms, peak '
+                   f'{cascade["peak"] / 2 ** 30:.2f} GiB, busy '
+                   f'{cascade["busy"]:.3f}; {smi}')
     rows = []
     for fn in KERNEL_WRAPPERS:
         name = fn.__name__
@@ -2929,6 +3354,9 @@ def main() -> int:
         # phase 11's test and test-time augmentation runs
         counts['eval_launches'] = eval_launches[name]
         counts['tta_launches'] = tta_launches[name]
+        # phase 12's cascade: 3 requests, 5 steps
+        counts['cascade_serve_launches'] = cascade['serve'][name]
+        counts['cascade_train_launches'] = cascade['train'][name]
         if tc:
             tc = dict(tc_launches=sum(tc.values()), **tc)
         if 'shapes' in main_row:

@@ -21,17 +21,25 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-# flax submodule name -> mmdet prefix (swindet_tpu/checkpoint.py:33)
+# flax submodule name -> mmdet prefix (swindet_tpu/checkpoint.py:33); other
+# submodules drop their leading underscore, a cascade's indexed heads
+# ('_bbox_head0') included
 _NAME_MAP = {
     '_backbone': 'backbone', '_neck': 'neck', '_rpn_head': 'rpn_head',
     '_roi_head': 'roi_head', '_bbox_head': 'bbox_head',
     '_mask_head': 'mask_head',
 }
 _INDEXED = re.compile(r'^(layers|blocks|lateral_convs|fpn_convs|'
-                      r'shared_convs|shared_fcs|convs)(\d+)$')
-_LEAF = {'kernel': 'weight', 'scale': 'weight', 'bias': 'bias'}
+                      r'shared_convs|shared_fcs|convs|bbox_head|'
+                      r'mask_head)(\d+)$')
+# a ConvModule's anonymous flax norm -> mmcv's name for it
+_NORMS = {('norm', 'BatchNorm_0'): 'bn', ('norm', 'GroupNorm_0'): 'gn',
+          ('norm', 'LayerNorm_0'): 'ln'}
+# parameters, and the batch statistics of a BN
+_LEAF = {'kernel': 'weight', 'scale': 'weight', 'bias': 'bias',
+         'mean': 'running_mean', 'var': 'running_var'}
 # buffers a released checkpoint may carry that the port rebuilds itself
-_IGNORED = ('relative_position_index', 'attn_mask', 'num_batches_tracked')
+_IGNORED = ('relative_position_index', 'attn_mask')
 # the top-level parts of a detector: a checkpoint whose keys start with none
 # of them is a backbone's own (a classification pretrain)
 _DETECTOR_PARTS = ('backbone.', 'neck.', 'rpn_head.', 'roi_head.',
@@ -40,10 +48,18 @@ _DETECTOR_PARTS = ('backbone.', 'neck.', 'rpn_head.', 'roi_head.',
 
 def flax_path_to_torch_key(path: Tuple[str, ...]) -> str:
     """('_backbone', 'layers0', 'blocks1', 'attn', 'qkv', 'kernel') ->
-    'backbone.layers.0.blocks.1.attn.qkv.weight'."""
+    'backbone.layers.0.blocks.1.attn.qkv.weight';
+    ('_roi_head', '_bbox_head0', 'shared_convs0', 'norm', 'BatchNorm_0',
+    'mean') -> 'roi_head.bbox_head.0.shared_convs.0.bn.running_mean'."""
     parts: List[str] = []
-    for p in path[:-1]:
-        p = _NAME_MAP.get(p, p)
+    names = list(path[:-1])
+    while names:
+        if tuple(names[:2]) in _NORMS:
+            parts.append(_NORMS[tuple(names[:2])])
+            names = names[2:]
+            continue
+        p = names.pop(0)
+        p = _NAME_MAP.get(p, p[1:] if p.startswith('_') else p)
         m = _INDEXED.match(p)
         parts.append(f'{m.group(1)}.{m.group(2)}' if m else p)
     parts.append(_LEAF.get(path[-1], path[-1]))
@@ -60,19 +76,27 @@ def _flatten(tree, prefix=()):
     return out
 
 
-def state_dict_from_jax(params: Dict, roi_feat_size: int = 7
-                        ) -> Dict[str, torch.Tensor]:
-    """mmdet-keyed ``state_dict`` of a JAX parameter tree:
+def state_dict_from_jax(params: Dict, batch_stats: Optional[Dict] = None,
+                        roi_feat_size: int = 7) -> Dict[str, torch.Tensor]:
+    """mmdet-keyed ``state_dict`` of a JAX parameter tree and, for models
+    with BN, its ``batch_stats`` collection:
 
     - conv kernels HWIO -> OIHW, dense kernels (in, out) -> (out, in);
     - the mask head's deconv (kh, kw, in, out) -> (in, out, kh, kw),
       spatially un-flipped;
-    - the bbox head's first FC, which reads the (s, s, C) roi features
-      flattened HWC in JAX, reads them CHW as in mmdet
-      (s = ``roi_feat_size``);
-    - norm ``scale`` -> ``weight``.
+    - the first FC of a bbox head (a cascade's too), which reads the
+      (s, s, C) roi features flattened HWC in JAX, reads them CHW as in
+      mmdet (s = ``roi_feat_size``);
+    - norm ``scale`` -> ``weight``; a BN's ``mean`` / ``var`` ->
+      ``running_mean`` / ``running_var``, with ``num_batches_tracked`` 0.
     """
     sd = {}
+    for path, leaf in _flatten(batch_stats or {}).items():
+        key = flax_path_to_torch_key(path)
+        sd[key] = torch.from_numpy(np.array(leaf, np.float32))
+        if path[-1] == 'mean':
+            sd[key.rsplit('.', 1)[0] + '.num_batches_tracked'] = \
+                torch.tensor(0, dtype=torch.long)
     for path, leaf in _flatten(params).items():
         a = np.asarray(leaf)
         if path[-1] == 'kernel' and a.ndim == 4:
@@ -82,7 +106,8 @@ def state_dict_from_jax(params: Dict, roi_feat_size: int = 7
                 a = a.transpose(3, 2, 0, 1)
         elif path[-1] == 'kernel' and a.ndim == 2:
             a = a.T
-            if path[-2] == 'shared_fcs0' and '_bbox_head' in path:
+            if path[-2] == 'shared_fcs0' and any(
+                    p.startswith('_bbox_head') for p in path):
                 s = roi_feat_size
                 out_dim, in_dim = a.shape
                 a = a.reshape(out_dim, s, s, in_dim // (s * s)) \

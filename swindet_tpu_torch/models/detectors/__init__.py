@@ -1,1 +1,3 @@
-from . import two_stage  # noqa: F401
+from .two_stage import CascadeRCNN, MaskRCNN, TwoStageDetector
+
+__all__ = ['CascadeRCNN', 'MaskRCNN', 'TwoStageDetector']

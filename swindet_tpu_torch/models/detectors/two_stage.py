@@ -1,8 +1,8 @@
 """Two-stage detector (counterpart of
 ``swindet_tpu/models/detectors/two_stage.py``: ``forward_train`` :92,
 ``simple_test`` :127, the per-augmentation halves ``aug_rpn_test``,
-``aug_bbox_test`` and ``aug_mask_test`` :144-162, ``MaskRCNN`` :171; reference
-mmdet/models/detectors/two_stage.py:10).
+``aug_bbox_test`` and ``aug_mask_test`` :144-162, ``CascadeRCNN`` :166,
+``MaskRCNN`` :171; reference mmdet/models/detectors/two_stage.py:10).
 
 The ``state_dict`` uses mmdet's key names (``backbone.``, ``neck.``,
 ``rpn_head.``, ``roi_head.``), so a released ``.pth`` loads as it is.
@@ -71,7 +71,10 @@ class TwoStageDetector(nn.Module):
         (B, 2); gt_bboxes (B, G, 4); gt_valid (B, G); gt_labels (B, G);
         gt_masks (B, G, H, W) or None. ``gen`` (on the data's device)
         draws stochastic depth and the samplers' keys; ``sampler_keys``
-        {'rpn': ..., 'rcnn': ...} gives the keys per image instead."""
+        {'rpn': ..., 'rcnn': ...} gives the keys per image instead (for a
+        cascade, 'rcnn' holds them per stage, then per image).
+        ``train_cfg['rcnn']``, a list of per-stage configs for a cascade,
+        goes to the RoI head as it is."""
         keys = sampler_keys or {}
         feats = self.extract_feat(img, gen)
         cls_scores, bbox_preds = self.rpn_head(feats)
@@ -86,7 +89,7 @@ class TwoStageDetector(nn.Module):
                 [p.detach() for p in bbox_preds], img_shapes, proposal_cfg)
         losses.update(self.roi_head.forward_train(
             feats, proposals, prop_valid, gt_bboxes, gt_valid, gt_labels,
-            gt_masks, gen, keys.get('rcnn')))
+            gt_masks, gen, keys.get('rcnn'), img_shapes=img_shapes))
         return losses
 
     def simple_test(self, img: torch.Tensor, img_shapes: torch.Tensor,
@@ -127,6 +130,12 @@ class TwoStageDetector(nn.Module):
         frame."""
         feats = self.extract_feat(img) if feats is None else feats
         return self.roi_head.mask_test(feats, det_boxes, det_labels)
+
+
+@DETECTORS.register_module()
+class CascadeRCNN(TwoStageDetector):
+    """(reference cascade_rcnn.py:6)."""
+
 
 @DETECTORS.register_module()
 class MaskRCNN(TwoStageDetector):

@@ -140,42 +140,149 @@ class Mlp(nn.Module):
         self.fc2.init_trunc_normal(gen)
 
 
-class ConvModule(nn.Module):
-    """conv (+ ReLU) over NHWC with an mmcv ``ConvModule`` state_dict
-    (``conv.weight`` OIHW, ``conv.bias``). Norm layers are not used on the
-    Swin detectors' path and are refused.
+def _moments(x: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean and variance over ``dims`` (kept) as flax's norms take them:
+    E[x^2] - E[x]^2, the biased variance, clamped at 0."""
+    mean = x.mean(dims, keepdim=True)
+    var = ((x * x).mean(dims, keepdim=True) - mean * mean).clamp(min=0.0)
+    return mean, var
 
-    A 3x3 / stride 1 / padding 1 conv with bias and no or ReLU activation,
-    whose channel counts are multiples of 128, goes through the conv3x3
-    kernel, as swindet_tpu/models/layers.py:299-310 sends it to the Pallas
-    kernel; every other conv is a plain ``F.conv2d``."""
+
+class Norm(nn.Module):
+    """A channels-last norm computing in fp32 (counterpart of
+    ``_NormWrapper``, ``swindet_tpu/models/layers.py:173``): ``kind`` 'bn'
+    (BN, BN2d and SyncBN, which is plain BN on one card), 'gn' or 'ln',
+    with mmcv's parameter and buffer names (``weight``, ``bias``, and for
+    BN ``running_mean``, ``running_var``, ``num_batches_tracked``).
+
+    BN in training mode normalises with the batch's statistics over every
+    axis but the channels and updates the running ones with ``momentum``
+    from the biased variance, as flax's ``nn.BatchNorm`` does (torch's
+    ``BatchNorm2d`` takes the unbiased one); in eval mode it reads the
+    running statistics."""
+
+    def __init__(self, kind: str, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.1, num_groups: int = 32,
+                 requires_grad: bool = True):
+        super().__init__()
+        if kind not in ('bn', 'gn', 'ln'):
+            raise KeyError(f'Norm: unknown kind {kind}')
+        if kind == 'gn' and num_features % num_groups:
+            raise ValueError(f'Norm: {num_features} channels in '
+                             f'{num_groups} groups')
+        self.kind = kind
+        self.eps = eps
+        self.momentum = momentum
+        self.num_groups = num_groups
+        self.weight = nn.Parameter(torch.ones(num_features),
+                                   requires_grad=requires_grad)
+        self.bias = nn.Parameter(torch.zeros(num_features),
+                                 requires_grad=requires_grad)
+        if kind == 'bn':
+            self.register_buffer('running_mean', torch.zeros(num_features))
+            self.register_buffer('running_var', torch.ones(num_features))
+            self.register_buffer('num_batches_tracked',
+                                 torch.tensor(0, dtype=torch.long))
+
+    def reset_parameters(self) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            if self.kind == 'bn':
+                self.running_mean.zero_()
+                self.running_var.fill_(1.0)
+                self.num_batches_tracked.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., C) in any dtype -> fp32."""
+        x = x.float()
+        if self.kind == 'gn':
+            g = x.reshape(*x.shape[:-1], self.num_groups, -1)
+            dims = tuple(range(1, x.ndim - 1)) + (x.ndim,)
+            mean, var = _moments(g, dims)
+            y = ((g - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
+            return y * self.weight + self.bias
+        if self.kind == 'ln':
+            mean, var = _moments(x, (-1,))
+        elif self.training:
+            mean, var = _moments(x, tuple(range(x.ndim - 1)))
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.mul_(1.0 - m).add_(m * mean.flatten())
+                self.running_var.mul_(1.0 - m).add_(m * var.flatten())
+                self.num_batches_tracked += 1
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
+            + self.bias
+
+
+def build_norm(norm_cfg: dict, num_features: int) -> Tuple[str, Norm]:
+    """(name, module) of a norm config, as mmcv's ``build_norm_layer``
+    names them: 'bn' for BN, BN2d and SyncBN, 'gn' for GN, 'ln' for LN
+    (``swindet_tpu/models/layers.py:147``)."""
+    t = norm_cfg['type']
+    eps = norm_cfg.get('eps', 1e-5)
+    if t in ('BN', 'BN2d', 'SyncBN'):
+        return 'bn', Norm('bn', num_features, eps=eps,
+                          momentum=norm_cfg.get('momentum', 0.1),
+                          requires_grad=norm_cfg.get('requires_grad', True))
+    if t == 'GN':
+        return 'gn', Norm('gn', num_features, eps=eps,
+                          num_groups=norm_cfg.get('num_groups', 32))
+    if t == 'LN':
+        return 'ln', Norm('ln', num_features, eps=eps)
+    raise KeyError(f'Unknown norm type {t}')
+
+
+class ConvModule(nn.Module):
+    """conv (+ norm) (+ ReLU) over NHWC with an mmcv ``ConvModule``
+    state_dict (``conv.weight`` OIHW, ``conv.bias``, the norm under its
+    mmcv name, ``bn`` or ``gn``). A normed conv has no bias (mmcv's
+    bias='auto'). The order is conv -> norm (fp32) -> cast to ``dtype`` ->
+    ReLU, as swindet_tpu/models/layers.py:336-348.
+
+    A 3x3 / stride 1 / padding 1 conv with bias, no norm and no or ReLU
+    activation, whose channel counts are multiples of 128, goes through
+    the conv3x3 kernel, as swindet_tpu/models/layers.py:295-310 sends it
+    to the Pallas kernel; every other conv, a normed one included, is a
+    plain ``F.conv2d``."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1, padding: int = 0,
                  norm_cfg: Optional[dict] = None,
                  act_cfg: Optional[dict] = None, dtype=torch.float32):
         super().__init__()
-        if norm_cfg is not None:
-            raise NotImplementedError('ConvModule: norm layers are not '
-                                      'ported yet')
         act = (act_cfg or {}).get('type')
         if act not in (None, 'ReLU'):
             raise NotImplementedError(f'ConvModule: activation {act}')
+        use_bias = norm_cfg is None
         self.conv = nn.Conv2d(in_channels, out_channels, kernel_size,
-                              stride=stride, padding=padding)
+                              stride=stride, padding=padding, bias=use_bias)
+        self.norm_name = None
+        if norm_cfg is not None:
+            self.norm_name, norm = build_norm(norm_cfg, out_channels)
+            self.add_module(self.norm_name, norm)
         self.relu = act == 'ReLU'
         self.compute_dtype = resolve_dtype(dtype)
         self.use_kernel = (kernel_size == 3 and stride == 1 and padding == 1
+                           and norm_cfg is None and use_bias
                            and in_channels % 128 == 0
                            and out_channels % 128 == 0)
 
     def forward(self, x):
         """x: (B, H, W, C) -> (B, H', W', Co) in ``dtype``."""
-        return conv_nhwc(x, self.conv, self.relu, self.compute_dtype,
-                         self.use_kernel)
+        d = self.compute_dtype
+        if self.norm_name is None:
+            return conv_nhwc(x, self.conv, self.relu, d, self.use_kernel)
+        x = getattr(self, self.norm_name)(conv_nhwc(x, self.conv, False, d,
+                                                    False)).to(d)
+        return torch.relu(x) if self.relu else x
 
     def init_weights(self, gen, std: Optional[float] = None):
         init_conv(self.conv, gen, std)
+        if self.norm_name is not None:
+            getattr(self, self.norm_name).reset_parameters()
 
 
 def init_conv(conv: nn.Conv2d, gen: torch.Generator,
@@ -199,11 +306,12 @@ def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, relu: bool,
         return conv3x3_op(x.contiguous(), hwio(conv.weight.to(dtype)),
                           conv.bias.float(), relu)
     w = conv.weight
+    b = None if conv.bias is None else conv.bias.to(dtype)
     if w.shape[2:] == (1, 1) and conv.stride == (1, 1):
-        out = F.linear(x, w[:, :, 0, 0].to(dtype), conv.bias.to(dtype))
+        out = F.linear(x, w[:, :, 0, 0].to(dtype), b)
     else:
-        out = F.conv2d(x.permute(0, 3, 1, 2), w.to(dtype),
-                       conv.bias.to(dtype), stride=conv.stride,
+        out = F.conv2d(x.permute(0, 3, 1, 2), w.to(dtype), b,
+                       stride=conv.stride,
                        padding=conv.padding).permute(0, 2, 3, 1)
     return torch.relu(out) if relu else out
 

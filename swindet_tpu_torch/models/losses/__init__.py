@@ -1,2 +1,2 @@
-from .losses import (CrossEntropyLoss, L1Loss, accuracy,  # noqa: F401
-                     weight_reduce_loss)
+from .losses import (CrossEntropyLoss, GIoULoss, L1Loss,  # noqa: F401
+                     SmoothL1Loss, accuracy, weight_reduce_loss)

@@ -1,9 +1,10 @@
 """Detection losses with elementwise weights, fp32 accumulation and
 tensor ``avg_factor``s (counterpart of
 ``swindet_tpu/models/losses/losses.py``: ``weight_reduce_loss`` :20,
-``CrossEntropyLoss`` :47, ``L1Loss`` :126, ``accuracy`` :280; reference
-mmdet/models/losses/cross_entropy_loss.py). Padded entries carry weight
-0."""
+``CrossEntropyLoss`` :47, ``L1Loss`` :126, ``SmoothL1Loss`` :141,
+``GIoULoss`` :190, ``accuracy`` :280; reference
+mmdet/models/losses/cross_entropy_loss.py, smooth_l1_loss.py,
+iou_loss.py). Padded entries carry weight 0."""
 from __future__ import annotations
 
 from typing import Optional
@@ -11,6 +12,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ...core.bbox.iou import bbox_overlaps
 from ...registries import LOSSES
 
 
@@ -97,6 +99,48 @@ class L1Loss:
                  reduction_override=None):
         reduction = reduction_override or self.reduction
         loss = (pred.float() - target.float()).abs()
+        return self.loss_weight * weight_reduce_loss(loss, weight, reduction,
+                                                     avg_factor)
+
+
+@LOSSES.register_module()
+class SmoothL1Loss:
+    """0.5 d^2 / beta where |d| < beta, else |d| - 0.5 beta."""
+
+    def __init__(self, beta: float = 1.0, reduction: str = 'mean',
+                 loss_weight: float = 1.0):
+        self.beta = beta
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, target, weight=None, avg_factor=None,
+                 reduction_override=None):
+        reduction = reduction_override or self.reduction
+        b = self.beta
+        diff = (pred.float() - target.float()).abs()
+        loss = torch.where(diff < b, 0.5 * diff * diff / b, diff - 0.5 * b)
+        return self.loss_weight * weight_reduce_loss(loss, weight, reduction,
+                                                     avg_factor)
+
+
+@LOSSES.register_module()
+class GIoULoss:
+    """1 - GIoU of aligned (N, 4) boxes; an (N, 4) weight is averaged over
+    its last axis (the cascade Swin configs' box loss, weight 10)."""
+
+    def __init__(self, eps: float = 1e-7, reduction: str = 'mean',
+                 loss_weight: float = 1.0):
+        self.eps = eps
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, target, weight=None, avg_factor=None,
+                 reduction_override=None):
+        reduction = reduction_override or self.reduction
+        loss = 1 - bbox_overlaps(pred.float(), target.float(), eps=self.eps,
+                                 mode='giou', is_aligned=True)
+        if weight is not None and weight.ndim == loss.ndim + 1:
+            weight = weight.mean(-1)
         return self.loss_weight * weight_reduce_loss(loss, weight, reduction,
                                                      avg_factor)
 

@@ -1,2 +1,2 @@
-from . import (bbox_heads, mask_heads, roi_extractor,  # noqa: F401
-               standard_roi_head)
+from . import (bbox_heads, cascade_roi_head, mask_heads,  # noqa: F401
+               roi_extractor, standard_roi_head)

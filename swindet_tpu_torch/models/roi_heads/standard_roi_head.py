@@ -26,6 +26,45 @@ from ..builder import (build_assigner, build_head, build_roi_extractor,
 from ...registries import HEADS
 
 
+def boxes_to_rois(boxes: torch.Tensor) -> torch.Tensor:
+    """(B, P, 4) boxes -> (B * P, 5) rois with their image index."""
+    b, p = boxes.shape[:2]
+    col = torch.arange(b, device=boxes.device, dtype=torch.float32) \
+        .repeat_interleave(p)
+    return torch.cat([col[:, None], boxes.reshape(-1, 4)], 1)
+
+
+def sample_batch(assigner, sampler, proposals, proposal_valid, gt_bboxes,
+                 gt_valid, gt_labels, gen=None, keys=None):
+    """Per-image assignment and sampling of (B, P, 4) proposals into the
+    sampler's fixed slots, stacked over the batch; ``keys`` per image the
+    sampler's (keys_pos, keys_neg), or None to draw them from ``gen``."""
+    samples = []
+    for i in range(proposals.shape[0]):
+        assign = assigner.assign(proposals[i], gt_bboxes[i], gt_valid[i],
+                                 gt_labels[i], bbox_valid=proposal_valid[i])
+        samples.append(sampler.sample(
+            assign, proposals[i], gt_bboxes[i], gt_valid[i], gt_labels[i],
+            bbox_valid=proposal_valid[i], gen=gen,
+            keys=None if keys is None else keys[i]))
+    return type(samples[0])(*[torch.stack(t) for t in zip(*samples)])
+
+
+def mask_losses(mask_head, extractor, feats, samp, m: int, gt_masks,
+                size: int) -> Dict[str, torch.Tensor]:
+    """The mask head's loss on the first ``m`` slots of a stacked
+    sampling result, where the sampler packs the positives."""
+    pos_boxes = samp.bboxes[:, :m]
+    mask_pred = mask_head(extractor(feats, boxes_to_rois(pos_boxes)))
+    targets = torch.stack([
+        mask_head.get_targets(gt_masks[i], pos_boxes[i],
+                              samp.pos_gt_inds[i, :m], size)
+        for i in range(pos_boxes.shape[0])])
+    return mask_head.loss(mask_pred, targets.reshape(-1, size, size),
+                          samp.pos_gt_labels[:, :m].clamp(min=0).reshape(-1),
+                          samp.is_pos[:, :m].reshape(-1).float())
+
+
 @HEADS.register_module()
 class StandardRoIHead(nn.Module):
 
@@ -61,66 +100,39 @@ class StandardRoIHead(nn.Module):
     def forward_train(self, feats, proposals, proposal_valid, gt_bboxes,
                       gt_valid, gt_labels, gt_masks,
                       gen: Optional[torch.Generator] = None,
-                      keys: Optional[Sequence] = None
+                      keys: Optional[Sequence] = None,
+                      img_shapes: Optional[torch.Tensor] = None
                       ) -> Dict[str, torch.Tensor]:
         """feats: per-level (B, H, W, C); proposals (B, P, 4) detached;
         gt_bboxes (B, G, 4); gt_masks (B, G, H_pad, W_pad) or None.
         ``keys``: per image the sampler's (keys_pos, keys_neg), or None to
-        draw them from ``gen``."""
-        b = proposals.shape[0]
-        num = self.sampler.num
-        samples = []
-        for i in range(b):
-            assign = self.assigner.assign(proposals[i], gt_bboxes[i],
-                                          gt_valid[i], gt_labels[i],
-                                          bbox_valid=proposal_valid[i])
-            samples.append(self.sampler.sample(
-                assign, proposals[i], gt_bboxes[i], gt_valid[i],
-                gt_labels[i], bbox_valid=proposal_valid[i], gen=gen,
-                keys=None if keys is None else keys[i]))
-        samp = type(samples[0])(*[torch.stack(t) for t in zip(*samples)])
-
-        rois = self._rois(samp.bboxes)
+        draw them from ``gen``. ``img_shapes`` is the cascade's argument
+        and unused here."""
+        samp = sample_batch(self.assigner, self.sampler, proposals,
+                            proposal_valid, gt_bboxes, gt_valid, gt_labels,
+                            gen, keys)
+        rois = boxes_to_rois(samp.bboxes)
         cls_score, bbox_pred = self.bbox_head(
             self.bbox_roi_extractor(feats, rois))
         labels, label_weights, bbox_targets, bbox_weights = \
             self.bbox_head.get_targets(samp, self.train_cfg)
         losses = self.bbox_head.loss(
-            cls_score, bbox_pred, labels.reshape(-1),
+            cls_score, bbox_pred, rois, labels.reshape(-1),
             label_weights.reshape(-1), bbox_targets.reshape(-1, 4),
             bbox_weights.reshape(-1, 4))
-
         if self.with_mask and gt_masks is not None:
-            m = int(num * self.sampler.pos_fraction)
-            pos_boxes = samp.bboxes[:, :m]
-            pos_inds = samp.pos_gt_inds[:, :m]
-            pos_mask = samp.is_pos[:, :m]
-            pos_labels = samp.pos_gt_labels[:, :m].clamp(min=0)
-            mask_pred = self.mask_head(
-                self.mask_roi_extractor(feats, self._rois(pos_boxes)))
-            size = self.train_cfg.get('mask_size', 28)
-            targets = torch.stack([
-                self.mask_head.get_targets(gt_masks[i], pos_boxes[i],
-                                           pos_inds[i], size)
-                for i in range(b)])
-            losses.update(self.mask_head.loss(
-                mask_pred, targets.reshape(-1, size, size),
-                pos_labels.reshape(-1), pos_mask.reshape(-1).float()))
+            losses.update(mask_losses(
+                self.mask_head, self.mask_roi_extractor, feats, samp,
+                int(self.sampler.num * self.sampler.pos_fraction), gt_masks,
+                self.train_cfg.get('mask_size', 28)))
         return losses
-
-    def _rois(self, boxes: torch.Tensor) -> torch.Tensor:
-        """(B, P, 4) boxes -> (B * P, 5) rois with their image index."""
-        b, p = boxes.shape[:2]
-        col = torch.arange(b, device=boxes.device, dtype=torch.float32) \
-            .repeat_interleave(p)
-        return torch.cat([col[:, None], boxes.reshape(-1, 4)], 1)
 
     def bbox_test(self, feats, proposals, img_shapes):
         """Per-proposal class scores (B, P, K+1) (softmax, fp32) and boxes
         (B, P, 4K) decoded in the frame of ``img_shapes``, before NMS and
         rescale: the per-augmentation half of test-time augmentation."""
         b, p = proposals.shape[:2]
-        rois = self._rois(proposals)
+        rois = boxes_to_rois(proposals)
         cls_score, bbox_pred = self.bbox_head(self.bbox_roi_extractor(feats,
                                                                       rois))
         return self.bbox_head.decode(rois.view(b, p, 5),
@@ -132,7 +144,7 @@ class StandardRoIHead(nn.Module):
         (B, M, 4) boxes in the frame of ``feats``."""
         b, m = det_boxes.shape[:2]
         mask_pred = self.mask_head(self.mask_roi_extractor(
-            feats, self._rois(det_boxes)))
+            feats, boxes_to_rois(det_boxes)))
         probs = self.mask_head.get_mask_probs(mask_pred,
                                               det_labels.reshape(-1))
         return probs.view(b, m, *probs.shape[1:])

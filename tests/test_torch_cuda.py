@@ -63,7 +63,8 @@ from swindet_tpu_torch.ops import (conv3x3, conv3x3_dw, conv3x3_dw_reference,
                                    window_attention_v4_reference)
 from swindet_tpu_torch.models.backbones.swin import shifted_window_attn_mask
 
-from chip_smoke import LN_SHAPES, _crowded_rois
+from chip_smoke import (CASCADE_CONFIG, LN_SHAPES, SWINB_ATTN_STAGES,
+                        SWINB_LN_SHAPES, _crowded_rois, cascade_launches)
 
 pytestmark = pytest.mark.cuda
 DTYPES = [torch.float32, torch.bfloat16]
@@ -90,10 +91,12 @@ def _close(got, want, dtype, atol32=1e-4):
 
 
 # (rows, C) of Swin-T's 32 norms on an 800x1344 canvas (chip_smoke.py
-# LN_SHAPES), Swin-B's widest (2048), an odd width, ragged row counts, and
-# Swin-B's other widths (bf16 K 1, 2 and 4)
+# LN_SHAPES), Swin-B's widest (2048), an odd width, ragged row counts,
+# Swin-B's other widths (bf16 K 1, 2 and 4), and Swin-B's 56 norms on the
+# same canvas (SWINB_LN_SHAPES)
 LN_CASES = [(3, 5, 7, 33), (1, 1536), (1000, 96), *LN_SHAPES, (301, 2048),
-            (2, 7, 192), (1000, 128), (301, 256), (301, 512), (301, 1024)]
+            (2, 7, 192), (1000, 128), (301, 256), (301, 512), (301, 1024),
+            *SWINB_LN_SHAPES]
 
 
 @pytest.mark.parametrize('dtype', DTYPES)
@@ -340,7 +343,9 @@ def test_window_attention_fwd_p_and_bwd(gen, dtype, n, c, nh, shift):
 TC_ATTN_CASES = [(1392, 49, 96, 3, (203, 336)), (24, 49, 768, 24, None),
                  (24, 49, 768, 24, (28, 42)), (1403, 49, 96, 3, None),
                  (19, 16, 48, 3, None), (7, 49, 64, 1, None),
-                 (6, 49, 96, 3, (14, 21))]
+                 (6, 49, 96, 3, (14, 21))] + [
+    # Swin-B's four stages (C 128-1,024, 4-32 heads), shifted
+    (b_, 49, c, nh, hw) for b_, c, nh, hw in SWINB_ATTN_STAGES]
 
 
 @pytest.mark.parametrize('dtype', DTYPES)
@@ -836,3 +841,78 @@ def test_loader_batch_trains_on_a_portrait_canvas(gen, tmp_path):
         assert counts[fn.__name__] > 0, fn.__name__
     assert all(counts[fn.__name__] == 0 for fn in OP_ONLY_KERNELS)
     assert len(KERNEL_WRAPPERS) == 15
+
+
+def _tiny_cascade(dtype):
+    """The Swin-B cascade config's graph (three 4conv1fc heads with SyncBN
+    and GIoU, three mask heads) at narrow widths whose 128-channel FPN,
+    RPN and mask-head convs take the conv3x3 kernel."""
+    from swindet_tpu_torch.models import build_detector
+    from swindet_tpu_torch.utils import Config
+    model = Config.fromfile(CASCADE_CONFIG).model
+    model.backbone.update(embed_dim=32, depths=[1, 1, 1, 1],
+                          num_heads=[1, 2, 4, 8], drop_path_rate=0.0)
+    model.neck.update(in_channels=[32, 64, 128, 256], out_channels=128)
+    model.rpn_head.update(in_channels=128, feat_channels=128)
+    roi = model.roi_head
+    roi.bbox_roi_extractor.out_channels = 128
+    roi.mask_roi_extractor.out_channels = 128
+    for head in roi.bbox_head:
+        head.update(in_channels=128, conv_out_channels=128,
+                    fc_out_channels=256)
+    roi.mask_head.update(in_channels=128, conv_out_channels=128)
+    net = build_detector(dict(model, dtype=dtype))
+    net.init_weights(0)
+    return net
+
+
+def test_cascade_on_the_card_matches_the_cpu(gen):
+    """A narrow CascadeRCNN of the Swin-B config: fp32 simple_test on the
+    card (its kernels, each launched as cascade_launches derives) equals
+    the CPU's (labels, boxes within 1e-2 px, mask probabilities within
+    1e-3); a bf16 training forward on the card gives finite losses and
+    moves every BN's running statistics."""
+    cpu = _tiny_cascade('float32').eval()
+    with torch.no_grad():
+        cpu.rpn_head.rpn_cls.weight.mul_(100.0)
+        for head in cpu.roi_head.bbox_head:
+            head.fc_cls.weight.mul_(100.0)
+    card = _tiny_cascade('float32')
+    card.load_state_dict(cpu.state_dict())
+    card = card.cuda().eval()
+    img = torch.randn(1, 224, 320, 3, generator=gen)
+    shapes = torch.tensor([[224, 320]], dtype=torch.int32)
+    sf = torch.ones(1, 4)
+    with torch.no_grad():
+        want = cpu.simple_test(img, shapes, sf)
+        reset_launch_counts()
+        got = card.simple_test(img.cuda(), shapes.cuda(), sf.cuda())
+    assert launch_counts() == cascade_launches(card, training=False)
+    got = {k: v.cpu() for k, v in got.items()}
+    assert int(want['det_valid'].sum()) > 0
+    assert torch.equal(got['det_valid'], want['det_valid'])
+    assert torch.equal(got['labels'], want['labels'])
+    assert (got['dets'] - want['dets']).abs().max() <= 1e-2
+    assert (got['mask_probs'] - want['mask_probs']).abs().max() <= 1e-3
+
+    train = _tiny_cascade('bfloat16').cuda().train()
+    before = {k: v.clone() for k, v in train.named_buffers()
+              if 'running' in k}
+    b, h, w = 2, 224, 320
+    boxes = torch.tensor([[[20., 30., 120., 150.], [150., 60., 300., 200.]]]
+                         * b).cuda()
+    masks = torch.zeros(b, 2, h, w, dtype=torch.uint8)
+    masks[:, 0, 30:150, 20:120] = 1
+    masks[:, 1, 60:200, 150:300] = 1
+    shapes = torch.tensor([[h, w]] * b, dtype=torch.int32).cuda()
+    reset_launch_counts()
+    losses = train.forward_train(
+        torch.randn(b, h, w, 3, generator=gen).cuda(), shapes, shapes,
+        boxes, torch.ones(b, 2, dtype=torch.bool).cuda(),
+        torch.tensor([[1, 7]] * b).cuda(), masks.cuda(),
+        gen=torch.Generator(device='cuda').manual_seed(0))
+    sum(v for k, v in losses.items() if 'loss' in k).backward()
+    assert launch_counts() == cascade_launches(train, training=True)
+    assert all(torch.isfinite(v).all() for v in losses.values())
+    assert all(not torch.equal(v, before[k])
+               for k, v in train.named_buffers() if k in before)
