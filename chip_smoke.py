@@ -201,15 +201,47 @@ before the last line:
               with the trained checkpoint on 2 of them, plain and with
               test-time augmentation, --eval bbox segm, score_thr 0 (100
               detections an image).
+13. reppoints -- RepPoints-moment Swin-T from its config
+              (configs/reppoints/reppoints_moment_swin_tiny_*, bf16 set
+              on top, as the Swin configs compute): serving, the
+              class output's bias shifted so that 4,096 (point, class)
+              pairs of the warm-up request clear score_thr (the bias is
+              logged; seeded weights score every pair at the 0.01 prior),
+              a warm-up and 3 requests at 800x1333 through init_detector
+              and inference_detector, 100 detections each, every kernel's
+              launches equal to what reppoints_launches derives (a
+              request: LayerNorm 32, attention 12, conv3x3 33 -- the FPN's
+              3 output convs and 6 stacked head convs on 5 levels; the
+              FPN's stride-2 extra convs and the initial points' 3x3 conv
+              run F.conv2d --, NMS 1); phase 5's fp32 card-vs-CPU check
+              on it with reppoints_cls_out's weight spread, detections and
+              candidate scores held, a bf16 control that must fail it;
+              1 + 5 make_train_step steps at batch 2 on 800x1344 without
+              gt_masks (a step: LayerNorm 32, attention forward-with-P and
+              backward 12 each, conv3x3 66, its filter gradient 33), 2
+              profiled steps and the deformable convs' device ms (each
+              call of a step replayed on its own inputs, forward and
+              backward apart); phase 7's fp32 check of its three losses
+              and the gradients of REPPOINTS_TRAIN_GRADS with a bf16
+              control, the refined stage's assignment pinned to the CPU's
+              where noise at an IoU boundary moves it; then
+              train_detector for 2 iterations on 2 of phase 10's PNGs with
+              the config's own bbox-only pipeline (no gt_masks in a
+              batch), and tools.test with the trained checkpoint on them,
+              plain and with test-time augmentation (flip and two scales,
+              aug_test_single_stage: one NMS a batch), --eval bbox,
+              score_thr 0.
 
 Each phase's wall time is logged under [time].
 
 Then one JSON line of per-kernel results (``launches``: the serving
 and the training runs' counts of the three configurations, phase 11's
-test and TTA runs and phase 12's cascade serving and training, each
-from its own reset, summed; each also apart, phase 11's as
-``eval_launches`` and ``tta_launches``, phase 12's as
-``cascade_serve_launches`` and ``cascade_train_launches``; for the conv,
+test and TTA runs, phase 12's cascade serving and training and phase
+13's RepPoints serving and training, each from its own reset, summed;
+each also apart, phase 11's as ``eval_launches`` and ``tta_launches``,
+phase 12's as ``cascade_serve_launches`` and ``cascade_train_launches``,
+phase 13's as ``reppoints_serve_launches`` and
+``reppoints_train_launches``; for the conv,
 fused-MLP and v1, v3,
 v4 and full-map attention rows also ``tc_launches``, counted the same
 way; ``shapes``, the bf16 readings at every main-path shape, for those,
@@ -1241,7 +1273,8 @@ def phase_kernels():
 
         # 3x3 conv: the FPN output convs at P2 (the row's main shape) and,
         # in bf16 (the tensor-core kernel), P3-P5; in bf16 the RPN conv
-        # (ReLU) at P6; the mask-head conv (ReLU) on 100 rois
+        # (ReLU) at P6; the mask-head conv (ReLU) on 100 rois; RepPoints'
+        # stacked head conv (ReLU) at P7, 7x11, its smallest level
         x = randn(1, 200, 336, 256).to(dtype)
         cw = randn(3, 3, 256, 256, scale=0.02).to(dtype)
         cb = randn(256)
@@ -1253,9 +1286,12 @@ def phase_kernels():
                     dtype), cw, cb, relu))
         xm = randn(100, 14, 14, 256).to(dtype)
         rows.append(_conv_compare(dtype, xm, cw, cb, True))
+        rows.append(_conv_compare(dtype, randn(1, 7, 11, 256).to(dtype), cw,
+                                  cb, True))
         results.setdefault('conv3x3', {})[dtype] = dict(rows[0], shapes=rows)
 
-        # its filter gradient: FPN P2 of a batch of 2; mask head, 256 rois
+        # its filter gradient: FPN P2 of a batch of 2; mask head, 256 rois;
+        # RepPoints' head at P7 of a batch of 2
         x2 = randn(2, 200, 336, 256).to(dtype)
         g2 = randn(2, 200, 336, 256, scale=0.1).to(dtype)
         rows = [_dw_compare(dtype, x2, g2)]
@@ -1263,6 +1299,8 @@ def phase_kernels():
         xm2 = randn(256, 14, 14, 256).to(dtype)
         gm2 = randn(256, 14, 14, 256, scale=0.1).to(dtype)
         rows.append(_dw_compare(dtype, xm2, gm2))
+        rows.append(_dw_compare(dtype, randn(2, 7, 11, 256).to(dtype),
+                                randn(2, 7, 11, 256, scale=0.1).to(dtype)))
         results.setdefault('conv3x3_dw', {})[dtype] = dict(rows[0],
                                                            shapes=rows)
         del x, xm, xm2, gm2
@@ -2791,7 +2829,9 @@ def _cli_run(phase, argv, what):
     launches = launch_counts()
     times = ran['times']
     n = len(ran['results'])
-    dets = [sum(len(b) for b in r[0]) for r in ran['results']]
+    # per image its per-class boxes, beside its masks where there are any
+    dets = [sum(len(b) for b in (r[0] if isinstance(r, tuple) else r))
+            for r in ran['results']]
     log(phase, f'{what}: {n} images, {n / times["test"]:.3f} img/s '
                f'({times["test"]:.3f} s); detections per image {dets}; host '
                f'split (s): pipeline and decode {times["pipeline"]:.3f}, '
@@ -3285,6 +3325,673 @@ def phase_cascade():
                 busy=busy)
 
 
+# ------------------------------------------------------------- phase 13
+REPPOINTS_CONFIG = os.path.join(
+    REPO, 'configs/reppoints/'
+    'reppoints_moment_swin_tiny_fpn_mstrain_3x_coco.py')
+# the config computes in fp32 as written (its r50 base has no bf16 switch);
+# the phase serves and trains it in bf16, as the Swin configs
+REPPOINTS_BF16 = {'bf16': True}
+# the gradients RepPoints' fp32 training check holds: the class and
+# refined-point deformable convs, the initial points' output, the moment
+# transfer (each behind a detach trick), a stacked head conv, the FPN's
+# first extra conv and a backbone qkv weight (tests/test_torch_reppoints.py
+# holds the same list on the CPU)
+REPPOINTS_TRAIN_GRADS = (
+    'bbox_head.reppoints_cls_conv.weight',
+    'bbox_head.reppoints_pts_refine_conv.weight',
+    'bbox_head.reppoints_pts_init_out.weight',
+    'bbox_head.moment_transfer',
+    'bbox_head.cls_convs.0.conv.weight',
+    'neck.fpn_convs.3.conv.weight',
+    'backbone.layers.0.blocks.0.attn.qkv.weight')
+# Limits of RepPoints' fp32 card-vs-CPU training check: phase 7's loss
+# limit and its RPN group's gradient limit, the dense head's
+REPPOINTS_TRAIN_LIMITS = (TOL_TRAIN_LOSS, TOL_TRAIN_GRAD['rpn'])
+# pairs (point, class) of the warm-up request that clear score_thr once
+# the class output's bias is set: twice the 2,048-pair cap of the NMS
+REPPOINTS_PAIRS = 4096
+# a refine-stage IoU within this of 0.4 or 0.5, or of its gt's best IoU,
+# may assign apart on the card and the CPU (fp32 noise in the initial
+# boxes)
+REPPOINTS_IOU_NOISE = 1e-4
+# the loop's PNGs: 2 landscape images of phase 10's sizes, one batch
+REPPOINTS_LOOP_SIZES = LOOP_SIZES[:2]
+
+
+def reppoints_launches(model, training):
+    """Each kernel's launches that one request (serving) or one step
+    (training, the whole batch at once) of RepPoints makes, derived from
+    the built model: a LayerNorm launch per Swin norm, an attention launch
+    per block (its training forward and backward in training), a conv3x3
+    launch per FPN output conv and per stacked head conv on every level
+    (in training one more each for dx and a filter-gradient launch each;
+    the FPN's stride-2 extra convs and the initial points' 3x3 conv run
+    F.conv2d, as the JAX package sends only stride-1 ConvModules to its
+    kernel), NMS once a request (multiclass) and never in training."""
+    from swindet_tpu_torch.models.backbones.swin import LayerNorm
+    head = model.bbox_head
+    norms = sum(isinstance(m, LayerNorm) for m in model.modules())
+    blocks = sum(isinstance(m, WindowAttention) for m in model.modules())
+    convs = sum(c.use_kernel for c in model.neck.fpn_convs) \
+        + len(head.point_strides) * sum(
+            c.use_kernel for c in (*head.cls_convs, *head.reg_convs))
+    want = {fn.__name__: 0 for fn in KERNEL_WRAPPERS}
+    want['layer_norm'] = norms
+    if training:
+        want.update(window_attention_fwd_p=blocks,
+                    window_attention_bwd=blocks, conv3x3=2 * convs,
+                    conv3x3_dw=convs)
+    else:
+        want.update(window_attention_v3=blocks, conv3x3=convs, nms_sorted=1)
+    return want
+
+
+def _check_bbox_result(res, h, w):
+    """An 80-class bbox-only result (per class (k, 5) arrays in the image's
+    frame); returns the number of detections."""
+    if len(res) != 80:
+        raise AssertionError(f'{len(res)} classes of results, expected 80')
+    n = 0
+    for dets in res:
+        if dets.ndim != 2 or dets.shape[1] != 5 \
+                or not np.isfinite(dets).all() \
+                or (dets[:, [0, 2]] > w + 1e-3).any() \
+                or (dets[:, [1, 3]] > h + 1e-3).any() or (dets < 0).any():
+            raise AssertionError(f'bad detections {dets.shape}')
+        n += len(dets)
+    if n > 100:
+        raise AssertionError(f'{n} detections, over max_per_img 100')
+    return n
+
+
+def _candidate_logits(model, img):
+    """The class logits of one request's pre-NMS candidates (the head's
+    per-level top nms_pre points), one row per candidate."""
+    from swindet_tpu_torch.apis.inference import preprocess_images
+    batch = preprocess_images([img], model.cfg)
+    dev = next(model.parameters()).device
+    with torch.inference_mode():
+        _, scores, _ = model.aug_bbox_test(
+            torch.from_numpy(batch['img']).to(dev),
+            torch.from_numpy(batch['img_shapes']).to(dev))
+    return torch.logit(scores[0, :, :-1].double())
+
+
+def reppoints_serve(phase='reppoints'):
+    """RepPoints-moment Swin-T from its config in bf16 through
+    init_detector and inference_detector: the class output's bias set so
+    that REPPOINTS_PAIRS (point, class) pairs of the warm-up request clear
+    score_thr, a warm-up, then 3 requests at 800x1333 with every launch
+    count checked."""
+    t0 = time.perf_counter()
+    model = init_detector(REPPOINTS_CONFIG, device='cuda', seed=0,
+                          cfg_options=REPPOINTS_BF16)
+    _check_blocks(model, False, False)
+    per = reppoints_launches(model, training=False)
+    head = model.bbox_head
+    log(phase, f'init_detector: {type(model).__name__} '
+               f'{sum(p.numel() for p in model.parameters())} params, '
+               f'compute {model.dtype}, {per["window_attention_v3"]} Swin '
+               f'blocks, {len(head.cls_convs)} stacked convs a branch, '
+               f'{head.num_points} points, strides {head.point_strides}, '
+               f'{time.perf_counter() - t0:.1f} s; launches per request '
+               f'{_nonzero(per)}')
+    imgs = synthetic_images(3, seed=7)
+    thr = dict(model.test_cfg)['score_thr']
+    # seeded weights score every pair near the 0.01 prior, under score_thr:
+    # a uniform shift of the bias moves every logit alike, and so neither
+    # the candidates nor their order
+    logits = _candidate_logits(model, imgs[0])
+    kth = torch.topk(logits.flatten(), REPPOINTS_PAIRS).values[-1].item()
+    shift = float(np.log(thr / (1 - thr))) - kth + 1e-3
+    with torch.no_grad():
+        head.reppoints_cls_out.bias.add_(shift)
+    pairs = int((_candidate_logits(model, imgs[0]).sigmoid() > thr).sum())
+    log(phase, f'reppoints_cls_out bias {head.reppoints_cls_out.bias[0]:.4f} '
+               f'(prior {-np.log(99):.4f}, shifted by {shift:.4f}): '
+               f'{pairs} of {logits.numel()} candidate pairs of the warm-up '
+               f'request clear score_thr {thr}')
+    if pairs < REPPOINTS_PAIRS // 2:
+        raise AssertionError(f'{pairs} pairs clear score_thr: the NMS cap '
+                             f'of {REPPOINTS_PAIRS // 2} is not full')
+    t0 = time.perf_counter()
+    _check_bbox_result(inference_detector(model, imgs[0]), 800, 1333)
+    torch.cuda.synchronize()
+    log(phase, f'warm-up request {time.perf_counter() - t0:.3f} s')
+    reset_launch_counts()
+    lat, counts = [], []
+    for img in imgs:
+        t0 = time.perf_counter()
+        res = inference_detector(model, img)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        counts.append(_check_bbox_result(res, 800, 1333))
+    launches = launch_counts()
+    log(phase, 'per-request latency (s): '
+               + ', '.join(f'{t:.4f}' for t in lat)
+               + f'; detections per image: {counts}; {CARD}')
+    if min(counts) < 100:
+        raise AssertionError(f'detections {counts}: max_per_img 100 not '
+                             f'reached with the cap full')
+    _check_launches(phase, launches, per, len(imgs))
+    tc = _check_tc(phase, launches, True, _tc_kernels(False, False))
+    log(phase, f'kernel launches over the 3 requests {_nonzero(launches)}, '
+               f'as derived; tensor-core {_nonzero(tc)}')
+    return launches, lat
+
+
+def _rp_outputs(model, dev, img, shapes, sf):
+    args = [torch.from_numpy(a).to(dev) for a in (img, shapes, sf)]
+    with torch.inference_mode():
+        feats = model.extract_feat(args[0])
+        out = model.simple_test(*args)
+        _, scores, _ = model.aug_bbox_test(args[0], args[1], feats=feats)
+    return ([f.cpu().float() for f in feats],
+            {k: v.cpu() for k, v in out.items()}, scores.cpu())
+
+
+def _rp_errors(want, got):
+    """FPN features' relative max |d|, and None where the detections or
+    labels differ, else (box max |d|, score max |d|, detections)."""
+    (f_w, o_w, _), (f_g, o_g, _) = want, got
+    feat_err = max((a - b).abs().max().item() / max(a.abs().max().item(), 1)
+                   for a, b in zip(f_w, f_g))
+    if not torch.equal(o_w['det_valid'], o_g['det_valid']) \
+            or not torch.equal(o_w['labels'], o_g['labels']):
+        return feat_err, None
+    return feat_err, ((o_w['dets'][..., :4] - o_g['dets'][..., :4]).abs()
+                      .max().item(),
+                      (o_w['dets'][..., 4] - o_g['dets'][..., 4]).abs()
+                      .max().item(), int(o_w['det_valid'].sum()))
+
+
+def _level_logits(model, img):
+    """The class logits of every point of every level, fp64 on the CPU,
+    and each level's point count."""
+    with torch.inference_mode():
+        cls = model.bbox_head(model.extract_feat(img))[0]
+    return [c.reshape(-1, c.shape[-1]).double().cpu() for c in cls]
+
+
+def _set_class_logits(model, img, mean=-14.0, std=4.0, margin=2e-4):
+    """Scale reppoints_cls_out's weight and set its bias so that the class
+    logits of ``img`` have ``mean`` and ``std`` (a few hundred (point,
+    class) pairs clear score_thr 0.05, under the 2,048-pair cap), then
+    shift the bias by steps of 0.01 until every decision of get_bboxes
+    and the NMS's entry sits ``margin`` or more from its boundary in
+    logit units (_logit_margins): four times the largest fp32 difference
+    of a logit between the card and the CPU that the FPN features' (3.4e-6
+    of their largest entry on an H100) allow through a |logit| of 14.
+    Returns the scale, the bias and the margins."""
+    conv = model.bbox_head.reppoints_cls_out
+    z = [lz - conv.bias.double()[None] for lz in _level_logits(model, img)]
+    flat = torch.cat(z)
+    scale = std / flat.std().item()
+    base = mean - scale * flat.mean().item()
+    cfg = dict(model.test_cfg)
+    for k in range(41):
+        bias = base + 0.01 * (k // 2 if k % 2 else -(k // 2))
+        margins = _logit_margins([scale * lz + bias for lz in z],
+                                 cfg['nms_pre'], cfg['score_thr'])
+        if min(m for m in margins[:3] if m is not None) >= margin:
+            break
+    else:
+        raise AssertionError(f'no bias within 0.2 of {base:.3f} keeps the '
+                             f'logits {margin} from their boundaries: '
+                             f'{margins}')
+    with torch.no_grad():
+        conv.weight.mul_(scale)
+        conv.bias.fill_(bias)
+    return scale, bias, margins
+
+
+def _logit_margins(logits, nms_pre, thr, cap=2048):
+    """How far the decisions of get_bboxes and the multiclass NMS sit from
+    their boundaries, in logits, given every level's class logits: the
+    nearest logit to score_thr's, the smallest gap at a level's top
+    nms_pre cut (None where no level is cut), and the gap at the cap's
+    last pair (None under the cap); and the pairs that clear score_thr."""
+    cand, cuts = [], []
+    for z in logits:
+        best = torch.sort(z.amax(-1), descending=True)
+        if 0 < nms_pre < len(best.values):
+            cuts.append((best.values[nms_pre - 1] - best.values[nms_pre])
+                        .item())
+            z = z[best.indices[:nms_pre]]
+        cand.append(z.flatten())
+    cand = torch.cat(cand)
+    t = float(np.log(thr / (1 - thr)))
+    top = torch.sort(cand[cand > t], descending=True).values
+    return ((cand - t).abs().min().item(), min(cuts) if cuts else None,
+            (top[cap - 1] - top[cap]).item() if len(top) > cap else None,
+            len(top))
+
+
+def reppoints_check(device='cuda', phase='reppoints-check', control=True):
+    """Phase 5's check on RepPoints: fp32 on a 224x320 canvas, the card
+    (kernels) against the CPU (plain versions), same seeded weights with
+    reppoints_cls_out set so that no per-level top-k, score_thr or NMS
+    cap boundary sits within fp32 noise (_set_class_logits; the margins
+    are logged); the card's launches as reppoints_launches derives them,
+    none on tensor cores; a bf16 control that must exceed the limits."""
+    opts = {'bf16': False}
+    cpu = init_detector(REPPOINTS_CONFIG, device='cpu', cfg_options=opts,
+                        seed=1)
+    rs = np.random.RandomState(1)
+    img = rs.randn(1, 224, 320, 3).astype(np.float32)
+    shapes = np.array([[224, 320]], np.int32)
+    sf = np.ones((1, 4), np.float32)
+    scale, bias, (thr_gap, cut_gap, cap_gap, pairs) = _set_class_logits(
+        cpu, torch.from_numpy(img))
+    log(phase, f'reppoints_cls_out weight x{scale:.4g}, bias {bias:.4g}: '
+               f'{pairs} candidate pairs clear score_thr '
+               f'{dict(cpu.test_cfg)["score_thr"]}; in logits, the nearest '
+               f'to score_thr\'s {thr_gap:.3g} away, the smallest gap at a '
+               f'level\'s top-{dict(cpu.test_cfg)["nms_pre"]} cut '
+               f'{cut_gap}, at the 2048-pair cap {cap_gap}')
+    gpu = build_detector(dict(cpu.cfg.model, dtype='float32'))
+    gpu.load_state_dict(cpu.state_dict())
+    gpu = gpu.to(device).eval()
+    want = _rp_outputs(cpu, 'cpu', img, shapes, sf)
+    reset_launch_counts()
+    got = _rp_outputs(gpu, device, img, shapes, sf)
+    if device == 'cuda':
+        per = reppoints_launches(gpu, training=False)
+        # simple_test and the candidates' pass, each a request's worth but
+        # the latter's NMS
+        per2 = {k: 2 * v - (k == 'nms_sorted') for k, v in per.items()}
+        _check_launches(phase, launch_counts(), per2, 1)
+        _check_tc(phase, launch_counts(), False, _tc_kernels(False, False))
+    feat_err, errs = _rp_errors(want, got)
+    # the candidates as sorted sets: near-tied points may take their top-k
+    # slots in another order
+    cand_err = (torch.sort(want[2].flatten()).values
+                - torch.sort(got[2].flatten()).values).abs().max().item()
+    if errs is None:
+        raise AssertionError('detections differ between card and CPU')
+    box_err, score_err, n = errs
+    log(phase, f'224x320 fp32 card vs CPU: features rel max|d| '
+               f'{feat_err:.3g}, {n} dets equal, box max|d| {box_err:.3g} px, '
+               f'score max|d| {score_err:.3g}, candidate scores (sorted) '
+               f'max|d| {cand_err:.3g}')
+    if feat_err > 1e-3 or n == 0 or box_err > 1e-2 \
+            or max(score_err, cand_err) > 1e-4:
+        raise AssertionError('card vs CPU over the limits: features 1e-3, '
+                             'boxes 1e-2 px, scores 1e-4')
+    if not control:
+        return
+    ctl = build_detector(dict(cpu.cfg.model, dtype='bfloat16'))
+    ctl.load_state_dict(cpu.state_dict())
+    feat_err, errs = _rp_errors(want, _rp_outputs(ctl.to(device).eval(),
+                                                  device, img, shapes, sf))
+    log(phase, f'bf16 control vs the fp32 CPU run: features rel max|d| '
+               f'{feat_err:.3g}, detections '
+               + ('differ' if errs is None else
+                  f'equal, box max|d| {errs[0]:.3g}, score max|d| '
+                  f'{errs[1]:.3g}'))
+    if errs is not None and feat_err <= 1e-3 and errs[0] <= 1e-2 \
+            and errs[1] <= 1e-4:
+        raise AssertionError('the bf16 control passes the fp32 limits')
+
+
+def _deform_conv_ms(model, batch, phase, iters=3):
+    """The device ms of the head's deformable convs in one training step,
+    forward and backward apart: each call's inputs are taken from a
+    training forward of ``batch``, then each call runs again on them
+    (input, offsets and weight with gradients, as in the step) under
+    torch.profiler, its forward and its backward each summed over every
+    kernel they launch. Returns (forward ms, backward ms, calls)."""
+    head = model.bbox_head
+    calls = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: calls.append((mod, args[0].detach().clone(),
+                                        args[1].detach().clone())))
+        for m in (head.reppoints_cls_conv, head.reppoints_pts_refine_conv)]
+    try:
+        with torch.no_grad():
+            model.forward_train(batch['img'], batch['img_shapes'],
+                                batch['pad_shapes'], batch['gt_bboxes'],
+                                batch['gt_valid'], batch['gt_labels'],
+                                gen=torch.Generator(device='cuda')
+                                .manual_seed(1))
+    finally:
+        for h in hooks:
+            h.remove()
+
+    def device_ms(fn):
+        return _kernel_device_ms(fn, {'all': ''}, iters)['all']
+
+    fwd = bwd = 0.0
+    rows = []
+    for mod, x, off in calls:
+        x.requires_grad_(True)
+        off.requires_grad_(True)
+        f_ms = device_ms(lambda: mod(x, off))
+        out = mod(x, off)
+        g = torch.randn_like(out)
+
+        def backward():
+            torch.autograd.grad(out, (x, off, mod.weight), g,
+                                retain_graph=True)
+        b_ms = device_ms(backward)
+        rows.append(f'{tuple(x.shape[1:3])} {f_ms:.3f}+{b_ms:.3f}')
+        fwd += f_ms
+        bwd += b_ms
+    log(phase, f'deformable convs, {len(calls)} calls a step (level: '
+               f'forward+backward ms): ' + ', '.join(rows))
+    return fwd, bwd, len(calls)
+
+
+def reppoints_train(phase='reppoints-train'):
+    """1 + 5 make_train_step steps of RepPoints (its config in bf16:
+    drop_path_rate 0.2, AdamW with the Swin paramwise_cfg) at batch 2 on
+    the 800x1344 canvas with 16 painted rectangles an image and no
+    gt_masks, each step's launches checked; 2 profiled steps; the
+    deformable convs' device ms."""
+    cfg = Config.fromfile(REPPOINTS_CONFIG)
+    cfg.merge_from_dict(REPPOINTS_BF16)
+    model = init_detector(cfg, device='cuda', seed=0)
+    opt = build_optimizer(model, dict(cfg.optimizer))
+    schedule = build_lr_schedule(dict(cfg.lr_config), cfg.optimizer['lr'],
+                                 ITERS_PER_EPOCH)
+    step = make_train_step(model, opt, schedule,
+                           dict(cfg.optimizer_config).get('grad_clip'))
+    per = reppoints_launches(model, training=True)
+    batch = synthetic_train_batch()
+    del batch['gt_masks']
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    t0 = time.perf_counter()
+    _check_log(step(batch, gen), 'warm-up step')
+    torch.cuda.synchronize()
+    log(phase, f'warm-up step {time.perf_counter() - t0:.3f} s; launches '
+               f'per step {_nonzero(per)}')
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        out = step(batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        _check_log(out, 'timed step')
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(phase, 'per-step ms: ' + ', '.join(f'{t:.1f}' for t in times)
+               + f'; median {np.median(times):.1f}; peak memory '
+                 f'{peak / 2 ** 30:.2f} GiB; {CARD}')
+    log(phase, 'last step: ' + ', '.join(f'{k} {v:.4f}'
+                                         for k, v in out.items()))
+    _check_launches(phase, launches, per, 5)
+    tc = _check_tc(phase, launches, True, _tc_kernels(False))
+    log(phase, f'kernel launches over the 5 timed steps {_nonzero(launches)}'
+               f', as derived; tensor-core {_nonzero(tc)}')
+    busy = _profile_steps(step, batch, gen, float(np.median(times)), phase)
+    fwd, bwd, n = _deform_conv_ms(model, batch, phase)
+    log(phase, f'median step {np.median(times):.1f} ms, busy {busy:.3f}, '
+               f'peak {peak / 2 ** 30:.2f} GiB; the {n} deformable convs '
+               f'{fwd:.2f} ms forward + {bwd:.2f} ms backward a step; on '
+               f'{CARD}')
+    return launches, times, peak, busy, (fwd, bwd)
+
+
+def _refine_targets(model, record=None, replay=None):
+    """Wrap the head's target step: ``record`` (a list) keeps each stage's
+    targets on the CPU; ``replay`` (such a list) makes the refined stage
+    read those in place of its own (the init stage's assigner sees the
+    grid points only, the same on both devices)."""
+    head = model.bbox_head
+    own = head._targets
+
+    def targets(assigner, cands, *args):
+        out = own(assigner, cands, *args)
+        if record is not None:
+            record.append((cands.detach().cpu(), [t.cpu() for t in out]))
+        if replay is not None and assigner is head.refine_assigner:
+            out = [t.to(cands.device) for t in replay[1]]
+        return out
+    head._targets = targets
+    return lambda: head.__dict__.pop('_targets', None)
+
+
+def _iou_margin(model, boxes, batch):
+    """The refine stage's nearest IoU to its thresholds (0.4, 0.5), per gt
+    the gap between its best and next-best box (the low-quality match's
+    equality) and per box the gap between its best and next-best gt (the
+    argmax), over the CPU run's initial boxes (B, N, 4)."""
+    from swindet_tpu_torch.core.bbox import bbox_overlaps
+    a = model.bbox_head.refine_assigner
+    margin = float('inf')
+    for i in range(boxes.shape[0]):
+        gv = torch.from_numpy(batch['gt_valid'][i])
+        iou = bbox_overlaps(boxes[i].double(), torch.from_numpy(
+            batch['gt_bboxes'][i]).double())[:, gv]
+        for t in (a.pos_iou_thr, a.neg_iou_thr):
+            margin = min(margin, (iou - t).abs().min().item())
+        top2 = iou.topk(2, dim=0).values
+        margin = min(margin, (top2[0] - top2[1]).min().item())
+        if iou.shape[1] > 1:
+            top2 = iou.topk(2, dim=1).values
+            near = top2[:, 0] >= a.neg_iou_thr
+            if near.any():
+                margin = min(margin, (top2[near, 0] - top2[near, 1])
+                             .min().item())
+    return margin
+
+
+def _rp_train_grads(model, batch, dev, names):
+    model.train()
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()
+          if k != 'gt_masks'}
+    losses = model.forward_train(tb['img'], tb['img_shapes'],
+                                 tb['pad_shapes'], tb['gt_bboxes'],
+                                 tb['gt_valid'], tb['gt_labels'])
+    params = dict(model.named_parameters())
+    grads = torch.autograd.grad(sum(losses.values()),
+                                [params[n] for n in names])
+    return ({k: float(v.detach()) for k, v in losses.items()},
+            {n: g.detach().cpu() for n, g in zip(names, grads)})
+
+
+def _rp_train_errors(want, got):
+    loss = {k: abs(got[0][k] - v) / max(abs(v), 1e-30)
+            for k, v in want[0].items()}
+    grad = {n: ((got[1][n] - g).abs().max() / g.abs().max()).item()
+            for n, g in want[1].items()}
+    return loss, grad
+
+
+def reppoints_train_check(device='cuda', phase='reppoints-train-check',
+                          names=REPPOINTS_TRAIN_GRADS,
+                          limits=REPPOINTS_TRAIN_LIMITS):
+    """Phase 7's check on RepPoints: forward_train in fp32 on phase 7's
+    224x320 batch (4 gts an image), on the card (kernels) and on the CPU
+    (plain versions), same seeded weights, no stochastic depth: the three
+    losses and the gradients of ``names`` within ``limits`` (loss,
+    gradient as max |d| over the largest entry), and a bf16 control on the
+    card that must exceed both. The refined stage assigns by IoU on
+    initial boxes the two devices compute apart: where the card's
+    assignment differs from the CPU's, every difference must sit within
+    REPPOINTS_IOU_NOISE of a threshold or of a gt's best IoU, and the
+    card runs again reading the CPU's refined targets (pinned)."""
+    opts = {'bf16': False, 'model.backbone.drop_path_rate': 0.0}
+    start = time.perf_counter()
+    cpu = init_detector(REPPOINTS_CONFIG, device='cpu', cfg_options=opts,
+                        seed=1)
+    gpu = build_detector(dict(cpu.cfg.model, dtype='float32'))
+    gpu.load_state_dict(cpu.state_dict())
+    gpu = gpu.to(device)
+    batch = train_check_batch()
+    seen = []
+    undo = _refine_targets(cpu, record=seen)
+    try:
+        ref = _rp_train_grads(cpu, batch, 'cpu', names)
+    finally:
+        undo()
+    margin = _iou_margin(cpu, seen[1][0], batch)
+    log(phase, f'models built and the CPU run in '
+               f'{time.perf_counter() - start:.1f} s; refine stage: '
+               f'nearest IoU to a threshold or a gt\'s best '
+               f'{margin:.3g}')
+    mine = []
+    reset_launch_counts()
+    undo = _refine_targets(gpu, record=mine)
+    try:
+        got = _rp_train_grads(gpu, batch, device, names)
+    finally:
+        undo()
+    if device == 'cuda':
+        _check_launches(phase, launch_counts(),
+                        reppoints_launches(gpu, training=True), 1)
+        _check_tc(phase, launch_counts(), False, _tc_kernels(False))
+    if not all(torch.equal(a, b) for a, b in zip(seen[0][1], mine[0][1])):
+        raise AssertionError('the initial stage\'s point assignment differs '
+                             'between the card and the CPU')
+    flips = sum(int((a != b).sum()) for a, b in zip(seen[1][1][:2],
+                                                    mine[1][1][:2]))
+    pinned = flips > 0
+    if pinned:
+        log(phase, f'the card\'s refined assignment differs from the CPU\'s '
+                   f'in {flips} entries; pinned to the CPU\'s')
+        if margin > REPPOINTS_IOU_NOISE:
+            raise AssertionError('the refined assignments differ with no '
+                                 'IoU within noise of a boundary')
+        undo = _refine_targets(gpu, replay=seen[1])
+        try:
+            got = _rp_train_grads(gpu, batch, device, names)
+        finally:
+            undo()
+    sound = _rp_train_errors(ref, got)
+    ctl = build_detector(dict(cpu.cfg.model, dtype='bfloat16'))
+    ctl.load_state_dict(cpu.state_dict())
+    undo = _refine_targets(ctl.to(device), replay=seen[1] if pinned
+                           else None)
+    try:
+        control = _rp_train_errors(ref, _rp_train_grads(ctl, batch, device,
+                                                         names))
+    finally:
+        undo()
+    tol_loss, tol_grad = limits
+    for what, (loss, grad) in (('fp32 card vs CPU', sound),
+                               ('control, bf16 card vs fp32 CPU', control)):
+        log(phase, f'224x320 {what}: relative loss |d| ' + ', '.join(
+            f'{k} {v:.3g}' for k, v in loss.items()))
+        log(phase, '  grad |d| / max: ' + ', '.join(
+            f'{n} {v:.3g}' for n, v in grad.items()))
+    over = [k for k, v in sound[0].items() if not v <= tol_loss] \
+        + [n for n, v in sound[1].items() if not v <= tol_grad]
+    if over:
+        raise AssertionError(f'card vs CPU over the limits: {over}')
+    if max(control[0].values()) <= tol_loss \
+            or max(control[1].values()) <= tol_grad:
+        raise AssertionError('the bf16 control passes the loss or the '
+                             'gradient limit')
+    return pinned
+
+
+def reppoints_files(phase='reppoints-files'):
+    """The config's own bbox-only train pipeline through train_detector
+    for 2 iterations (2 PNGs of phase 10, one batch, whose batches must
+    carry no gt_masks), then tools.test with the trained checkpoint on
+    them, plain and with test-time augmentation (flip, two scales:
+    aug_test_single_stage), --eval bbox, score_thr 0."""
+    build_dir = os.path.join(REPO, 'build')
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as root:
+        ann_file, prefix = write_synthetic_coco(root, REPPOINTS_LOOP_SIZES)
+        work = os.path.join(root, 'work')
+        cfg = loop_config(ann_file, prefix, work, max_epochs=2,
+                          config=REPPOINTS_CONFIG)
+        model_cfg = dict(cfg.model, dtype='bfloat16')
+        model_cfg.pop('pretrained', None)
+        model = build_detector(model_cfg)
+        masks = []
+        forward_train = model.forward_train
+
+        def forward(*args, **kw):
+            masks.append(args[6] if len(args) > 6 else kw.get('gt_masks'))
+            return forward_train(*args, **kw)
+        model.forward_train = forward
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        run = train_detector(model, build_dataset(cfg.data.train), cfg)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        log(phase, f'train_detector: {len(run.log_vars)} iterations in '
+                   f'{time.perf_counter() - t0:.1f} s, canvases '
+                   f'{run.canvases}; loss '
+                   + ', '.join(f'{v["loss"]:.4g}' for v in run.log_vars)
+                   + '; grad_norm '
+                   + ', '.join(f'{v["grad_norm"]:.4g}' for v in run.log_vars))
+        bad = [v for v in run.log_vars
+               if not all(np.isfinite(x) for x in v.values())]
+        per = reppoints_launches(model, training=True)
+        if len(run.log_vars) != 2 or bad or len(masks) != 2 \
+                or any(m is not None for m in masks) \
+                or launches != {k: 2 * v for k, v in per.items()}:
+            raise AssertionError(f'the loop: {len(run.log_vars)} '
+                                 f'iterations, non-finite {bad}, gt_masks '
+                                 f'{[m is not None for m in masks]}, '
+                                 f'launches {_nonzero(launches)}')
+        log(phase, 'the batches carried no gt_masks; launches '
+                   f'{_nonzero(launches)}, two steps\' worth')
+        ckpt = os.path.join(work, 'epoch_2.pth')
+        cfg_file = os.path.join(root, 'reppoints_cfg.py')
+        eval_config(ann_file, prefix, config=REPPOINTS_CONFIG).dump(cfg_file)
+        base = [cfg_file, ckpt, '--samples-per-gpu', '2', '--eval', 'bbox',
+                '--cfg-options', 'bf16=True', 'model.test_cfg.score_thr=0.0']
+        per = reppoints_launches(model, training=False)
+        out = {}
+        for what, n_aug, extra in (
+                ('test', 1, []),
+                ('TTA', 4, ['data.test.pipeline.1.img_'
+                            f'scale={TTA_SCALES!r}',
+                            'data.test.pipeline.1.flip=True'])):
+            ran, launches, dets = _cli_run(phase, base + extra, what)
+            want = {k: v * n_aug if k != 'nms_sorted' else v
+                    for k, v in per.items()}
+            if dets != [100, 100] or launches != want or not all(
+                    np.isfinite(v) for v in ran['metrics'].values()
+                    if isinstance(v, float)):
+                raise AssertionError(f'{what}: detections {dets}, launches '
+                                     f'{_nonzero(launches)} (expected '
+                                     f'{_nonzero(want)}), metrics '
+                                     f'{ran["metrics"]}')
+            _check_tc(phase, launches, True, _tc_kernels(False, False))
+            log(phase, f'{what}: metrics {dict(ran["metrics"])}')
+            out[what] = launches
+    return out
+
+
+def phase_reppoints():
+    """Phase 13: RepPoints-moment Swin-T serving, its fp32 serving check,
+    training, its fp32 training check and the loop and test tool from
+    files. Returns the serving and training results."""
+    start = last = time.perf_counter()
+    laps = []
+
+    def lap(what):
+        nonlocal last
+        now = time.perf_counter()
+        laps.append(f'{what} {now - last:.1f} s')
+        log('time', f'reppoints: {laps[-1]}')
+        last = now
+    serve, lat = reppoints_serve()
+    lap('serving')
+    reppoints_check()
+    lap('serving check')
+    train, times, peak, busy, deform = reppoints_train()
+    lap('training')
+    pinned = reppoints_train_check()
+    lap('training check')
+    reppoints_files()
+    lap('files')
+    log('time', f'reppoints: ' + ', '.join(laps)
+                + f'; phase 13 {time.perf_counter() - start:.1f} s')
+    return dict(serve=serve, lat=lat, train=train, times=times, peak=peak,
+                busy=busy, deform=deform, pinned=pinned)
+
+
 # phase 3's further readings of a kernel's main row that the JSON line
 # carries: the kernel's own device ms (rows 1, 14 and 15), row 14's
 # head-major copy, row 1's first kernel off the vector path, row 15's
@@ -3324,6 +4031,8 @@ def main() -> int:
     lap('phase 11')
     cascade = phase_cascade()
     lap('phase 12')
+    reppoints = phase_reppoints()
+    lap('phase 13')
     for what, key, fmt in (('request latency (s)', 'lat', '.4f'),
                            ('training step (ms)', 'times', '.1f')):
         log('configs', f'{what}, median of the timed runs: ' + ', '.join(
@@ -3337,6 +4046,13 @@ def main() -> int:
                    f'{np.median(cascade["times"]):.1f} ms, peak '
                    f'{cascade["peak"] / 2 ** 30:.2f} GiB, busy '
                    f'{cascade["busy"]:.3f}; {smi}')
+    log('reppoints', f'RepPoints-moment Swin-T: request latency median '
+                     f'{np.median(reppoints["lat"]):.4f} s, training step '
+                     f'median {np.median(reppoints["times"]):.1f} ms, peak '
+                     f'{reppoints["peak"] / 2 ** 30:.2f} GiB, busy '
+                     f'{reppoints["busy"]:.3f}, deformable convs '
+                     f'{reppoints["deform"][0]:.2f} + '
+                     f'{reppoints["deform"][1]:.2f} ms a step; {smi}')
     rows = []
     for fn in KERNEL_WRAPPERS:
         name = fn.__name__
@@ -3357,6 +4073,9 @@ def main() -> int:
         # phase 12's cascade: 3 requests, 5 steps
         counts['cascade_serve_launches'] = cascade['serve'][name]
         counts['cascade_train_launches'] = cascade['train'][name]
+        # phase 13's RepPoints: 3 requests, 5 steps
+        counts['reppoints_serve_launches'] = reppoints['serve'][name]
+        counts['reppoints_train_launches'] = reppoints['train'][name]
         if tc:
             tc = dict(tc_launches=sum(tc.values()), **tc)
         if 'shapes' in main_row:

@@ -1,8 +1,13 @@
-"""Test-time augmentation of a two-stage detector (counterpart of
-``swindet_tpu/apis/aug_test.py``: ``_flip_boxes_np``, ``map_boxes_back``,
-``map_boxes_to_aug`` :32-80 and ``aug_test_two_stage`` :137-216;
+"""Test-time augmentation (counterpart of ``swindet_tpu/apis/aug_test.py``:
+``_flip_boxes_np``, ``map_boxes_back``, ``map_boxes_to_aug`` :32-80,
+``aug_test_single_stage`` :88-134 and ``aug_test_two_stage`` :137-216;
 reference mmdet roi_heads/test_mixins.py:118 aug_test_bboxes, :238
-aug_test_mask, core/post_processing/merge_augs.py).
+aug_test_mask, dense_test_mixins.py:60 aug_test_bboxes,
+core/post_processing/merge_augs.py).
+
+A single-stage detector's augmentations each give their pre-NMS
+candidates, which are mapped back to the original frame, concatenated and
+go through one multiclass NMS. For a two-stage detector:
 
 Each augmentation (a scale and a flip) is one batch on its own canvas.
 Its features are extracted once and handed to the detector's three
@@ -79,6 +84,30 @@ def _unflip_masks(probs: torch.Tensor, aug_batch: Dict) -> torch.Tensor:
     dims = ([-1] if d in ('horizontal', 'diagonal') else []) \
         + ([-2] if d in ('vertical', 'diagonal') else [])
     return torch.flip(probs, dims)
+
+
+def aug_test_single_stage(model, aug_batches: List[Dict]
+                          ) -> Dict[str, torch.Tensor]:
+    """The merged detections of a single-stage detector over
+    ``aug_batches`` in the original frame: dets (B, max, 5), labels and
+    det_valid. Every augmentation's candidates are concatenated, not
+    averaged (there is no shared proposal set), and the NMS's entry cap
+    grows with the number of augmentations, 2048 pairs each, so that the
+    merge drops no candidate a single augmentation would have kept."""
+    cfg = dict(model.test_cfg)
+    boxes, scores = [], []
+    for ab in aug_batches:
+        b, s, factors = model.aug_bbox_test(ab['img'], ab['img_shapes'])
+        if factors is not None:
+            raise NotImplementedError('aug_test_single_stage: score '
+                                      'factors are not ported yet')
+        boxes.append(map_boxes_back(b, ab))
+        scores.append(s.float())
+    res = multiclass_nms(torch.cat(boxes, 1), torch.cat(scores, 1),
+                         cfg['score_thr'], dict(cfg['nms']),
+                         cfg.get('max_per_img', 100),
+                         pre_nms_cap=2048 * len(aug_batches))
+    return dict(dets=res.dets, labels=res.labels, det_valid=res.valid)
 
 
 def aug_test_two_stage(model, aug_batches: List[Dict]

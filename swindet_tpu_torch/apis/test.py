@@ -13,9 +13,9 @@ original image and encoded as COCO RLE (as mmdet's single_gpu_test
 does), and results are returned in dataset order.
 
 A pipeline whose MultiScaleFlipAug gives more than one augmentation runs
-test-time augmentation (``apis/aug_test.py``): one canvas per
-(orientation, augmentation), the merged detections in the original
-frame.
+test-time augmentation (``apis/aug_test.py``, the two-stage or the
+single-stage merge): one canvas per (orientation, augmentation), the
+merged detections in the original frame.
 
 The model runs where its parameters are. The native batched loader of
 the JAX package (``SWINDET_NATIVE_IMAGE=1``) is not ported.
@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..core.masks import encode_mask_results
-from .aug_test import aug_test_two_stage
+from .aug_test import aug_test_single_stage, aug_test_two_stage
 from .inference import format_results
 
 
@@ -101,10 +101,15 @@ def eval_batches(model: torch.nn.Module, dataset, batch_size: int = 8,
             continue
         img0 = processed[idxs[0]]['img']
         n_aug = len(img0) if isinstance(img0, list) else 1
-        if n_aug > 1 and not hasattr(model, 'aug_rpn_test'):
+        # a two-stage detector has the RPN's half, a single-stage one only
+        # the bbox half (swindet_tpu/apis/test.py:181-185)
+        aug_test = aug_test_two_stage if hasattr(model, 'aug_rpn_test') \
+            else aug_test_single_stage if hasattr(model, 'aug_bbox_test') \
+            else None
+        if n_aug > 1 and aug_test is None:
             raise NotImplementedError(
                 f'{type(model).__name__} has no test-time augmentation '
-                f'path (single-stage TTA: ROADMAP §1 item 7)')
+                f'path')
         canvases = [(_round_up(max(_aug(processed[i], a)[0].shape[0]
                                    for i in idxs)),
                      _round_up(max(_aug(processed[i], a)[0].shape[1]
@@ -116,7 +121,7 @@ def eval_batches(model: torch.nn.Module, dataset, batch_size: int = 8,
                        for a in range(n_aug)]
             with torch.inference_mode():
                 if n_aug > 1:
-                    out = aug_test_two_stage(model, batches)
+                    out = aug_test(model, batches)
                 else:
                     out = model.simple_test(batches[0]['img'],
                                             batches[0]['img_shapes'],

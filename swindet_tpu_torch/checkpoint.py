@@ -30,8 +30,9 @@ _NAME_MAP = {
     '_mask_head': 'mask_head',
 }
 _INDEXED = re.compile(r'^(layers|blocks|lateral_convs|fpn_convs|'
-                      r'shared_convs|shared_fcs|convs|bbox_head|'
-                      r'mask_head)(\d+)$')
+                      r'shared_convs|shared_fcs|convs|cls_convs|reg_convs|'
+                      r'reppoints_cls_convs|reppoints_pts_convs|head_convs|'
+                      r'bbox_head|mask_head)(\d+)$')
 # a ConvModule's anonymous flax norm -> mmcv's name for it
 _NORMS = {('norm', 'BatchNorm_0'): 'bn', ('norm', 'GroupNorm_0'): 'gn',
           ('norm', 'LayerNorm_0'): 'ln'}
@@ -84,6 +85,9 @@ def state_dict_from_jax(params: Dict, batch_stats: Optional[Dict] = None,
     - conv kernels HWIO -> OIHW, dense kernels (in, out) -> (out, in);
     - the mask head's deconv (kh, kw, in, out) -> (in, out, kh, kw),
       spatially un-flipped;
+    - a deformable conv's tap-major ``weight`` (K, in, out) -> mmcv's
+      (out, in, kh, kw), kh = kw = sqrt(K) (the inverse of
+      ``swindet_tpu/checkpoint.py:496-500``);
     - the first FC of a bbox head (a cascade's too), which reads the
       (s, s, C) roi features flattened HWC in JAX, reads them CHW as in
       mmdet (s = ``roi_feat_size``);
@@ -104,6 +108,9 @@ def state_dict_from_jax(params: Dict, batch_stats: Optional[Dict] = None,
                 a = a[::-1, ::-1].transpose(2, 3, 0, 1)
             else:
                 a = a.transpose(3, 2, 0, 1)
+        elif path[-1] == 'weight' and a.ndim == 3:
+            k = int(round(np.sqrt(a.shape[0])))
+            a = a.reshape(k, k, *a.shape[1:]).transpose(3, 2, 0, 1)
         elif path[-1] == 'kernel' and a.ndim == 2:
             a = a.T
             if path[-2] == 'shared_fcs0' and any(

@@ -1,6 +1,7 @@
-"""Grid anchors (counterpart of ``swindet_tpu/core/anchors.py``:
-``AnchorGenerator`` :19 with ``valid_flags`` :115, ``anchor_inside_flags``
-:175; reference mmdet/core/anchor/anchor_generator.py:10)."""
+"""Grid anchors and points (counterpart of ``swindet_tpu/core/anchors.py``:
+``AnchorGenerator`` :19 with ``valid_flags`` :115, ``PointGenerator`` :140,
+``anchor_inside_flags`` :175; reference
+mmdet/core/anchor/anchor_generator.py:10, point_generator.py)."""
 from __future__ import annotations
 
 from typing import Dict, List, Sequence, Tuple
@@ -77,6 +78,42 @@ class AnchorGenerator:
             valid = (vy[:, None] & vx[None, :]).reshape(-1)
             out.append(valid.repeat_interleave(self.num_base_anchors[lvl]))
         return out
+
+
+@ANCHOR_GENERATORS.register_module()
+class PointGenerator:
+    """Grid points of anchor-free heads: one point per feature cell at its
+    top-left corner in image pixels, with its stride."""
+
+    def __init__(self):
+        self._grid_cache: Dict[Tuple, torch.Tensor] = {}
+
+    def grid_points(self, featmap_size: Tuple[int, int], stride: int = 16,
+                    device='cpu', dtype=torch.float32) -> torch.Tensor:
+        """(H * W, 3) ``[x, y, stride]``, row-major over the grid. Built
+        from numpy, cached per size, stride, device and dtype, and made
+        outside inference mode so that training may reuse them."""
+        fh, fw = int(featmap_size[0]), int(featmap_size[1])
+        key = (fh, fw, stride, str(device), dtype)
+        if key not in self._grid_cache:
+            sx, sy = np.meshgrid(np.arange(0., fw) * stride,
+                                 np.arange(0., fh) * stride)
+            points = np.stack([sx.ravel(), sy.ravel(),
+                               np.full(fh * fw, float(stride))], axis=-1)
+            with torch.inference_mode(False):
+                self._grid_cache[key] = torch.from_numpy(points).to(
+                    device=device, dtype=dtype)
+        return self._grid_cache[key]
+
+    def valid_flags(self, featmap_size: Tuple[int, int], valid_size,
+                    device='cpu') -> torch.Tensor:
+        """(H * W,) bool: the points whose cell lies inside the valid
+        ``(h, w)`` of the grid."""
+        fh, fw = featmap_size
+        vh, vw = valid_size
+        vx = torch.arange(fw, device=device) < vw
+        vy = torch.arange(fh, device=device) < vh
+        return (vy[:, None] & vx[None, :]).reshape(-1)
 
 
 def anchor_inside_flags(flat_anchors: torch.Tensor, valid_flags: torch.Tensor,

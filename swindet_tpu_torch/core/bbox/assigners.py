@@ -1,7 +1,8 @@
-"""Max-IoU assignment on fixed-size, masked inputs (counterpart of
-``swindet_tpu/core/bbox/assigners.py``: ``AssignResult`` :27,
-``MaxIoUAssigner`` :34, ``add_gt_as_candidates`` :155; reference
-mmdet/core/bbox/assigners/max_iou_assigner.py:10).
+"""Max-IoU and point assignment on fixed-size, masked inputs (counterpart
+of ``swindet_tpu/core/bbox/assigners.py``: ``AssignResult`` :27,
+``MaxIoUAssigner`` :34, ``add_gt_as_candidates`` :155, ``PointAssigner``
+:176; reference mmdet/core/bbox/assigners/max_iou_assigner.py:10,
+point_assigner.py).
 
 Every candidate keeps its slot; gt boxes arrive padded to a static G with
 a ``gt_valid`` mask, and invalid rows and columns are masked to -1
@@ -112,3 +113,59 @@ def add_gt_as_candidates(assign_result: AssignResult, gt_valid: torch.Tensor,
         gt_inds=torch.cat([gt_self, assign_result.gt_inds.to(torch.int32)]),
         max_overlaps=torch.cat([gt_ovr, assign_result.max_overlaps]),
         labels=torch.cat([gt_lab, assign_result.labels.to(torch.int32)]))
+
+
+@BBOX_ASSIGNERS.register_module()
+class PointAssigner:
+    """Each gt claims the ``pos_num`` points closest to its centre at its
+    scale-matched pyramid level; where claims conflict, the closest
+    claiming gt wins and a tie goes to the earlier gt (the reference's
+    in-order loop overwrites only on a strictly smaller distance)."""
+
+    def __init__(self, scale: int = 4, pos_num: int = 3):
+        self.scale = scale
+        self.pos_num = pos_num
+
+    def assign(self, points: torch.Tensor, gt_bboxes: torch.Tensor,
+               gt_valid: torch.Tensor,
+               gt_labels: Optional[torch.Tensor] = None,
+               bbox_valid: Optional[torch.Tensor] = None) -> AssignResult:
+        """points (N, 3) ``[x, y, stride]``, gt_bboxes (G, 4) padded,
+        gt_valid (G,) bool, gt_labels (G,) or None, bbox_valid (N,) bool
+        or None (invalid points claim nothing)."""
+        n = points.shape[0]
+        px, py = points[:, 0], points[:, 1]
+        lvl = torch.trunc(torch.log2(points[:, 2]))
+        cx = (gt_bboxes[:, 0] + gt_bboxes[:, 2]) * 0.5
+        cy = (gt_bboxes[:, 1] + gt_bboxes[:, 3]) * 0.5
+        gw = (gt_bboxes[:, 2] - gt_bboxes[:, 0]).clamp(min=1e-6)
+        gh = (gt_bboxes[:, 3] - gt_bboxes[:, 1]).clamp(min=1e-6)
+        # the gt level: mean log2 size truncated toward zero (the
+        # reference's `.int()`), clamped to the point levels
+        gt_lvl = torch.trunc((torch.log2(gw / self.scale)
+                              + torch.log2(gh / self.scale)) / 2)
+        gt_lvl = torch.maximum(torch.minimum(gt_lvl, lvl.max()), lvl.min())
+        # elliptical distance to the gt centre, per axis over its size
+        dist = torch.sqrt(((px[:, None] - cx[None]) / gw[None]) ** 2
+                          + ((py[:, None] - cy[None]) / gh[None]) ** 2)
+        big = 1e8
+        ok = ((lvl[:, None] - gt_lvl[None]).abs() < 0.5) & gt_valid[None]
+        if bbox_valid is not None:
+            ok = ok & bbox_valid[:, None]
+        dist = torch.where(ok, dist, big)
+        # a point's rank among a gt's points is its place in the stable
+        # sort (the JAX package's double argsort): the first pos_num of
+        # each column claim
+        order = torch.argsort(dist, dim=0, stable=True)
+        claims = torch.zeros_like(ok).scatter_(
+            0, order[:self.pos_num], True) & (dist < big)
+        win = torch.where(claims, dist, big).argmin(1)
+        gt_inds = torch.where(claims.any(1), win + 1, 0).to(torch.int32)
+        if gt_labels is not None:
+            lab = gt_labels.long()[(gt_inds.long() - 1).clamp(min=0)]
+            labels = torch.where(gt_inds > 0, lab, -1)
+        else:
+            labels = torch.full((n,), -1, device=points.device)
+        return AssignResult(gt_inds=gt_inds,
+                            max_overlaps=(gt_inds > 0).to(points.dtype),
+                            labels=labels.to(torch.int32))

@@ -1,1 +1,1 @@
-from . import rpn_head  # noqa: F401
+from . import reppoints_head, rpn_head  # noqa: F401

@@ -46,6 +46,11 @@ def lecun_normal_(t: torch.Tensor, fan_in: int, gen: torch.Generator):
     return trunc_normal_(t, math.sqrt(1.0 / fan_in) / _TRUNC_STD, gen)
 
 
+def he_normal_(t: torch.Tensor, fan_in: int, gen: torch.Generator):
+    """flax ``he_normal``: truncated normal of variance 2 / fan_in."""
+    return trunc_normal_(t, math.sqrt(2.0 / fan_in) / _TRUNC_STD, gen)
+
+
 def uniform_(t: torch.Tensor, a: float, gen: torch.Generator):
     """Uniform(-a, a)."""
     with torch.no_grad():

@@ -1,2 +1,2 @@
-from .losses import (CrossEntropyLoss, GIoULoss, L1Loss,  # noqa: F401
-                     SmoothL1Loss, accuracy, weight_reduce_loss)
+from .losses import (CrossEntropyLoss, FocalLoss, GIoULoss,  # noqa: F401
+                     L1Loss, SmoothL1Loss, accuracy, weight_reduce_loss)

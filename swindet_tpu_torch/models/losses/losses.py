@@ -1,9 +1,9 @@
 """Detection losses with elementwise weights, fp32 accumulation and
 tensor ``avg_factor``s (counterpart of
 ``swindet_tpu/models/losses/losses.py``: ``weight_reduce_loss`` :20,
-``CrossEntropyLoss`` :47, ``L1Loss`` :126, ``SmoothL1Loss`` :141,
-``GIoULoss`` :190, ``accuracy`` :280; reference
-mmdet/models/losses/cross_entropy_loss.py, smooth_l1_loss.py,
+``CrossEntropyLoss`` :47, ``FocalLoss`` :94, ``L1Loss`` :126,
+``SmoothL1Loss`` :141, ``GIoULoss`` :190, ``accuracy`` :280; reference
+mmdet/models/losses/cross_entropy_loss.py, focal_loss.py, smooth_l1_loss.py,
 iou_loss.py). Padded entries carry weight 0."""
 from __future__ import annotations
 
@@ -84,6 +84,43 @@ class CrossEntropyLoss:
             safe = label.long().clamp(0, pred.shape[-1] - 1)
             loss = -logp.gather(-1, safe[..., None])[..., 0]
             loss = torch.where(label >= 0, loss, 0.0)
+        return self.loss_weight * weight_reduce_loss(loss, weight, reduction,
+                                                     avg_factor)
+
+
+@LOSSES.register_module()
+class FocalLoss:
+    """Sigmoid focal loss in fp32 (reference focal_loss.py
+    py_sigmoid_focal_loss, the spec of its CUDA kernel): BCE scaled by
+    (alpha t + (1 - alpha)(1 - t)) |t - p|^gamma. Integer labels one-hot
+    over the classes, the background label (C) to an all-zero row; an
+    (N,) weight is broadcast over the classes."""
+
+    def __init__(self, use_sigmoid: bool = True, gamma: float = 2.0,
+                 alpha: float = 0.25, reduction: str = 'mean',
+                 loss_weight: float = 1.0):
+        if not use_sigmoid:
+            raise NotImplementedError('FocalLoss: only the sigmoid focal '
+                                      'loss is ported')
+        self.gamma = gamma
+        self.alpha = alpha
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, target, weight=None, avg_factor=None,
+                 reduction_override=None):
+        reduction = reduction_override or self.reduction
+        pred = pred.float()
+        if target.ndim == pred.ndim - 1:
+            target = _expand_onehot(target, pred.shape[-1])
+        target = target.float()
+        p = torch.sigmoid(pred)
+        pt = (1 - p) * target + p * (1 - target)
+        focal_weight = (self.alpha * target + (1 - self.alpha)
+                        * (1 - target)) * pt.pow(self.gamma)
+        loss = _bce_with_logits(pred, target) * focal_weight
+        if weight is not None and weight.ndim < loss.ndim:
+            weight = weight[..., None]
         return self.loss_weight * weight_reduce_loss(loss, weight, reduction,
                                                      avg_factor)
 

@@ -63,8 +63,10 @@ from swindet_tpu_torch.ops import (conv3x3, conv3x3_dw, conv3x3_dw_reference,
                                    window_attention_v4_reference)
 from swindet_tpu_torch.models.backbones.swin import shifted_window_attn_mask
 
-from chip_smoke import (CASCADE_CONFIG, LN_SHAPES, SWINB_ATTN_STAGES,
-                        SWINB_LN_SHAPES, _crowded_rois, cascade_launches)
+from chip_smoke import (CASCADE_CONFIG, LN_SHAPES, REPPOINTS_CONFIG,
+                        SWINB_ATTN_STAGES, SWINB_LN_SHAPES, _crowded_rois,
+                        _set_class_logits, cascade_launches,
+                        reppoints_launches)
 
 pytestmark = pytest.mark.cuda
 DTYPES = [torch.float32, torch.bfloat16]
@@ -140,7 +142,8 @@ def test_window_attention(gen, dtype, n, c, nh, shift):
 # the bf16 kernel picks for it (8 x 8 boxes)
 CONV_CASES = [(2, 5, 9, 16, 24), (3, 14, 14, 128, 128), (1, 1, 70, 32, 200),
               (1, 50, 84, 256, 256), (1, 13, 21, 256, 256),
-              (4, 14, 14, 256, 256), (2, 7, 37, 64, 64)]
+              (4, 14, 14, 256, 256), (2, 7, 37, 64, 64),
+              (2, 7, 11, 256, 256)]
 
 
 @pytest.mark.parametrize('dtype', DTYPES)
@@ -916,3 +919,68 @@ def test_cascade_on_the_card_matches_the_cpu(gen):
     assert all(torch.isfinite(v).all() for v in losses.values())
     assert all(not torch.equal(v, before[k])
                for k, v in train.named_buffers() if k in before)
+
+
+def _tiny_reppoints(dtype):
+    """The RepPoints Swin-T config's graph (FPN from start_level 1 with two
+    stride-2 extra convs, 3 stacked convs a branch, the moment transform)
+    at narrow widths whose 128-channel FPN and head convs take the conv3x3
+    kernel."""
+    from swindet_tpu_torch.models import build_detector
+    from swindet_tpu_torch.utils import Config
+    model = Config.fromfile(REPPOINTS_CONFIG).model
+    model.pop('pretrained', None)
+    model.backbone.update(embed_dim=32, depths=[1, 1, 1, 1],
+                          num_heads=[1, 2, 4, 8], drop_path_rate=0.0)
+    model.neck.update(in_channels=[32, 64, 128, 256], out_channels=128)
+    model.bbox_head.update(in_channels=128, feat_channels=128,
+                           point_feat_channels=128)
+    net = build_detector(dict(model, dtype=dtype))
+    net.init_weights(0)
+    return net
+
+
+def test_reppoints_on_the_card_matches_the_cpu(gen):
+    """A narrow RepPointsDetector of the Swin-T config: fp32 simple_test on
+    the card (its kernels, each launched as reppoints_launches derives)
+    equals the CPU's (labels, boxes within 1e-2 px, scores within 1e-4),
+    with the class output set as phase 13 sets it (its logits N(-12, 4^2)
+    on the image); a bf16 training forward and
+    backward on the card without gt_masks gives finite losses, launches
+    as derived."""
+    cpu = _tiny_reppoints('float32').eval()
+    img = torch.randn(1, 224, 320, 3, generator=gen)
+    _set_class_logits(cpu, img)
+    card = _tiny_reppoints('float32')
+    card.load_state_dict(cpu.state_dict())
+    card = card.cuda().eval()
+    shapes = torch.tensor([[224, 320]], dtype=torch.int32)
+    sf = torch.ones(1, 4)
+    with torch.no_grad():
+        want = cpu.simple_test(img, shapes, sf)
+        reset_launch_counts()
+        got = card.simple_test(img.cuda(), shapes.cuda(), sf.cuda())
+    assert launch_counts() == reppoints_launches(card, training=False)
+    got = {k: v.cpu() for k, v in got.items()}
+    assert int(want['det_valid'].sum()) > 0
+    assert torch.equal(got['det_valid'], want['det_valid'])
+    assert torch.equal(got['labels'], want['labels'])
+    assert (got['dets'][..., :4] - want['dets'][..., :4]).abs().max() <= 1e-2
+    assert (got['dets'][..., 4] - want['dets'][..., 4]).abs().max() <= 1e-4
+
+    train = _tiny_reppoints('bfloat16').cuda().train()
+    b, h, w = 2, 224, 320
+    boxes = torch.tensor([[[20.3, 30.1, 120.7, 150.2],
+                           [150.4, 60.6, 300.1, 200.9]]] * b).cuda()
+    shapes = torch.tensor([[h, w]] * b, dtype=torch.int32).cuda()
+    reset_launch_counts()
+    losses = train.forward_train(
+        torch.randn(b, h, w, 3, generator=gen).cuda(), shapes, shapes,
+        boxes, torch.ones(b, 2, dtype=torch.bool).cuda(),
+        torch.tensor([[1, 7]] * b).cuda(), None,
+        gen=torch.Generator(device='cuda').manual_seed(0))
+    assert set(losses) == {'loss_cls', 'loss_pts_init', 'loss_pts_refine'}
+    sum(losses.values()).backward()
+    assert launch_counts() == reppoints_launches(train, training=True)
+    assert all(torch.isfinite(v).all() for v in losses.values())
+    assert train.bbox_head.moment_transfer.grad.abs().max() > 0
