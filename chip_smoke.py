@@ -231,17 +231,50 @@ before the last line:
               plain and with test-time augmentation (flip and two scales,
               aug_test_single_stage: one NMS a batch), --eval bbox,
               score_thr 0.
+14. resnet -- Faster R-CNN R-50 and RetinaNet R-50 from their configs
+              (configs/faster_rcnn/faster_rcnn_r50_fpn_1x_coco.py,
+              configs/retinanet/retinanet_r50_fpn_1x_coco.py, bf16 set on
+              top; ResNet-50 with frozen BN and frozen_stages=1, SGD),
+              each: serving, a warm-up and 3 requests at 800x1333 (for
+              RetinaNet the class output's bias shifted so that 4,096
+              (anchor, class) pairs of the warm-up request clear
+              score_thr, 100 detections each), every kernel's launches
+              equal to what resnet_launches derives (a request: Faster
+              R-CNN conv3x3 9 -- the FPN's 4 output convs and the RPN
+              conv on 5 levels --, RoIAlign 1, NMS 2; RetinaNet conv3x3
+              43 -- the FPN's 3 output convs and 8 tower convs on 5
+              levels --, NMS 1; the ResNet's convs run F.conv2d); phase
+              5's fp32 card-vs-CPU check with a bf16 control that must
+              fail it; 1 + 5 make_train_step steps at batch 2 on
+              800x1344 without gt_masks (a step: Faster R-CNN conv3x3 18,
+              its filter gradient 9, RoIAlign forward and backward 1
+              each, NMS 1; RetinaNet conv3x3 86, its filter gradient 43),
+              the frozen BN buffers unmoved, the frozen stages' zero
+              gradients, 2 profiled steps with the kernel ms split into
+              the hand-written kernels and the library's convolutions
+              and GEMMs; phase 7's fp32 check with a bf16 control
+              (Faster R-CNN's proposals pinned, its chain checked
+              apart); then, Faster
+              R-CNN only, train_detector for one epoch (one iteration) on
+              2 of phase 10's PNGs with the config's bbox-only pipeline
+              and a second epoch resumed from epoch_1.pth, and for both
+              tools.test on the 2 PNGs (Faster R-CNN's trained
+              checkpoint, RetinaNet's seeded one), --eval bbox, score_thr
+              0 (100 detections an image).
 
 Each phase's wall time is logged under [time].
 
 Then one JSON line of per-kernel results (``launches``: the serving
 and the training runs' counts of the three configurations, phase 11's
 test and TTA runs, phase 12's cascade serving and training and phase
-13's RepPoints serving and training, each from its own reset, summed;
+13's RepPoints serving and training and phase 14's Faster R-CNN and
+RetinaNet serving and training, each from its own reset, summed;
 each also apart, phase 11's as ``eval_launches`` and ``tta_launches``,
 phase 12's as ``cascade_serve_launches`` and ``cascade_train_launches``,
 phase 13's as ``reppoints_serve_launches`` and
-``reppoints_train_launches``; for the conv,
+``reppoints_train_launches``, phase 14's as ``faster_serve_launches``,
+``faster_train_launches``, ``retina_serve_launches`` and
+``retina_train_launches``; for the conv,
 fused-MLP and v1, v3,
 v4 and full-map attention rows also ``tc_launches``, counted the same
 way; ``shapes``, the bf16 readings at every main-path shape, for those,
@@ -1793,11 +1826,12 @@ def _check_log(log, what):
         raise AssertionError(f'{what}: non-finite {bad}')
 
 
-def _profile_steps(step, batch, gen, step_ms, phase, n=2):
+def _profile_steps(step, batch, gen, step_ms, phase, n=2, rows_out=None):
     """Device time by kernel over ``n`` more steps (torch.profiler), per
     step, and the card's busy share of an unprofiled step (``step_ms``,
     the median of the timed steps), which it returns: the profiler slows
-    the host, not the kernels."""
+    the host, not the kernels. ``rows_out``, a list, receives each
+    kernel's (name, ms a step, launches a step)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1811,6 +1845,8 @@ def _profile_steps(step, batch, gen, step_ms, phase, n=2):
             and not getattr(e, 'is_user_annotation', False)
             and e.device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
+    if rows_out is not None:
+        rows_out.extend(rows)
     busy = sum(r[1] for r in rows)
     log(phase, f'profile: {busy:.1f} ms of kernel time per step, '
                  f'{len(rows)} kernels; against the {step_ms:.1f} ms '
@@ -2020,18 +2056,40 @@ MIN_PROPOSAL_SHARE = 0.99
 
 def _heads(part):
     """A RoI head's bbox or mask heads as a list (a cascade has one a
-    stage)."""
+    stage; a bbox-only RoI head has no mask head)."""
+    if part is None:
+        return []
     return list(part) if isinstance(part, torch.nn.ModuleList) else [part]
+
+
+def _backbone_relus(model, seen):
+    """Forward hooks that append to ``seen`` which units each ReLU of a
+    ResNet backbone lets through (a block's bn1 and, in a bottleneck, bn2
+    before their ReLU, and the block's output after its own); none for a
+    backbone without such blocks (Swin's GELUs)."""
+    from swindet_tpu_torch.models.backbones.resnet import (BasicBlock,
+                                                           Bottleneck)
+
+    def keep(mod, args, out):
+        seen.append((out > 0).flatten().cpu())
+    hooks = []
+    for m in model.backbone.modules():
+        if isinstance(m, (BasicBlock, Bottleneck)):
+            parts = (m, m.bn1, m.bn2) if isinstance(m, Bottleneck) \
+                else (m, m.bn1)
+            hooks += [p.register_forward_hook(keep) for p in parts]
+    return hooks
 
 
 def _record(model):
     """Keep, to count where two runs of forward_train differ, the bbox
     labels and mask targets that the RoI heads compute and which units
     each ReLU of the heads lets through: the RPN conv's, the bbox heads'
-    shared convs' and fcs' and the mask heads' convs'. Returns what it
-    keeps and a function that undoes the recording."""
+    shared convs' and fcs' and the mask heads' convs', and a ResNet
+    backbone's. Returns what it keeps and a function that undoes the
+    recording."""
     seen = {k: [] for k in ('labels', 'mask_targets', 'relu_rpn',
-                            'relu_bbox', 'relu_mask')}
+                            'relu_bbox', 'relu_mask', 'relu_backbone')}
     bbox_heads = _heads(model.roi_head.bbox_head)
     mask_heads = _heads(model.roi_head.mask_head)
     for key, heads in (('labels', bbox_heads), ('mask_targets', mask_heads)):
@@ -2050,6 +2108,7 @@ def _record(model):
              for m in list(h.shared_convs) + list(h.shared_fcs)]
     hooks += [m.register_forward_hook(keep('relu_mask')) for h in mask_heads
               for m in h.convs]
+    hooks += _backbone_relus(model, seen['relu_backbone'])
     conv_nhwc = rpn_head_module.conv_nhwc
 
     def rpn_conv(x, conv, relu, *args):
@@ -2094,14 +2153,17 @@ def _train_grads(model, batch, keys, dev, names=TRAIN_GRADS):
     params = dict(model.named_parameters())
     ps = [params[n] for n in names]
     grads = {}
-    for i, part in enumerate(LOSS_PARTS):
+    # the groups the model has (a Faster R-CNN has no mask loss)
+    parts = [p for p in LOSS_PARTS if _part_terms(losses, p)]
+    for i, part in enumerate(parts):
         gs = torch.autograd.grad(sum(losses[k] for k in _part_terms(
-            losses, part)), ps, retain_graph=i + 1 < len(LOSS_PARTS),
+            losses, part)), ps, retain_graph=i + 1 < len(parts),
             allow_unused=True)
         grads[part] = {n: (torch.zeros_like(p) if g is None else g)
                        .detach().cpu() for n, p, g in zip(names, ps, gs)}
     return ({k: float(v.detach()) for k, v in losses.items()}, grads,
-            {k: torch.cat(v) for k, v in seen.items()})
+            {k: torch.cat(v) if v else torch.zeros(0, dtype=torch.bool)
+             for k, v in seen.items()})
 
 
 def _train_errors(want, got):
@@ -2113,7 +2175,7 @@ def _train_errors(want, got):
     loss = {k: abs(l_g[k] - v) / max(abs(v), 1e-30) for k, v in l_w.items()}
     grad = {part: {n: None if not g.abs().max() else
                    ((g_g[part][n] - g).abs().max() / g.abs().max()).item()
-                   for n, g in g_w[part].items()} for part in LOSS_PARTS}
+                   for n, g in g_w[part].items()} for part in g_w}
     flips = {k: int((t_g[k] != t_w[k]).sum()) for k in t_w}
     return loss, grad, flips
 
@@ -2125,19 +2187,20 @@ def _log_errors(what, loss, grad, flips):
     for n in grad['rpn']:
         log('train-check', f'  grad |d| / max {n}: ' + ', '.join(
             f'{part} ' + ('-' if grad[part][n] is None
-                          else f'{grad[part][n]:.3g}') for part in LOSS_PARTS))
+                          else f'{grad[part][n]:.3g}') for part in grad))
 
 
 def _check_train(loss, grad, what, limits=None):
     """The names of the readings over their limits: TOL_TRAIN_*, or
     ``limits`` = (loss limits by term, where they differ; gradient limits
-    by part)."""
+    by part, or by parameter name where a parameter has its own)."""
     tol_loss, tol_grad = limits or ({}, TOL_TRAIN_GRAD)
     over = [k for k, v in loss.items()
             if not v <= tol_loss.get(k, TOL_TRAIN_LOSS)]
     for part, errs in grad.items():
         over += [f'grad {n} of the {part} losses' for n, v in errs.items()
-                 if v is not None and not v <= tol_grad[part]]
+                 if v is not None
+                 and not v <= tol_grad.get(n, tol_grad[part])]
     log('train-check', f'{what}: {len(over)} readings over their limits')
     return over
 
@@ -2217,7 +2280,9 @@ def _matched_share(want, got):
 def phase_train_check(device: str = 'cuda', fused: bool = False,
                       v4: bool = False, batch=None,
                       pin_proposals: bool = False, config=CONFIG,
-                      names=TRAIN_GRADS, limits=None):
+                      names=TRAIN_GRADS, limits=None,
+                      opts=(('bf16', False),
+                            ('model.backbone.drop_path_rate', 0.0))):
     """forward_train of the full-width detector (``config``) in fp32 on a
     224x320 canvas (or on ``batch``), on the card (kernels) and on the CPU
     (plain versions): same
@@ -2239,8 +2304,10 @@ def phase_train_check(device: str = 'cuda', fused: bool = False,
     unpinned: the card's own RPN outputs against the CPU's (TOL_RPN_OUT,
     which the bf16 control must exceed), the card's proposal step on
     them against the plain step (check_proposal_chain), and the card's
-    own proposals against the CPU run's as sets (MIN_PROPOSAL_SHARE)."""
-    opts = {'bf16': False, 'model.backbone.drop_path_rate': 0.0}
+    own proposals against the CPU run's as sets (MIN_PROPOSAL_SHARE).
+    ``opts``: the config options of the three runs (a ResNet has no
+    stochastic depth to turn off)."""
+    opts = dict(opts)
     start = time.perf_counter()
     cpu = init_detector(config, device='cpu', cfg_options=opts, seed=1)
     _spread_heads(cpu)
@@ -2288,21 +2355,24 @@ def phase_train_check(device: str = 'cuda', fused: bool = False,
         raise AssertionError(f'launches against the configuration: '
                              f'{launch_counts()}')
     if device == 'cuda':
+        # a CNN backbone runs no attention kernel
+        swin = any(isinstance(m, WindowAttention) for m in gpu.modules())
         _check_tc('train-check', launch_counts(), False,
-                  _tc_kernels(fused, v4=v4))
+                  _tc_kernels(fused, v4=v4) if swin
+                  else (conv3x3, conv3x3_dw))
     _log_errors(f'{h}x{w} fp32 card vs CPU', *sound)
     with pin(ctl, seen) as ctl_own:
         control = _train_errors(ref, _train_grads(ctl, batch, keys, device,
                                                   names))
     _log_errors(f'{h}x{w} control, bf16 card vs fp32 CPU', *control)
     for name in names:
-        if all(sound[1][part][name] is None for part in LOSS_PARTS):
+        if all(g[name] is None for g in sound[1].values()):
             raise AssertionError(f'grad {name}: zero on the CPU')
     over = _check_train(*sound[:2], 'fp32 card vs CPU', limits)
     if over:
         raise AssertionError(f'card vs CPU over the limits: {over}')
     over = _check_train(*control[:2], 'control', limits)
-    missed = [part for part in LOSS_PARTS
+    missed = [part for part in control[1]
               if not any(f'of the {part} losses' in o for o in over)]
     if missed or not any(k in over for k in control[0] if 'loss' in k):
         raise AssertionError(f'the bf16 control passes the loss limit or '
@@ -3507,15 +3577,18 @@ def _rp_errors(want, got):
 
 
 def _level_logits(model, img):
-    """The class logits of every point of every level, fp64 on the CPU,
-    and each level's point count."""
+    """The class logits of every point (or anchor) of every level, one
+    row each, fp64 on the CPU."""
+    c_out = model.bbox_head.cls_out_channels
     with torch.inference_mode():
         cls = model.bbox_head(model.extract_feat(img))[0]
-    return [c.reshape(-1, c.shape[-1]).double().cpu() for c in cls]
+    return [c.reshape(-1, c_out).double().cpu() for c in cls]
 
 
-def _set_class_logits(model, img, mean=-14.0, std=4.0, margin=2e-4):
-    """Scale reppoints_cls_out's weight and set its bias so that the class
+def _set_class_logits(model, img, mean=-14.0, std=4.0, margin=2e-4,
+                      conv=None, candidates=True):
+    """Scale the class output's weight (``conv``, RepPoints'
+    reppoints_cls_out by default) and set its bias so that the class
     logits of ``img`` have ``mean`` and ``std`` (a few hundred (point,
     class) pairs clear score_thr 0.05, under the 2,048-pair cap), then
     shift the bias by steps of 0.01 until every decision of get_bboxes
@@ -3523,9 +3596,16 @@ def _set_class_logits(model, img, mean=-14.0, std=4.0, margin=2e-4):
     logit units (_logit_margins): four times the largest fp32 difference
     of a logit between the card and the CPU that the FPN features' (3.4e-6
     of their largest entry on an H100) allow through a |logit| of 14.
-    Returns the scale, the bias and the margins."""
-    conv = model.bbox_head.reppoints_cls_out
-    z = [lz - conv.bias.double()[None] for lz in _level_logits(model, img)]
+    ``candidates`` as _logit_margins takes it. Returns the scale, the bias
+    and the margins."""
+    conv = model.bbox_head.reppoints_cls_out if conv is None else conv
+    # the logits without the bias, which fp32 would round to its own
+    # resolution (seeded logits spread by ~1e-4 around the -4.6 prior)
+    with torch.no_grad():
+        prior = conv.bias.clone()
+        conv.bias.zero_()
+        z = _level_logits(model, img)
+        conv.bias.copy_(prior)
     flat = torch.cat(z)
     scale = std / flat.std().item()
     base = mean - scale * flat.mean().item()
@@ -3533,7 +3613,8 @@ def _set_class_logits(model, img, mean=-14.0, std=4.0, margin=2e-4):
     for k in range(41):
         bias = base + 0.01 * (k // 2 if k % 2 else -(k // 2))
         margins = _logit_margins([scale * lz + bias for lz in z],
-                                 cfg['nms_pre'], cfg['score_thr'])
+                                 cfg['nms_pre'], cfg['score_thr'],
+                                 candidates=candidates)
         if min(m for m in margins[:3] if m is not None) >= margin:
             break
     else:
@@ -3546,22 +3627,26 @@ def _set_class_logits(model, img, mean=-14.0, std=4.0, margin=2e-4):
     return scale, bias, margins
 
 
-def _logit_margins(logits, nms_pre, thr, cap=2048):
+def _logit_margins(logits, nms_pre, thr, cap=2048, candidates=True):
     """How far the decisions of get_bboxes and the multiclass NMS sit from
     their boundaries, in logits, given every level's class logits: the
     nearest logit to score_thr's, the smallest gap at a level's top
-    nms_pre cut (None where no level is cut), and the gap at the cap's
-    last pair (None under the cap); and the pairs that clear score_thr."""
+    nms_pre cut (None where no level is cut, or with ``candidates`` False
+    where every cut lies under score_thr's logit: which of two anchors
+    under it takes a level's last slot then moves the candidates only,
+    not the detections), and the gap at the cap's last pair (None under
+    the cap); and the pairs that clear score_thr."""
+    t = float(np.log(thr / (1 - thr)))
     cand, cuts = [], []
     for z in logits:
         best = torch.sort(z.amax(-1), descending=True)
         if 0 < nms_pre < len(best.values):
-            cuts.append((best.values[nms_pre - 1] - best.values[nms_pre])
-                        .item())
+            if candidates or best.values[nms_pre - 1] > t:
+                cuts.append((best.values[nms_pre - 1]
+                             - best.values[nms_pre]).item())
             z = z[best.indices[:nms_pre]]
         cand.append(z.flatten())
     cand = torch.cat(cand)
-    t = float(np.log(thr / (1 - thr)))
     top = torch.sort(cand[cand > t], descending=True).values
     return ((cand - t).abs().min().item(), min(cuts) if cuts else None,
             (top[cap - 1] - top[cap]).item() if len(top) > cap else None,
@@ -3992,6 +4077,560 @@ def phase_reppoints():
                 busy=busy, deform=deform, pinned=pinned)
 
 
+# ------------------------------------------------------------- phase 14
+FASTER_CONFIG = os.path.join(
+    REPO, 'configs/faster_rcnn/faster_rcnn_r50_fpn_1x_coco.py')
+RETINA_CONFIG = os.path.join(
+    REPO, 'configs/retinanet/retinanet_r50_fpn_1x_coco.py')
+RESNET_CONFIGS = {'faster': FASTER_CONFIG, 'retina': RETINA_CONFIG}
+# the configs compute in fp32 as written; the phase serves and trains
+# them in bf16, as the Swin configs compute
+RESNET_BF16 = {'bf16': True}
+# the frozen part of the configs' ResNet-50 (frozen_stages=1): the stem
+# and layer1, which take no gradient
+RESNET_FROZEN = ('backbone.conv1.', 'backbone.bn1.', 'backbone.layer1.')
+# the gradients the fp32 training checks hold: a conv of each unfrozen
+# stage's first and last block, a BN scale, the FPN and the heads
+RESNET_BACKBONE_GRADS = (
+    'backbone.layer2.0.conv1.weight',
+    'backbone.layer3.5.conv2.weight',
+    'backbone.layer4.2.conv3.weight',
+    'backbone.layer4.2.bn3.weight')
+FASTER_TRAIN_GRADS = RESNET_BACKBONE_GRADS + (
+    'neck.lateral_convs.0.conv.weight',
+    'neck.fpn_convs.0.conv.weight',
+    'rpn_head.rpn_conv.weight',
+    'roi_head.bbox_head.shared_fcs.0.weight',
+    'roi_head.bbox_head.fc_cls.weight')
+RETINA_TRAIN_GRADS = RESNET_BACKBONE_GRADS + (
+    'neck.fpn_convs.0.conv.weight',
+    'neck.fpn_convs.3.conv.weight',
+    'bbox_head.cls_convs.0.conv.weight',
+    'bbox_head.reg_convs.3.conv.weight',
+    'bbox_head.retina_cls.weight',
+    'bbox_head.retina_reg.weight')
+# Limit of the fp32 card-vs-CPU training checks on the gradients that
+# pass back through many ReLU units: the ResNet-50's (~25 M units at
+# 224x320) and, in RetinaNet, those of the FPN output conv and the first
+# tower conv behind its four ReLU tower convs (every anchor feeds the
+# focal loss). A unit within fp32 rounding of zero passes its gradient on
+# one side only. On an x86 CPU alone, noise of
+# 1e-6 and 1e-5 of the input's largest entry moves layer2.0.conv1's
+# gradient by 1.0e-3 and 2.8e-3 of its largest entry (Faster R-CNN's RPN
+# group); noise of 5e-6 of the FPN features' largest entry, what the
+# card's fp32 features differ from the CPU's by, moves RetinaNet's
+# cls_convs.0 by 9.95e-3, fpn_convs.0 by 8.0e-4 and layer2.0.conv1 by
+# 1.2e-3. The card read at most 2.84e-4 (Faster R-CNN) and 5.98e-3
+# (RetinaNet's cls_convs.0) there, its bf16 controls 1.6e-2-3.3e-2 and
+# 7.4e-2-0.16 (NVIDIA H100 80GB HBM3, 700.00 W). The
+# limit is twice the CPU's own largest movement; every other gradient
+# keeps phase 7's limit.
+RESNET_GRAD_LIMIT = 2e-2
+RELU_DEEP_GRADS = RESNET_BACKBONE_GRADS + (
+    'neck.fpn_convs.0.conv.weight', 'bbox_head.cls_convs.0.conv.weight')
+RESNET_TRAIN_LIMITS = ({}, dict(TOL_TRAIN_GRAD, **{
+    n: RESNET_GRAD_LIMIT for n in RELU_DEEP_GRADS}))
+# the loop's PNGs: 2 landscape images of phase 10's sizes, one batch
+RESNET_LOOP_SIZES = LOOP_SIZES[:2]
+
+
+def resnet_launches(model, training):
+    """Each kernel's launches that one request (serving) or one step
+    (training, the whole batch at once) of a ResNet-50 detector makes,
+    derived from the built model: a conv3x3 launch per FPN output conv
+    and, for Faster R-CNN, per RPN level (the shared RPN conv), for
+    RetinaNet per tower conv on every level (in training one more each
+    for dx and a filter-gradient launch each; the ResNet's convs, the
+    FPN's laterals and stride-2 extra convs and RetinaNet's 3x3 output
+    convs run F.conv2d, as the JAX package sends only stride-1, 3x3,
+    128-multiple ConvModules to its kernel); Faster R-CNN's bbox RoIAlign
+    once a request and once a step with its backward, its NMS twice a
+    request (RPN, multiclass) and once a step (RPN); RetinaNet's NMS once
+    a request (multiclass) and never in training."""
+    convs = sum(c.use_kernel for c in model.neck.fpn_convs)
+    two_stage = hasattr(model, 'rpn_head')
+    if two_stage:
+        convs += model.neck.num_outs * model.rpn_head.conv_uses_kernel
+    else:
+        head = model.bbox_head
+        convs += len(head.prior_generator.strides) * sum(
+            c.use_kernel for c in (*head.cls_convs, *head.reg_convs))
+    want = {fn.__name__: 0 for fn in KERNEL_WRAPPERS}
+    if training:
+        want.update(conv3x3=2 * convs, conv3x3_dw=convs)
+        if two_stage:
+            want.update(roi_align=1, roi_align_bwd=1, nms_sorted=1)
+    elif two_stage:
+        want.update(conv3x3=convs, roi_align=1, nms_sorted=2)
+    else:
+        want.update(conv3x3=convs, nms_sorted=1)
+    return want
+
+
+def _resnet_model(which, device='cuda', seed=0, opts=RESNET_BF16):
+    model = init_detector(RESNET_CONFIGS[which], device=device, seed=seed,
+                          cfg_options=dict(opts))
+    frozen = [n for n, _ in model.named_parameters()
+              if n.startswith(RESNET_FROZEN)]
+    if not frozen or type(model.backbone).__name__ != 'ResNet':
+        raise AssertionError(f'{which}: not a ResNet with frozen stages')
+    return model
+
+
+def resnet_serve(which):
+    """One ResNet-50 detector from its config in bf16 through
+    init_detector and inference_detector: for RetinaNet the class output's
+    bias shifted so that REPPOINTS_PAIRS (anchor, class) pairs of the
+    warm-up request clear score_thr (the multiclass NMS cap full), a
+    warm-up, then 3 requests at 800x1333 with every launch count
+    checked."""
+    phase = which
+    t0 = time.perf_counter()
+    model = _resnet_model(which)
+    per = resnet_launches(model, training=False)
+    log(phase, f'init_detector: {type(model).__name__} '
+               f'{sum(p.numel() for p in model.parameters())} params, '
+               f'compute {model.dtype}, {time.perf_counter() - t0:.1f} s; '
+               f'launches per request {_nonzero(per)}')
+    imgs = synthetic_images(3, seed=9)
+    if which == 'retina':
+        head = model.bbox_head
+        thr = dict(model.test_cfg)['score_thr']
+        # seeded weights score every pair at the 0.01 prior, under
+        # score_thr: a uniform shift of the bias moves every logit alike
+        logits = _candidate_logits(model, imgs[0])
+        kth = torch.topk(logits.flatten(),
+                         REPPOINTS_PAIRS).values[-1].item()
+        shift = float(np.log(thr / (1 - thr))) - kth + 1e-3
+        with torch.no_grad():
+            head.retina_cls.bias.add_(shift)
+        pairs = int((_candidate_logits(model, imgs[0]).sigmoid()
+                     > thr).sum())
+        log(phase, f'retina_cls bias {head.retina_cls.bias[0]:.4f} (prior '
+                   f'{-np.log(99):.4f}, shifted by {shift:.4f}): {pairs} of '
+                   f'{logits.numel()} candidate pairs of the warm-up '
+                   f'request clear score_thr {thr}')
+        if pairs < REPPOINTS_PAIRS // 2:
+            raise AssertionError(f'{pairs} pairs clear score_thr: the NMS '
+                                 f'cap of {REPPOINTS_PAIRS // 2} is not '
+                                 f'full')
+    t0 = time.perf_counter()
+    _check_bbox_result(inference_detector(model, imgs[0]), 800, 1333)
+    torch.cuda.synchronize()
+    log(phase, f'warm-up request {time.perf_counter() - t0:.3f} s')
+    reset_launch_counts()
+    lat, counts = [], []
+    for img in imgs:
+        t0 = time.perf_counter()
+        res = inference_detector(model, img)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        counts.append(_check_bbox_result(res, 800, 1333))
+    launches = launch_counts()
+    log(phase, 'per-request latency (s): '
+               + ', '.join(f'{t:.4f}' for t in lat)
+               + f'; detections per image: {counts}; {CARD}')
+    if which == 'retina' and min(counts) < 100:
+        raise AssertionError(f'detections {counts}: max_per_img 100 not '
+                             f'reached with the cap full')
+    _check_launches(phase, launches, per, len(imgs))
+    tc = _check_tc(phase, launches, True, (conv3x3,))
+    log(phase, f'kernel launches over the 3 requests {_nonzero(launches)}, '
+               f'as derived; tensor-core {_nonzero(tc)}')
+    return launches, lat
+
+
+def _resnet_outputs(model, dev, img, shapes, sf):
+    args = [torch.from_numpy(a).to(dev) for a in (img, shapes, sf)]
+    with torch.inference_mode():
+        feats = model.extract_feat(args[0])
+        out = model.simple_test(*args)
+    return ([f.cpu().float() for f in feats],
+            {k: v.cpu() for k, v in out.items()}, None)
+
+
+def _matched_errors(want, got):
+    """_rp_errors with the detections of each image matched as sets, not
+    slot by slot: a detection of ``want`` matches the one of ``got`` with
+    its label and the nearest box (slots of two detections whose scores
+    lie within fp32 noise may swap). None where the counts differ or a
+    detection finds no box within 1 px."""
+    (f_w, o_w, _), (f_g, o_g, _) = want, got
+    feat_err = max((a - b).abs().max().item() / max(a.abs().max().item(), 1)
+                   for a, b in zip(f_w, f_g))
+    box_err = score_err = 0.0
+    n = 0
+    for i in range(o_w['dets'].shape[0]):
+        vw, vg = o_w['det_valid'][i], o_g['det_valid'][i]
+        if int(vw.sum()) != int(vg.sum()):
+            return feat_err, None
+        dw, lw = o_w['dets'][i][vw].double(), o_w['labels'][i][vw]
+        dg, lg = o_g['dets'][i][vg].double(), o_g['labels'][i][vg]
+        for d, lab in zip(dw, lw):
+            dist = (dg[:, :4] - d[:4]).abs().amax(-1) \
+                + torch.where(lg == lab, 0.0, torch.inf)
+            j = int(dist.argmin()) if len(dist) else -1
+            if j < 0 or not dist[j] <= 1.0:
+                return feat_err, None
+            box_err = max(box_err, dist[j].item())
+            score_err = max(score_err, (dg[j, 4] - d[4]).abs().item())
+            n += 1
+    return feat_err, (box_err, score_err, n)
+
+
+def resnet_check(which, device='cuda', phase=None, control=True):
+    """Phase 5's check on a ResNet-50 detector: fp32 on a 224x320 canvas,
+    the card (kernels) against the CPU (plain versions), same seeded
+    weights, the class outputs set apart from every boundary (Faster
+    R-CNN: rpn_cls and fc_cls spread as phase 5's; RetinaNet: retina_cls
+    set by _set_class_logits, its margins logged); no tensor-core launch
+    on the card; detections equal as sets (_matched_errors), features
+    within 1e-3 of their largest entry, boxes within 1e-2 px, scores
+    within 1e-2 (Faster R-CNN, phase 5's limit on its dets) or 1e-4
+    (RetinaNet, phase 13's); a bf16 control that must exceed the
+    limits."""
+    phase = phase or f'{which}-check'
+    cpu = _resnet_model(which, device='cpu', seed=1, opts={'bf16': False})
+    rs = np.random.RandomState(1)
+    img = rs.randn(1, 224, 320, 3).astype(np.float32)
+    shapes = np.array([[224, 320]], np.int32)
+    sf = np.ones((1, 4), np.float32)
+    if which == 'faster':
+        _spread_heads(cpu)
+        score_limit = 1e-2
+    else:
+        # RetinaNet's top-1000 cuts fall among 10,080 and 2,520 anchors
+        # whose best logits lie ~1e-4 apart (N(-16, 4^2) read 1.3e-4 at the
+        # first on the card's machine's CPU, 8.0e-4 on another): a mean of
+        # -19 puts every cut under score_thr, where a tie moves no
+        # detection (the candidates are not compared)
+        scale, bias, margins = _set_class_logits(
+            cpu, torch.from_numpy(img), mean=-19.0,
+            conv=cpu.bbox_head.retina_cls, candidates=False)
+        log(phase, f'retina_cls weight x{scale:.4g}, bias {bias:.4g}: '
+                   f'{margins[3]} candidate pairs clear score_thr; in '
+                   f'logits, the nearest to score_thr\'s {margins[0]:.3g} '
+                   f'away, the smallest gap at a level\'s top-k cut '
+                   f'{margins[1]}, at the 2048-pair cap {margins[2]}')
+        score_limit = 1e-4
+    gpu = build_detector(dict(cpu.cfg.model, dtype='float32'))
+    gpu.load_state_dict(cpu.state_dict())
+    gpu = gpu.to(device).eval()
+    want = _resnet_outputs(cpu, 'cpu', img, shapes, sf)
+    reset_launch_counts()
+    got = _resnet_outputs(gpu, device, img, shapes, sf)
+    if device == 'cuda':
+        _check_tc(phase, launch_counts(), False, (conv3x3,))
+    feat_err, errs = _matched_errors(want, got)
+    if errs is None:
+        raise AssertionError('detections differ between card and CPU')
+    box_err, score_err, n = errs
+    log(phase, f'224x320 fp32 card vs CPU: features rel max|d| '
+               f'{feat_err:.3g}, {n} dets matched (label, nearest box), '
+               f'box max|d| {box_err:.3g} px, score max|d| {score_err:.3g}; '
+               f'slot by slot {_rp_errors(want, got)[1]}')
+    if feat_err > 1e-3 or n == 0 or box_err > 1e-2 \
+            or score_err > score_limit:
+        raise AssertionError(f'card vs CPU over the limits: features 1e-3, '
+                             f'boxes 1e-2 px, scores {score_limit}')
+    if not control:
+        return
+    ctl = build_detector(dict(cpu.cfg.model, dtype='bfloat16'))
+    ctl.load_state_dict(cpu.state_dict())
+    feat_err, errs = _matched_errors(want, _resnet_outputs(
+        ctl.to(device).eval(), device, img, shapes, sf))
+    log(phase, f'bf16 control vs the fp32 CPU run: features rel max|d| '
+               f'{feat_err:.3g}, detections '
+               + ('differ' if errs is None else
+                  f'equal, box max|d| {errs[0]:.3g}, score max|d| '
+                  f'{errs[1]:.3g}'))
+    if errs is not None and feat_err <= 1e-3 and errs[0] <= 1e-2 \
+            and errs[1] <= score_limit:
+        raise AssertionError('the bf16 control passes the fp32 limits')
+
+
+# names of the library's convolution and GEMM kernels (cuDNN's, cuBLAS's):
+# the ResNet's 3x3 and strided convs run cuDNN, its 1x1 convs, the FPN's
+# laterals and the heads' FCs run F.linear
+LIBRARY_MATMUL_KEYS = ('conv', 'fprop', 'dgrad', 'wgrad', 'xmma', 'cudnn',
+                       'gemm', 'cutlass', 'nvjet', 'sm90_')
+
+
+def _conv_split(rows, phase):
+    """A profile's kernel ms a step in the hand-written kernels and in the
+    library's convolutions and GEMMs (logged, the five longest by name)."""
+    ours = sum(ms for key, ms, _ in rows if 'swindet' in key)
+    lib = [r for r in rows if 'swindet' not in r[0] and any(
+        w in r[0].lower() for w in LIBRARY_MATMUL_KEYS)]
+    for key, ms, count in lib[:5]:
+        log(phase, f'  library: {ms:9.3f} ms/step  {count:5d} launches/step'
+                   f'  {key[:100]}')
+    return ours, sum(r[1] for r in lib)
+
+
+def resnet_train(which):
+    """1 + 5 make_train_step steps of a ResNet-50 detector (its config in
+    bf16: SGD with momentum and weight decay, the step schedule's linear
+    warm-up) at batch 2 on the 800x1344 canvas with 16 painted rectangles
+    an image and no gt_masks, each step's launches checked; the frozen
+    BN's buffers unmoved by the steps and the frozen stages' parameters
+    given a zero gradient; 2 profiled steps, with the kernel ms split
+    between the hand-written kernels and the library's convolutions and
+    GEMMs."""
+    phase = f'{which}-train'
+    cfg = Config.fromfile(RESNET_CONFIGS[which])
+    cfg.merge_from_dict(RESNET_BF16)
+    model = _resnet_model(which)
+    opt = build_optimizer(model, dict(cfg.optimizer))
+    if not isinstance(opt, torch.optim.SGD):
+        raise AssertionError(f'{which}: optimizer {type(opt).__name__}')
+    schedule = build_lr_schedule(dict(cfg.lr_config), cfg.optimizer['lr'],
+                                 ITERS_PER_EPOCH)
+    step = make_train_step(model, opt, schedule,
+                           dict(cfg.optimizer_config).get('grad_clip'))
+    per = resnet_launches(model, training=True)
+    batch = synthetic_train_batch()
+    del batch['gt_masks']
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    stats = {k: v.clone() for k, v in model.named_buffers()}
+    t0 = time.perf_counter()
+    _check_log(step(batch, gen), 'warm-up step')
+    torch.cuda.synchronize()
+    log(phase, f'warm-up step {time.perf_counter() - t0:.3f} s; '
+               f'{cfg.optimizer["type"]} lr {cfg.optimizer["lr"]} momentum '
+               f'{cfg.optimizer["momentum"]}; launches per step '
+               f'{_nonzero(per)}')
+    frozen = {n: p for n, p in model.named_parameters()
+              if n.startswith(RESNET_FROZEN)}
+    if any(p.grad is None or p.grad.any() for p in frozen.values()):
+        raise AssertionError('the frozen stages\' parameters hold no zero '
+                             'gradient after a step')
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        out = step(batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        _check_log(out, 'timed step')
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(phase, 'per-step ms: ' + ', '.join(f'{t:.1f}' for t in times)
+               + f'; median {np.median(times):.1f}; peak memory '
+                 f'{peak / 2 ** 30:.2f} GiB; {CARD}')
+    log(phase, 'last step: ' + ', '.join(f'{k} {v:.4f}'
+                                         for k, v in out.items()))
+    _check_launches(phase, launches, per, 5)
+    tc = _check_tc(phase, launches, True, (conv3x3, conv3x3_dw))
+    log(phase, f'kernel launches over the 5 timed steps {_nonzero(launches)}'
+               f', as derived; tensor-core {_nonzero(tc)}')
+    moved = [k for k, v in model.named_buffers() if not torch.equal(
+        v, stats[k])]
+    if moved:
+        raise AssertionError(f'frozen BN buffers moved in training: '
+                             f'{moved[:4]}')
+    rows = []
+    busy = _profile_steps(step, batch, gen, float(np.median(times)), phase,
+                          rows_out=rows)
+    ours, lib = _conv_split(rows, phase)
+    kernel_ms = sum(r[1] for r in rows)
+    log(phase, f'median step {np.median(times):.1f} ms, busy {busy:.3f}, '
+               f'peak {peak / 2 ** 30:.2f} GiB; kernel {kernel_ms:.1f} ms a '
+               f'step: hand-written {ours:.2f} ms, library convolutions and '
+               f'GEMMs {lib:.2f} ms; BN buffers unmoved; on {CARD}')
+    return launches, times, peak, busy, (kernel_ms, ours, lib)
+
+
+def resnet_train_check(which, device='cuda'):
+    """Phase 7's check on a ResNet-50 detector, fp32 on phase 7's 224x320
+    batch, the card (kernels) against the CPU (plain versions), same
+    seeded weights and batch, with a bf16 control on the card that must
+    exceed the limits. Faster R-CNN goes through phase_train_check (the
+    RPN and bbox groups, same sampler keys, the card reading the CPU's RPN
+    outputs, the chain checked apart unpinned, as phase 12's; the ResNet's
+    gradients at RESNET_GRAD_LIMIT, the rest at phase 7's limits);
+    RetinaNet
+    (a PseudoSampler over fixed anchors: nothing to pin) as phase 13's,
+    its two losses at TOL_TRAIN_LOSS and the gradients of
+    RETINA_TRAIN_GRADS at phase 7's RPN-group limit, those of
+    RELU_DEEP_GRADS at RESNET_GRAD_LIMIT (RESNET_TRAIN_LIMITS); the ReLU
+    units of the ResNet and the head's towers that differ between the two
+    runs counted."""
+    if which == 'faster':
+        phase_train_check(device=device, config=FASTER_CONFIG,
+                          names=FASTER_TRAIN_GRADS, pin_proposals=True,
+                          limits=RESNET_TRAIN_LIMITS,
+                          opts=(('bf16', False),))
+        return
+    phase = 'retina-train-check'
+    cpu = _resnet_model(which, device='cpu', seed=1, opts={'bf16': False})
+    gpu = build_detector(dict(cpu.cfg.model, dtype='float32'))
+    gpu.load_state_dict(cpu.state_dict())
+    gpu = gpu.to(device)
+    batch = train_check_batch()
+    relus, towers = ([], []), ([], [])
+
+    def record(model, i):
+        def keep(mod, args, out):
+            towers[i].append((out > 0).flatten().cpu())
+        head = model.bbox_head
+        return _backbone_relus(model, relus[i]) + [
+            c.register_forward_hook(keep)
+            for c in (*head.cls_convs, *head.reg_convs)]
+    t0 = time.perf_counter()
+    hooks = record(cpu, 0)
+    ref = _rp_train_grads(cpu, batch, 'cpu', RETINA_TRAIN_GRADS)
+    log(phase, f'the CPU run {time.perf_counter() - t0:.1f} s; losses '
+               + ', '.join(f'{k} {v:.5g}' for k, v in ref[0].items()))
+    reset_launch_counts()
+    hooks += record(gpu, 1)
+    sound = _rp_train_errors(ref, _rp_train_grads(gpu, batch, device,
+                                                  RETINA_TRAIN_GRADS))
+    for h in hooks:
+        h.remove()
+    flips = [int((torch.cat(a) != torch.cat(b)).sum())
+             for a, b in (relus, towers)]
+    log(phase, f'ReLU units that differ between the card and the CPU: '
+               f'ResNet {flips[0]} of {torch.cat(relus[0]).numel()}, head '
+               f'towers {flips[1]} of {torch.cat(towers[0]).numel()}')
+    if device == 'cuda':
+        _check_launches(phase, launch_counts(),
+                        resnet_launches(gpu, training=True), 1)
+        _check_tc(phase, launch_counts(), False, (conv3x3, conv3x3_dw))
+    ctl = build_detector(dict(cpu.cfg.model, dtype='bfloat16'))
+    ctl.load_state_dict(cpu.state_dict())
+    control = _rp_train_errors(ref, _rp_train_grads(
+        ctl.to(device), batch, device, RETINA_TRAIN_GRADS))
+    for what, (loss, grad) in (('fp32 card vs CPU', sound),
+                               ('control, bf16 card vs fp32 CPU', control)):
+        log(phase, f'224x320 {what}: relative loss |d| ' + ', '.join(
+            f'{k} {v:.3g}' for k, v in loss.items()))
+        log(phase, '  grad |d| / max: ' + ', '.join(
+            f'{n} {v:.3g}' for n, v in grad.items()))
+    tol_grad = RESNET_TRAIN_LIMITS[1]
+
+    def over(errs):
+        return [k for k, v in errs[0].items() if not v <= TOL_TRAIN_LOSS] \
+            + [n for n, v in errs[1].items()
+               if not v <= tol_grad.get(n, tol_grad['rpn'])]
+    if over(sound):
+        raise AssertionError(f'card vs CPU over the limits: {over(sound)}')
+    if not any(k in over(control) for k in control[0]) \
+            or not any(n in over(control) for n in control[1]):
+        raise AssertionError('the bf16 control passes the loss or the '
+                             'gradient limits')
+
+
+def resnet_files(which):
+    """From files: for Faster R-CNN train_detector for one epoch on 2 of
+    phase 10's PNGs with the config's own bbox-only pipeline (one
+    iteration, no gt_masks), then a second epoch resumed from
+    epoch_1.pth; for both, tools.test on the 2 PNGs with a checkpoint
+    (Faster R-CNN's trained one, RetinaNet's seeded), --eval bbox,
+    score_thr 0: 100 detections an image."""
+    phase = f'{which}-files'
+    build_dir = os.path.join(REPO, 'build')
+    os.makedirs(build_dir, exist_ok=True)
+    config = RESNET_CONFIGS[which]
+    with tempfile.TemporaryDirectory(dir=build_dir) as root:
+        ann_file, prefix = write_synthetic_coco(root, RESNET_LOOP_SIZES)
+        work = os.path.join(root, 'work')
+        if which == 'faster':
+            cfg = loop_config(ann_file, prefix, work, config=config)
+            model_cfg = dict(cfg.model, dtype='bfloat16')
+            model_cfg.pop('pretrained', None)
+            dataset = build_dataset(cfg.data.train)
+            for epochs in (1, 2):
+                cfg = loop_config(ann_file, prefix, work, max_epochs=epochs,
+                                  config=config)
+                # seeded weights: torchvision://resnet50 needs a download
+                cfg.model.pretrained = None
+                if epochs == 2:
+                    cfg.resume_from = os.path.join(work, 'epoch_1.pth')
+                model = build_detector(model_cfg)
+                per = resnet_launches(model, training=True)
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                run = train_detector(model, dataset, cfg)
+                torch.cuda.synchronize()
+                launches = launch_counts()
+                log(phase, f'train_detector, epoch {epochs}'
+                           f'{" resumed" if epochs == 2 else ""}: '
+                           f'{len(run.log_vars)} iterations in '
+                           f'{time.perf_counter() - t0:.1f} s, canvases '
+                           f'{run.canvases}; loss ' + ', '.join(
+                               f'{v["loss"]:.4g}' for v in run.log_vars)
+                           + '; grad_norm ' + ', '.join(
+                               f'{v["grad_norm"]:.4g}'
+                               for v in run.log_vars))
+                bad = [v for v in run.log_vars
+                       if not all(np.isfinite(x) for x in v.values())]
+                if len(run.log_vars) != 1 or bad or run.epoch != epochs \
+                        or launches != per:
+                    raise AssertionError(
+                        f'epoch {epochs}: {len(run.log_vars)} iterations, '
+                        f'epoch {run.epoch}, non-finite {bad}, launches '
+                        f'{_nonzero(launches)} (expected {_nonzero(per)})')
+            ckpt = os.path.join(work, 'epoch_2.pth')
+            opts = ['model.test_cfg.rcnn.score_thr=0.0']
+        else:
+            ckpt = os.path.join(root, 'retina.pth')
+            model = _resnet_model(which, device='cpu')
+            save_checkpoint(ckpt, model,
+                            meta=dict(CLASSES=list(COCO_CLASSES)))
+            opts = ['model.test_cfg.score_thr=0.0']
+        cfg_file = os.path.join(root, f'{which}_cfg.py')
+        eval_config(ann_file, prefix, config=config).dump(cfg_file)
+        ran, launches, dets = _cli_run(phase, [
+            cfg_file, ckpt, '--samples-per-gpu', '2', '--eval', 'bbox',
+            '--cfg-options', 'bf16=True', *opts], 'test')
+        want = resnet_launches(model, training=False)
+        if dets != [100, 100] or launches != want or not all(
+                np.isfinite(v) for v in ran['metrics'].values()
+                if isinstance(v, float)):
+            raise AssertionError(f'test: detections {dets}, launches '
+                                 f'{_nonzero(launches)} (expected '
+                                 f'{_nonzero(want)}), metrics '
+                                 f'{ran["metrics"]}')
+        _check_tc(phase, launches, True, (conv3x3,))
+        log(phase, f'test: metrics {dict(ran["metrics"])}')
+        return launches
+
+
+def phase_resnet():
+    """Phase 14: Faster R-CNN R-50 and RetinaNet R-50, each serving, its
+    fp32 serving check, training, its fp32 training check and the test
+    tool from files (Faster R-CNN also train_detector, resumed). Returns
+    each model's serving and training results."""
+    start = last = time.perf_counter()
+    laps = []
+
+    def lap(what):
+        nonlocal last
+        now = time.perf_counter()
+        laps.append(f'{what} {now - last:.1f} s')
+        log('time', f'resnet: {laps[-1]}')
+        last = now
+    out = {}
+    for which in RESNET_CONFIGS:
+        serve, lat = resnet_serve(which)
+        lap(f'{which} serving')
+        resnet_check(which)
+        lap(f'{which} serving check')
+        train, times, peak, busy, split = resnet_train(which)
+        lap(f'{which} training')
+        resnet_train_check(which)
+        lap(f'{which} training check')
+        resnet_files(which)
+        lap(f'{which} files')
+        out[which] = dict(serve=serve, lat=lat, train=train, times=times,
+                          peak=peak, busy=busy, split=split)
+    log('time', f'resnet: ' + ', '.join(laps)
+                + f'; phase 14 {time.perf_counter() - start:.1f} s')
+    return out
+
+
 # phase 3's further readings of a kernel's main row that the JSON line
 # carries: the kernel's own device ms (rows 1, 14 and 15), row 14's
 # head-major copy, row 1's first kernel off the vector path, row 15's
@@ -4033,6 +4672,8 @@ def main() -> int:
     lap('phase 12')
     reppoints = phase_reppoints()
     lap('phase 13')
+    resnet = phase_resnet()
+    lap('phase 14')
     for what, key, fmt in (('request latency (s)', 'lat', '.4f'),
                            ('training step (ms)', 'times', '.1f')):
         log('configs', f'{what}, median of the timed runs: ' + ', '.join(
@@ -4053,6 +4694,17 @@ def main() -> int:
                      f'{reppoints["busy"]:.3f}, deformable convs '
                      f'{reppoints["deform"][0]:.2f} + '
                      f'{reppoints["deform"][1]:.2f} ms a step; {smi}')
+    for which, name in (('faster', 'Faster R-CNN R-50'),
+                        ('retina', 'RetinaNet R-50')):
+        r = resnet[which]
+        kernel_ms, ours, lib = r['split']
+        log(which, f'{name}: request latency median '
+                   f'{np.median(r["lat"]):.4f} s, training step median '
+                   f'{np.median(r["times"]):.1f} ms, peak '
+                   f'{r["peak"] / 2 ** 30:.2f} GiB, busy {r["busy"]:.3f}, '
+                   f'kernel {kernel_ms:.1f} ms a step (hand-written '
+                   f'{ours:.2f}, library convolutions and GEMMs '
+                   f'{lib:.2f}); {smi}')
     rows = []
     for fn in KERNEL_WRAPPERS:
         name = fn.__name__
@@ -4076,6 +4728,10 @@ def main() -> int:
         # phase 13's RepPoints: 3 requests, 5 steps
         counts['reppoints_serve_launches'] = reppoints['serve'][name]
         counts['reppoints_train_launches'] = reppoints['train'][name]
+        # phase 14's ResNet-50 detectors: 3 requests, 5 steps each
+        for which in ('faster', 'retina'):
+            counts[f'{which}_serve_launches'] = resnet[which]['serve'][name]
+            counts[f'{which}_train_launches'] = resnet[which]['train'][name]
         if tc:
             tc = dict(tc_launches=sum(tc.values()), **tc)
         if 'shapes' in main_row:

@@ -1,10 +1,11 @@
 """Grid anchors and points (counterpart of ``swindet_tpu/core/anchors.py``:
-``AnchorGenerator`` :19 with ``valid_flags`` :115, ``PointGenerator`` :140,
-``anchor_inside_flags`` :175; reference
+``AnchorGenerator`` :19 (octave scales and ``center_offset`` :27-80) with
+``valid_flags`` :115, ``PointGenerator`` :140, ``anchor_inside_flags``
+:175; reference
 mmdet/core/anchor/anchor_generator.py:10, point_generator.py)."""
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -15,14 +16,29 @@ from ..registries import ANCHOR_GENERATORS
 @ANCHOR_GENERATORS.register_module()
 class AnchorGenerator:
     """Multi-level grid anchors: base anchors are the outer product of
-    ``scales`` and ``ratios`` around a centre, shifted by the stride."""
+    ``scales`` and ``ratios`` around a centre ``center_offset`` of the
+    stride from the cell's corner, shifted by the stride. With
+    ``octave_base_scale`` and ``scales_per_octave`` (RetinaNet's) the
+    scales are ``octave_base_scale * 2 ** (i / scales_per_octave)``."""
 
     def __init__(self, strides: Sequence, ratios: Sequence[float],
-                 scales: Sequence[float]):
+                 scales: Optional[Sequence[float]] = None,
+                 octave_base_scale: Optional[float] = None,
+                 scales_per_octave: Optional[int] = None,
+                 center_offset: float = 0.):
         self.strides = [s if isinstance(s, (tuple, list)) else (s, s)
                         for s in strides]
-        self.scales = np.array(scales, dtype=np.float64)
+        if octave_base_scale is not None and scales_per_octave is not None:
+            self.scales = np.array([2 ** (i / scales_per_octave)
+                                    for i in range(scales_per_octave)]) \
+                * octave_base_scale
+        elif scales is not None:
+            self.scales = np.array(scales, dtype=np.float64)
+        else:
+            raise ValueError('AnchorGenerator: either scales or the octave '
+                             'arguments must be set')
         self.ratios = np.array(ratios, dtype=np.float64)
+        self.center_offset = center_offset
         self.base_anchors = [self._base_anchors(min(s))
                              for s in self.strides]
         self._grid_cache: Dict[Tuple, List[torch.Tensor]] = {}
@@ -32,13 +48,16 @@ class AnchorGenerator:
         return [a.shape[0] for a in self.base_anchors]
 
     def _base_anchors(self, base_size) -> np.ndarray:
-        """(len(ratios) * len(scales), 4) anchors centred on the origin,
-        scale index fastest."""
+        """(len(ratios) * len(scales), 4) anchors centred on
+        ``center_offset * base_size``, scale index fastest."""
+        base_size = float(base_size)
+        c = self.center_offset * base_size
         h_ratios = np.sqrt(self.ratios)
         w_ratios = 1.0 / h_ratios
         ws = (base_size * w_ratios[:, None] * self.scales[None, :]).reshape(-1)
         hs = (base_size * h_ratios[:, None] * self.scales[None, :]).reshape(-1)
-        base = np.stack([-0.5 * ws, -0.5 * hs, 0.5 * ws, 0.5 * hs], axis=-1)
+        base = np.stack([c - 0.5 * ws, c - 0.5 * hs, c + 0.5 * ws,
+                         c + 0.5 * hs], axis=-1)
         return base.astype(np.float32)
 
     def grid_anchors(self, featmap_sizes: Sequence[Tuple[int, int]],

@@ -1,7 +1,8 @@
 """Positive / negative sampling into fixed slots (counterpart of
 ``swindet_tpu/core/bbox/samplers.py``: ``SamplingResult`` :21,
-``_ranked_select`` :47, ``RandomSampler`` :68; reference
-mmdet/core/bbox/samplers/random_sampler.py:8).
+``_ranked_select`` :47, ``RandomSampler`` :68, ``PseudoSampler`` :185;
+reference mmdet/core/bbox/samplers/random_sampler.py:8,
+pseudo_sampler.py).
 
 Every candidate gets a uniform key; each class (positive, negative) takes
 its top keys up to the expected count. The ``num`` slots hold the
@@ -145,3 +146,45 @@ class RandomSampler:
             pos_gt_labels=pos_gt_labels.to(torch.int32),
             pos_gt_inds=pos_gt_inds.to(torch.int32), num_pos=num_pos,
             num_neg=num_neg)
+
+
+@BBOX_SAMPLERS.register_module()
+class PseudoSampler:
+    """No sampling (counterpart of ``swindet_tpu/core/bbox/samplers.py:185``;
+    reference pseudo_sampler.py): every positive and every negative is
+    kept in place, as full-set masks over the N candidates rather than
+    packed slots. ``inds`` is the identity; ``valid`` the kept ones."""
+
+    def __init__(self, **kwargs):
+        pass
+
+    def sample(self, assign_result: AssignResult, bboxes: torch.Tensor,
+               gt_bboxes: torch.Tensor, gt_valid: torch.Tensor,
+               gt_labels: Optional[torch.Tensor] = None,
+               bbox_valid: Optional[torch.Tensor] = None,
+               gen: Optional[torch.Generator] = None,
+               keys=None) -> SamplingResult:
+        """``gen`` and ``keys`` are taken and unused: nothing is drawn."""
+        n = bboxes.shape[0]
+        gt_inds = assign_result.gt_inds
+        pos_mask = gt_inds > 0
+        neg_mask = gt_inds == 0
+        if bbox_valid is not None:
+            pos_mask = pos_mask & bbox_valid
+            neg_mask = neg_mask & bbox_valid
+        pos_gt_inds = torch.where(pos_mask, (gt_inds.long() - 1).clamp(min=0),
+                                  0)
+        pos_gt_bboxes = torch.where(pos_mask[:, None],
+                                    gt_bboxes[pos_gt_inds, :4], 0.0)
+        if gt_labels is not None:
+            labels = torch.where(pos_mask, gt_labels.long()[pos_gt_inds], -1)
+        else:
+            labels = torch.full((n,), -1, device=bboxes.device)
+        return SamplingResult(
+            inds=torch.arange(n, dtype=torch.int32, device=bboxes.device),
+            valid=pos_mask | neg_mask, is_pos=pos_mask,
+            bboxes=bboxes[:, :4], pos_gt_bboxes=pos_gt_bboxes,
+            pos_gt_labels=labels.to(torch.int32),
+            pos_gt_inds=pos_gt_inds.to(torch.int32),
+            num_pos=pos_mask.sum().to(torch.int32),
+            num_neg=neg_mask.sum().to(torch.int32))

@@ -6,11 +6,14 @@ calls; reference mmcv DefaultOptimizerConstructor and the Swin configs'
 ``paramwise_cfg``).
 
 Parameters with the same (``decay_mult``, ``lr_mult``) share one AdamW
-parameter group, which carries the weight decay times
+or SGD parameter group, which carries the weight decay times
 ``decay_mult`` and the ``lr_mult``; the learning-rate schedule writes
 ``lr = schedule(step) * lr_mult`` into every group before each step
 (:func:`set_lr`). Per parameter this is the update of mmcv's one group
 per parameter, with two groups for the Swin configs instead of hundreds.
+SGD is the JAX package's chain (:155-163): the decay added to the
+gradient before the momentum trace, no dampening, ``nesterov`` from the
+config; ``torch.optim.SGD`` computes the same.
 """
 from __future__ import annotations
 
@@ -43,13 +46,14 @@ def param_multipliers(model: torch.nn.Module, paramwise_cfg: Optional[dict]
 def build_optimizer(model: torch.nn.Module,
                     optimizer_cfg: dict) -> torch.optim.Optimizer:
     """cfg like ``dict(type='AdamW', lr=1e-4, betas=(0.9, 0.999),
-    weight_decay=0.05, paramwise_cfg=...)`` -> ``torch.optim.AdamW`` with
-    one group per (decay_mult, lr_mult), which keeps its ``lr_mult`` and
-    the names of its parameters."""
+    weight_decay=0.05, paramwise_cfg=...)`` or ``dict(type='SGD', lr=0.02,
+    momentum=0.9, weight_decay=1e-4)`` -> ``torch.optim.AdamW`` or
+    ``torch.optim.SGD`` with one group per (decay_mult, lr_mult), which
+    keeps its ``lr_mult`` and the names of its parameters."""
     cfg = dict(optimizer_cfg)
-    if cfg.get('type') != 'AdamW':
+    if cfg.get('type') not in ('AdamW', 'SGD'):
         raise NotImplementedError(f'build_optimizer: {cfg.get("type")} is '
-                                  f'not ported; the Swin configs use AdamW')
+                                  f'not ported (AdamW and SGD are)')
     base_lr = float(cfg['lr'])
     wd = float(cfg.get('weight_decay', 0.0))
     params = dict(model.named_parameters())
@@ -61,6 +65,11 @@ def build_optimizer(model: torch.nn.Module,
             lr_mult=lm))
         group['params'].append(params[name])
         group['names'].append(name)
+    if cfg['type'] == 'SGD':
+        return torch.optim.SGD(list(groups.values()), lr=base_lr,
+                               momentum=float(cfg.get('momentum', 0.0)),
+                               nesterov=bool(cfg.get('nesterov', False)),
+                               weight_decay=wd)
     return torch.optim.AdamW(list(groups.values()), lr=base_lr,
                              betas=tuple(cfg.get('betas', (0.9, 0.999))),
                              eps=cfg.get('eps', 1e-8), weight_decay=wd)

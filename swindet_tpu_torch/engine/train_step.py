@@ -4,8 +4,12 @@ mmdet/models/detectors/base.py:185,220).
 
 One step: set the schedule's learning rate, ``forward_train``, sum the
 loss terms, backward, optional torch-exact gradient clipping, optimizer
-step. Counts and averaging factors stay tensors through the step; the
-log values are read back to the host once, at its end.
+step. A parameter the loss does not reach (a frozen ResNet stage's) gets
+a zero gradient before the step, as every leaf of the JAX package's
+gradient tree has one: weight decay and momentum then move it as they
+move it there, where ``torch.optim`` would skip it. Counts and averaging
+factors stay tensors through the step; the log values are read back to
+the host once, at its end.
 """
 from __future__ import annotations
 
@@ -66,6 +70,9 @@ def make_train_step(model: torch.nn.Module,
             batch.get('gt_masks'), gen=gen, sampler_keys=sampler_keys)
         total, log_vars = parse_losses(losses)
         total.backward()
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         if max_norm is None:
             log_vars['grad_norm'] = torch.nn.utils.get_total_norm(
                 [p.grad for p in params if p.grad is not None])

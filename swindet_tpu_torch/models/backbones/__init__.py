@@ -1,1 +1,1 @@
-from . import swin  # noqa: F401
+from . import resnet, swin  # noqa: F401

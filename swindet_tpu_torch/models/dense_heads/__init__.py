@@ -1,1 +1,1 @@
-from . import reppoints_head, rpn_head  # noqa: F401
+from . import anchor_head, reppoints_head, retina_head, rpn_head  # noqa: F401

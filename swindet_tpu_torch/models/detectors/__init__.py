@@ -1,5 +1,5 @@
-from .single_stage import RepPointsDetector, SingleStageDetector
-from .two_stage import CascadeRCNN, MaskRCNN, TwoStageDetector
+from .single_stage import RepPointsDetector, RetinaNet, SingleStageDetector
+from .two_stage import CascadeRCNN, FasterRCNN, MaskRCNN, TwoStageDetector
 
-__all__ = ['CascadeRCNN', 'MaskRCNN', 'RepPointsDetector',
-           'SingleStageDetector', 'TwoStageDetector']
+__all__ = ['CascadeRCNN', 'FasterRCNN', 'MaskRCNN', 'RepPointsDetector',
+           'RetinaNet', 'SingleStageDetector', 'TwoStageDetector']

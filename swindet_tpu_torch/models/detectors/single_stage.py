@@ -1,7 +1,8 @@
 """Single-stage detector (counterpart of
 ``swindet_tpu/models/detectors/single_stage.py``: ``SingleStageDetector``
-:18 with ``aug_bbox_test`` :86, ``RepPointsDetector`` :119; reference
-mmdet/models/detectors/single_stage.py:10, reppoints_detector.py:6).
+:18 with ``aug_bbox_test`` :86, ``RetinaNet`` :113, ``RepPointsDetector``
+:119; reference mmdet/models/detectors/single_stage.py:10, retinanet.py,
+reppoints_detector.py:6).
 
 Backbone, neck and one dense head whose outputs go to its ``loss`` and
 ``get_bboxes`` as they come. The ``state_dict`` uses mmdet's key names
@@ -91,6 +92,11 @@ class SingleStageDetector(nn.Module):
                                         cfg=dict(self.test_cfg),
                                         rescale=False, with_nms=False)
         return res[0], res[1], res[2] if len(res) > 2 else None
+
+
+@DETECTORS.register_module()
+class RetinaNet(SingleStageDetector):
+    """(reference retinanet.py)."""
 
 
 @DETECTORS.register_module()

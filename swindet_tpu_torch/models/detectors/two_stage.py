@@ -2,7 +2,8 @@
 ``swindet_tpu/models/detectors/two_stage.py``: ``forward_train`` :92,
 ``simple_test`` :127, the per-augmentation halves ``aug_rpn_test``,
 ``aug_bbox_test`` and ``aug_mask_test`` :144-162, ``CascadeRCNN`` :166,
-``MaskRCNN`` :171; reference mmdet/models/detectors/two_stage.py:10).
+``MaskRCNN`` :171, ``FasterRCNN`` :175; reference
+mmdet/models/detectors/two_stage.py:10).
 
 The ``state_dict`` uses mmdet's key names (``backbone.``, ``neck.``,
 ``rpn_head.``, ``roi_head.``), so a released ``.pth`` loads as it is.
@@ -140,3 +141,8 @@ class CascadeRCNN(TwoStageDetector):
 @DETECTORS.register_module()
 class MaskRCNN(TwoStageDetector):
     """(reference mask_rcnn.py:6)."""
+
+
+@DETECTORS.register_module()
+class FasterRCNN(TwoStageDetector):
+    """(reference faster_rcnn.py): a bbox-only ``StandardRoIHead``."""

@@ -164,11 +164,14 @@ class Norm(nn.Module):
     axis but the channels and updates the running ones with ``momentum``
     from the biased variance, as flax's ``nn.BatchNorm`` does (torch's
     ``BatchNorm2d`` takes the unbiased one); in eval mode it reads the
-    running statistics."""
+    running statistics. A ``frozen`` BN reads them in training too and
+    never updates them, as the JAX package's ResNet norms
+    (``nn.BatchNorm(use_running_average=True)``); its scale and bias stay
+    trainable."""
 
     def __init__(self, kind: str, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1, num_groups: int = 32,
-                 requires_grad: bool = True):
+                 requires_grad: bool = True, frozen: bool = False):
         super().__init__()
         if kind not in ('bn', 'gn', 'ln'):
             raise KeyError(f'Norm: unknown kind {kind}')
@@ -176,6 +179,7 @@ class Norm(nn.Module):
             raise ValueError(f'Norm: {num_features} channels in '
                              f'{num_groups} groups')
         self.kind = kind
+        self.frozen = frozen
         self.eps = eps
         self.momentum = momentum
         self.num_groups = num_groups
@@ -209,7 +213,7 @@ class Norm(nn.Module):
             return y * self.weight + self.bias
         if self.kind == 'ln':
             mean, var = _moments(x, (-1,))
-        elif self.training:
+        elif self.training and not self.frozen:
             mean, var = _moments(x, tuple(range(x.ndim - 1)))
             m = self.momentum
             with torch.no_grad():
@@ -293,8 +297,10 @@ class ConvModule(nn.Module):
 def init_conv(conv: nn.Conv2d, gen: torch.Generator,
               std: Optional[float] = None):
     """flax nn.Conv defaults (lecun_normal kernel, zero bias), or
-    Normal(0, std) where the JAX package sets ``normal_init(std)``."""
-    fan_in = conv.in_channels * conv.kernel_size[0] * conv.kernel_size[1]
+    Normal(0, std) where the JAX package sets ``normal_init(std)``. A
+    grouped conv's fan-in is its group's input channels."""
+    fan_in = conv.weight.shape[1] * conv.kernel_size[0] \
+        * conv.kernel_size[1]
     if std is None:
         lecun_normal_(conv.weight, fan_in, gen)
     else:
@@ -312,12 +318,13 @@ def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, relu: bool,
                           conv.bias.float(), relu)
     w = conv.weight
     b = None if conv.bias is None else conv.bias.to(dtype)
-    if w.shape[2:] == (1, 1) and conv.stride == (1, 1):
+    if w.shape[2:] == (1, 1) and conv.stride == (1, 1) and conv.groups == 1:
         out = F.linear(x, w[:, :, 0, 0].to(dtype), b)
     else:
         out = F.conv2d(x.permute(0, 3, 1, 2), w.to(dtype), b,
-                       stride=conv.stride,
-                       padding=conv.padding).permute(0, 2, 3, 1)
+                       stride=conv.stride, padding=conv.padding,
+                       dilation=conv.dilation,
+                       groups=conv.groups).permute(0, 2, 3, 1)
     return torch.relu(out) if relu else out
 
 

@@ -64,9 +64,10 @@ from swindet_tpu_torch.ops import (conv3x3, conv3x3_dw, conv3x3_dw_reference,
 from swindet_tpu_torch.models.backbones.swin import shifted_window_attn_mask
 
 from chip_smoke import (CASCADE_CONFIG, LN_SHAPES, REPPOINTS_CONFIG,
-                        SWINB_ATTN_STAGES, SWINB_LN_SHAPES, _crowded_rois,
-                        _set_class_logits, cascade_launches,
-                        reppoints_launches)
+                        RESNET_CONFIGS, SWINB_ATTN_STAGES, SWINB_LN_SHAPES,
+                        _crowded_rois, _set_class_logits, _spread_heads,
+                        cascade_launches, reppoints_launches,
+                        resnet_launches)
 
 pytestmark = pytest.mark.cuda
 DTYPES = [torch.float32, torch.bfloat16]
@@ -984,3 +985,84 @@ def test_reppoints_on_the_card_matches_the_cpu(gen):
     assert launch_counts() == reppoints_launches(train, training=True)
     assert all(torch.isfinite(v).all() for v in losses.values())
     assert train.bbox_head.moment_transfer.grad.abs().max() > 0
+
+
+def _tiny_resnet_detector(which, dtype):
+    """Faster R-CNN R-50's or RetinaNet R-50's config graph (frozen BN,
+    frozen_stages=1; RetinaNet's FPN from start_level 1 with two stride-2
+    extra convs and 4 tower convs a branch) on a ResNet-50 of base width
+    16, its FPN and heads at 128 channels, which take the conv3x3
+    kernel."""
+    from swindet_tpu_torch.models import build_detector
+    from swindet_tpu_torch.utils import Config
+    model = Config.fromfile(RESNET_CONFIGS[which]).model
+    model.pop('pretrained', None)
+    model.backbone.update(base_channels=16)
+    model.neck.update(in_channels=[64, 128, 256, 512], out_channels=128)
+    if which == 'faster':
+        model.rpn_head.update(in_channels=128, feat_channels=128)
+        model.roi_head.bbox_roi_extractor.update(out_channels=128)
+        model.roi_head.bbox_head.update(in_channels=128,
+                                        fc_out_channels=256)
+    else:
+        model.bbox_head.update(in_channels=128, feat_channels=128)
+    net = build_detector(dict(model, dtype=dtype))
+    net.init_weights(0)
+    return net
+
+
+@pytest.mark.parametrize('which', ['faster', 'retina'])
+def test_resnet_detector_on_the_card_matches_the_cpu(gen, which):
+    """A narrow Faster R-CNN R-50 or RetinaNet R-50 of its config: fp32
+    simple_test on the card (its kernels, each launched as resnet_launches
+    derives) equals the CPU's (labels, boxes within 1e-2 px, scores within
+    1e-2 for Faster R-CNN's spread heads as phase 5's, 1e-4 for RetinaNet's
+    class output set as phase 14 sets it, its logits N(-19, 4^2)); a bf16
+    training forward and backward on the card without gt_masks gives
+    finite losses, launches as derived, and leaves the frozen BN's buffers
+    as they were."""
+    cpu = _tiny_resnet_detector(which, 'float32').eval()
+    img = torch.randn(1, 224, 320, 3, generator=gen)
+    if which == 'faster':
+        _spread_heads(cpu)
+        score_limit = 1e-2
+    else:
+        _set_class_logits(cpu, img, mean=-19.0,
+                          conv=cpu.bbox_head.retina_cls, candidates=False)
+        score_limit = 1e-4
+    card = _tiny_resnet_detector(which, 'float32')
+    card.load_state_dict(cpu.state_dict())
+    card = card.cuda().eval()
+    shapes = torch.tensor([[224, 320]], dtype=torch.int32)
+    sf = torch.ones(1, 4)
+    with torch.no_grad():
+        want = cpu.simple_test(img, shapes, sf)
+        reset_launch_counts()
+        got = card.simple_test(img.cuda(), shapes.cuda(), sf.cuda())
+    assert launch_counts() == resnet_launches(card, training=False)
+    got = {k: v.cpu() for k, v in got.items()}
+    assert int(want['det_valid'].sum()) > 0
+    assert torch.equal(got['det_valid'], want['det_valid'])
+    assert torch.equal(got['labels'], want['labels'])
+    assert (got['dets'][..., :4] - want['dets'][..., :4]).abs().max() <= 1e-2
+    assert (got['dets'][..., 4] - want['dets'][..., 4]).abs().max() \
+        <= score_limit
+
+    train = _tiny_resnet_detector(which, 'bfloat16').cuda().train()
+    before = {k: v.clone() for k, v in train.named_buffers()}
+    b, h, w = 2, 224, 320
+    boxes = torch.tensor([[[20.3, 30.1, 120.7, 150.2],
+                           [150.4, 60.6, 300.1, 200.9]]] * b).cuda()
+    shapes = torch.tensor([[h, w]] * b, dtype=torch.int32).cuda()
+    reset_launch_counts()
+    losses = train.forward_train(
+        torch.randn(b, h, w, 3, generator=gen).cuda(), shapes, shapes,
+        boxes, torch.ones(b, 2, dtype=torch.bool).cuda(),
+        torch.tensor([[1, 7]] * b).cuda(), None,
+        gen=torch.Generator(device='cuda').manual_seed(0))
+    sum(v for k, v in losses.items() if 'loss' in k).backward()
+    assert launch_counts() == resnet_launches(train, training=True)
+    assert all(torch.isfinite(v).all() for v in losses.values())
+    assert all(torch.equal(v, before[k]) for k, v in train.named_buffers())
+    assert train.backbone.layer1[0].conv1.weight.grad is None
+    assert train.backbone.layer2[0].conv1.weight.grad.abs().max() > 0

@@ -122,7 +122,10 @@ def test_port_imports_without_jax_flax_cv2():
         "             'swindet_tpu_torch.models.losses.losses',\n"
         "             'swindet_tpu_torch.ops.deform_conv',\n"
         "             'swindet_tpu_torch.models.dense_heads.reppoints_head',\n"
-        "             'swindet_tpu_torch.models.detectors.single_stage'):\n"
+        "             'swindet_tpu_torch.models.detectors.single_stage',\n"
+        "             'swindet_tpu_torch.models.backbones.resnet',\n"
+        "             'swindet_tpu_torch.models.dense_heads.anchor_head',\n"
+        "             'swindet_tpu_torch.models.dense_heads.retina_head'):\n"
         "    assert name in names, name\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in banned\n"
         "       and sys.modules[m] is not None]\n"
