@@ -261,6 +261,25 @@ before the last line:
               tools.test on the 2 PNGs (Faster R-CNN's trained
               checkpoint, RetinaNet's seeded one), --eval bbox, score_thr
               0 (100 detections an image).
+15. zoo    -- the ResNet zoo's variants from their configs, bf16 set on
+              top: Mask R-CNN R-50 with DCNv2 in stages 2-4 (mdconv),
+              Faster R-CNN R-50 with DCN (dconv), Mask R-CNN R-50 with GN
+              and ConvWS (gn_ws), Mask R-CNN R-50 C4 (c4), Faster R-CNN
+              R-50 DC5 (dc5), Faster R-CNN R-50 with modulated deformable
+              RoI pooling (mdpool) and Cascade R-CNN R-50 (cascade_r50),
+              each: a warm-up and 2 requests at 800x1333, every launch
+              equal to what zoo_launches derives, and phase 14's fp32
+              serving check with its bf16 control; mdconv, gn_ws, c4 and
+              mdpool also 1 + 3 make_train_step steps at batch 2 on
+              800x1344 (launches checked, frozen BN buffers unmoved, a
+              profiled step, the plain deformable ops' ms) and phase 7's
+              fp32 training check, proposals pinned; mdconv also
+              train_detector and tools.test from files. Phase 3 holds
+              rows 3, 8, 4 and 9 at these configs' new widths too: the
+              conv and its filter gradient at 1x50x84 and 2x50x84 with
+              1024 and 2048 channels, RoIAlign and its backward on one
+              stride-16 level at 14x14x1024 and 7x7x2048 (1,000 rois
+              serving, 512 training).
 
 Each phase's wall time is logged under [time].
 
@@ -274,7 +293,8 @@ phase 12's as ``cascade_serve_launches`` and ``cascade_train_launches``,
 phase 13's as ``reppoints_serve_launches`` and
 ``reppoints_train_launches``, phase 14's as ``faster_serve_launches``,
 ``faster_train_launches``, ``retina_serve_launches`` and
-``retina_train_launches``; for the conv,
+``retina_train_launches``, phase 15's as ``<config>_serve_launches``
+and, for the four that train, ``<config>_train_launches``; for the conv,
 fused-MLP and v1, v3,
 v4 and full-map attention rows also ``tc_launches``, counted the same
 way; ``shapes``, the bf16 readings at every main-path shape, for those,
@@ -619,13 +639,16 @@ def bound(nbytes, flops, peak=PEAK_FLOPS):
 
 
 def _compare(name, dtype, kernel_fn, plain_fn, shape_note, work=None,
-             library_fn=None, summed=False, exact=False, limits=None):
+             library_fn=None, summed=False, exact=False, limits=None,
+             plain_iters=None):
     """Hold kernel_fn() against plain_fn() (each a tensor or a tuple of
     them), time both and, if given, library_fn; ``work`` (bytes, flops[,
     peak]) gives the bound. ``summed`` picks the scale-relative TOL_SUM
     check of the backward kernels, ``exact`` equality; ``limits``, one
     entry per output, replaces an output's summed limit by its entry where
-    that is not None."""
+    that is not None. ``plain_iters``: time the plain version over that
+    many calls, its call for the comparison the only warm-up (a slow
+    one), else as cuda_ms does."""
     got = _tensors(kernel_fn())
     want = _tensors(plain_fn())
     torch.cuda.synchronize()
@@ -662,7 +685,8 @@ def _compare(name, dtype, kernel_fn, plain_fn, shape_note, work=None,
                                  f'{err.max().item():.3g} over {rule}')
         max_err = max(max_err, err.max().item())
     ms = cuda_ms(kernel_fn, iters=20)
-    plain_ms = cuda_ms(plain_fn)
+    plain_ms = cuda_ms(plain_fn) if plain_iters is None else \
+        cuda_ms(plain_fn, warmup=0, iters=plain_iters)
     r = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, shape=shape_note,
              library_ms=None if library_fn is None else cuda_ms(library_fn,
                                                                  iters=20))
@@ -1186,6 +1210,60 @@ def _dw_compare(dtype, x, g):
                         x_nchw, (co, c, 3, 3), g_nchw, padding=1))
 
 
+def zoo_kernel_checks(dtype, gen, randn):
+    """Rows 3, 8, 4 and 9 at the widths of phase 15's C4 and DC5 configs,
+    each against its plain version with its bound: the RPN conv (ReLU) and
+    its filter gradient on the stride-16 map of an 800x1344 canvas, 50x84,
+    batch 1 and 2, at 1024 -> 1024 (C4) and 2048 -> 2048 (DC5) channels;
+    RoIAlign on that one level at 14x14x1024 (C4) and 7x7x2048 (DC5) for
+    1,000 rois (batch 1, serving) and 1,024 (batch 2, training: the rcnn
+    sampler's 512 an image), its backward at the training shapes; C4's
+    mask branch pools again through the same extractor, so 14x14x1024
+    also runs both ways at 256 rois (batch 2, at most the sampler's 128
+    positives an image). Returns the four lists of rows."""
+    conv, dw, fwd, bwd = [], [], [], []
+    el = torch.finfo(dtype).bits // 8
+    for c in (1024, 2048):
+        cw = randn(3, 3, c, c, scale=0.01).to(dtype)
+        cb = randn(c)
+        for b in (1, 2):
+            x = randn(b, 50, 84, c).to(dtype)
+            conv.append(_conv_compare(dtype, x, cw, cb, True))
+            dw.append(_dw_compare(dtype, x, randn(b, 50, 84, c, scale=0.1)
+                                  .to(dtype)))
+        del cw, x
+    for c, size, cases in ((1024, 14, ((1000, 1), (1024, 2), (256, 2))),
+                           (2048, 7, ((1000, 1), (1024, 2)))):
+        for n, b in cases:
+            feats = [randn(b, 50, 84, c).to(dtype)]
+            rois = _rois(gen, n, batch=b)
+            touched, samples = _roi_work([(50, 84)], rois, (16,), size)
+            note = f'{n} rois {size}x{size}x{c}, one level at stride 16, ' \
+                f'batch {b}'
+            fwd.append(_compare(
+                'roi_align', dtype,
+                lambda: roi_align(feats, rois, (16,), size),
+                lambda: multilevel_roi_align(feats, rois, (16,), size),
+                note, work=(touched * c * el + _nbytes(rois)
+                            + n * size * size * c * el,
+                            samples * c * 4 * 2.0), plain_iters=2))
+            if b == 1:
+                continue
+            shapes = [tuple(feats[0].shape)]
+            g = randn(n, size, size, c).to(dtype)
+            bwd.append(_compare(
+                'roi_align_bwd', dtype,
+                lambda: roi_align_bwd(shapes, dtype, rois, g, (16,), size),
+                lambda: multilevel_roi_align_backward(shapes, dtype, rois, g,
+                                                      (16,), size),
+                note, summed=True,
+                work=(_nbytes(g, rois) + _nbytes(feats[0]),
+                      samples * c * 4 * 2.0), plain_iters=2))
+            _check_repeats(shapes, dtype, rois, g, (16,), size)
+    torch.cuda.empty_cache()
+    return conv, dw, fwd, bwd
+
+
 def phase_kernels():
     gen = torch.Generator().manual_seed(0)
     dev = 'cuda'
@@ -1343,6 +1421,12 @@ def phase_kernels():
             results.setdefault('roi_align_bwd', {})[dtype] = \
             roi_checks(dtype, gen, randn)
         torch.cuda.empty_cache()
+        # phase 15's C4 and DC5 widths, added to each row's shapes
+        for key, rows in zip(('conv3x3', 'conv3x3_dw', 'roi_align',
+                              'roi_align_bwd'),
+                             zoo_kernel_checks(dtype, gen, randn)):
+            results[key][dtype]['shapes'] = \
+                results[key][dtype].get('shapes', []) + rows
 
         # fused MLP: in bf16 (the tensor-core kernels) the forward at the
         # serving rows of stages 1-3 and the training rows of stage 1, the
@@ -2075,8 +2159,9 @@ def _backbone_relus(model, seen):
     hooks = []
     for m in model.backbone.modules():
         if isinstance(m, (BasicBlock, Bottleneck)):
-            parts = (m, m.bn1, m.bn2) if isinstance(m, Bottleneck) \
-                else (m, m.bn1)
+            parts = (m, getattr(m, m.norm1_name)) + (
+                (getattr(m, m.norm2_name),) if isinstance(m, Bottleneck)
+                else ())
             hooks += [p.register_forward_hook(keep) for p in parts]
     return hooks
 
@@ -2282,7 +2367,8 @@ def phase_train_check(device: str = 'cuda', fused: bool = False,
                       pin_proposals: bool = False, config=CONFIG,
                       names=TRAIN_GRADS, limits=None,
                       opts=(('bf16', False),
-                            ('model.backbone.drop_path_rate', 0.0))):
+                            ('model.backbone.drop_path_rate', 0.0)),
+                      rpn_tol=TOL_RPN_OUT, min_share=MIN_PROPOSAL_SHARE):
     """forward_train of the full-width detector (``config``) in fp32 on a
     224x320 canvas (or on ``batch``), on the card (kernels) and on the CPU
     (plain versions): same
@@ -2306,7 +2392,8 @@ def phase_train_check(device: str = 'cuda', fused: bool = False,
     them against the plain step (check_proposal_chain), and the card's
     own proposals against the CPU run's as sets (MIN_PROPOSAL_SHARE).
     ``opts``: the config options of the three runs (a ResNet has no
-    stochastic depth to turn off)."""
+    stochastic depth to turn off). ``rpn_tol`` and ``min_share``: the
+    limits of the RPN outputs and of the share of proposals matched."""
     opts = dict(opts)
     start = time.perf_counter()
     cpu = init_detector(config, device='cpu', cfg_options=opts, seed=1)
@@ -2322,7 +2409,9 @@ def phase_train_check(device: str = 'cuda', fused: bool = False,
     batch = train_check_batch() if batch is None else batch
     b, h, w = batch['img'].shape[:3]
     g = batch['gt_bboxes'].shape[1]
-    n_rpn = 3 * sum(-(-h // s) * -(-w // s) for s in (4, 8, 16, 32, 64))
+    anchors = cpu.rpn_head.prior_generator
+    n_rpn = sum(a * -(-h // s[1]) * -(-w // s[0]) for a, s in zip(
+        anchors.num_base_anchors, anchors.strides))
     rcnn = cpu.cfg.model.train_cfg.rcnn
     n_props = cpu.cfg.model.train_cfg.rpn_proposal.max_per_img
     rs = np.random.RandomState(7)
@@ -2384,7 +2473,7 @@ def phase_train_check(device: str = 'cuda', fused: bool = False,
                            f'largest entry: scores {err[0]:.3g}, deltas '
                            f'{err[1]:.3g}; bf16 control {ctl_err[0]:.3g}, '
                            f'{ctl_err[1]:.3g}')
-        if not max(err) <= TOL_RPN_OUT < min(ctl_err):
+        if not max(err) <= rpn_tol < min(ctl_err):
             raise AssertionError('the RPN outputs are over their limit, or '
                                  'the bf16 control is within it')
         got = check_proposal_chain(cpu, gpu, batch, own[0], device)
@@ -2396,7 +2485,7 @@ def phase_train_check(device: str = 'cuda', fused: bool = False,
         log('train-check', f'unpinned: {share:.4f} of the CPU run\'s '
                            f'proposals within {TOL_PROPOSAL_PX} px of one '
                            f'of the card\'s')
-        if not share >= MIN_PROPOSAL_SHARE:
+        if not share >= min_share:
             raise AssertionError('the card\'s own proposals depart from '
                                  'the CPU run\'s')
 
@@ -4631,6 +4720,414 @@ def phase_resnet():
     return out
 
 
+# ------------------------------------------------------------ phase 15
+# the ResNet zoo's variants: DCNv2 / DCN bottlenecks, GN + ConvWS, the C4
+# shared head, DC5, modulated deformable RoI pooling and the cascade
+ZOO_CONFIGS = {
+    'mdconv': 'configs/dcn/mask_rcnn_r50_fpn_mdconv_c3-c5_1x_coco.py',
+    'dconv': 'configs/dcn/faster_rcnn_r50_fpn_dconv_c3-c5_1x_coco.py',
+    'gn_ws': 'configs/gn+ws/mask_rcnn_r50_fpn_gn_ws-all_2x_coco.py',
+    'c4': 'configs/mask_rcnn/mask_rcnn_r50_caffe_c4_1x_coco.py',
+    'dc5': 'configs/faster_rcnn/faster_rcnn_r50_caffe_dc5_1x_coco.py',
+    'mdpool': 'configs/dcn/faster_rcnn_r50_fpn_mdpool_1x_coco.py',
+    'cascade_r50': 'configs/cascade_rcnn/cascade_rcnn_r50_fpn_1x_coco.py',
+}
+ZOO_CONFIGS = {k: os.path.join(REPO, v) for k, v in ZOO_CONFIGS.items()}
+ZOO_TRAINED = ('mdconv', 'gn_ws', 'c4', 'mdpool')
+# the gradients the fp32 training checks hold: a conv of each unfrozen
+# stage (a deformable conv2 and its offset conv where there is one), a
+# norm scale, the neck, the RPN conv and the heads; the backbone's sit
+# behind the ReLU path (RESNET_GRAD_LIMIT)
+ZOO_BACKBONE_GRADS = {
+    'mdconv': ('backbone.layer2.0.conv1.weight',
+               'backbone.layer3.5.conv2.weight',
+               'backbone.layer3.5.conv2.conv_offset.weight',
+               'backbone.layer4.2.bn3.weight'),
+    'gn_ws': ('backbone.layer2.0.conv1.weight',
+              'backbone.layer3.5.conv2.weight',
+              'backbone.layer4.2.gn3.weight'),
+    'c4': ('backbone.layer2.0.conv1.weight', 'backbone.layer3.5.conv2.weight',
+           'backbone.layer3.5.bn3.weight'),
+    'mdpool': RESNET_BACKBONE_GRADS,
+}
+ZOO_HEAD_GRADS = {
+    'mdconv': ('neck.fpn_convs.0.conv.weight', 'rpn_head.rpn_conv.weight',
+               'roi_head.bbox_head.shared_fcs.0.weight',
+               'roi_head.bbox_head.fc_cls.weight',
+               'roi_head.mask_head.convs.0.conv.weight'),
+    'gn_ws': ('neck.fpn_convs.0.conv.weight', 'neck.fpn_convs.0.gn.weight',
+              'rpn_head.rpn_conv.weight',
+              'roi_head.bbox_head.shared_convs.0.conv.weight',
+              'roi_head.bbox_head.fc_cls.weight',
+              'roi_head.mask_head.convs.0.conv.weight'),
+    'c4': ('rpn_head.rpn_conv.weight',
+           'roi_head.shared_head.layer4.0.conv1.weight',
+           'roi_head.shared_head.layer4.2.conv3.weight',
+           'roi_head.bbox_head.fc_cls.weight',
+           'roi_head.mask_head.upsample.weight'),
+    'mdpool': ('neck.fpn_convs.0.conv.weight', 'rpn_head.rpn_conv.weight',
+               'roi_head.bbox_roi_extractor.roi_layers.0.offset_fc.4.weight',
+               'roi_head.bbox_roi_extractor.roi_layers.1.mask_fc.2.weight',
+               'roi_head.bbox_head.shared_fcs.0.weight',
+               'roi_head.bbox_head.fc_cls.weight'),
+}
+# gn_ws's training-check limits. Its seeded GN + ConvWS ResNet-50's
+# zero-mean filters cancel most of their (post-ReLU) input, so the card's
+# fp32 rounding reaches 7.3e-6 in the RPN losses, 0.19 in the backbone's
+# gradients, 0.034 in the neck's and heads', 3.8e-4 in the RPN outputs,
+# and leaves 0.7575 of the unpinned proposals within TOL_PROPOSAL_PX (the
+# same readings in each of four runs; NVIDIA H100 80GB HBM3, 700.00 W);
+# cut to two or three stages the detector carries it as far
+# (PERF.md). Each limit is 2-3 times the card's reading and under the bf16
+# control's (losses 0.019-0.058, backbone 0.435-1.34, neck and heads
+# 0.5-1.16, RPN outputs 0.54); fc_cls (4.0e-5) keeps phase 7's limit
+ZOO_TRAIN_LIMITS = {'gn_ws': dict(
+    limits=({k: 2e-5 for k in ('loss_rpn_cls', 'loss_rpn_bbox', 'loss_cls')},
+            {'rpn': 0.1, 'bbox': 0.1, 'mask': 0.1,
+             'roi_head.bbox_head.fc_cls.weight': TOL_TRAIN_GRAD['bbox'],
+             **{n: 0.4 for n in ZOO_BACKBONE_GRADS['gn_ws']}}),
+    rpn_tol=1e-3, min_share=0.5)}
+# requests a config serves, steps a config trains (after a warm-up each)
+ZOO_REQUESTS = 2
+ZOO_STEPS = 3
+
+
+def zoo_launches(model, training):
+    """Each kernel's launches that one request (serving) or one step
+    (training) of a zoo detector makes, derived from the built model: a
+    conv3x3 launch per kernel ConvModule of the neck and of the mask head
+    and per RPN level of a kernel RPN conv (in training one more each for
+    dx and a filter-gradient launch each); a RoIAlign launch per bbox
+    extractor call (a cascade's three stages; a deformable extractor's
+    first pass) and per mask extractor call, in training each with its
+    backward; the NMS twice a request and once a step."""
+    convs = model.rpn_head.conv_uses_kernel \
+        * len(model.rpn_head.prior_generator.strides)
+    if model.neck is not None:
+        convs += sum(c.use_kernel for c in model.neck.fpn_convs)
+    roi = model.roi_head
+    for head in _heads(roi.mask_head):
+        convs += sum(c.use_kernel for c in head.convs)
+    for head in _heads(roi.bbox_head):
+        convs += sum(c.use_kernel for c in head.shared_convs)
+    aligns = getattr(roi, 'num_stages', 1) + (roi.mask_head is not None)
+    want = {fn.__name__: 0 for fn in KERNEL_WRAPPERS}
+    if training:
+        want.update(conv3x3=2 * convs, conv3x3_dw=convs, roi_align=aligns,
+                    roi_align_bwd=aligns, nms_sorted=1)
+    else:
+        want.update(conv3x3=convs, roi_align=aligns, nms_sorted=2)
+    return want
+
+
+def _zoo_model(name, device='cuda', seed=0, opts=RESNET_BF16):
+    model = init_detector(ZOO_CONFIGS[name], device=device, seed=seed,
+                          cfg_options=dict(opts))
+    if type(model.backbone).__name__ != 'ResNet':
+        raise AssertionError(f'{name}: not a ResNet detector')
+    return model
+
+
+def zoo_serve(name):
+    """One zoo detector from its config in bf16 through init_detector and
+    inference_detector: a warm-up, then ZOO_REQUESTS requests at 800x1333
+    with every launch count checked."""
+    phase = f'zoo-{name}'
+    t0 = time.perf_counter()
+    model = _zoo_model(name)
+    per = zoo_launches(model, training=False)
+    log(phase, f'init_detector: {type(model).__name__} '
+               f'{sum(p.numel() for p in model.parameters())} params, '
+               f'compute {model.dtype}, {time.perf_counter() - t0:.1f} s; '
+               f'launches per request {_nonzero(per)}')
+    # masks come in the image's 800x1333 frame; the test pipeline pads it
+    # to 800x1344, and the boxes are clipped to that shape, as in the JAX
+    # package
+    if model.roi_head.with_mask:
+        def check(res):
+            return _check_result(res, 800, 1333)
+    else:
+        def check(res):
+            return _check_bbox_result(res, 800, 1344)
+    imgs = synthetic_images(ZOO_REQUESTS + 1, seed=9)
+    t0 = time.perf_counter()
+    check(inference_detector(model, imgs[0]))
+    torch.cuda.synchronize()
+    log(phase, f'warm-up request {time.perf_counter() - t0:.3f} s')
+    reset_launch_counts()
+    lat, counts = [], []
+    for img in imgs[1:]:
+        t0 = time.perf_counter()
+        res = inference_detector(model, img)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        counts.append(check(res))
+    launches = launch_counts()
+    _check_launches(phase, launches, per, ZOO_REQUESTS)
+    tc = _check_tc(phase, launches, True, (conv3x3,))
+    log(phase, 'per-request latency (s): '
+               + ', '.join(f'{t:.4f}' for t in lat)
+               + f'; detections per image: {counts}; launches '
+                 f'{_nonzero(launches)}, as derived; tensor-core '
+                 f'{_nonzero(tc)}; {CARD}')
+    return launches, lat
+
+
+def zoo_check(name, device='cuda', control=True):
+    """Phase 14's serving check on a zoo detector: fp32 on a 224x320
+    canvas, the card (kernels) against the CPU (plain versions), same
+    seeded weights with rpn_cls and every fc_cls spread as phase 5's; no
+    tensor-core launch on the card; detections equal as sets
+    (_matched_errors), features within 1e-3 of their largest entry, boxes
+    within 1e-2 px, scores within 1e-2; a bf16 control that must exceed
+    the limits."""
+    phase = f'zoo-{name}-check'
+    cpu = _zoo_model(name, device='cpu', seed=1, opts={'bf16': False})
+    _spread_heads(cpu)
+    rs = np.random.RandomState(1)
+    img = rs.randn(1, 224, 320, 3).astype(np.float32)
+    shapes = np.array([[224, 320]], np.int32)
+    sf = np.ones((1, 4), np.float32)
+    gpu = build_detector(dict(cpu.cfg.model, dtype='float32'))
+    gpu.load_state_dict(cpu.state_dict())
+    gpu = gpu.to(device).eval()
+    want = _resnet_outputs(cpu, 'cpu', img, shapes, sf)
+    reset_launch_counts()
+    got = _resnet_outputs(gpu, device, img, shapes, sf)
+    if device == 'cuda':
+        _check_tc(phase, launch_counts(), False, (conv3x3,))
+    feat_err, errs = _matched_errors(want, got)
+    if errs is None:
+        raise AssertionError(f'{name}: detections differ between card and '
+                             f'CPU')
+    box_err, score_err, n = errs
+    log(phase, f'224x320 fp32 card vs CPU: features rel max|d| '
+               f'{feat_err:.3g}, {n} dets matched, box max|d| {box_err:.3g}'
+               f' px, score max|d| {score_err:.3g}')
+    if feat_err > 1e-3 or n == 0 or box_err > 1e-2 or score_err > 1e-2:
+        raise AssertionError(f'{name}: card vs CPU over the limits: '
+                             f'features 1e-3, boxes 1e-2 px, scores 1e-2')
+    if not control:
+        return
+    ctl = build_detector(dict(cpu.cfg.model, dtype='bfloat16'))
+    ctl.load_state_dict(cpu.state_dict())
+    feat_err, errs = _matched_errors(want, _resnet_outputs(
+        ctl.to(device).eval(), device, img, shapes, sf))
+    log(phase, f'bf16 control vs the fp32 CPU run: features rel max|d| '
+               f'{feat_err:.3g}, detections '
+               + ('differ' if errs is None else
+                  f'equal, box max|d| {errs[0]:.3g}, score max|d| '
+                  f'{errs[1]:.3g}'))
+    if errs is not None and feat_err <= 1e-3 and errs[0] <= 1e-2 \
+            and errs[1] <= 1e-2:
+        raise AssertionError(f'{name}: the bf16 control passes the fp32 '
+                             f'limits')
+
+
+def _deform_ops_ms(model, batch, phase):
+    """CUDA-event ms of the plain deformable ops of one training step,
+    forward and backward together: each deformable conv2 (or ConvModule
+    pack) and each deformable RoI extractor runs again, with gradients,
+    on the inputs a training forward of ``batch`` gave it."""
+    from swindet_tpu_torch.models.roi_heads.roi_extractor import \
+        DeformRoIExtractor
+    from swindet_tpu_torch.ops.deform_conv import ModulatedDeformConvPack
+    calls = []
+
+    def keep(mod, args):
+        calls.append((mod, [a.detach().clone() if torch.is_tensor(a)
+                            else [t.detach().clone() for t in a]
+                            for a in args]))
+    hooks = [m.register_forward_pre_hook(keep) for m in model.modules()
+             if isinstance(m, (ModulatedDeformConvPack, DeformRoIExtractor))]
+    if not hooks:
+        return 0.0, 0
+    try:
+        model.train()
+        with torch.no_grad():
+            model.forward_train(batch['img'], batch['img_shapes'],
+                                batch['pad_shapes'], batch['gt_bboxes'],
+                                batch['gt_valid'], batch['gt_labels'],
+                                batch.get('gt_masks'),
+                                gen=torch.Generator(device='cuda')
+                                .manual_seed(1))
+    finally:
+        for h in hooks:
+            h.remove()
+    total = 0.0
+    for mod, args in calls:
+        feats = args[0] if isinstance(args[0], list) else [args[0]]
+        for f in feats:
+            f.requires_grad_(True)
+
+        def run():
+            out = mod(*args)
+            # the extractor reads the first 4 of the 5 FPN levels
+            torch.autograd.grad(out.float().sum(),
+                                feats + list(mod.parameters()),
+                                allow_unused=True)
+        total += cuda_ms(run, warmup=1, iters=2)
+    log(phase, f'deformable ops: {len(calls)} calls a step, forward and '
+               f'backward {total:.2f} ms (CUDA events, each call alone)')
+    return total, len(calls)
+
+
+def zoo_train(name):
+    """1 + ZOO_STEPS make_train_step steps of a zoo detector (its config
+    in bf16, SGD with momentum and weight decay) at batch 2 on the
+    800x1344 canvas, each step's launches checked; frozen BN buffers
+    unmoved; a profiled step (busy share) and the deformable ops' ms."""
+    phase = f'zoo-{name}-train'
+    cfg = Config.fromfile(ZOO_CONFIGS[name])
+    cfg.merge_from_dict(RESNET_BF16)
+    model = _zoo_model(name)
+    opt = build_optimizer(model, dict(cfg.optimizer))
+    if not isinstance(opt, torch.optim.SGD):
+        raise AssertionError(f'{name}: optimizer {type(opt).__name__}')
+    schedule = build_lr_schedule(dict(cfg.lr_config), cfg.optimizer['lr'],
+                                 ITERS_PER_EPOCH)
+    step = make_train_step(model, opt, schedule,
+                           dict(cfg.optimizer_config).get('grad_clip'))
+    per = zoo_launches(model, training=True)
+    batch = synthetic_train_batch()
+    if not model.roi_head.with_mask:
+        del batch['gt_masks']
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    stats = {k: v.clone() for k, v in model.named_buffers()}
+    t0 = time.perf_counter()
+    _check_log(step(batch, gen), 'warm-up step')
+    torch.cuda.synchronize()
+    log(phase, f'warm-up step {time.perf_counter() - t0:.3f} s; launches '
+               f'per step {_nonzero(per)}')
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times = []
+    for _ in range(ZOO_STEPS):
+        t0 = time.perf_counter()
+        out = step(batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        _check_log(out, 'timed step')
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    _check_launches(phase, launches, per, ZOO_STEPS)
+    tc = _check_tc(phase, launches, True, (conv3x3, conv3x3_dw))
+    moved = [k for k, v in model.named_buffers()
+             if not torch.equal(v, stats[k])]
+    if moved:
+        raise AssertionError(f'{name}: frozen BN buffers moved: {moved[:4]}')
+    log(phase, 'per-step ms: ' + ', '.join(f'{t:.1f}' for t in times)
+               + f'; peak memory {peak / 2 ** 30:.2f} GiB; last step: '
+               + ', '.join(f'{k} {v:.4f}' for k, v in out.items())
+               + f'; launches {_nonzero(launches)}, as derived; '
+                 f'tensor-core {_nonzero(tc)}; {CARD}')
+    busy = _profile_steps(step, batch, gen, float(np.median(times)), phase,
+                          n=1)
+    deform_ms, _ = _deform_ops_ms(model, batch, phase)
+    return launches, times, peak, busy, deform_ms
+
+
+def zoo_train_check(name, device='cuda'):
+    """Phase 7's check on a zoo detector through phase_train_check: fp32
+    on phase 7's 224x320 batch, the card against the CPU, same seeded
+    weights, batch and sampler keys, proposals pinned; the backbone's
+    gradients at RESNET_GRAD_LIMIT, the rest at phase 7's limits; the bf16
+    control must exceed them; gn_ws's limits are ZOO_TRAIN_LIMITS'."""
+    backbone = ZOO_BACKBONE_GRADS[name]
+    phase_train_check(device=device, config=ZOO_CONFIGS[name],
+                      names=backbone + ZOO_HEAD_GRADS[name],
+                      pin_proposals=True, opts=(('bf16', False),),
+                      **ZOO_TRAIN_LIMITS.get(name, dict(limits=({}, dict(
+                          TOL_TRAIN_GRAD, **{n: RESNET_GRAD_LIMIT
+                                             for n in backbone})))))
+
+
+def zoo_files(name='mdconv'):
+    """From files: train_detector for one epoch on 2 of phase 10's PNGs
+    with the config's own pipeline (one iteration), then tools.test on
+    them with the trained checkpoint, --eval bbox (and segm for a mask
+    config), score_thr 0: 100 detections an image."""
+    phase = f'zoo-{name}-files'
+    build_dir = os.path.join(REPO, 'build')
+    os.makedirs(build_dir, exist_ok=True)
+    config = ZOO_CONFIGS[name]
+    with tempfile.TemporaryDirectory(dir=build_dir) as root:
+        ann_file, prefix = write_synthetic_coco(root, RESNET_LOOP_SIZES)
+        work = os.path.join(root, 'work')
+        cfg = loop_config(ann_file, prefix, work, config=config)
+        cfg.model.pretrained = None
+        model = build_detector(dict(cfg.model, dtype='bfloat16'))
+        per = zoo_launches(model, training=True)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        run = train_detector(model, build_dataset(cfg.data.train), cfg)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        log(phase, f'train_detector: {len(run.log_vars)} iterations in '
+                   f'{time.perf_counter() - t0:.1f} s, canvases '
+                   f'{run.canvases}; loss ' + ', '.join(
+                       f'{v["loss"]:.4g}' for v in run.log_vars))
+        bad = [v for v in run.log_vars
+               if not all(np.isfinite(x) for x in v.values())]
+        if len(run.log_vars) != 1 or bad or launches != per:
+            raise AssertionError(f'{name}: {len(run.log_vars)} iterations, '
+                                 f'non-finite {bad}, launches '
+                                 f'{_nonzero(launches)} (expected '
+                                 f'{_nonzero(per)})')
+        cfg_file = os.path.join(root, f'{name}_cfg.py')
+        eval_config(ann_file, prefix, config=config).dump(cfg_file)
+        metrics = ['bbox', 'segm'] if model.roi_head.with_mask else ['bbox']
+        ran, launches, dets = _cli_run(phase, [
+            cfg_file, os.path.join(work, 'epoch_1.pth'), '--samples-per-gpu',
+            '2', '--eval', *metrics, '--cfg-options', 'bf16=True',
+            'model.test_cfg.rcnn.score_thr=0.0'], 'test')
+        want = zoo_launches(model, training=False)
+        if dets != [100, 100] or launches != want or not all(
+                np.isfinite(v) for v in ran['metrics'].values()
+                if isinstance(v, float)):
+            raise AssertionError(f'{name} test: detections {dets}, launches '
+                                 f'{_nonzero(launches)} (expected '
+                                 f'{_nonzero(want)}), metrics '
+                                 f'{ran["metrics"]}')
+        _check_tc(phase, launches, True, (conv3x3,))
+        log(phase, f'test: metrics {dict(ran["metrics"])}')
+
+
+def phase_zoo():
+    """Phase 15: the seven zoo configs serving and their fp32 serving
+    checks; four of them training and their fp32 training checks;
+    train_detector and tools.test from files for mdconv. Returns each
+    config's serving and training results."""
+    start = last = time.perf_counter()
+    laps = []
+
+    def lap(what):
+        nonlocal last
+        now = time.perf_counter()
+        laps.append(f'{what} {now - last:.1f} s')
+        log('time', f'zoo: {laps[-1]}')
+        last = now
+    out = {}
+    for name in ZOO_CONFIGS:
+        serve, lat = zoo_serve(name)
+        lap(f'{name} serving')
+        zoo_check(name)
+        lap(f'{name} serving check')
+        out[name] = dict(serve=serve, lat=lat)
+        if name in ZOO_TRAINED:
+            train, times, peak, busy, deform_ms = zoo_train(name)
+            lap(f'{name} training')
+            zoo_train_check(name)
+            lap(f'{name} training check')
+            out[name].update(train=train, times=times, peak=peak, busy=busy,
+                             deform_ms=deform_ms)
+    zoo_files('mdconv')
+    lap('mdconv files')
+    log('time', 'zoo: ' + ', '.join(laps)
+                + f'; phase 15 {time.perf_counter() - start:.1f} s')
+    return out
+
+
 # phase 3's further readings of a kernel's main row that the JSON line
 # carries: the kernel's own device ms (rows 1, 14 and 15), row 14's
 # head-major copy, row 1's first kernel off the vector path, row 15's
@@ -4674,6 +5171,8 @@ def main() -> int:
     lap('phase 13')
     resnet = phase_resnet()
     lap('phase 14')
+    zoo = phase_zoo()
+    lap('phase 15')
     for what, key, fmt in (('request latency (s)', 'lat', '.4f'),
                            ('training step (ms)', 'times', '.1f')):
         log('configs', f'{what}, median of the timed runs: ' + ', '.join(
@@ -4705,6 +5204,14 @@ def main() -> int:
                    f'kernel {kernel_ms:.1f} ms a step (hand-written '
                    f'{ours:.2f}, library convolutions and GEMMs '
                    f'{lib:.2f}); {smi}')
+    for name, r in zoo.items():
+        log('zoo', f'{name}: request latency median '
+                   f'{np.median(r["lat"]):.4f} s'
+                   + ('' if 'times' not in r else
+                      f', training step median {np.median(r["times"]):.1f}'
+                      f' ms, peak {r["peak"] / 2 ** 30:.2f} GiB, busy '
+                      f'{r["busy"]:.3f}, plain deformable ops '
+                      f'{r["deform_ms"]:.2f} ms a step') + f'; {smi}')
     rows = []
     for fn in KERNEL_WRAPPERS:
         name = fn.__name__
@@ -4732,6 +5239,11 @@ def main() -> int:
         for which in ('faster', 'retina'):
             counts[f'{which}_serve_launches'] = resnet[which]['serve'][name]
             counts[f'{which}_train_launches'] = resnet[which]['train'][name]
+        # phase 15's zoo: 2 requests each, 3 steps of the four that train
+        for which, r in zoo.items():
+            counts[f'{which}_serve_launches'] = r['serve'][name]
+            if 'train' in r:
+                counts[f'{which}_train_launches'] = r['train'][name]
         if tc:
             tc = dict(tc_launches=sum(tc.values()), **tc)
         if 'shapes' in main_row:

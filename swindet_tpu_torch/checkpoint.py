@@ -27,8 +27,16 @@ import torch.nn.functional as F
 _NAME_MAP = {
     '_backbone': 'backbone', '_neck': 'neck', '_rpn_head': 'rpn_head',
     '_roi_head': 'roi_head', '_bbox_head': 'bbox_head',
-    '_mask_head': 'mask_head',
+    '_mask_head': 'mask_head', '_bbox_extractor': 'bbox_roi_extractor',
+    '_mask_extractor': 'mask_roi_extractor',
 }
+# a deformable RoI pool pack's layers, flat in the JAX package
+# (roi_layers{l}_{offset|mask}_{fc1|fc2|out}), mmcv's Sequential indices
+_DPOOL = re.compile(r'^roi_layers(\d+)_(offset|mask)_(fc1|fc2|out)$')
+_DPOOL_INDEX = {'offset': {'fc1': 0, 'fc2': 2, 'out': 4},
+                'mask': {'fc1': 0, 'out': 2}}
+# a ResNet block's norms, which mmdet names gn{i} for a GN
+_RESNET_NORM = re.compile(r'^bn(\d)$')
 _INDEXED = re.compile(r'^(layers|blocks|lateral_convs|fpn_convs|'
                       r'shared_convs|shared_fcs|convs|cls_convs|reg_convs|'
                       r'reppoints_cls_convs|reppoints_pts_convs|head_convs|'
@@ -47,7 +55,8 @@ _DETECTOR_PARTS = ('backbone.', 'neck.', 'rpn_head.', 'roi_head.',
                    'bbox_head.', 'mask_head.', 'query_embedding.')
 
 
-def flax_path_to_torch_key(path: Tuple[str, ...]) -> str:
+def flax_path_to_torch_key(path: Tuple[str, ...],
+                           resnet_gn: bool = False) -> str:
     """('_backbone', 'layers0', 'blocks1', 'attn', 'qkv', 'kernel') ->
     'backbone.layers.0.blocks.1.attn.qkv.weight';
     ('_roi_head', '_bbox_head0', 'shared_convs0', 'norm', 'BatchNorm_0',
@@ -61,14 +70,27 @@ def flax_path_to_torch_key(path: Tuple[str, ...]) -> str:
             continue
         p = names.pop(0)
         p = _NAME_MAP.get(p, p[1:] if p.startswith('_') else p)
-        m = _INDEXED.match(p)
-        parts.append(f'{m.group(1)}.{m.group(2)}' if m else p)
+        m, dpool = _INDEXED.match(p), _DPOOL.match(p)
+        if m:
+            p = f'{m.group(1)}.{m.group(2)}'
+        elif dpool:
+            lvl, branch, layer = dpool.groups()
+            p = f'roi_layers.{lvl}.{branch}_fc.{_DPOOL_INDEX[branch][layer]}'
+        elif resnet_gn and _RESNET_NORM.match(p):
+            p = 'g' + p[1:]
+        parts.append(p)
     parts.append(_LEAF.get(path[-1], path[-1]))
     return '.'.join(parts)
 
 
 def _flatten(tree, prefix=()):
     out = {}
+    if 'conv_offset' in tree and isinstance(tree.get('conv'), dict) \
+            and 'weight' in tree['conv']:
+        # a ModulatedDeformConvPack: mmcv keeps its conv's weight and bias
+        # beside conv_offset, the JAX pack in a child 'conv'
+        tree = dict(tree)
+        tree.update(tree.pop('conv'))
     for k, v in tree.items():
         if isinstance(v, dict):
             out.update(_flatten(v, prefix + (k,)))
@@ -78,7 +100,8 @@ def _flatten(tree, prefix=()):
 
 
 def state_dict_from_jax(params: Dict, batch_stats: Optional[Dict] = None,
-                        roi_feat_size: int = 7) -> Dict[str, torch.Tensor]:
+                        roi_feat_size: int = 7,
+                        resnet_gn: bool = False) -> Dict[str, torch.Tensor]:
     """mmdet-keyed ``state_dict`` of a JAX parameter tree and, for models
     with BN, its ``batch_stats`` collection:
 
@@ -92,11 +115,18 @@ def state_dict_from_jax(params: Dict, batch_stats: Optional[Dict] = None,
       (s, s, C) roi features flattened HWC in JAX, reads them CHW as in
       mmdet (s = ``roi_feat_size``);
     - norm ``scale`` -> ``weight``; a BN's ``mean`` / ``var`` ->
-      ``running_mean`` / ``running_var``, with ``num_batches_tracked`` 0.
+      ``running_mean`` / ``running_var``, with ``num_batches_tracked`` 0;
+    - a deformable pack's ``conv`` child (weight, bias) -> mmcv's names
+      beside ``conv_offset``; a deformable RoI pool's per-level FCs
+      ``roi_layers{l}_offset_fc1`` ... -> ``roi_layers.{l}.offset_fc.0``
+      ... (the inverse of ``swindet_tpu/checkpoint.py:295``);
+    - with ``resnet_gn`` (a ResNet with ``norm_cfg`` GN), the blocks' and
+      the stem's ``bn{i}`` -> ``gn{i}``: a GN's parameters are a BN's, so
+      the tree does not tell them apart.
     """
     sd = {}
     for path, leaf in _flatten(batch_stats or {}).items():
-        key = flax_path_to_torch_key(path)
+        key = flax_path_to_torch_key(path, resnet_gn)
         sd[key] = torch.from_numpy(np.array(leaf, np.float32))
         if path[-1] == 'mean':
             sd[key.rsplit('.', 1)[0] + '.num_batches_tracked'] = \
@@ -119,7 +149,7 @@ def state_dict_from_jax(params: Dict, batch_stats: Optional[Dict] = None,
                 out_dim, in_dim = a.shape
                 a = a.reshape(out_dim, s, s, in_dim // (s * s)) \
                     .transpose(0, 3, 1, 2).reshape(out_dim, in_dim)
-        sd[flax_path_to_torch_key(path)] = torch.from_numpy(
+        sd[flax_path_to_torch_key(path, resnet_gn)] = torch.from_numpy(
             np.ascontiguousarray(a))
     return sd
 

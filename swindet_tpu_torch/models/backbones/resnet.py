@@ -5,15 +5,32 @@
 mmdet/models/backbones/resnet.py:663, resnext.py).
 
 NHWC between blocks. Every conv is a plain ``F.conv2d`` in the compute
-dtype (the JAX package's are XLA convs, no Pallas kernel); every norm is a
-frozen BN (``Norm(frozen=True)``): it reads its running statistics in
-training too and never updates them, its scale and bias trainable, its
-output fp32, then ReLU and the cast to the compute dtype. ``frozen_stages``
-cuts the gradient after the stem and after each frozen stage, as the JAX
-package's ``stop_gradient``: those parameters get no gradient, and the
-training step gives them a zero one so that weight decay and momentum
-still move them, as the JAX package's optimizer chain does. The
-``state_dict`` carries mmdet's names (``conv1``, ``bn1``,
+dtype (the JAX package's are XLA convs, no Pallas kernel). By default every
+norm is a frozen BN (``Norm(frozen=True)``): it reads its running
+statistics in training too and never updates them, its scale and bias
+trainable, its output fp32, then ReLU and the cast to the compute dtype.
+``frozen_stages`` cuts the gradient after the stem and after each frozen
+stage, as the JAX package's ``stop_gradient``: those parameters get no
+gradient, and the training step gives them a zero one so that weight decay
+and momentum still move them, as the JAX package's optimizer chain does.
+
+The options of the JAX ResNet (``make_conv`` :40, ``make_norm`` :57, the
+Bottleneck's DCN :137-158):
+
+- ``norm_cfg=dict(type='GN', num_groups=32)``: every norm a trainable GN
+  (fp32 statistics, no running state), which mmdet names ``gn1`` ... (the
+  JAX package ``bn1`` ... whatever the norm);
+- ``conv_cfg=dict(type='ConvWS')`` (or 'ConvAWS', taken alike): every conv
+  weight-standardised (``WSConv2d``), he-normal at init;
+- ``dcn=dict(type='DCN' | 'DCNv2', deform_groups=g)`` with
+  ``stage_with_dcn``: the Bottleneck's ``conv2`` in those stages a
+  ``ModulatedDeformConvPack`` without bias (``conv2.weight`` and
+  ``conv2.conv_offset.*``, as mmcv's), stride ``conv2_stride``; its groups
+  and dilation are not taken, nor ``fallback_on_stride``, as in the JAX
+  package.
+
+``plugins`` (ContextBlock, GeneralizedAttention) are not ported. The
+``state_dict`` carries mmdet's names (``conv1``, ``bn1`` or ``gn1``,
 ``layer1.0.conv1``, ``layer1.0.downsample.0`` / ``.1``).
 """
 from __future__ import annotations
@@ -24,99 +41,119 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..layers import Norm, conv_nhwc, init_conv, resolve_dtype
+from ..layers import (Norm, WSConv2d, build_conv, conv_nhwc, he_normal_,
+                      init_conv, resolve_dtype)
+from ...ops.deform_conv import ModulatedDeformConvPack
 from ...registries import BACKBONES
 
 
-def _check_options(norm_cfg, conv_cfg, dcn, plugins):
-    """The options of the JAX ResNet that the port does not carry yet."""
-    if norm_cfg is not None and norm_cfg.get('type') not in (
-            'BN', 'BN2d', 'SyncBN'):
-        raise NotImplementedError(f'ResNet: norm {norm_cfg.get("type")} is '
-                                  f'not ported yet (frozen BN only)')
-    if conv_cfg is not None:
-        raise NotImplementedError(f'ResNet: conv_cfg {conv_cfg} (ConvWS) '
-                                  f'is not ported yet')
-    if dcn is not None:
-        raise NotImplementedError('ResNet: dcn (DCN / DCNv2 bottlenecks) '
-                                  'is not ported yet')
-    if plugins:
-        raise NotImplementedError('ResNet: plugins (ContextBlock, '
-                                  'GeneralizedAttention) are not ported yet')
+def _is_gn(norm_cfg: Optional[dict]) -> bool:
+    return norm_cfg is not None and norm_cfg.get('type') == 'GN'
 
 
-def _bn(channels: int) -> Norm:
+def _norm(norm_cfg: Optional[dict], channels: int) -> Norm:
+    """A GN for ``type='GN'``, else a frozen BN (``make_norm``)."""
+    if _is_gn(norm_cfg):
+        return Norm('gn', channels, eps=norm_cfg.get('eps', 1e-5),
+                    num_groups=norm_cfg.get('num_groups', 32))
     return Norm('bn', channels, eps=1e-5, frozen=True)
 
 
-def _conv(cin, cout, k, stride=1, padding=0, dilation=1, groups=1):
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=padding,
-                     dilation=dilation, groups=groups, bias=False)
+def _conv(conv_cfg, cin, cout, k, stride=1, padding=0, dilation=1,
+          groups=1):
+    return build_conv(conv_cfg, cin, cout, k, stride=stride, padding=padding,
+                      dilation=dilation, groups=groups, bias=False)
 
 
-class BasicBlock(nn.Module):
+class _Block(nn.Module):
+    """Norms under mmdet's names: ``bn{i}`` or, for GN, ``gn{i}``."""
+
+    def _add_norm(self, i: int, norm_cfg, channels: int) -> None:
+        name = f'{"gn" if _is_gn(norm_cfg) else "bn"}{i}'
+        setattr(self, f'norm{i}_name', name)
+        self.add_module(name, _norm(norm_cfg, channels))
+
+    def _downsample(self, x):
+        d = self.compute_dtype
+        return self.downsample[1](conv_nhwc(x, self.downsample[0], False, d,
+                                            False))
+
+
+class BasicBlock(_Block):
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False, dilation: int = 1,
-                 dtype=torch.float32):
+                 norm_cfg: Optional[dict] = None,
+                 conv_cfg: Optional[dict] = None, dtype=torch.float32):
         super().__init__()
-        self.conv1 = _conv(inplanes, planes, 3, stride, dilation, dilation)
-        self.bn1 = _bn(planes)
-        self.conv2 = _conv(planes, planes, 3, padding=1)
-        self.bn2 = _bn(planes)
+        self.conv1 = _conv(conv_cfg, inplanes, planes, 3, stride, dilation,
+                           dilation)
+        self._add_norm(1, norm_cfg, planes)
+        self.conv2 = _conv(conv_cfg, planes, planes, 3, padding=1)
+        self._add_norm(2, norm_cfg, planes)
         self.downsample = nn.Sequential(
-            _conv(inplanes, planes, 1, stride), _bn(planes)) \
-            if downsample else None
+            _conv(conv_cfg, inplanes, planes, 1, stride),
+            _norm(norm_cfg, planes)) if downsample else None
         self.compute_dtype = resolve_dtype(dtype)
 
     def forward(self, x):
         d = self.compute_dtype
-        out = torch.relu(self.bn1(conv_nhwc(x, self.conv1, False, d,
-                                            False))).to(d)
-        out = self.bn2(conv_nhwc(out, self.conv2, False, d, False))
-        identity = x
-        if self.downsample is not None:
-            identity = self.downsample[1](conv_nhwc(
-                x, self.downsample[0], False, d, False))
+        norm1, norm2 = getattr(self, self.norm1_name), \
+            getattr(self, self.norm2_name)
+        out = torch.relu(norm1(conv_nhwc(x, self.conv1, False, d,
+                                         False))).to(d)
+        out = norm2(conv_nhwc(out, self.conv2, False, d, False))
+        identity = x if self.downsample is None else self._downsample(x)
         return torch.relu(out + identity).to(d)
 
 
-class Bottleneck(nn.Module):
+class Bottleneck(_Block):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False, dilation: int = 1,
                  style: str = 'pytorch', groups: int = 1,
-                 base_width: int = 64, dtype=torch.float32):
+                 base_width: int = 64, norm_cfg: Optional[dict] = None,
+                 conv_cfg: Optional[dict] = None, dcn: Optional[dict] = None,
+                 dtype=torch.float32):
         super().__init__()
         if style not in ('pytorch', 'caffe'):
             raise ValueError(f'Bottleneck: style {style!r}')
         width = int(planes * (base_width / 64.0)) * groups
         # caffe puts the stride on conv1 (reference resnet.py:185)
         s1, s2 = (stride, 1) if style == 'caffe' else (1, stride)
-        self.conv1 = _conv(inplanes, width, 1, s1)
-        self.bn1 = _bn(width)
-        self.conv2 = _conv(width, width, 3, s2, dilation, dilation, groups)
-        self.bn2 = _bn(width)
-        self.conv3 = _conv(width, planes * self.expansion, 1)
-        self.bn3 = _bn(planes * self.expansion)
+        self.conv1 = _conv(conv_cfg, inplanes, width, 1, s1)
+        self._add_norm(1, norm_cfg, width)
+        if dcn is not None:
+            self.conv2 = ModulatedDeformConvPack(
+                width, width, 3, stride=s2,
+                deform_groups=dcn.get('deform_groups', 1), bias=False,
+                modulated=dcn.get('type') == 'DCNv2', dtype=dtype)
+        else:
+            self.conv2 = _conv(conv_cfg, width, width, 3, s2, dilation,
+                               dilation, groups)
+        self._add_norm(2, norm_cfg, width)
+        self.conv3 = _conv(conv_cfg, width, planes * self.expansion, 1)
+        self._add_norm(3, norm_cfg, planes * self.expansion)
         self.downsample = nn.Sequential(
-            _conv(inplanes, planes * self.expansion, 1, stride),
-            _bn(planes * self.expansion)) if downsample else None
+            _conv(conv_cfg, inplanes, planes * self.expansion, 1, stride),
+            _norm(norm_cfg, planes * self.expansion)) if downsample else None
         self.compute_dtype = resolve_dtype(dtype)
 
     def forward(self, x):
         d = self.compute_dtype
-        out = torch.relu(self.bn1(conv_nhwc(x, self.conv1, False, d,
-                                            False))).to(d)
-        out = torch.relu(self.bn2(conv_nhwc(out, self.conv2, False, d,
-                                            False))).to(d)
-        out = self.bn3(conv_nhwc(out, self.conv3, False, d, False))
-        identity = x
-        if self.downsample is not None:
-            identity = self.downsample[1](conv_nhwc(
-                x, self.downsample[0], False, d, False))
+        norm1, norm2, norm3 = (getattr(self, getattr(self, f'norm{i}_name'))
+                               for i in (1, 2, 3))
+        out = torch.relu(norm1(conv_nhwc(x, self.conv1, False, d,
+                                         False))).to(d)
+        if isinstance(self.conv2, ModulatedDeformConvPack):
+            out = self.conv2(out)
+        else:
+            out = conv_nhwc(out, self.conv2, False, d, False)
+        out = torch.relu(norm2(out)).to(d)
+        out = norm3(conv_nhwc(out, self.conv3, False, d, False))
+        identity = x if self.downsample is None else self._downsample(x)
         return torch.relu(out + identity).to(d)
 
 
@@ -150,18 +187,23 @@ class ResNet(nn.Module):
         super().__init__()
         if depth not in ARCH_SETTINGS:
             raise KeyError(f'ResNet: invalid depth {depth}')
-        _check_options(norm_cfg, conv_cfg, dcn, plugins)
+        if plugins:
+            raise NotImplementedError('ResNet: plugins (ContextBlock, '
+                                      'GeneralizedAttention) are not ported '
+                                      'yet')
         block, stage_blocks = ARCH_SETTINGS[depth]
         self.out_indices = tuple(out_indices)
         self.frozen_stages = frozen_stages
         self.compute_dtype = resolve_dtype(dtype)
-        self.conv1 = _conv(in_channels, base_channels, 7, 2, 3)
-        self.bn1 = _bn(base_channels)
+        self.conv1 = _conv(conv_cfg, in_channels, base_channels, 7, 2, 3)
+        self.norm1_name = 'gn1' if _is_gn(norm_cfg) else 'bn1'
+        self.add_module(self.norm1_name, _norm(norm_cfg, base_channels))
         self.res_layers = []
         inplanes, planes = base_channels, base_channels
         for i, blocks in enumerate(stage_blocks[:num_stages]):
             stride, dilation = strides[i], dilations[i]
-            extra = dict(groups=groups, base_width=base_width, style=style) \
+            extra = dict(groups=groups, base_width=base_width, style=style,
+                         dcn=dcn if stage_with_dcn[i] else None) \
                 if block is Bottleneck else {}
             layer = []
             for j in range(blocks):
@@ -170,6 +212,7 @@ class ResNet(nn.Module):
                 layer.append(block(inplanes, planes,
                                    stride=stride if j == 0 else 1,
                                    downsample=need_ds, dilation=dilation,
+                                   norm_cfg=norm_cfg, conv_cfg=conv_cfg,
                                    dtype=dtype, **extra))
                 inplanes = planes * block.expansion
             name = f'layer{i + 1}'
@@ -182,8 +225,8 @@ class ResNet(nn.Module):
         """x (B, H, W, C) -> tuple of (B, H_i, W_i, C_i). ``gen`` is taken
         and unused: the ResNet draws nothing."""
         d = self.compute_dtype
-        x = torch.relu(self.bn1(conv_nhwc(x, self.conv1, False, d,
-                                          False))).to(d)
+        x = torch.relu(getattr(self, self.norm1_name)(conv_nhwc(
+            x, self.conv1, False, d, False))).to(d)
         # max pool 3x3 / 2 over a -inf pad of 1, as the JAX package's
         x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, stride=2,
                          padding=1).permute(0, 2, 3, 1)
@@ -199,13 +242,27 @@ class ResNet(nn.Module):
         return tuple(outs)
 
     def init_weights(self, gen: torch.Generator):
-        """The JAX package's init: flax's lecun-normal convs, BN with
-        scale 1, bias 0 and running statistics 0 and 1."""
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d):
-                init_conv(m, gen)
-            elif isinstance(m, Norm):
-                m.reset_parameters()
+        """The JAX package's init: flax's lecun-normal convs (he-normal
+        where weight-standardised, ``make_conv``), a deformable conv2's
+        pack as the JAX pack (offsets zero), norms with scale 1, bias 0
+        and running statistics 0 and 1."""
+        init_resnet_modules(self, gen)
+
+
+def init_resnet_modules(module: nn.Module, gen: torch.Generator) -> None:
+    """``ResNet.init_weights`` of any module of ResNet blocks."""
+    packs = [m for m in module.modules()
+             if isinstance(m, ModulatedDeformConvPack)]
+    offsets = {id(p.conv_offset) for p in packs}
+    for m in module.modules():
+        if isinstance(m, ModulatedDeformConvPack):
+            m.init_weights(gen)
+        elif isinstance(m, WSConv2d):
+            he_normal_(m.weight, m.weight[0].numel(), gen)
+        elif isinstance(m, nn.Conv2d) and id(m) not in offsets:
+            init_conv(m, gen)
+        elif isinstance(m, Norm):
+            m.reset_parameters()
 
 
 @BACKBONES.register_module()

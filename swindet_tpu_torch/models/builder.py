@@ -3,7 +3,7 @@ from __future__ import annotations
 
 from ..registries import (ANCHOR_GENERATORS, BACKBONES, BBOX_ASSIGNERS,
                           BBOX_CODERS, BBOX_SAMPLERS, DETECTORS, HEADS,
-                          LOSSES, NECKS, ROI_EXTRACTORS)
+                          LOSSES, NECKS, ROI_EXTRACTORS, SHARED_HEADS)
 from ..utils.registry import build_from_cfg
 
 
@@ -21,6 +21,10 @@ def build_head(cfg):
 
 def build_roi_extractor(cfg):
     return build_from_cfg(cfg, ROI_EXTRACTORS)
+
+
+def build_shared_head(cfg):
+    return build_from_cfg(cfg, SHARED_HEADS)
 
 
 def build_detector(cfg):

@@ -23,8 +23,8 @@ from ...registries import DETECTORS
 @DETECTORS.register_module()
 class TwoStageDetector(nn.Module):
 
-    def __init__(self, backbone: dict, neck: dict, rpn_head: dict,
-                 roi_head: dict, test_cfg: dict,
+    def __init__(self, backbone: dict, rpn_head: dict, roi_head: dict,
+                 test_cfg: dict, neck: Optional[dict] = None,
                  train_cfg: Optional[dict] = None,
                  pretrained: Optional[str] = None, dtype=torch.float32):
         super().__init__()
@@ -37,7 +37,8 @@ class TwoStageDetector(nn.Module):
             return out
 
         self.backbone = build_backbone(with_dtype(backbone))
-        self.neck = build_neck(with_dtype(neck))
+        # the C4 and DC5 configs feed the backbone's one map as it is
+        self.neck = None if neck is None else build_neck(with_dtype(neck))
         train_cfg = dict(train_cfg) if train_cfg else {}
         self.rpn_head = build_head(with_dtype(dict(
             rpn_head, test_cfg=dict(test_cfg)['rpn'],
@@ -53,13 +54,16 @@ class TwoStageDetector(nn.Module):
         gen = torch.Generator().manual_seed(seed)
         for part in (self.backbone, self.neck, self.rpn_head,
                      self.roi_head):
-            part.init_weights(gen)
+            if part is not None:
+                part.init_weights(gen)
 
     def extract_feat(self, img: torch.Tensor,
                      gen: Optional[torch.Generator] = None):
-        """img (B, H, W, 3) NHWC -> FPN levels (B, H_l, W_l, C); ``gen``
-        draws the backbone's stochastic depth in training mode."""
-        return self.neck(self.backbone(img, gen))
+        """img (B, H, W, 3) NHWC -> FPN levels (B, H_l, W_l, C), or the
+        backbone's outputs without a neck; ``gen`` draws the backbone's
+        stochastic depth in training mode."""
+        feats = self.backbone(img, gen)
+        return feats if self.neck is None else self.neck(feats)
 
     def forward_train(self, img: torch.Tensor, img_shapes: torch.Tensor,
                       pad_shapes: torch.Tensor, gt_bboxes: torch.Tensor,

@@ -244,21 +244,73 @@ def build_norm(norm_cfg: dict, num_features: int) -> Tuple[str, Norm]:
     raise KeyError(f'Unknown norm type {t}')
 
 
+class WSConv2d(nn.Conv2d):
+    """Weight-standardised conv (counterpart of ``WSConv``,
+    ``swindet_tpu/models/layers.py:222``; mmcv's ConvWS2d, arXiv:1903.10520):
+    each output filter is standardised over (C_in, kh, kw) in fp32 before
+    the conv, w <- (w - mean) / (std + eps). ``std`` is the population one
+    (``correction=0``), as ``jnp.std`` takes it; mmcv's ``conv_ws_2d``
+    takes torch's unbiased default. The state_dict is nn.Conv2d's."""
+
+    def __init__(self, *args, eps: float = 1e-5, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.eps = eps
+
+    def standardized_weight(self) -> torch.Tensor:
+        w = self.weight.float()
+        dims = (1, 2, 3)
+        return (w - w.mean(dims, keepdim=True)) \
+            / (w.std(dims, keepdim=True, correction=0) + self.eps)
+
+
+def build_conv(conv_cfg: Optional[dict], in_channels: int,
+               out_channels: int, kernel_size: int, stride: int = 1,
+               padding: int = 0, dilation: int = 1, groups: int = 1,
+               bias: bool = True, dtype=torch.float32) -> nn.Module:
+    """The conv of ``conv_cfg``: None (or 'Conv') a plain ``nn.Conv2d``,
+    'ConvWS' and 'ConvAWS' a :class:`WSConv2d` (the JAX package treats the
+    two alike), 'DCN' / 'DCNv2' a ``ModulatedDeformConvPack`` (DCNv1 /
+    DCNv2, ``deform_groups`` from the config, dilation and groups not
+    taken, as in the JAX package)."""
+    t = (conv_cfg or {}).get('type', 'Conv')
+    if t in ('Conv', 'Conv2d'):
+        return nn.Conv2d(in_channels, out_channels, kernel_size,
+                         stride=stride, padding=padding, dilation=dilation,
+                         groups=groups, bias=bias)
+    if t in ('ConvWS', 'ConvAWS'):
+        return WSConv2d(in_channels, out_channels, kernel_size,
+                        stride=stride, padding=padding, dilation=dilation,
+                        groups=groups, bias=bias)
+    if t in ('DCN', 'DCNv2'):
+        from ..ops.deform_conv import ModulatedDeformConvPack
+        return ModulatedDeformConvPack(
+            in_channels, out_channels, kernel_size, stride=stride,
+            deform_groups=conv_cfg.get('deform_groups', 1), bias=bias,
+            modulated=t == 'DCNv2', dtype=dtype)
+    raise KeyError(f'Unknown conv type {t}')
+
+
 class ConvModule(nn.Module):
     """conv (+ norm) (+ ReLU) over NHWC with an mmcv ``ConvModule``
     state_dict (``conv.weight`` OIHW, ``conv.bias``, the norm under its
     mmcv name, ``bn`` or ``gn``). A normed conv has no bias (mmcv's
     bias='auto'). The order is conv -> norm (fp32) -> cast to ``dtype`` ->
-    ReLU, as swindet_tpu/models/layers.py:336-348.
+    ReLU, as swindet_tpu/models/layers.py:336-348. ``conv_cfg`` picks the
+    conv (:func:`build_conv`): weight-standardised or deformable
+    (``ModulatedDeformConvPack``, its offsets under ``conv.conv_offset``).
 
-    A 3x3 / stride 1 / padding 1 conv with bias, no norm and no or ReLU
-    activation, whose channel counts are multiples of 128, goes through
-    the conv3x3 kernel, as swindet_tpu/models/layers.py:295-310 sends it
-    to the Pallas kernel; every other conv, a normed one included, is a
-    plain ``F.conv2d``."""
+    A plain 3x3 / stride 1 / padding 1 conv with bias, no norm and no or
+    ReLU activation, whose channel counts are multiples of 128, goes
+    through the conv3x3 kernel, as swindet_tpu/models/layers.py:295-310
+    sends it to the Pallas kernel; every other conv, a normed or
+    weight-standardised one included, is a plain ``F.conv2d``. (The JAX
+    dispatch does not look at ``conv_cfg``: on a TPU it would send a
+    norm-free ConvWS 3x3 to the kernel unstandardised. No config reaches
+    that case; the port keeps ``conv_cfg`` convs off the kernel.)"""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1, padding: int = 0,
+                 conv_cfg: Optional[dict] = None,
                  norm_cfg: Optional[dict] = None,
                  act_cfg: Optional[dict] = None, dtype=torch.float32):
         super().__init__()
@@ -266,15 +318,17 @@ class ConvModule(nn.Module):
         if act not in (None, 'ReLU'):
             raise NotImplementedError(f'ConvModule: activation {act}')
         use_bias = norm_cfg is None
-        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size,
-                              stride=stride, padding=padding, bias=use_bias)
+        self.conv = build_conv(conv_cfg, in_channels, out_channels,
+                               kernel_size, stride=stride, padding=padding,
+                               bias=use_bias, dtype=dtype)
         self.norm_name = None
         if norm_cfg is not None:
             self.norm_name, norm = build_norm(norm_cfg, out_channels)
             self.add_module(self.norm_name, norm)
         self.relu = act == 'ReLU'
         self.compute_dtype = resolve_dtype(dtype)
-        self.use_kernel = (kernel_size == 3 and stride == 1 and padding == 1
+        self.use_kernel = (type(self.conv) is nn.Conv2d and kernel_size == 3
+                           and stride == 1 and padding == 1
                            and norm_cfg is None and use_bias
                            and in_channels % 128 == 0
                            and out_channels % 128 == 0)
@@ -282,14 +336,21 @@ class ConvModule(nn.Module):
     def forward(self, x):
         """x: (B, H, W, C) -> (B, H', W', Co) in ``dtype``."""
         d = self.compute_dtype
-        if self.norm_name is None:
+        if not isinstance(self.conv, nn.Conv2d):    # a deformable pack
+            x = self.conv(x)
+        elif self.norm_name is None:
             return conv_nhwc(x, self.conv, self.relu, d, self.use_kernel)
-        x = getattr(self, self.norm_name)(conv_nhwc(x, self.conv, False, d,
-                                                    False)).to(d)
+        else:
+            x = conv_nhwc(x, self.conv, False, d, False)
+        if self.norm_name is not None:
+            x = getattr(self, self.norm_name)(x).to(d)
         return torch.relu(x) if self.relu else x
 
     def init_weights(self, gen, std: Optional[float] = None):
-        init_conv(self.conv, gen, std)
+        if isinstance(self.conv, nn.Conv2d):
+            init_conv(self.conv, gen, std)
+        else:
+            self.conv.init_weights(gen)
         if self.norm_name is not None:
             getattr(self, self.norm_name).reset_parameters()
 
@@ -311,12 +372,14 @@ def init_conv(conv: nn.Conv2d, gen: torch.Generator,
 
 def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, relu: bool,
               dtype: torch.dtype, use_kernel: bool) -> torch.Tensor:
-    """Apply ``conv`` (OIHW weights) to an NHWC tensor in ``dtype``."""
+    """Apply ``conv`` (OIHW weights, standardised first for a
+    :class:`WSConv2d`) to an NHWC tensor in ``dtype``."""
     x = x.to(dtype)
     if use_kernel:
         return conv3x3_op(x.contiguous(), hwio(conv.weight.to(dtype)),
                           conv.bias.float(), relu)
-    w = conv.weight
+    w = conv.standardized_weight() if isinstance(conv, WSConv2d) \
+        else conv.weight
     b = None if conv.bias is None else conv.bias.to(dtype)
     if w.shape[2:] == (1, 1) and conv.stride == (1, 1) and conv.groups == 1:
         out = F.linear(x, w[:, :, 0, 0].to(dtype), b)

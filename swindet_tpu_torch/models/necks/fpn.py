@@ -7,8 +7,9 @@ extra levels: 1x1 / stride-2 subsampling, or with ``add_extra_convs``
 3x3 stride-2 convs (``F.conv2d``: the kernel takes stride 1 only, as the
 JAX package's) on the last backbone input ('on_input', or True), the last
 lateral ('on_lateral') or the last output ('on_output'), named
-``fpn_convs.{i}`` after the output convs as in mmdet. Only nearest
-upsampling is ported.
+``fpn_convs.{i}`` after the output convs as in mmdet. ``conv_cfg`` and
+``norm_cfg`` go to every ConvModule (GN + ConvWS in configs/gn+ws). Only
+nearest upsampling is ported.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ class FPN(nn.Module):
                  start_level: int = 0, end_level: int = -1,
                  add_extra_convs: Union[bool, str] = False,
                  relu_before_extra_convs: bool = False,
+                 conv_cfg: Optional[dict] = None,
                  norm_cfg: Optional[dict] = None,
                  act_cfg: Optional[dict] = None,
                  upsample_cfg: Optional[dict] = None, dtype=torch.float32):
@@ -50,11 +52,13 @@ class FPN(nn.Module):
         self.relu_before_extra_convs = relu_before_extra_convs
         levels = range(start_level, self.end_level + 1)
         self.lateral_convs = nn.ModuleList([
-            ConvModule(in_channels[i], out_channels, 1, norm_cfg=norm_cfg,
-                       act_cfg=act_cfg, dtype=dtype) for i in levels])
+            ConvModule(in_channels[i], out_channels, 1, conv_cfg=conv_cfg,
+                       norm_cfg=norm_cfg, act_cfg=act_cfg, dtype=dtype)
+            for i in levels])
         self.fpn_convs = nn.ModuleList([
             ConvModule(out_channels, out_channels, 3, padding=1,
-                       norm_cfg=norm_cfg, act_cfg=act_cfg, dtype=dtype)
+                       conv_cfg=conv_cfg, norm_cfg=norm_cfg, act_cfg=act_cfg,
+                       dtype=dtype)
             for _ in levels])
         if add_extra_convs:
             for i in range(len(levels), num_outs):
@@ -63,7 +67,8 @@ class FPN(nn.Module):
                     else out_channels
                 self.fpn_convs.append(ConvModule(
                     cin, out_channels, 3, stride=2, padding=1,
-                    norm_cfg=norm_cfg, act_cfg=act_cfg, dtype=dtype))
+                    conv_cfg=conv_cfg, norm_cfg=norm_cfg, act_cfg=act_cfg,
+                    dtype=dtype))
 
     def forward(self, inputs):
         laterals = [conv(inputs[i + self.start_level])

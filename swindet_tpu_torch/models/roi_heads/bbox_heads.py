@@ -2,11 +2,13 @@
 ``swindet_tpu/models/roi_heads/bbox_heads.py``: ``ConvFCBBoxHead`` :24,
 ``get_targets`` :97, ``loss`` :118, ``get_bboxes`` :160 (here
 ``decode`` and ``nms``), ``decode_for_test`` :179, ``regress_by_class``
-:186, ``Shared2FCBBoxHead`` :203, ``Shared4Conv1FCBBoxHead`` :210;
-reference convfc_bbox_head.py:9,177,193, bbox_head.py:151,219,455).
+:186, ``Shared2FCBBoxHead`` :203, ``Shared4Conv1FCBBoxHead`` :210,
+``BBoxHead`` :217; reference convfc_bbox_head.py:9,177,193,
+bbox_head.py:13,151,219,455).
 
-Shared convs (``ConvModule``, with the config's norm) -> shared fcs ->
-cls / reg. The first FC flattens the roi features channel-first, as
+Shared convs (``ConvModule``, with the config's conv and norm) -> with
+``with_avg_pool`` the mean over the roi's H and W -> shared fcs -> cls /
+reg. The first FC flattens the roi features channel-first, as
 mmdet does, so an mmdet ``.pth`` loads as it is. The convs' norms follow
 the module's mode: batch statistics in training (``forward_train``),
 running ones in eval mode (the test paths), as the JAX heads take
@@ -39,12 +41,14 @@ class ConvFCBBoxHead(nn.Module):
                  num_classes: int = 80, bbox_coder: Optional[dict] = None,
                  reg_class_agnostic: bool = False,
                  reg_decoded_bbox: bool = False, loss_cls=None,
-                 loss_bbox=None, norm_cfg: Optional[dict] = None,
-                 dtype=torch.float32):
+                 loss_bbox=None, with_avg_pool: bool = False,
+                 conv_cfg: Optional[dict] = None,
+                 norm_cfg: Optional[dict] = None, dtype=torch.float32):
         super().__init__()
         self.num_classes = num_classes
         self.reg_class_agnostic = reg_class_agnostic
         self.reg_decoded_bbox = reg_decoded_bbox
+        self.with_avg_pool = with_avg_pool
         self.compute_dtype = resolve_dtype(dtype)
         self.bbox_coder = build_bbox_coder(dict(
             bbox_coder or dict(type='DeltaXYWHBBoxCoder',
@@ -57,10 +61,10 @@ class ConvFCBBoxHead(nn.Module):
         chans = [in_channels] + [conv_out_channels] * num_shared_convs
         self.shared_convs = nn.ModuleList([
             ConvModule(chans[i], chans[i + 1], 3, padding=1,
-                       norm_cfg=norm_cfg, act_cfg=dict(type='ReLU'),
-                       dtype=dtype)
+                       conv_cfg=conv_cfg, norm_cfg=norm_cfg,
+                       act_cfg=dict(type='ReLU'), dtype=dtype)
             for i in range(num_shared_convs)])
-        dims = [chans[-1] * roi_feat_size ** 2] \
+        dims = [chans[-1] * (1 if with_avg_pool else roi_feat_size ** 2)] \
             + [fc_out_channels] * num_shared_fcs
         self.shared_fcs = nn.ModuleList([
             Linear(dims[i], dims[i + 1], dtype=dtype)
@@ -73,7 +77,10 @@ class ConvFCBBoxHead(nn.Module):
         """x: (R, s, s, C) roi features -> (cls (R, K+1), reg (R, 4K))."""
         for conv in self.shared_convs:
             x = conv(x)
-        x = x.permute(0, 3, 1, 2).reshape(x.shape[0], -1)
+        if self.with_avg_pool:
+            x = x.float().mean((1, 2)).to(x.dtype)
+        else:
+            x = x.permute(0, 3, 1, 2).reshape(x.shape[0], -1)
         for fc in self.shared_fcs:
             x = torch.relu(fc(x))
         return self.fc_cls(x), self.fc_reg(x)
@@ -195,3 +202,13 @@ class Shared4Conv1FCBBoxHead(ConvFCBBoxHead):
                  **kwargs):
         super().__init__(num_shared_convs=num_shared_convs,
                          num_shared_fcs=num_shared_fcs, **kwargs)
+
+
+@HEADS.register_module()
+class BBoxHead(ConvFCBBoxHead):
+    """The plain head (reference bbox_head.py:13): the average pool, then
+    fc_cls and fc_reg, no shared conv or fc (the C4 configs')."""
+
+    def __init__(self, with_avg_pool: bool = True, **kwargs):
+        super().__init__(num_shared_convs=0, num_shared_fcs=0,
+                         with_avg_pool=with_avg_pool, **kwargs)

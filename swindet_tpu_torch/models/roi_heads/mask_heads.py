@@ -58,8 +58,12 @@ class FCNMaskHead(nn.Module):
                  conv_out_channels: int = 256, num_classes: int = 80,
                  class_agnostic: bool = False,
                  upsample_cfg: Optional[dict] = None,
+                 conv_cfg: Optional[dict] = None,
                  norm_cfg: Optional[dict] = None, loss_mask=None,
                  dtype=torch.float32):
+        # conv_cfg is taken and not applied: the JAX head builds its convs
+        # without it (swindet_tpu/models/roi_heads/mask_heads.py:39-46), so
+        # configs/gn+ws's ConvWS leaves its mask convs plain there
         super().__init__()
         up = upsample_cfg or dict(type='deconv', scale_factor=2)
         if up.get('type', 'deconv') != 'deconv' \

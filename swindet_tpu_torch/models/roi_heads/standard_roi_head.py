@@ -1,8 +1,13 @@
 """StandardRoIHead (counterpart of
-``swindet_tpu/models/roi_heads/standard_roi_head.py``: ``forward_train`` /
-``_forward_train_impl`` :223-316, ``bbox_test`` :319, ``mask_test`` :337,
-``simple_test`` :349; reference
-mmdet/models/roi_heads/standard_roi_head.py:10).
+``swindet_tpu/models/roi_heads/standard_roi_head.py``: ``_bbox_forward``
+:62, ``_mask_feats`` :72, ``forward_train`` / ``_forward_train_impl``
+:223-316, ``bbox_test`` :319, ``mask_test`` :337, ``simple_test`` :349;
+reference mmdet/models/roi_heads/standard_roi_head.py:10).
+
+A ``shared_head`` (the C4 configs' ResLayer) runs on the roi features of
+both branches, after each branch's extractor: with no
+``mask_roi_extractor`` the mask branch pools again with its copy of the
+bbox extractor, as the JAX package does.
 
 Train: per-image assignment and sampling of the padded proposals with the
 gt boxes prepended, RoIAlign over the batch's fixed slots, bbox losses,
@@ -22,7 +27,7 @@ import torch
 import torch.nn as nn
 
 from ..builder import (build_assigner, build_head, build_roi_extractor,
-                       build_sampler)
+                       build_sampler, build_shared_head)
 from ...registries import HEADS
 
 
@@ -50,12 +55,13 @@ def sample_batch(assigner, sampler, proposals, proposal_valid, gt_bboxes,
     return type(samples[0])(*[torch.stack(t) for t in zip(*samples)])
 
 
-def mask_losses(mask_head, extractor, feats, samp, m: int, gt_masks,
+def mask_losses(mask_head, extract, feats, samp, m: int, gt_masks,
                 size: int) -> Dict[str, torch.Tensor]:
     """The mask head's loss on the first ``m`` slots of a stacked
-    sampling result, where the sampler packs the positives."""
+    sampling result, where the sampler packs the positives; ``extract``
+    maps (feats, rois) to the mask head's input."""
     pos_boxes = samp.bboxes[:, :m]
-    mask_pred = mask_head(extractor(feats, boxes_to_rois(pos_boxes)))
+    mask_pred = mask_head(extract(feats, boxes_to_rois(pos_boxes)))
     targets = torch.stack([
         mask_head.get_targets(gt_masks[i], pos_boxes[i],
                               samp.pos_gt_inds[i, :m], size)
@@ -71,11 +77,14 @@ class StandardRoIHead(nn.Module):
     def __init__(self, bbox_roi_extractor: dict, bbox_head: dict,
                  mask_roi_extractor: Optional[dict] = None,
                  mask_head: Optional[dict] = None,
+                 shared_head: Optional[dict] = None,
                  test_cfg: Optional[dict] = None, train_cfg=None,
                  dtype=torch.float32):
         super().__init__()
         self.bbox_roi_extractor = build_roi_extractor(
             dict(bbox_roi_extractor))
+        self.shared_head = None if shared_head is None else \
+            build_shared_head(dict(shared_head, dtype=dtype))
         self.bbox_head = build_head(dict(bbox_head, dtype=dtype))
         self.mask_head = None
         if mask_head is not None:
@@ -93,9 +102,23 @@ class StandardRoIHead(nn.Module):
         return self.mask_head is not None
 
     def init_weights(self, gen: torch.Generator):
+        if isinstance(self.bbox_roi_extractor, nn.Module):
+            self.bbox_roi_extractor.init_weights(gen)
+        if self.shared_head is not None:
+            self.shared_head.init_weights(gen)
         self.bbox_head.init_weights(gen)
         if self.with_mask:
+            if isinstance(self.mask_roi_extractor, nn.Module):
+                self.mask_roi_extractor.init_weights(gen)
             self.mask_head.init_weights(gen)
+
+    def _bbox_feats(self, feats, rois):
+        x = self.bbox_roi_extractor(feats, rois)
+        return x if self.shared_head is None else self.shared_head(x)
+
+    def _mask_feats(self, feats, rois):
+        x = self.mask_roi_extractor(feats, rois)
+        return x if self.shared_head is None else self.shared_head(x)
 
     def forward_train(self, feats, proposals, proposal_valid, gt_bboxes,
                       gt_valid, gt_labels, gt_masks,
@@ -112,8 +135,7 @@ class StandardRoIHead(nn.Module):
                             proposal_valid, gt_bboxes, gt_valid, gt_labels,
                             gen, keys)
         rois = boxes_to_rois(samp.bboxes)
-        cls_score, bbox_pred = self.bbox_head(
-            self.bbox_roi_extractor(feats, rois))
+        cls_score, bbox_pred = self.bbox_head(self._bbox_feats(feats, rois))
         labels, label_weights, bbox_targets, bbox_weights = \
             self.bbox_head.get_targets(samp, self.train_cfg)
         losses = self.bbox_head.loss(
@@ -122,7 +144,7 @@ class StandardRoIHead(nn.Module):
             bbox_weights.reshape(-1, 4))
         if self.with_mask and gt_masks is not None:
             losses.update(mask_losses(
-                self.mask_head, self.mask_roi_extractor, feats, samp,
+                self.mask_head, self._mask_feats, feats, samp,
                 int(self.sampler.num * self.sampler.pos_fraction), gt_masks,
                 self.train_cfg.get('mask_size', 28)))
         return losses
@@ -133,8 +155,7 @@ class StandardRoIHead(nn.Module):
         rescale: the per-augmentation half of test-time augmentation."""
         b, p = proposals.shape[:2]
         rois = boxes_to_rois(proposals)
-        cls_score, bbox_pred = self.bbox_head(self.bbox_roi_extractor(feats,
-                                                                      rois))
+        cls_score, bbox_pred = self.bbox_head(self._bbox_feats(feats, rois))
         return self.bbox_head.decode(rois.view(b, p, 5),
                                      cls_score.view(b, p, -1),
                                      bbox_pred.view(b, p, -1), img_shapes)
@@ -143,7 +164,7 @@ class StandardRoIHead(nn.Module):
         """Mask probabilities (B, M, 2s, 2s) of each box's own class, for
         (B, M, 4) boxes in the frame of ``feats``."""
         b, m = det_boxes.shape[:2]
-        mask_pred = self.mask_head(self.mask_roi_extractor(
+        mask_pred = self.mask_head(self._mask_feats(
             feats, boxes_to_rois(det_boxes)))
         probs = self.mask_head.get_mask_probs(mask_pred,
                                               det_labels.reshape(-1))

@@ -6,6 +6,7 @@ BACKBONES = Registry('backbone')
 NECKS = Registry('neck')
 HEADS = Registry('head')
 ROI_EXTRACTORS = Registry('roi_extractor')
+SHARED_HEADS = Registry('shared_head')
 DETECTORS = Registry('detector')
 ANCHOR_GENERATORS = Registry('anchor_generator')
 BBOX_CODERS = Registry('bbox_coder')

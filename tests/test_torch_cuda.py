@@ -65,9 +65,10 @@ from swindet_tpu_torch.models.backbones.swin import shifted_window_attn_mask
 
 from chip_smoke import (CASCADE_CONFIG, LN_SHAPES, REPPOINTS_CONFIG,
                         RESNET_CONFIGS, SWINB_ATTN_STAGES, SWINB_LN_SHAPES,
-                        _crowded_rois, _set_class_logits, _spread_heads,
+                        ZOO_CONFIGS, ZOO_TRAINED, _crowded_rois,
+                        _matched_errors, _set_class_logits, _spread_heads,
                         cascade_launches, reppoints_launches,
-                        resnet_launches)
+                        resnet_launches, zoo_launches)
 
 pytestmark = pytest.mark.cuda
 DTYPES = [torch.float32, torch.bfloat16]
@@ -1065,4 +1066,116 @@ def test_resnet_detector_on_the_card_matches_the_cpu(gen, which):
     assert all(torch.isfinite(v).all() for v in losses.values())
     assert all(torch.equal(v, before[k]) for k, v in train.named_buffers())
     assert train.backbone.layer1[0].conv1.weight.grad is None
+    assert train.backbone.layer2[0].conv1.weight.grad.abs().max() > 0
+
+
+def _tiny_zoo_detector(name, dtype):
+    """A zoo config's graph on a ResNet-50 of base width 16 (GN in groups
+    of 8), its FPN and heads at 128 channels, which take the conv3x3
+    kernel; the C4 and DC5 heads at the narrow backbone's widths (256 and
+    512 channels)."""
+    from swindet_tpu_torch.models import build_detector
+    from swindet_tpu_torch.utils import Config
+    model = Config.fromfile(ZOO_CONFIGS[name]).model
+    model.pop('pretrained', None)
+    model.backbone.update(base_channels=16)
+    norms = [model.backbone]
+    if model.get('neck'):
+        model.neck.update(in_channels=[64, 128, 256, 512], out_channels=128)
+        norms.append(model.neck)
+        c = 128
+    else:
+        c = 64 * 2 ** model.backbone.out_indices[-1]
+    model.rpn_head.update(in_channels=c, feat_channels=c)
+    roi = model.roi_head
+    roi.bbox_roi_extractor.update(out_channels=c)
+    if roi.bbox_roi_extractor.roi_layer.type != 'RoIAlign':
+        roi.bbox_roi_extractor.roi_layer.update(deform_fc_channels=256)
+    head_in = c
+    if roi.get('shared_head'):
+        roi.shared_head.update(base_channels=16)
+        head_in = 16 * 2 ** roi.shared_head.stage * 4
+    heads = roi.bbox_head if isinstance(roi.bbox_head, list) \
+        else [roi.bbox_head]
+    for h in heads:
+        h.update(in_channels=head_in, fc_out_channels=256)
+        norms.append(h)
+    if roi.get('mask_head'):
+        if roi.get('mask_roi_extractor'):
+            roi.mask_roi_extractor.update(out_channels=c)
+        roi.mask_head.update(in_channels=head_in, conv_out_channels=128)
+        norms.append(roi.mask_head)
+    for part in norms:
+        if (part.get('norm_cfg') or {}).get('type') == 'GN':
+            part.norm_cfg = dict(part.norm_cfg, num_groups=8)
+    net = build_detector(dict(model, dtype=dtype))
+    net.init_weights(0)
+    return net
+
+
+@pytest.mark.parametrize('name', list(ZOO_CONFIGS))
+def test_zoo_detector_on_the_card_matches_the_cpu(gen, name):
+    """A narrow detector of each zoo config: fp32 simple_test on the card
+    (its kernels, each launched as zoo_launches derives) against the CPU's
+    as phase 15's serving check holds them: features within 1e-3 of their
+    largest entry, detections equal as sets (labels, the nearest box;
+    _matched_errors), boxes within 1e-2 px, scores within 1e-2, rpn_cls
+    and fc_cls spread as phase 5's. The narrow GN + ConvWS detector's fp32
+    features sit 2.5e-4 apart (its zero-mean filters carry rounding
+    far), which moves its detections past these limits: it is held at
+    the features' limit, and phase 15 holds the full-width one's
+    detections with the CPU's own noise beside them. For the four
+    configs that train, a bf16 training forward and backward on the card
+    gives finite losses and launches as derived and leaves the frozen
+    BN's buffers as they were."""
+    cpu = _tiny_zoo_detector(name, 'float32').eval()
+    _spread_heads(cpu)
+    img = torch.randn(1, 224, 320, 3, generator=gen)
+    card = _tiny_zoo_detector(name, 'float32')
+    card.load_state_dict(cpu.state_dict())
+    card = card.cuda().eval()
+    shapes = torch.tensor([[224, 320]], dtype=torch.int32)
+    sf = torch.ones(1, 4)
+
+    def outputs(model, dev):
+        with torch.no_grad():
+            feats = model.extract_feat(img.to(dev))
+            reset_launch_counts()
+            out = model.simple_test(img.to(dev), shapes.to(dev), sf.to(dev))
+        return ([f.cpu().float() for f in feats],
+                {k: v.cpu() for k, v in out.items()}, None)
+    want = outputs(cpu, 'cpu')
+    got = outputs(card, 'cuda')
+    assert launch_counts() == zoo_launches(card, training=False)
+    assert int(want[1]['det_valid'].sum()) > 0
+    feat_err, errs = _matched_errors(want, got)
+    assert feat_err <= 1e-3
+    if name == 'gn_ws':
+        assert torch.isfinite(got[1]['dets']).all()
+    else:
+        assert errs is not None
+        box_err, score_err, n = errs
+        assert n > 0 and box_err <= 1e-2 and score_err <= 1e-2
+    if name not in ZOO_TRAINED:
+        return
+    train = _tiny_zoo_detector(name, 'bfloat16').cuda().train()
+    before = {k: v.clone() for k, v in train.named_buffers()}
+    b, h, w = 2, 224, 320
+    boxes = torch.tensor([[[20.3, 30.1, 120.7, 150.2],
+                           [150.4, 60.6, 300.1, 200.9]]] * b).cuda()
+    masks = torch.zeros(b, 2, h, w, dtype=torch.uint8)
+    masks[:, 0, 40:140, 30:110] = 1
+    masks[:, 1, 70:190, 160:290] = 1
+    shapes = torch.tensor([[h, w]] * b, dtype=torch.int32).cuda()
+    reset_launch_counts()
+    losses = train.forward_train(
+        torch.randn(b, h, w, 3, generator=gen).cuda(), shapes, shapes,
+        boxes, torch.ones(b, 2, dtype=torch.bool).cuda(),
+        torch.tensor([[1, 7]] * b).cuda(),
+        masks.cuda() if train.roi_head.with_mask else None,
+        gen=torch.Generator(device='cuda').manual_seed(0))
+    sum(v for k, v in losses.items() if 'loss' in k).backward()
+    assert launch_counts() == zoo_launches(train, training=True)
+    assert all(torch.isfinite(v).all() for v in losses.values())
+    assert all(torch.equal(v, before[k]) for k, v in train.named_buffers())
     assert train.backbone.layer2[0].conv1.weight.grad.abs().max() > 0

@@ -125,7 +125,9 @@ def test_port_imports_without_jax_flax_cv2():
         "             'swindet_tpu_torch.models.detectors.single_stage',\n"
         "             'swindet_tpu_torch.models.backbones.resnet',\n"
         "             'swindet_tpu_torch.models.dense_heads.anchor_head',\n"
-        "             'swindet_tpu_torch.models.dense_heads.retina_head'):\n"
+        "             'swindet_tpu_torch.models.dense_heads.retina_head',\n"
+        "             'swindet_tpu_torch.ops.deform_roi_pool',\n"
+        "             'swindet_tpu_torch.models.roi_heads.shared_heads'):\n"
         "    assert name in names, name\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in banned\n"
         "       and sys.modules[m] is not None]\n"
