@@ -280,6 +280,19 @@ before the last line:
               1024 and 2048 channels, RoIAlign and its backward on one
               stride-16 level at 14x14x1024 and 7x7x2048 (1,000 rois
               serving, 512 training).
+16. backbones -- phase 15's steps over the ResNet plugins and the
+              ResNet-family backbones: Mask R-CNN R-50 with ContextBlocks
+              (gcb), Faster R-CNN R-50 with GeneralizedAttention '1111'
+              (attn), Faster R-CNN RegNetX-3.2GF (regnet), Res2Net-101
+              (res2net) and ResNeSt-50 (resnest), Mask R-CNN HRNetV2p-W32
+              with HRFPN (hrnet): each serving and its fp32 serving check;
+              gcb, attn, resnest and hrnet training (the plugins' ms a
+              step) and their fp32 training checks, a plugin parameter
+              among the checked gradients, the plugins' zero-init
+              parameters drawn on both sides; hrnet also train_detector
+              and tools.test from files. These run the kernels phase 15
+              runs at the main path's 256-channel shapes; HRFPN's convs
+              are F.conv2d.
 
 Each phase's wall time is logged under [time].
 
@@ -293,8 +306,9 @@ phase 12's as ``cascade_serve_launches`` and ``cascade_train_launches``,
 phase 13's as ``reppoints_serve_launches`` and
 ``reppoints_train_launches``, phase 14's as ``faster_serve_launches``,
 ``faster_train_launches``, ``retina_serve_launches`` and
-``retina_train_launches``, phase 15's as ``<config>_serve_launches``
-and, for the four that train, ``<config>_train_launches``; for the conv,
+``retina_train_launches``, phase 15's and 16's as
+``<config>_serve_launches`` and, for the four of each that train,
+``<config>_train_launches``; for the conv,
 fused-MLP and v1, v3,
 v4 and full-map attention rows also ``tc_launches``, counted the same
 way; ``shapes``, the bf16 readings at every main-path shape, for those,
@@ -895,12 +909,15 @@ def _kernel_device_ms(fn, keys, iters=10):
     """Device ms per call of fn() by kernel, from torch.profiler over
     ``iters`` calls: {key: the summed time of the kernels whose name holds
     keys[key]}. A session that records no device event at all (the
-    profiler has dropped a whole session on the card) is taken again, up
-    to twice."""
+    profiler has dropped a whole session on the card, three in a row once)
+    is taken again after a pause, up to five times."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(6):
+        if attempt:
+            log('kernels', '  the profiler recorded no device event; again')
+            time.sleep(1.0)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -908,7 +925,6 @@ def _kernel_device_ms(fn, keys, iters=10):
         events = [e for e in prof.key_averages() if e.device_time_total > 0]
         if events:
             break
-        log('kernels', '  the profiler recorded no device event; again')
     return {key: sum(e.device_time_total for e in events if name in e.key)
             / 1e3 / iters for key, name in keys.items()}
 
@@ -2138,6 +2154,17 @@ TOL_PROPOSAL_PX = 1e-3
 MIN_PROPOSAL_SHARE = 0.99
 
 
+def _level_sizes(model, h, w):
+    """(H, W) of each level the RPN reads on an h x w canvas: an FPN's
+    ceil(h / stride); HRFPN's average pools of branch 0 (HRNet's two
+    stride-2 convs: ceil(ceil(h / 2) / 2)) floor it at each level."""
+    strides = model.rpn_head.prior_generator.strides
+    if type(model.neck).__name__ != 'HRFPN':
+        return [(-(-h // s[1]), -(-w // s[0])) for s in strides]
+    bh, bw = -(-(-(-h // 2)) // 2), -(-(-(-w // 2)) // 2)
+    return [(bh // 2 ** i, bw // 2 ** i) for i in range(len(strides))]
+
+
 def _heads(part):
     """A RoI head's bbox or mask heads as a list (a cascade has one a
     stage; a bbox-only RoI head has no mask head)."""
@@ -2342,13 +2369,38 @@ def check_proposal_chain(cpu, gpu, batch, own, device):
     ok = want[2]
     d_box = float((got[0] - want[0]).abs()[ok].max())
     d_score = float((got[1] - want[1]).abs()[ok].max())
+    swapped = _swapped_slots(want, got, ok) if d_box > TOL_PROPOSAL_PX \
+        else 0
     log('train-check', f'proposal step on the card\'s RPN outputs: card vs '
                        f'plain, {int(ok.sum())} valid, boxes max |d| '
-                       f'{d_box:.3g} px, scores max |d| {d_score:.3g}')
-    if not (d_box <= TOL_PROPOSAL_PX and d_score <= 1e-6):
+                       f'{d_box:.3g} px, scores max |d| {d_score:.3g}; '
+                       f'slots of near-tied scores swapped: {swapped}')
+    if swapped is None or not d_score <= 1e-6:
         raise AssertionError('the card\'s proposal step departs from the '
                              'plain one on the same RPN outputs')
     return got
+
+
+def _swapped_slots(want, got, ok, tol_score=1e-6):
+    """The card's proposal slots whose box is not the plain step's in the
+    same slot but within TOL_PROPOSAL_PX of a valid plain slot whose score
+    lies within ``tol_score`` of its own: the sigmoid of the card and of
+    the CPU may round one ulp apart, and two scores that close (ResNeSt's
+    seeded RPN has hundreds of pairs in its top 2,000) may sort either
+    way. None where a slot has no such match."""
+    swapped = 0
+    for i in range(ok.shape[0]):
+        v = ok[i]
+        wb, ws, gb, gs = want[0][i][v], want[1][i][v], got[0][i][v], \
+            got[1][i][v]
+        moved = (gb - wb).abs().amax(-1) > TOL_PROPOSAL_PX
+        for k in torch.nonzero(moved).flatten().tolist():
+            near = (ws - gs[k]).abs() <= tol_score
+            d = (wb[near] - gb[k]).abs().amax(-1)
+            if not len(d) or float(d.min()) > TOL_PROPOSAL_PX:
+                return None
+            swapped += 1
+    return swapped
 
 
 def _matched_share(want, got):
@@ -2368,7 +2420,8 @@ def phase_train_check(device: str = 'cuda', fused: bool = False,
                       names=TRAIN_GRADS, limits=None,
                       opts=(('bf16', False),
                             ('model.backbone.drop_path_rate', 0.0)),
-                      rpn_tol=TOL_RPN_OUT, min_share=MIN_PROPOSAL_SHARE):
+                      rpn_tol=TOL_RPN_OUT, min_share=MIN_PROPOSAL_SHARE,
+                      cpu=None):
     """forward_train of the full-width detector (``config``) in fp32 on a
     224x320 canvas (or on ``batch``), on the card (kernels) and on the CPU
     (plain versions): same
@@ -2393,11 +2446,15 @@ def phase_train_check(device: str = 'cuda', fused: bool = False,
     own proposals against the CPU run's as sets (MIN_PROPOSAL_SHARE).
     ``opts``: the config options of the three runs (a ResNet has no
     stochastic depth to turn off). ``rpn_tol`` and ``min_share``: the
-    limits of the RPN outputs and of the share of proposals matched."""
+    limits of the RPN outputs and of the share of proposals matched.
+    ``cpu``: the CPU model of a serving check of the same config, seed and
+    options (its heads already spread), used as it is instead of a new
+    one."""
     opts = dict(opts)
     start = time.perf_counter()
-    cpu = init_detector(config, device='cpu', cfg_options=opts, seed=1)
-    _spread_heads(cpu)
+    if cpu is None:
+        cpu = init_detector(config, device='cpu', cfg_options=opts, seed=1)
+        _spread_heads(cpu)
     gpu = build_detector(dict(cpu.cfg.model, dtype='float32'))
     gpu.load_state_dict(cpu.state_dict())
     gpu = gpu.to(device)
@@ -2410,8 +2467,8 @@ def phase_train_check(device: str = 'cuda', fused: bool = False,
     b, h, w = batch['img'].shape[:3]
     g = batch['gt_bboxes'].shape[1]
     anchors = cpu.rpn_head.prior_generator
-    n_rpn = sum(a * -(-h // s[1]) * -(-w // s[0]) for a, s in zip(
-        anchors.num_base_anchors, anchors.strides))
+    n_rpn = sum(a * lh * lw for a, (lh, lw) in zip(
+        anchors.num_base_anchors, _level_sizes(cpu, h, w)))
     rcnn = cpu.cfg.model.train_cfg.rcnn
     n_props = cpu.cfg.model.train_cfg.rpn_proposal.max_per_img
     rs = np.random.RandomState(7)
@@ -4821,10 +4878,13 @@ def zoo_launches(model, training):
 
 
 def _zoo_model(name, device='cuda', seed=0, opts=RESNET_BF16):
-    model = init_detector(ZOO_CONFIGS[name], device=device, seed=seed,
+    """A config of phase 15 or 16 through init_detector, its backbone of
+    the type the config names."""
+    model = init_detector(ZOO_ALL[name], device=device, seed=seed,
                           cfg_options=dict(opts))
-    if type(model.backbone).__name__ != 'ResNet':
-        raise AssertionError(f'{name}: not a ResNet detector')
+    want = BACKBONE_TYPES.get(name, 'ResNet')
+    if type(model.backbone).__name__ != want:
+        raise AssertionError(f'{name}: not a {want} detector')
     return model
 
 
@@ -4880,14 +4940,12 @@ def zoo_check(name, device='cuda', control=True):
     tensor-core launch on the card; detections equal as sets
     (_matched_errors), features within 1e-3 of their largest entry, boxes
     within 1e-2 px, scores within 1e-2; a bf16 control that must exceed
-    the limits."""
+    the limits. The model is _zoo_check_model's: a plugin's zero-init
+    parameters drawn, HRNet's neck scaled. Returns the CPU model, for
+    zoo_train_check."""
     phase = f'zoo-{name}-check'
-    cpu = _zoo_model(name, device='cpu', seed=1, opts={'bf16': False})
-    _spread_heads(cpu)
-    rs = np.random.RandomState(1)
-    img = rs.randn(1, 224, 320, 3).astype(np.float32)
-    shapes = np.array([[224, 320]], np.int32)
-    sf = np.ones((1, 4), np.float32)
+    cpu = _zoo_check_model(name)
+    img, shapes, sf = _zoo_check_inputs()
     gpu = build_detector(dict(cpu.cfg.model, dtype='float32'))
     gpu.load_state_dict(cpu.state_dict())
     gpu = gpu.to(device).eval()
@@ -4922,16 +4980,102 @@ def zoo_check(name, device='cuda', control=True):
             and errs[1] <= 1e-2:
         raise AssertionError(f'{name}: the bf16 control passes the fp32 '
                              f'limits')
+    return cpu
+
+
+def _zoo_check_inputs():
+    """zoo_check's 224x320 image, its shape and scale factors."""
+    rs = np.random.RandomState(1)
+    return (rs.randn(1, 224, 320, 3).astype(np.float32),
+            np.array([[224, 320]], np.int32), np.ones((1, 4), np.float32))
+
+
+def _zoo_check_model(name):
+    """The CPU model of a zoo config's fp32 checks: seed 1, rpn_cls and
+    fc_cls spread (_spread_heads), the plugins drawn (_draw_plugins) and,
+    for HRNet, the neck scaled (_unit_neck)."""
+    cpu = _zoo_model(name, device='cpu', seed=1, opts={'bf16': False})
+    _spread_heads(cpu)
+    _draw_plugins(cpu)
+    if BACKBONE_TYPES.get(name) == 'HRNet':
+        _unit_neck(cpu, _zoo_check_inputs()[0])
+    return cpu
+
+
+def _unit_neck(model, img):
+    """Scale HRFPN's reduction conv so that the neck's first level has a
+    std of 1 on ``img``. The seeded HRNet's fuse sums grow its features
+    to a std of ~1,000 (frozen BN at statistics 0 and 1), and its boxes
+    regress off the image: 18 of its 20 detections on the check image are
+    slivers at a border, and fp32 noise of 1e-7 in the input moves them
+    by up to 0.144 px on the CPU alone; scaled, 100 detections, moved by
+    4.9e-4 px."""
+    with torch.no_grad():
+        std = float(model.extract_feat(torch.from_numpy(img))[0].std())
+        conv = model.neck.reduction_conv.conv
+        conv.weight.div_(std)
+        conv.bias.div_(std)
+
+
+def _unit_neck_checkpoint(cfg, root):
+    """A checkpoint in ``root`` of the config's seeded weights (cfg.seed)
+    with the neck scaled by _unit_neck on zoo_check's image, for
+    train_detector to load over its own seeded init (``load_from``). One
+    SGD step from the seeded HRNet as it is (features of std ~1,000: loss
+    747.6, gradient norm 53,133 at 800x1344) leaves tools.test no
+    detection at score_thr 0."""
+    model = build_detector(dict(cfg.model))
+    model.init_weights(cfg.seed)
+    _unit_neck(model.eval(), _zoo_check_inputs()[0])
+    path = os.path.join(root, 'seeded_unit_neck.pth')
+    save_checkpoint(path, model)
+    return path
+
+
+def _draw_plugins(model, seed=3):
+    """Draw the zero-init parameters of the backbone's plugins from a
+    seeded generator: each ContextBlock transform's last conv
+    (lecun-normal, as its first) and each GeneralizedAttention's
+    ``gamma`` (N(0, 1)). At init a plugin is the identity and its inner
+    convs take no gradient, so a check would pass whatever its body
+    computes. Both sides of a check load the drawn CPU model's weights."""
+    from swindet_tpu_torch.models.layers import init_conv
+    from swindet_tpu_torch.ops.plugins import (ContextBlock,
+                                               GeneralizedAttention)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.backbone.modules():
+            if isinstance(m, ContextBlock):
+                for seq in (m.channel_add_conv, m.channel_mul_conv):
+                    if seq is not None:
+                        init_conv(seq[3], gen)
+            elif isinstance(m, GeneralizedAttention):
+                m.gamma.copy_(torch.randn(1, generator=gen))
 
 
 def _deform_ops_ms(model, batch, phase):
     """CUDA-event ms of the plain deformable ops of one training step,
-    forward and backward together: each deformable conv2 (or ConvModule
-    pack) and each deformable RoI extractor runs again, with gradients,
-    on the inputs a training forward of ``batch`` gave it."""
+    forward and backward together (_module_ms of each deformable conv2 or
+    ConvModule pack and each deformable RoI extractor)."""
     from swindet_tpu_torch.models.roi_heads.roi_extractor import \
         DeformRoIExtractor
     from swindet_tpu_torch.ops.deform_conv import ModulatedDeformConvPack
+    return _module_ms(model, batch, phase, 'deformable ops',
+                      (ModulatedDeformConvPack, DeformRoIExtractor))
+
+
+def _plugin_ms(model, batch, phase):
+    """_module_ms of the backbone's plugins (ContextBlock,
+    GeneralizedAttention)."""
+    from swindet_tpu_torch.ops.plugins import PLUGIN_TYPES
+    return _module_ms(model, batch, phase, 'plugins',
+                      tuple(PLUGIN_TYPES.values()))
+
+
+def _module_ms(model, batch, phase, what, kinds):
+    """CUDA-event ms of the modules of ``kinds`` in one training step,
+    forward and backward together: each runs again, with gradients, on
+    the inputs a training forward of ``batch`` gave it."""
     calls = []
 
     def keep(mod, args):
@@ -4939,7 +5083,7 @@ def _deform_ops_ms(model, batch, phase):
                             else [t.detach().clone() for t in a]
                             for a in args]))
     hooks = [m.register_forward_pre_hook(keep) for m in model.modules()
-             if isinstance(m, (ModulatedDeformConvPack, DeformRoIExtractor))]
+             if isinstance(m, kinds)]
     if not hooks:
         return 0.0, 0
     try:
@@ -4967,7 +5111,7 @@ def _deform_ops_ms(model, batch, phase):
                                 feats + list(mod.parameters()),
                                 allow_unused=True)
         total += cuda_ms(run, warmup=1, iters=2)
-    log(phase, f'deformable ops: {len(calls)} calls a step, forward and '
+    log(phase, f'{what}: {len(calls)} calls a step, forward and '
                f'backward {total:.2f} ms (CUDA events, each call alone)')
     return total, len(calls)
 
@@ -4976,9 +5120,10 @@ def zoo_train(name):
     """1 + ZOO_STEPS make_train_step steps of a zoo detector (its config
     in bf16, SGD with momentum and weight decay) at batch 2 on the
     800x1344 canvas, each step's launches checked; frozen BN buffers
-    unmoved; a profiled step (busy share) and the deformable ops' ms."""
+    unmoved; a profiled step (busy share), the deformable ops' ms and the
+    plugins' ms."""
     phase = f'zoo-{name}-train'
-    cfg = Config.fromfile(ZOO_CONFIGS[name])
+    cfg = Config.fromfile(ZOO_ALL[name])
     cfg.merge_from_dict(RESNET_BF16)
     model = _zoo_model(name)
     opt = build_optimizer(model, dict(cfg.optimizer))
@@ -5024,18 +5169,24 @@ def zoo_train(name):
     busy = _profile_steps(step, batch, gen, float(np.median(times)), phase,
                           n=1)
     deform_ms, _ = _deform_ops_ms(model, batch, phase)
-    return launches, times, peak, busy, deform_ms
+    plugin_ms, _ = _plugin_ms(model, batch, phase)
+    return launches, times, peak, busy, deform_ms, plugin_ms
 
 
-def zoo_train_check(name, device='cuda'):
+def zoo_train_check(name, device='cuda', cpu=None):
     """Phase 7's check on a zoo detector through phase_train_check: fp32
     on phase 7's 224x320 batch, the card against the CPU, same seeded
     weights, batch and sampler keys, proposals pinned; the backbone's
     gradients at RESNET_GRAD_LIMIT, the rest at phase 7's limits; the bf16
-    control must exceed them; gn_ws's limits are ZOO_TRAIN_LIMITS'."""
-    backbone = ZOO_BACKBONE_GRADS[name]
-    phase_train_check(device=device, config=ZOO_CONFIGS[name],
-                      names=backbone + ZOO_HEAD_GRADS[name],
+    control must exceed them; gn_ws's limits are ZOO_TRAIN_LIMITS'.
+    ``cpu``: zoo_check's CPU model (same seed, options and drawn heads and
+    plugins), else one is built."""
+    backbone = {**ZOO_BACKBONE_GRADS, **BACKBONE_GRADS}[name]
+    heads = {**ZOO_HEAD_GRADS, **BACKBONE_HEAD_GRADS}[name]
+    if cpu is None:
+        cpu = _zoo_check_model(name)
+    phase_train_check(device=device, config=ZOO_ALL[name], cpu=cpu,
+                      names=backbone + heads,
                       pin_proposals=True, opts=(('bf16', False),),
                       **ZOO_TRAIN_LIMITS.get(name, dict(limits=({}, dict(
                           TOL_TRAIN_GRAD, **{n: RESNET_GRAD_LIMIT
@@ -5050,12 +5201,14 @@ def zoo_files(name='mdconv'):
     phase = f'zoo-{name}-files'
     build_dir = os.path.join(REPO, 'build')
     os.makedirs(build_dir, exist_ok=True)
-    config = ZOO_CONFIGS[name]
+    config = ZOO_ALL[name]
     with tempfile.TemporaryDirectory(dir=build_dir) as root:
         ann_file, prefix = write_synthetic_coco(root, RESNET_LOOP_SIZES)
         work = os.path.join(root, 'work')
         cfg = loop_config(ann_file, prefix, work, config=config)
         cfg.model.pretrained = None
+        if BACKBONE_TYPES.get(name) == 'HRNet':
+            cfg.load_from = _unit_neck_checkpoint(cfg, root)
         model = build_detector(dict(cfg.model, dtype='bfloat16'))
         per = zoo_launches(model, training=True)
         reset_launch_counts()
@@ -5093,11 +5246,12 @@ def zoo_files(name='mdconv'):
         log(phase, f'test: metrics {dict(ran["metrics"])}')
 
 
-def phase_zoo():
-    """Phase 15: the seven zoo configs serving and their fp32 serving
-    checks; four of them training and their fp32 training checks;
-    train_detector and tools.test from files for mdconv. Returns each
-    config's serving and training results."""
+def _zoo_configs(label, configs, trained, files):
+    """Each config of ``configs`` serving and its fp32 serving check; those
+    in ``trained`` training and their fp32 training checks (on the
+    serving check's CPU model); train_detector and tools.test from files
+    for ``files``; each lap's time logged. Returns each config's serving
+    and training results and the phase's seconds."""
     start = last = time.perf_counter()
     laps = []
 
@@ -5105,27 +5259,116 @@ def phase_zoo():
         nonlocal last
         now = time.perf_counter()
         laps.append(f'{what} {now - last:.1f} s')
-        log('time', f'zoo: {laps[-1]}')
+        log('time', f'{label}: {laps[-1]}')
         last = now
     out = {}
-    for name in ZOO_CONFIGS:
+    for name in configs:
         serve, lat = zoo_serve(name)
         lap(f'{name} serving')
-        zoo_check(name)
+        cpu = zoo_check(name)
         lap(f'{name} serving check')
         out[name] = dict(serve=serve, lat=lat)
-        if name in ZOO_TRAINED:
-            train, times, peak, busy, deform_ms = zoo_train(name)
+        if name in trained:
+            train, times, peak, busy, deform_ms, plugin_ms = zoo_train(name)
             lap(f'{name} training')
-            zoo_train_check(name)
+            zoo_train_check(name, cpu=cpu)
             lap(f'{name} training check')
             out[name].update(train=train, times=times, peak=peak, busy=busy,
-                             deform_ms=deform_ms)
-    zoo_files('mdconv')
-    lap('mdconv files')
-    log('time', 'zoo: ' + ', '.join(laps)
-                + f'; phase 15 {time.perf_counter() - start:.1f} s')
-    return out
+                             deform_ms=deform_ms, plugin_ms=plugin_ms)
+        del cpu
+    zoo_files(files)
+    lap(f'{files} files')
+    seconds = time.perf_counter() - start
+    log('time', f'{label}: ' + ', '.join(laps) + f'; {seconds:.1f} s')
+    return out, seconds
+
+
+def phase_zoo():
+    """Phase 15: the seven zoo configs serving and their fp32 serving
+    checks; four of them training and their fp32 training checks;
+    train_detector and tools.test from files for mdconv. Returns each
+    config's serving and training results."""
+    return _zoo_configs('zoo (phase 15)', ZOO_CONFIGS, ZOO_TRAINED,
+                        'mdconv')[0]
+
+
+# ------------------------------------------------------------ phase 16
+# the ResNet plugins and the ResNet-family backbones: ContextBlock and
+# GeneralizedAttention in a ResNet-50, RegNetX-3.2GF, Res2Net-101,
+# ResNeSt-50 and HRNetV2p-W32 with HRFPN
+BACKBONE_CONFIGS = {
+    'gcb': 'configs/gcnet/mask_rcnn_r50_fpn_r4_gcb_c3-c5_1x_coco.py',
+    'attn': 'configs/empirical_attention/'
+            'faster_rcnn_r50_fpn_attention_1111_1x_coco.py',
+    'regnet': 'configs/regnet/faster_rcnn_regnetx-3.2GF_fpn_1x_coco.py',
+    'res2net': 'configs/res2net/faster_rcnn_r2_101_fpn_2x_coco.py',
+    'resnest': 'configs/resnest/faster_rcnn_s50_fpn_syncbn-backbone+head_'
+               'mstrain-range_1x_coco.py',
+    'hrnet': 'configs/hrnet/mask_rcnn_hrnetv2p_w32_1x_coco.py',
+}
+BACKBONE_CONFIGS = {k: os.path.join(REPO, v)
+                    for k, v in BACKBONE_CONFIGS.items()}
+BACKBONE_TYPES = {'gcb': 'ResNet', 'attn': 'ResNet', 'regnet': 'RegNet',
+                  'res2net': 'Res2Net', 'resnest': 'ResNeSt',
+                  'hrnet': 'HRNet'}
+# the four with new autograd paths: the plugins' pooling and energy
+# terms, the radix softmax, HRNet's fuse (regnet and res2net train on the
+# CPU against the JAX package, tests/test_torch_backbone*.py)
+BACKBONE_TRAINED = ('gcb', 'attn', 'resnest', 'hrnet')
+# the gradients the fp32 training checks hold: the backbone's (a plugin
+# parameter among them: ContextBlock's transform and mask convs,
+# GeneralizedAttention's gamma and query and key convs; the split
+# attention's convs; HRNet's fuse and transition convs) behind the ReLU
+# path at RESNET_GRAD_LIMIT, the neck's and heads' at phase 7's limits
+BACKBONE_GRADS = {
+    'gcb': ('backbone.layer2.0.conv1.weight',
+            'backbone.layer3.5.conv2.weight',
+            'backbone.layer3.5.context_block.conv_mask.weight',
+            'backbone.layer3.5.context_block.channel_add_conv.0.weight',
+            'backbone.layer4.2.context_block.channel_add_conv.3.weight',
+            'backbone.layer4.2.bn3.weight'),
+    'attn': ('backbone.layer2.0.conv1.weight',
+             'backbone.layer3.5.conv2.weight',
+             'backbone.layer3.5.gen_attention_block.gamma',
+             'backbone.layer3.5.gen_attention_block.query_conv.weight',
+             'backbone.layer4.2.gen_attention_block.key_conv.weight',
+             'backbone.layer4.2.gen_attention_block.appr_geom_fc_x.weight',
+             'backbone.layer4.2.bn3.weight'),
+    'resnest': ('backbone.layer2.0.conv1.weight',
+                'backbone.layer3.5.conv2.conv.weight',
+                'backbone.layer3.5.conv2.fc2.weight',
+                'backbone.layer4.2.conv3.weight',
+                'backbone.layer4.2.bn3.weight'),
+    'hrnet': ('backbone.conv1.weight', 'backbone.layer1.0.conv1.weight',
+              'backbone.transition3.3.0.0.weight',
+              'backbone.stage3.3.fuse_layers.0.1.0.weight',
+              'backbone.stage4.2.fuse_layers.3.0.2.0.weight',
+              'backbone.stage4.2.branches.0.3.conv2.weight'),
+}
+FASTER_HEAD_GRADS = ('neck.fpn_convs.0.conv.weight',
+                     'rpn_head.rpn_conv.weight',
+                     'roi_head.bbox_head.shared_fcs.0.weight',
+                     'roi_head.bbox_head.fc_cls.weight')
+BACKBONE_HEAD_GRADS = {
+    'gcb': ZOO_HEAD_GRADS['mdconv'], 'attn': FASTER_HEAD_GRADS,
+    'resnest': FASTER_HEAD_GRADS,
+    'hrnet': ('neck.reduction_conv.conv.weight',
+              'neck.fpn_convs.0.conv.weight', 'rpn_head.rpn_conv.weight',
+              'roi_head.bbox_head.shared_fcs.0.weight',
+              'roi_head.bbox_head.fc_cls.weight',
+              'roi_head.mask_head.convs.0.conv.weight'),
+}
+ZOO_ALL = {**ZOO_CONFIGS, **BACKBONE_CONFIGS}
+
+
+def phase_backbones():
+    """Phase 16: the six configs serving and their fp32 serving checks;
+    gcb, attn, resnest and hrnet training and their fp32 training checks;
+    train_detector and tools.test from files for hrnet (HRFPN). Returns
+    each config's serving and training results and the phase's
+    seconds."""
+    return _zoo_configs('backbones (phase 16)', BACKBONE_CONFIGS,
+                        BACKBONE_TRAINED, 'hrnet')
 
 
 # phase 3's further readings of a kernel's main row that the JSON line
@@ -5173,6 +5416,8 @@ def main() -> int:
     lap('phase 14')
     zoo = phase_zoo()
     lap('phase 15')
+    backbones, phase16_s = phase_backbones()
+    lap('phase 16')
     for what, key, fmt in (('request latency (s)', 'lat', '.4f'),
                            ('training step (ms)', 'times', '.1f')):
         log('configs', f'{what}, median of the timed runs: ' + ', '.join(
@@ -5212,6 +5457,17 @@ def main() -> int:
                       f' ms, peak {r["peak"] / 2 ** 30:.2f} GiB, busy '
                       f'{r["busy"]:.3f}, plain deformable ops '
                       f'{r["deform_ms"]:.2f} ms a step') + f'; {smi}')
+    for name, r in backbones.items():
+        log('backbones', f'{name}: request latency median '
+                         f'{np.median(r["lat"]):.4f} s'
+                         + ('' if 'times' not in r else
+                            f', training step median '
+                            f'{np.median(r["times"]):.1f} ms, peak '
+                            f'{r["peak"] / 2 ** 30:.2f} GiB, busy '
+                            f'{r["busy"]:.3f}, plugins (plain torch) '
+                            f'{r["plugin_ms"]:.2f} ms a step')
+                         + f'; {smi}')
+    log('backbones', f'phase 16 {phase16_s:.1f} s')
     rows = []
     for fn in KERNEL_WRAPPERS:
         name = fn.__name__
@@ -5239,8 +5495,9 @@ def main() -> int:
         for which in ('faster', 'retina'):
             counts[f'{which}_serve_launches'] = resnet[which]['serve'][name]
             counts[f'{which}_train_launches'] = resnet[which]['train'][name]
-        # phase 15's zoo: 2 requests each, 3 steps of the four that train
-        for which, r in zoo.items():
+        # phase 15's zoo and phase 16's backbones: 2 requests each, 3
+        # steps of the four of each that train
+        for which, r in {**zoo, **backbones}.items():
             counts[f'{which}_serve_launches'] = r['serve'][name]
             if 'train' in r:
                 counts[f'{which}_train_launches'] = r['train'][name]

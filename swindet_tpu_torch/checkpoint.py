@@ -37,7 +37,7 @@ _DPOOL_INDEX = {'offset': {'fc1': 0, 'fc2': 2, 'out': 4},
                 'mask': {'fc1': 0, 'out': 2}}
 # a ResNet block's norms, which mmdet names gn{i} for a GN
 _RESNET_NORM = re.compile(r'^bn(\d)$')
-_INDEXED = re.compile(r'^(layers|blocks|lateral_convs|fpn_convs|'
+_INDEXED = re.compile(r'^(layers|blocks|lateral_convs|fpn_convs|bns|'
                       r'shared_convs|shared_fcs|convs|cls_convs|reg_convs|'
                       r'reppoints_cls_convs|reppoints_pts_convs|head_convs|'
                       r'bbox_head|mask_head)(\d+)$')
@@ -83,6 +83,78 @@ def flax_path_to_torch_key(path: Tuple[str, ...],
     return '.'.join(parts)
 
 
+# the JAX package's module names that differ from mmdet's, renamed on the
+# tree (see state_dict_from_jax)
+_PLUGIN = re.compile(r'^plugin\d+$')
+_RES2NET_STEM = re.compile(r'^stem(_bn)?(\d)$')
+_HR_BRANCH = re.compile(r'^branches(\d+)\.(\d+)$')
+_HR_FUSE = re.compile(r'^fuse(\d+)\.(\d+)\.(?:down(\d+)\.)?(conv|bn)$')
+_HR_TRANSITION = re.compile(r'^transition(\d+)\.(\d+)\.(conv|bn)$')
+_BARE_NECK_CONV = re.compile(r'^(reduction_conv|fpn_convs\d+)$')
+_SEQ_INDEX = {'conv': 0, 'bn': 1}
+
+
+def _mmdet_name(name: str, tree: dict, parent: dict) -> str:
+    """mmdet's name of the JAX module ``name`` (holding ``tree``, a child
+    of ``parent``)."""
+    if _PLUGIN.match(name):
+        return 'gen_attention_block' if 'value_conv' in tree \
+            else 'context_block'
+    m = _RES2NET_STEM.match(name)
+    if m and 'stem_bn0' in parent:
+        return f'stem.{3 * int(m.group(2)) + bool(m.group(1))}'
+    m = _HR_BRANCH.match(name)
+    if m:
+        return f'branches.{m.group(1)}.{m.group(2)}'
+    m = _HR_FUSE.match(name)
+    if m:
+        i, j, k, kind = m.groups()
+        seq = f'.{k}' if k is not None else ''
+        return f'fuse_layers.{i}.{j}{seq}.{_SEQ_INDEX[kind]}'
+    m = _HR_TRANSITION.match(name)
+    if m:
+        n, i, kind = m.groups()
+        new = '.0' if int(i) >= int(n) else ''
+        return f'transition{n}.{i}{new}.{_SEQ_INDEX[kind]}'
+    return name
+
+
+def _mmdet_tree(tree: dict) -> dict:
+    """A JAX tree (params, batch statistics or gradients) with mmdet's
+    module names and shapes where the JAX package's differ."""
+    out = {}
+    avg_down = 'bns0' in tree or 'norm0' in tree.get('conv2', {})
+    for name, v in tree.items():
+        if not isinstance(v, dict):
+            out[name] = v
+            continue
+        v = _mmdet_tree(v)
+        if _BARE_NECK_CONV.match(name) and 'kernel' in v:
+            v = {'conv': v}
+        if 'norm0' in v and name == 'conv2':
+            v = {{'norm0': 'bn0', 'norm1': 'bn1'}.get(k, k): t
+                 for k, t in v.items()}
+        if _PLUGIN.match(name):
+            v = _mmdet_plugin(v)
+        if avg_down and name.startswith('downsample.'):
+            name = f'downsample.{int(name.split(".")[1]) + 1}'
+        out[_mmdet_name(name, v, tree)] = v
+    return out
+
+
+def _mmdet_plugin(tree: dict) -> dict:
+    """A plugin's leaves in mmcv's shapes: ContextBlock's LayerNorm
+    (planes,) -> (planes, 1, 1); GeneralizedAttention's ``appr_bias`` and
+    ``geom_bias`` (heads, qk_dim) -> (heads * qk_dim,)."""
+    out = dict(tree)
+    for k, v in tree.items():
+        if k in ('appr_bias', 'geom_bias'):
+            out[k] = np.reshape(v, (-1,))
+        elif k.endswith('_conv.1'):
+            out[k] = {n: np.reshape(a, (-1, 1, 1)) for n, a in v.items()}
+    return out
+
+
 def _flatten(tree, prefix=()):
     out = {}
     if 'conv_offset' in tree and isinstance(tree.get('conv'), dict) \
@@ -122,10 +194,40 @@ def state_dict_from_jax(params: Dict, batch_stats: Optional[Dict] = None,
       ... (the inverse of ``swindet_tpu/checkpoint.py:295``);
     - with ``resnet_gn`` (a ResNet with ``norm_cfg`` GN), the blocks' and
       the stem's ``bn{i}`` -> ``gn{i}``: a GN's parameters are a BN's, so
-      the tree does not tell them apart.
+      the tree does not tell them apart;
+    - a ResNet plugin ``plugin{i}`` -> ``gen_attention_block`` (the one
+      with a ``value_conv``) or ``context_block`` (mmcv's abbreviations;
+      a config's ``postfix`` is not in the tree, and no config sets one);
+      ContextBlock's LayerNorm ``channel_add_conv.1`` (and
+      ``channel_mul_conv.1``) (planes,) -> mmcv's (planes, 1, 1);
+      GeneralizedAttention's ``appr_bias`` / ``geom_bias`` (heads,
+      qk_dim) -> (heads * qk_dim,);
+    - Res2Net's deep stem ``stem{i}`` / ``stem_bn{i}`` -> ``stem.{3i}`` /
+      ``stem.{3i + 1}`` (mmdet's Sequential of conv, norm, ReLU) and its
+      ``bns{i}`` -> ``bns.{i}``;
+    - a Res2Net or ResNeSt block's ``downsample.0`` / ``.1`` ->
+      ``downsample.1`` / ``.2``: mmdet's avg-down shortcut holds its
+      average pool at index 0 in every stage (ResLayer / Res2Layer with
+      avg_down), a block known by its ``bns0`` or by a ``conv2`` holding
+      ``norm0``; the ResNeSt split-attention conv's ``norm0`` / ``norm1``
+      -> ``bn0`` / ``bn1`` (mmcv's ``build_norm_layer`` with postfix 0 and
+      1);
+    - HRNet's ``branches{b}.{k}`` -> ``branches.{b}.{k}``;
+      ``fuse{i}.{j}.conv`` / ``.bn`` -> ``fuse_layers.{i}.{j}.0`` / ``.1``
+      and ``fuse{i}.{j}.down{k}.conv`` / ``.bn`` ->
+      ``fuse_layers.{i}.{j}.{k}.0`` / ``.1`` (mmdet's Sequentials);
+      ``transition{n}.{i}.conv`` / ``.bn`` -> ``transition{n}.{i}.0`` /
+      ``.1`` for a branch stage n has (i < n, its width changed) and
+      ``transition{n}.{i}.0.0`` / ``.0.1`` for the new branch (i >= n: a
+      Sequential of one strided conv, norm and ReLU; HRNet's stage n has
+      n branches in every config);
+    - HRFPN's bare ``reduction_conv`` and ``fpn_convs{i}`` -> mmdet's
+      ConvModule names ``reduction_conv.conv`` and ``fpn_convs.{i}.conv``.
     """
+    params = _mmdet_tree(params)
+    batch_stats = _mmdet_tree(batch_stats or {})
     sd = {}
-    for path, leaf in _flatten(batch_stats or {}).items():
+    for path, leaf in _flatten(batch_stats).items():
         key = flax_path_to_torch_key(path, resnet_gn)
         sd[key] = torch.from_numpy(np.array(leaf, np.float32))
         if path[-1] == 'mean':

@@ -1,1 +1,1 @@
-from . import resnet, swin  # noqa: F401
+from . import hrnet, regnet, res2net, resnest, resnet, swin  # noqa: F401

@@ -27,15 +27,25 @@ Bottleneck's DCN :137-158):
   ``ModulatedDeformConvPack`` without bias (``conv2.weight`` and
   ``conv2.conv_offset.*``, as mmcv's), stride ``conv2_stride``; its groups
   and dilation are not taken, nor ``fallback_on_stride``, as in the JAX
-  package.
+  package;
+- ``plugins=[dict(cfg=dict(type='ContextBlock' | 'GeneralizedAttention',
+  ...), stages=(...), position='after_conv1' | 'after_conv2' |
+  'after_conv3')]`` (the JAX ResNet's ``_stage_plugins`` :115 and the
+  Bottleneck's ``_plugins_at`` :136): each plugin of a stage (all stages
+  where ``stages`` is None; ``position`` 'after_conv3' by default) in
+  every Bottleneck of it, on that conv's output (``after_conv3`` after
+  ``bn3``, before the residual add), with that output's channels
+  (``ops/plugins.py``). A BasicBlock ResNet (depth 18, 34) with plugins
+  raises ValueError, as mmdet's BasicBlock asserts; the JAX ResNet drops
+  them there.
 
-``plugins`` (ContextBlock, GeneralizedAttention) are not ported. The
-``state_dict`` carries mmdet's names (``conv1``, ``bn1`` or ``gn1``,
-``layer1.0.conv1``, ``layer1.0.downsample.0`` / ``.1``).
+The ``state_dict`` carries mmdet's names (``conv1``, ``bn1`` or ``gn1``,
+``layer1.0.conv1``, ``layer1.0.downsample.0`` / ``.1``, a plugin as
+``layer2.0.context_block`` or ``.gen_attention_block``).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -44,6 +54,7 @@ import torch.nn.functional as F
 from ..layers import (Norm, WSConv2d, build_conv, conv_nhwc, he_normal_,
                       init_conv, resolve_dtype)
 from ...ops.deform_conv import ModulatedDeformConvPack
+from ...ops.plugins import PLUGIN_TYPES, build_plugin
 from ...registries import BACKBONES
 
 
@@ -51,12 +62,17 @@ def _is_gn(norm_cfg: Optional[dict]) -> bool:
     return norm_cfg is not None and norm_cfg.get('type') == 'GN'
 
 
+def frozen_bn(channels: int) -> Norm:
+    """The JAX backbones' BN: ``use_running_average=True``, eps 1e-5."""
+    return Norm('bn', channels, eps=1e-5, frozen=True)
+
+
 def _norm(norm_cfg: Optional[dict], channels: int) -> Norm:
     """A GN for ``type='GN'``, else a frozen BN (``make_norm``)."""
     if _is_gn(norm_cfg):
         return Norm('gn', channels, eps=norm_cfg.get('eps', 1e-5),
                     num_groups=norm_cfg.get('num_groups', 32))
-    return Norm('bn', channels, eps=1e-5, frozen=True)
+    return frozen_bn(channels)
 
 
 def _conv(conv_cfg, cin, cout, k, stride=1, padding=0, dilation=1,
@@ -108,6 +124,9 @@ class BasicBlock(_Block):
         return torch.relu(out + identity).to(d)
 
 
+PLUGIN_POSITIONS = ('after_conv1', 'after_conv2', 'after_conv3')
+
+
 class Bottleneck(_Block):
     expansion = 4
 
@@ -116,6 +135,7 @@ class Bottleneck(_Block):
                  style: str = 'pytorch', groups: int = 1,
                  base_width: int = 64, norm_cfg: Optional[dict] = None,
                  conv_cfg: Optional[dict] = None, dcn: Optional[dict] = None,
+                 plugins: Sequence[Tuple[dict, str]] = (),
                  dtype=torch.float32):
         super().__init__()
         if style not in ('pytorch', 'caffe'):
@@ -140,6 +160,23 @@ class Bottleneck(_Block):
             _conv(conv_cfg, inplanes, planes * self.expansion, 1, stride),
             _norm(norm_cfg, planes * self.expansion)) if downsample else None
         self.compute_dtype = resolve_dtype(dtype)
+        # each position's plugins by name, in the config's order
+        self.plugin_names = {pos: [] for pos in PLUGIN_POSITIONS}
+        channels = dict(after_conv1=width, after_conv2=width,
+                        after_conv3=planes * self.expansion)
+        for cfg, pos in plugins:
+            if pos not in self.plugin_names:
+                raise ValueError(f'Bottleneck: plugin position {pos!r}')
+            name, plugin = build_plugin(cfg, channels[pos], dtype=dtype)
+            if hasattr(self, name):
+                raise ValueError(f'Bottleneck: duplicate plugin {name}')
+            self.add_module(name, plugin)
+            self.plugin_names[pos].append(name)
+
+    def _plugins(self, x, position):
+        for name in self.plugin_names[position]:
+            x = getattr(self, name)(x)
+        return x
 
     def forward(self, x):
         d = self.compute_dtype
@@ -147,12 +184,14 @@ class Bottleneck(_Block):
                                for i in (1, 2, 3))
         out = torch.relu(norm1(conv_nhwc(x, self.conv1, False, d,
                                          False))).to(d)
+        out = self._plugins(out, 'after_conv1')
         if isinstance(self.conv2, ModulatedDeformConvPack):
             out = self.conv2(out)
         else:
             out = conv_nhwc(out, self.conv2, False, d, False)
-        out = torch.relu(norm2(out)).to(d)
-        out = norm3(conv_nhwc(out, self.conv3, False, d, False))
+        out = self._plugins(torch.relu(norm2(out)).to(d), 'after_conv2')
+        out = self._plugins(norm3(conv_nhwc(out, self.conv3, False, d,
+                                            False)), 'after_conv3')
         identity = x if self.downsample is None else self._downsample(x)
         return torch.relu(out + identity).to(d)
 
@@ -187,11 +226,14 @@ class ResNet(nn.Module):
         super().__init__()
         if depth not in ARCH_SETTINGS:
             raise KeyError(f'ResNet: invalid depth {depth}')
-        if plugins:
-            raise NotImplementedError('ResNet: plugins (ContextBlock, '
-                                      'GeneralizedAttention) are not ported '
-                                      'yet')
         block, stage_blocks = ARCH_SETTINGS[depth]
+        if plugins and block is not Bottleneck:
+            raise ValueError(f'ResNet: plugins need Bottleneck blocks, '
+                             f'depth {depth} has BasicBlocks')
+        if any(p.get('stages') is not None
+               and len(p['stages']) != num_stages for p in plugins or ()):
+            raise ValueError('ResNet: a plugin\'s stages must name each of '
+                             f'the {num_stages} stages')
         self.out_indices = tuple(out_indices)
         self.frozen_stages = frozen_stages
         self.compute_dtype = resolve_dtype(dtype)
@@ -203,7 +245,8 @@ class ResNet(nn.Module):
         for i, blocks in enumerate(stage_blocks[:num_stages]):
             stride, dilation = strides[i], dilations[i]
             extra = dict(groups=groups, base_width=base_width, style=style,
-                         dcn=dcn if stage_with_dcn[i] else None) \
+                         dcn=dcn if stage_with_dcn[i] else None,
+                         plugins=_stage_plugins(plugins, i)) \
                 if block is Bottleneck else {}
             layer = []
             for j in range(blocks):
@@ -249,12 +292,30 @@ class ResNet(nn.Module):
         init_resnet_modules(self, gen)
 
 
+def _stage_plugins(plugins: Optional[Sequence[dict]],
+                  stage: int) -> Tuple[Tuple[dict, str], ...]:
+    """The (cfg, position) pairs of the plugins of ``stage`` (the JAX
+    ResNet's ``_stage_plugins``; reference resnet.py:334
+    make_stage_plugins)."""
+    return tuple((p['cfg'], p.get('position', 'after_conv3'))
+                 for p in plugins or ()
+                 if p.get('stages') is None or p['stages'][stage])
+
+
 def init_resnet_modules(module: nn.Module, gen: torch.Generator) -> None:
-    """``ResNet.init_weights`` of any module of ResNet blocks."""
+    """``ResNet.init_weights`` of any module of ResNet blocks; a plugin
+    by its own ``init_weights``."""
     packs = [m for m in module.modules()
              if isinstance(m, ModulatedDeformConvPack)]
     offsets = {id(p.conv_offset) for p in packs}
+    plugins = [m for m in module.modules()
+               if isinstance(m, tuple(PLUGIN_TYPES.values()))]
+    inside = {id(m) for p in plugins for m in p.modules()}
+    for p in plugins:
+        p.init_weights(gen)
     for m in module.modules():
+        if id(m) in inside:
+            continue
         if isinstance(m, ModulatedDeformConvPack):
             m.init_weights(gen)
         elif isinstance(m, WSConv2d):

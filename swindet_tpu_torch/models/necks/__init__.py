@@ -1,1 +1,1 @@
-from . import fpn  # noqa: F401
+from . import fpn, hrfpn  # noqa: F401

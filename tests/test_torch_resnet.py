@@ -180,12 +180,14 @@ def test_resnet_weights_round_trip_bit_exact(case):
 
 
 def test_resnet_options_not_ported_raise():
-    """plugins (ContextBlock, GeneralizedAttention) are the ResNet option
-    still not ported; DCN, GN and ConvWS build (test_torch_dcn.py)."""
+    """plugins (ContextBlock, GeneralizedAttention) build on a Bottleneck
+    ResNet (test_torch_plugins.py) and raise ValueError on a BasicBlock one
+    (depth 18 here), as mmdet's BasicBlock asserts: the JAX ResNet drops
+    them there (resnet.py:252-259), and no config puts them on one."""
     for kw in (dict(plugins=[dict(cfg=dict(type='ContextBlock'))]),
                dict(plugins=[dict(cfg=dict(type='GeneralizedAttention'),
                                   position='after_conv2')])):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match='Bottleneck'):
             ResNet(depth=18, **kw)
 
 
