@@ -2154,17 +2154,6 @@ TOL_PROPOSAL_PX = 1e-3
 MIN_PROPOSAL_SHARE = 0.99
 
 
-def _level_sizes(model, h, w):
-    """(H, W) of each level the RPN reads on an h x w canvas: an FPN's
-    ceil(h / stride); HRFPN's average pools of branch 0 (HRNet's two
-    stride-2 convs: ceil(ceil(h / 2) / 2)) floor it at each level."""
-    strides = model.rpn_head.prior_generator.strides
-    if type(model.neck).__name__ != 'HRFPN':
-        return [(-(-h // s[1]), -(-w // s[0])) for s in strides]
-    bh, bw = -(-(-(-h // 2)) // 2), -(-(-(-w // 2)) // 2)
-    return [(bh // 2 ** i, bw // 2 ** i) for i in range(len(strides))]
-
-
 def _heads(part):
     """A RoI head's bbox or mask heads as a list (a cascade has one a
     stage; a bbox-only RoI head has no mask head)."""
@@ -2382,25 +2371,70 @@ def check_proposal_chain(cpu, gpu, batch, own, device):
 
 
 def _swapped_slots(want, got, ok, tol_score=1e-6):
-    """The card's proposal slots whose box is not the plain step's in the
-    same slot but within TOL_PROPOSAL_PX of a valid plain slot whose score
-    lies within ``tol_score`` of its own: the sigmoid of the card and of
-    the CPU may round one ulp apart, and two scores that close (ResNeSt's
+    """The count of the card's proposal slots whose box is not the plain
+    step's in the same slot, where those boxes are the plain step's of
+    the same slots in another order: the sigmoid of the card and of the
+    CPU may round one ulp apart, and two scores that close (ResNeSt's
     seeded RPN has hundreds of pairs in its top 2,000) may sort either
-    way. None where a slot has no such match."""
+    way. Each such card slot must take a distinct one of those plain
+    boxes, within TOL_PROPOSAL_PX and with a score within ``tol_score``
+    of its own (a one-to-one match, so a plain box lost and another
+    doubled does not pass). None where no such match exists."""
     swapped = 0
     for i in range(ok.shape[0]):
         v = ok[i]
         wb, ws, gb, gs = want[0][i][v], want[1][i][v], got[0][i][v], \
             got[1][i][v]
-        moved = (gb - wb).abs().amax(-1) > TOL_PROPOSAL_PX
-        for k in torch.nonzero(moved).flatten().tolist():
-            near = (ws - gs[k]).abs() <= tol_score
-            d = (wb[near] - gb[k]).abs().amax(-1)
-            if not len(d) or float(d.min()) > TOL_PROPOSAL_PX:
-                return None
-            swapped += 1
+        moved = torch.nonzero(
+            (gb - wb).abs().amax(-1) > TOL_PROPOSAL_PX).flatten()
+        if not len(moved):
+            continue
+        # fits[k, j]: card slot moved[k] may hold plain slot moved[j]'s box
+        fits = ((gb[moved][:, None] - wb[moved][None]).abs().amax(-1)
+                <= TOL_PROPOSAL_PX) \
+            & ((gs[moved][:, None] - ws[moved][None]).abs() <= tol_score)
+        if _max_matching(fits) < len(moved):
+            return None
+        swapped += len(moved)
     return swapped
+
+
+def _max_matching(fits):
+    """The size of a largest one-to-one matching of rows to columns of
+    the boolean matrix ``fits`` (augmenting paths, searched without
+    recursion)."""
+    edges = [torch.nonzero(r).flatten().tolist() for r in fits]
+    owner = [-1] * fits.shape[1]
+    size = 0
+    for root in range(len(edges)):
+        # depth-first search for a free column, rows reached through the
+        # columns they own; parent[c] is the row that reached column c
+        parent = {}
+        stack = [(root, iter(edges[root]))]
+        free = None
+        while stack and free is None:
+            row, todo = stack[-1]
+            for c in todo:
+                if c in parent:
+                    continue
+                parent[c] = row
+                if owner[c] < 0:
+                    free = c
+                else:
+                    stack.append((owner[c], iter(edges[owner[c]])))
+                break
+            else:
+                stack.pop()
+        if free is None:
+            continue
+        c = free
+        while c is not None:
+            row = parent[c]
+            prev = next((p for p, r in enumerate(owner) if r == row), None)
+            owner[c] = row
+            c = prev
+        size += 1
+    return size
 
 
 def _matched_share(want, got):
@@ -2466,9 +2500,13 @@ def phase_train_check(device: str = 'cuda', fused: bool = False,
     batch = train_check_batch() if batch is None else batch
     b, h, w = batch['img'].shape[:3]
     g = batch['gt_bboxes'].shape[1]
-    anchors = cpu.rpn_head.prior_generator
-    n_rpn = sum(a * lh * lw for a, (lh, lw) in zip(
-        anchors.num_base_anchors, _level_sizes(cpu, h, w)))
+    # the anchors the RPN's sampler draws keys for: as many a level as
+    # the model's own features of this canvas have pixels
+    cpu.eval()
+    with torch.no_grad():
+        feats = cpu.extract_feat(torch.from_numpy(batch['img'][:1]))
+    n_rpn = sum(a * f.shape[1] * f.shape[2] for a, f in zip(
+        cpu.rpn_head.prior_generator.num_base_anchors, feats))
     rcnn = cpu.cfg.model.train_cfg.rcnn
     n_props = cpu.cfg.model.train_cfg.rpn_proposal.max_per_img
     rs = np.random.RandomState(7)
@@ -5075,7 +5113,8 @@ def _plugin_ms(model, batch, phase):
 def _module_ms(model, batch, phase, what, kinds):
     """CUDA-event ms of the modules of ``kinds`` in one training step,
     forward and backward together: each runs again, with gradients, on
-    the inputs a training forward of ``batch`` gave it."""
+    the inputs a training forward of ``batch`` gave it; and the device
+    time of their kernels in one more such run (torch.profiler)."""
     calls = []
 
     def keep(mod, args):
@@ -5085,7 +5124,7 @@ def _module_ms(model, batch, phase, what, kinds):
     hooks = [m.register_forward_pre_hook(keep) for m in model.modules()
              if isinstance(m, kinds)]
     if not hooks:
-        return 0.0, 0
+        return 0.0, 0.0
     try:
         model.train()
         with torch.no_grad():
@@ -5098,22 +5137,36 @@ def _module_ms(model, batch, phase, what, kinds):
     finally:
         for h in hooks:
             h.remove()
-    total = 0.0
+    from torch.profiler import ProfilerActivity, profile
+    runs = []
     for mod, args in calls:
         feats = args[0] if isinstance(args[0], list) else [args[0]]
         for f in feats:
             f.requires_grad_(True)
 
-        def run():
+        def run(mod=mod, args=args, feats=feats):
             out = mod(*args)
             # the extractor reads the first 4 of the 5 FPN levels
             torch.autograd.grad(out.float().sum(),
                                 feats + list(mod.parameters()),
                                 allow_unused=True)
-        total += cuda_ms(run, warmup=1, iters=2)
+        runs.append(run)
+    total = sum(cuda_ms(run, warmup=1, iters=2) for run in runs)
+    # the same calls once more under the profiler: their kernels' device
+    # time, against which the events' time shows what the host adds
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for run in runs:
+            run()
+        torch.cuda.synchronize()
+    device = sum(e.device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not getattr(e, 'is_user_annotation', False)) / 1e3
     log(phase, f'{what}: {len(calls)} calls a step, forward and '
-               f'backward {total:.2f} ms (CUDA events, each call alone)')
-    return total, len(calls)
+               f'backward {total:.2f} ms (CUDA events, each call alone), '
+               f'of which kernels {device:.2f} ms (torch.profiler)')
+    return total, device
 
 
 def zoo_train(name):
@@ -5169,7 +5222,7 @@ def zoo_train(name):
     busy = _profile_steps(step, batch, gen, float(np.median(times)), phase,
                           n=1)
     deform_ms, _ = _deform_ops_ms(model, batch, phase)
-    plugin_ms, _ = _plugin_ms(model, batch, phase)
+    plugin_ms = _plugin_ms(model, batch, phase)
     return launches, times, peak, busy, deform_ms, plugin_ms
 
 
@@ -5465,7 +5518,8 @@ def main() -> int:
                             f'{np.median(r["times"]):.1f} ms, peak '
                             f'{r["peak"] / 2 ** 30:.2f} GiB, busy '
                             f'{r["busy"]:.3f}, plugins (plain torch) '
-                            f'{r["plugin_ms"]:.2f} ms a step')
+                            f'{r["plugin_ms"][0]:.2f} ms a step, kernels '
+                            f'{r["plugin_ms"][1]:.2f} ms of it')
                          + f'; {smi}')
     log('backbones', f'phase 16 {phase16_s:.1f} s')
     rows = []

@@ -56,7 +56,7 @@ class HRModule(nn.Module):
 
     def __init__(self, num_branches: int, block: str,
                  num_blocks: Sequence[int], in_channels: Sequence[int],
-                 multiscale_output: bool = True, dtype=torch.float32):
+                 dtype=torch.float32):
         super().__init__()
         cls = BLOCKS[block]
         self.compute_dtype = resolve_dtype(dtype)
@@ -68,7 +68,7 @@ class HRModule(nn.Module):
         if num_branches == 1:
             return
         fuse = nn.ModuleList()
-        for i in range(num_branches if multiscale_output else 1):
+        for i in range(num_branches):
             row = nn.ModuleList()
             for j in range(num_branches):
                 if j == i:

@@ -15,6 +15,7 @@ head-major, which the JAX package keeps as (heads, qk_dim).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -121,6 +122,37 @@ def sine_position_embedding(idxs_q: np.ndarray, idxs_kv: np.ndarray,
         .astype(np.float32)
 
 
+# The embedding and the range mask depend only on the grids' sizes and
+# strides: each is made once per shape and device, on the host in float64
+# as the JAX package makes its trace-time constants, and copied to the
+# device once (a step would otherwise wait on a host copy per plugin and
+# axis). They are made outside inference mode, so that a table first made
+# while serving can be saved for a training step's backward.
+@functools.lru_cache(maxsize=64)
+def _sine_table(nq: int, nk: int, q_stride: int, kv_stride: int,
+                feat_dim: int, magnitude: float, device) -> torch.Tensor:
+    """sine_position_embedding of the query and key grids of one axis."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(sine_position_embedding(
+            np.arange(nq) * q_stride, np.arange(nk) * kv_stride, feat_dim,
+            magnitude)).to(device)
+
+
+@functools.lru_cache(maxsize=64)
+def _keep_mask(hq: int, wq: int, hk: int, wk: int, q_stride: int,
+               kv_stride: int, spatial_range: int, device) -> torch.Tensor:
+    """(hq * wq, hk * wk): keys within ``spatial_range`` per axis."""
+    yy_q = np.repeat(np.arange(hq) * q_stride, wq)
+    xx_q = np.tile(np.arange(wq) * q_stride, hq)
+    yy_k = np.repeat(np.arange(hk) * kv_stride, wk)
+    xx_k = np.tile(np.arange(wk) * kv_stride, hk)
+    with torch.inference_mode(False):
+        return torch.from_numpy(
+            (np.abs(yy_q[:, None] - yy_k[None, :]) <= spatial_range)
+            & (np.abs(xx_q[:, None] - xx_k[None, :]) <= spatial_range)) \
+            .to(device)
+
+
 def resize_nearest_half_pixel(x: torch.Tensor,
                               shape: Tuple[int, int]) -> torch.Tensor:
     """Nearest resize of NHWC to (H, W) as ``jax.image.resize(...,
@@ -188,21 +220,10 @@ class GeneralizedAttention(nn.Module):
     def _embedding(self, nq: int, nk: int, fc: nn.Linear,
                    device) -> torch.Tensor:
         """(nq, nk, heads, qk_dim): one axis' sine embedding projected."""
-        emb = torch.from_numpy(sine_position_embedding(
-            np.arange(nq) * self.q_stride, np.arange(nk) * self.kv_stride,
-            self.pos_dim // 2, self.position_magnitude)).to(device)
+        emb = _sine_table(nq, nk, self.q_stride, self.kv_stride,
+                          self.pos_dim // 2, self.position_magnitude, device)
         return F.linear(emb, fc.weight.float(), fc.bias.float()) \
             .reshape(nq, nk, self.num_heads, self.qk_dim)
-
-    def _keep(self, hq, wq, hk, wk) -> np.ndarray:
-        """(hq * wq, hk * wk): keys within ``spatial_range`` per axis."""
-        qs, ks, r = self.q_stride, self.kv_stride, self.spatial_range
-        yy_q = np.repeat(np.arange(hq) * qs, wq)
-        xx_q = np.tile(np.arange(wq) * qs, hq)
-        yy_k = np.repeat(np.arange(hk) * ks, wk)
-        xx_k = np.tile(np.arange(wk) * ks, hk)
-        return (np.abs(yy_q[:, None] - yy_k[None, :]) <= r) \
-            & (np.abs(xx_q[:, None] - xx_k[None, :]) <= r)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bits, heads, d = self.bits, self.num_heads, self.qk_dim
@@ -251,8 +272,9 @@ class GeneralizedAttention(nn.Module):
             energy = xf.new_zeros((b, heads, nq, nk))
         energy = energy.expand(b, heads, nq, nk)
         if self.spatial_range > 0:
-            keep = torch.from_numpy(self._keep(hq, wq, hk, wk)).to(x.device)
-            energy = torch.where(keep, energy, energy.new_tensor(-1e9))
+            keep = _keep_mask(hq, wq, hk, wk, self.q_stride, self.kv_stride,
+                              self.spatial_range, x.device)
+            energy = energy.masked_fill(~keep, -1e9)
         attn = torch.softmax(energy, dim=-1)
         out = torch.einsum('bhnm,bmhd->bnhd', attn, v) \
             .reshape(b, hq, wq, heads * d)

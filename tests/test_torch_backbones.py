@@ -68,6 +68,10 @@ TOL_MODULE = 1e-5
 TOL_MODULE_GRAD = 1e-4
 TOL_LOSS = 1e-4
 TOL_GRAD = 1e-3
+# the most that twice the JAX package's own move under 1e-7 noise may
+# raise a detector gradient's limit to: a leaf whose gradient moves more
+# than that under fp32 noise is too ill-conditioned to hold the port to
+NOISE_CAP = 0.1
 H, W = 64, 96
 
 
@@ -285,6 +289,41 @@ def test_regnet_norm_cfg_is_a_type_error():
         build_detector(copy.deepcopy(cfg))
 
 
+# chip_smoke.py's proposal check lets the card's proposals of near-tied
+# scores (ResNeSt's seeded RPN has hundreds) take each other's slots, but
+# only one to one: each plain box once
+_A, _B, _C = [0., 0., 10., 10.], [5., 5., 20., 20.], [1., 1., 3., 3.]
+
+
+@pytest.mark.parametrize('card, swapped', [
+    ([_A, _B, _C], 0),      # the plain order
+    ([_B, _A, _C], 2),      # the tied pair swapped
+    ([_A, _A, _C], None),   # B lost and A doubled
+    ([_C, _B, _A], None),   # A and C swapped, their scores not tied
+])
+def test_proposal_check_matches_tied_slots_one_to_one(card, swapped):
+    from chip_smoke import _swapped_slots
+
+    def proposals(boxes):
+        return (torch.tensor([boxes]), torch.tensor([[.9, .9, .5]]),
+                torch.ones(1, 3, dtype=torch.bool))
+    want = proposals([_A, _B, _C])
+    assert _swapped_slots(want, proposals(card), want[2]) == swapped
+
+
+def test_proposal_check_matching_is_maximal():
+    """_max_matching against every assignment of small random graphs."""
+    import itertools
+    from chip_smoke import _max_matching
+    rs = np.random.RandomState(0)
+    for _ in range(200):
+        n = rs.randint(1, 6)
+        fits = rs.rand(n, n) < 0.4
+        best = max(sum(bool(fits[i, p[i]]) for i in range(n))
+                   for p in itertools.permutations(range(n)))
+        assert _max_matching(torch.from_numpy(fits)) == best, fits
+
+
 # ------------------------------------------------------------- detectors
 def _plain(obj):
     if isinstance(obj, dict):
@@ -461,8 +500,10 @@ def check_forward_train(case, frozen=('backbone.conv1.', 'backbone.bn1.',
     proposals (the JAX run's): losses at rel 1e-4 and every gradient at
     1e-3 of its largest entry, or twice what the JAX package's own moves
     by under fp32 noise of 1e-7 in the weights and image, where that is
-    more; none in the parameters under ``frozen``, where the config
-    freezes them. Returns the port model."""
+    more, up to NOISE_CAP (a noise limit above it fails); none in the
+    parameters under ``frozen``, where the config freezes them. Prints the
+    gradients held to the noise limit, each with its reading and limit.
+    Returns the port model."""
     cfg, jm = case['cfg'], case['jm']
     batch = make_batch()
     if not cfg['roi_head'].get('mask_head'):
@@ -529,7 +570,7 @@ def check_forward_train(case, frozen=('backbone.conv1.', 'backbone.bn1.',
             (k, v, want[k])
     want_grads = state_dict_from_jax(jax.tree.map(np.asarray, grads))
     moved_grads = state_dict_from_jax(jax.tree.map(np.asarray, moved))
-    checked = 0
+    checked, noisy = 0, []
     freezes = cfg['backbone'].get('frozen_stages', -1) >= 1 \
         and cfg['backbone']['type'] != 'HRNet'
     scale = max(float(w.abs().max()) for w in want_grads.values())
@@ -545,9 +586,15 @@ def check_forward_train(case, frozen=('backbone.conv1.', 'backbone.bn1.',
             continue
         assert p.grad is not None, name
         if w.abs().max() > 0:
-            limit = max(TOL_GRAD, 2 * _rel(moved_grads[name], w))
-            assert _rel(p.grad, w) <= limit, (name, _rel(p.grad, w), limit)
+            noise = 2 * _rel(moved_grads[name], w)
+            assert noise <= NOISE_CAP, (name, 'noise limit', noise)
+            err = _rel(p.grad, w)
+            if noise > TOL_GRAD:
+                noisy.append(f'{name} {err:.3g} (limit {noise:.3g})')
+            assert err <= max(TOL_GRAD, noise), (name, err, noise)
             checked += 1
+    print(f'{len(noisy)} of {checked} gradients held to the noise limit: '
+          + ', '.join(noisy))
     assert checked > 40
     return port
 

@@ -22,10 +22,13 @@ GeneralizedAttention's ``gamma``) is drawn non-zero, as every other leaf
 take no gradient, so a zero there would pass whatever the plugin computes.
 Tolerances are test_torch_backbones.py's.
 """
+import copy
+
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
+import torch
 
 from swindet_tpu.models.backbones.resnet import ResNet as JaxResNet
 from swindet_tpu.ops import plugins as jax_plugins
@@ -93,6 +96,33 @@ def test_generalized_attention_matches_jax(case):
     assert params['gamma'].item() != 0.0
     if port.appr_bias is not None:
         assert port.appr_bias.shape == (32,)
+
+
+@pytest.mark.parametrize('case', ['1111', '1111-range'])
+def test_generalized_attention_serves_then_trains(case):
+    """The sine tables and the range mask are made once per shape: a
+    block that first served a map under inference mode then trains on one
+    of that shape, with the gradients of a block that never served."""
+    torch.manual_seed(0)
+    kw = dict(ATTENTION_CASES[case], in_channels=32, num_heads=4,
+              kv_stride=2)
+    x = torch.from_numpy(
+        np.random.RandomState(3).randn(1, 9, 15, 32).astype(np.float32))
+    port = plugins.GeneralizedAttention(**kw)
+    with torch.no_grad():
+        port.gamma.fill_(0.5)
+    fresh = copy.deepcopy(port)
+    grads = []
+    for model in (port, fresh):
+        plugins._sine_table.cache_clear()
+        plugins._keep_mask.cache_clear()
+        if model is port:
+            with torch.inference_mode():
+                model(x)
+        model(x).square().sum().backward()
+        grads.append([p.grad for p in model.parameters()])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
 
 
 def test_sine_embedding_and_nearest_resize_equal_jax():
