@@ -53,8 +53,9 @@ before the last line:
               inference forward at a request's windows, the training
               forward and the backward at a training batch's, and in
               fp32 (SIMT) at stages 1 and 4, for Swin-T and again for
-              Swin-B (C 128-1,024, 4-32 heads). NMS runs at its three
-              shapes with the device time of its mask and scan kernels
+              Swin-B (C 128-1,024, 4-32 heads). NMS runs at its four
+              shapes (the C4 RPN's N 12,000, keep 2,000 among them) with
+              the device time of its mask and scan kernels
               apart (torch.profiler) and the number of 64-box blocks the
               scan visited. The v4 attention (rows 12 and 13) runs in
               bf16 (its tensor-core kernels) at every Swin stage's shape,
@@ -293,6 +294,30 @@ before the last line:
               and tools.test from files. These run the kernels phase 15
               runs at the main path's 256-channel shapes; HRFPN's convs
               are F.conv2d.
+17. dense -- RPN-only and Fast R-CNN, FCOS and NAS-FCOS from their
+              configs, bf16 set on top: the FPN RPN (rpn), the C4 RPN
+              (rpn_c4: one stride-16 map, 15 anchors, its RPN conv at
+              1,024 channels, NMS of 12,000 candidates keeping 2,000),
+              Fast R-CNN R-50 (fast_rcnn), FCOS R-50 (fcos: 8 norm-free
+              tower convs on 5 levels, 40 conv3x3 launches a request),
+              FCOS with GN towers, centre sampling, norm_on_bbox and GIoU
+              (fcos_gn) and NAS-FCOS (nasfcos: the searched neck and head,
+              DCNv2 cells and towers); each: a warm-up and 2 requests at
+              800x1333 through init_detector and inference_detector (Fast
+              R-CNN through preprocess_images and its simple_test on the
+              FPN RPN's proposals of the same image; an FCOS head's class
+              bias shifted first so that 4,096 pairs clear score_thr), ms
+              a request and peak memory, every launch equal to what
+              dense_launches derives; phase 14's fp32 serving check with
+              its bf16 control (an RPN's proposals matched as sets both
+              ways); all but the C4 RPN 1 + 3 training steps at batch 2 on
+              800x1344 (make_train_step; Fast R-CNN a step written here on
+              the FPN RPN's proposals padded to 2,000 slots), launches
+              checked, BN buffers unmoved, a profiled step, NAS-FCOS's
+              deformable convs' ms; the RPN's and FCOS's fp32 training
+              checks with bf16 controls; the FPN RPN through
+              train_detector and tools.test --eval proposal from files
+              (AR@100/300/1000).
 
 Each phase's wall time is logged under [time].
 
@@ -308,7 +333,8 @@ phase 13's as ``reppoints_serve_launches`` and
 ``faster_train_launches``, ``retina_serve_launches`` and
 ``retina_train_launches``, phase 15's and 16's as
 ``<config>_serve_launches`` and, for the four of each that train,
-``<config>_train_launches``; for the conv,
+``<config>_train_launches``, phase 17's as ``dense_<config>_serve_launches``
+and ``dense_<config>_train_launches``; for the conv,
 fused-MLP and v1, v3,
 v4 and full-map attention rows also ``tc_launches``, counted the same
 way; ``shapes``, the bf16 readings at every main-path shape, for those,
@@ -1588,14 +1614,17 @@ def phase_kernels():
             swin_checks(dtype, randn)
 
         # NMS on fp32 boxes (the same in both configurations): RPN when
-        # serving and in a training step, the bbox head's multiclass NMS;
-        # its mask and scan kernels' device times apart
+        # serving and in a training step, the bbox head's multiclass NMS,
+        # the C4 RPN's one level (nms_pre 12,000, max_per_img 2,000,
+        # configs/_base_/models/rpn_r50_caffe_c4.py); its mask and scan
+        # kernels' device times apart
         if dtype == torch.float32:
             rows = []
             for b, n, groups, thr, max_out, note in (
                     (2, 8819, 5, 0.7, 1000, 'RPN train'),
                     (1, 4819, 5, 0.7, 1000, 'RPN serve'),
-                    (1, 2048, 80, 0.5, 100, 'multiclass')):
+                    (1, 2048, 80, 0.5, 100, 'multiclass'),
+                    (1, 12000, 1, 0.7, 2000, 'C4 RPN serve')):
                 args = _nms_inputs(gen, b, n, groups)
                 out = nms_sorted_reference(*args, thr, max_out)
                 r = _compare('nms_sorted', dtype,
@@ -5424,6 +5453,622 @@ def phase_backbones():
                         BACKBONE_TRAINED, 'hrnet')
 
 
+# ------------------------------------------------------------ phase 17
+# RPN-only and Fast R-CNN, FCOS and NAS-FCOS
+DENSE_CONFIGS = {
+    'rpn': 'configs/rpn/rpn_r50_fpn_1x_coco.py',
+    'rpn_c4': 'configs/rpn/rpn_r50_caffe_c4_1x_coco.py',
+    'fast_rcnn': 'configs/fast_rcnn/fast_rcnn_r50_fpn_1x_coco.py',
+    'fcos': 'configs/fcos/fcos_r50_fpn_1x_coco.py',
+    'fcos_gn': 'configs/fcos/fcos_center-normbbox-centeronreg-giou_r50_'
+               'caffe_fpn_gn-head_1x_coco.py',
+    'nasfcos': 'configs/nas_fcos/nas_fcos_nashead_r50_caffe_fpn_gn-head_'
+               '4x4_1x_coco.py',
+}
+DENSE_CONFIGS = {k: os.path.join(REPO, v) for k, v in DENSE_CONFIGS.items()}
+# the C4 RPN serves only: its training is the FPN RPN's loss on one map
+DENSE_TRAINED = ('rpn', 'fast_rcnn', 'fcos', 'fcos_gn', 'nasfcos')
+DENSE_REQUESTS = 2
+DENSE_STEPS = 3
+# Fast R-CNN's static proposal slots in training (the config's
+# LoadProposals num_max_proposals); at test time the RPN's max_per_img
+FAST_RCNN_SLOTS = 2000
+# the gradients the fp32 training checks hold; the ResNet's, the FPN's
+# first output conv's and FCOS's first tower conv's behind ReLU units at
+# RESNET_GRAD_LIMIT (as RetinaNet's, phase 14), the rest at phase 7's
+# RPN-group limit
+DENSE_TRAIN_GRADS = {
+    'rpn': RESNET_BACKBONE_GRADS + (
+        'neck.lateral_convs.0.conv.weight', 'neck.fpn_convs.0.conv.weight',
+        'rpn_head.rpn_conv.weight', 'rpn_head.rpn_cls.weight',
+        'rpn_head.rpn_reg.weight'),
+    'fcos': RESNET_BACKBONE_GRADS + (
+        'neck.fpn_convs.0.conv.weight', 'neck.fpn_convs.2.conv.weight',
+        'bbox_head.cls_convs.0.conv.weight',
+        'bbox_head.reg_convs.3.conv.weight', 'bbox_head.conv_cls.weight',
+        'bbox_head.conv_reg.weight', 'bbox_head.conv_centerness.weight',
+        'bbox_head.scales.0.scale'),
+}
+DENSE_DEEP_GRADS = RESNET_BACKBONE_GRADS + (
+    'neck.fpn_convs.0.conv.weight', 'bbox_head.cls_convs.0.conv.weight')
+
+
+def dense_launches(model, training):
+    """Each kernel's launches that one request (serving) or one step
+    (training) of a phase-17 detector makes, derived from the built
+    model: a conv3x3 launch per kernel FPN output conv, per level of a
+    kernel RPN conv (the C4 RPN's one map) and per level of each kernel
+    tower conv of an FCOS head (in training one more each for dx and a
+    filter-gradient launch each; NAS-FCOS's neck and GN towers, FCOS's
+    GN towers and its 3x3 outputs run F.conv2d); Fast R-CNN's bbox
+    RoIAlign once a request and once a step with its backward; the NMS
+    once a request (the RPN's proposals, the dense heads' and Fast
+    R-CNN's multiclass) and never in training (no proposal step)."""
+    convs = sum(c.use_kernel for c in getattr(model.neck, 'fpn_convs', ()))
+    aligns = 0
+    if hasattr(model, 'bbox_head'):
+        head = model.bbox_head
+        convs += len(head.strides) * sum(
+            c.use_kernel for c in (*head.cls_convs, *head.reg_convs))
+    elif model.rpn_head is not None:
+        head = model.rpn_head
+        convs += head.conv_uses_kernel * len(head.prior_generator.strides)
+    else:
+        aligns = 1
+    want = {fn.__name__: 0 for fn in KERNEL_WRAPPERS}
+    if training:
+        want.update(conv3x3=2 * convs, conv3x3_dw=convs, roi_align=aligns,
+                    roi_align_bwd=aligns)
+    else:
+        want.update(conv3x3=convs, roi_align=aligns, nms_sorted=1)
+    return want
+
+
+def _launched(per, kernels):
+    """The wrappers of ``kernels`` that the derived launches ``per``
+    expect to run."""
+    return tuple(fn for fn in kernels if per[fn.__name__])
+
+
+def _dense_model(name, device='cuda', seed=0, opts=RESNET_BF16):
+    return init_detector(DENSE_CONFIGS[name], device=device, seed=seed,
+                         cfg_options=dict(opts))
+
+
+def _check_proposals(res, h, w, max_n):
+    """An RPN's result: 80 classes, every proposal in class 0, finite,
+    within the (h, w) canvas, at most ``max_n``; returns their number."""
+    if len(res) != 80 or any(len(r) for r in res[1:]):
+        raise AssertionError('proposals outside class 0')
+    dets = res[0]
+    if dets.ndim != 2 or dets.shape[1] != 5 or not np.isfinite(dets).all() \
+            or (dets[:, [0, 2]] > w + 1e-3).any() \
+            or (dets[:, [1, 3]] > h + 1e-3).any() or (dets < 0).any() \
+            or not 0 < len(dets) <= max_n:
+        raise AssertionError(f'bad proposals {dets.shape}')
+    return len(dets)
+
+
+def _shift_cls_bias(model, img, phase):
+    """Shift an FCOS head's class bias so that REPPOINTS_PAIRS (point,
+    class) pairs of ``img``'s candidates clear score_thr by score times
+    centerness (the multiclass NMS's cap full): seeded weights score every
+    pair at the 0.01 prior times ~0.5, under score_thr."""
+    head = model.bbox_head
+    thr = dict(model.test_cfg)['score_thr']
+
+    def candidates():
+        from swindet_tpu_torch.apis.inference import preprocess_images
+        batch = preprocess_images([img], model.cfg)
+        dev = next(model.parameters()).device
+        with torch.inference_mode():
+            _, scores, cness = model.aug_bbox_test(
+                torch.from_numpy(batch['img']).to(dev),
+                torch.from_numpy(batch['img_shapes']).to(dev))
+        z = torch.logit(scores[0, :, :-1].double())
+        # the logit each pair must pass: thr over its centerness
+        need = torch.logit((thr / cness[0].double()).clamp(max=1 - 1e-9))
+        return z, need[:, None]
+    z, need = candidates()
+    shift = torch.kthvalue((need - z).flatten(),
+                           REPPOINTS_PAIRS).values.item() + 1e-3
+    with torch.no_grad():
+        head.conv_cls.bias.add_(shift)
+    z, need = candidates()
+    pairs = int((z > need).sum())
+    log(phase, f'conv_cls bias shifted by {shift:.4f}: {pairs} of '
+               f'{z.numel()} candidate pairs of the warm-up request clear '
+               f'score_thr {thr} by score times centerness')
+    if pairs < REPPOINTS_PAIRS // 2:
+        raise AssertionError(f'{pairs} pairs clear score_thr: the NMS cap '
+                             f'of {REPPOINTS_PAIRS // 2} is not full')
+
+
+def _timed_requests(phase, model, imgs, per, run, check):
+    """A warm-up request, then one per image after it with every launch
+    count checked: latencies, detection counts, launches and the peak
+    memory of the timed requests."""
+    t0 = time.perf_counter()
+    check(run(imgs[0]))
+    torch.cuda.synchronize()
+    log(phase, f'warm-up request {time.perf_counter() - t0:.3f} s')
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    lat, counts = [], []
+    for img in imgs[1:]:
+        t0 = time.perf_counter()
+        res = run(img)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        counts.append(check(res))
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    _check_launches(phase, launches, per, len(imgs) - 1)
+    # NAS-FCOS runs no conv on the kernel: none may launch
+    tc = _check_tc(phase, launches, True, _launched(per, (conv3x3,)))
+    log(phase, 'per-request ms: '
+               + ', '.join(f'{t * 1e3:.1f}' for t in lat)
+               + f'; detections per image {counts}; peak memory '
+                 f'{peak / 2 ** 30:.2f} GiB; launches {_nonzero(launches)}'
+                 f', as derived; tensor-core {_nonzero(tc)}; {CARD}')
+    return launches, lat, peak, counts
+
+
+def _rpn_proposals(rpn, img, shapes, sf, slots=None):
+    """The RPN's proposals in the canvas frame (rescale off) and their
+    validity, padded to ``slots`` with invalid zero boxes."""
+    with torch.inference_mode():
+        out = rpn.simple_test(img, shapes, sf, rescale=False)
+    props, valid = out['dets'][..., :4].clone(), out['det_valid'].clone()
+    if slots is not None:
+        b, n = valid.shape
+        props = torch.cat([props, props.new_zeros(b, slots - n, 4)], 1)
+        valid = torch.cat([valid, valid.new_zeros(b, slots - n)], 1)
+    return props, valid
+
+
+def dense_serve(name):
+    """One phase-17 config in bf16 through init_detector and
+    inference_detector (Fast R-CNN through preprocess_images, with the
+    RPN config's test pipeline, and its simple_test on the FPN RPN's
+    proposals of the same image, in bf16, made before the timed
+    requests): a warm-up, then DENSE_REQUESTS
+    requests at 800x1333 with every launch count checked; an FCOS head's
+    class bias shifted first so that its NMS cap is full."""
+    phase = f'dense-{name}'
+    t0 = time.perf_counter()
+    model = _dense_model(name)
+    per = dense_launches(model, training=False)
+    log(phase, f'init_detector: {type(model).__name__} '
+               f'{sum(p.numel() for p in model.parameters())} params, '
+               f'compute {model.dtype}, {time.perf_counter() - t0:.1f} s; '
+               f'launches per request {_nonzero(per)}')
+    imgs = synthetic_images(DENSE_REQUESTS + 1, seed=9)
+    if name.startswith('rpn'):
+        max_n = dict(model.test_cfg)['rpn']['max_per_img']
+        return _timed_requests(
+            phase, model, imgs, per, lambda img: inference_detector(model,
+                                                                    img),
+            lambda res: _check_proposals(res, 800, 1344, max_n))
+    if name != 'fast_rcnn':
+        _shift_cls_bias(model, imgs[0], phase)
+
+        def check(res):
+            n = _check_bbox_result(res, 800, 1344)
+            if n != 100:
+                raise AssertionError(f'{n} detections with the cap full')
+            return n
+        return _timed_requests(phase, model, imgs, per,
+                               lambda img: inference_detector(model, img),
+                               check)
+    from swindet_tpu_torch.apis.inference import preprocess_images
+    rpn = _dense_model('rpn')
+    batches = []
+    for img in imgs:
+        # the RPN config's test pipeline: the Fast R-CNN config's reads a
+        # proposal file first (LoadProposals), and normalises and resizes
+        # alike
+        batch = preprocess_images([img], rpn.cfg)
+        args = [torch.from_numpy(batch[k]).cuda()
+                for k in ('img', 'img_shapes', 'scale_factors')]
+        batches.append((batch['metas'], args, _rpn_proposals(rpn, *args)))
+    del rpn
+    log(phase, f'the FPN RPN\'s proposals a request: '
+               f'{[int(b[2][1].sum()) for b in batches]}')
+
+    def run(i):
+        metas, args, (props, valid) = batches[i]
+        with torch.inference_mode():
+            out = model.simple_test(*args, props, valid)
+        return format_results({k: v.cpu().numpy() for k, v in out.items()},
+                              metas, 80)[0]
+    return _timed_requests(phase, model, list(range(len(batches))), per,
+                           run, lambda res: _check_bbox_result(res, 800,
+                                                               1344))
+
+
+def _fcos_check_heads(model, img, phase):
+    """An FCOS head's centerness output set to 0 (a factor of 0.5 on every
+    score, a constant, so that the top-k and the NMS rank the class
+    logits alone) and its class logits to N(-14, 4^2) with every decision
+    of get_bboxes at least 2e-4 in logits from its boundary
+    (_set_class_logits at score_thr's double: the score is the class
+    score times 0.5)."""
+    head = model.bbox_head
+    with torch.no_grad():
+        head.conv_centerness.weight.zero_()
+        head.conv_centerness.bias.zero_()
+    cfg = model.test_cfg
+    model.test_cfg = dict(cfg, score_thr=2 * cfg['score_thr'])
+    try:
+        scale, bias, margins = _set_class_logits(
+            model, torch.from_numpy(img), conv=head.conv_cls,
+            candidates=False)
+    finally:
+        model.test_cfg = cfg
+    log(phase, f'conv_cls weight x{scale:.4g}, bias {bias:.4g}: '
+               f'{margins[3]} candidate pairs clear score_thr; in logits, '
+               f'the nearest to its {margins[0]:.3g} away, the smallest gap '
+               f'at a level\'s top-k cut {margins[1]}, at the 2048-pair cap '
+               f'{margins[2]}')
+
+
+def _proposal_tuple(out):
+    return out['dets'][..., :4], out['dets'][..., 4], out['det_valid']
+
+
+def dense_check(name, device='cuda', control=True):
+    """Phase 14's serving check on a phase-17 config: fp32 on a 224x320
+    canvas, the card (kernels, no tensor-core launch) against the CPU
+    (plain versions), same seeded weights; a bf16 control on the card
+    that must exceed the limits. An RPN's proposals (rpn_cls spread) must
+    match the CPU run's within TOL_PROPOSAL_PX, MIN_PROPOSAL_SHARE of
+    them both ways (noise may trade a near-tied pair at an NMS boundary);
+    the other configs' detections as sets
+    (_matched_errors), boxes within 1e-2 px, scores within 1e-2 (Fast
+    R-CNN, fc_cls spread, on the CPU's fp32 FPN RPN's proposals on both
+    sides) or 1e-4 (FCOS and NAS-FCOS, _fcos_check_heads); features
+    within 1e-3 of their largest entry."""
+    phase = f'dense-{name}-check'
+    cpu = _dense_model(name, device='cpu', seed=1, opts={'bf16': False})
+    img, shapes, sf = _zoo_check_inputs()
+    extra = ()
+    if name.startswith('rpn'):
+        with torch.no_grad():
+            cpu.rpn_head.rpn_cls.weight.mul_(100.0)
+    elif name == 'fast_rcnn':
+        with torch.no_grad():
+            cpu.roi_head.bbox_head.fc_cls.weight.mul_(100.0)
+        rpn = _dense_model('rpn', device='cpu', seed=1,
+                           opts={'bf16': False})
+        with torch.no_grad():
+            rpn.rpn_head.rpn_cls.weight.mul_(100.0)
+        extra = _rpn_proposals(rpn, *[torch.from_numpy(a)
+                                      for a in (img, shapes, sf)])
+        log(phase, f'the CPU FPN RPN\'s proposals: {int(extra[1].sum())}')
+    else:
+        _fcos_check_heads(cpu, img, phase)
+
+    def outputs(model, dev):
+        args = [torch.from_numpy(a).to(dev) for a in (img, shapes, sf)]
+        with torch.inference_mode():
+            feats = model.extract_feat(args[0])
+            out = model.simple_test(*args, *[t.to(dev) for t in extra])
+        return ([f.cpu().float() for f in feats],
+                {k: v.cpu() for k, v in out.items()}, None)
+
+    def errors(got):
+        feat_err = max((a - b).abs().max().item()
+                       / max(a.abs().max().item(), 1)
+                       for a, b in zip(want[0], got[0]))
+        if not name.startswith('rpn'):
+            return feat_err, _matched_errors(want, got)[1]
+        w, g = _proposal_tuple(want[1]), _proposal_tuple(got[1])
+        return feat_err, (min(_matched_share(w, g), _matched_share(g, w)),
+                          int(w[2].sum()), int(g[2].sum()))
+
+    def over(errs, score_limit):
+        feat_err, e = errs
+        if name.startswith('rpn'):
+            return feat_err > 1e-3 or e[0] < MIN_PROPOSAL_SHARE
+        return e is None or feat_err > 1e-3 or e[0] > 1e-2 \
+            or e[1] > score_limit or e[2] == 0
+    score_limit = 1e-2 if name == 'fast_rcnn' else 1e-4
+    gpu = build_detector(dict(cpu.cfg.model, dtype='float32'))
+    gpu.load_state_dict(cpu.state_dict())
+    gpu = gpu.to(device).eval()
+    want = outputs(cpu, 'cpu')
+    reset_launch_counts()
+    sound = errors(outputs(gpu, device))
+    if device == 'cuda':
+        _check_tc(phase, launch_counts(), False, _launched(
+            dense_launches(gpu, training=False), (conv3x3,)))
+    what = ('share of proposals matched both ways, valid on the CPU and '
+            'the card' if name.startswith('rpn')
+            else 'box max|d| px, score max|d|, dets')
+    log(phase, f'224x320 fp32 card vs CPU: features rel max|d| '
+               f'{sound[0]:.3g}; {what}: {sound[1]}')
+    if over(sound, score_limit):
+        raise AssertionError(f'{name}: card vs CPU over the limits')
+    if not control:
+        return
+    ctl = build_detector(dict(cpu.cfg.model, dtype='bfloat16'))
+    ctl.load_state_dict(cpu.state_dict())
+    control = errors(outputs(ctl.to(device).eval(), device))
+    log(phase, f'bf16 control vs the fp32 CPU run: features rel max|d| '
+               f'{control[0]:.3g}; {what}: {control[1]}')
+    if not over(control, score_limit):
+        raise AssertionError(f'{name}: the bf16 control passes the fp32 '
+                             f'limits')
+
+
+def _fast_rcnn_step(model, opt, schedule):
+    """Fast R-CNN's training step (make_train_step passes no proposals,
+    as the JAX package's): set the schedule's rate, forward_train on the
+    batch's 'proposals' and 'prop_valid', parse_losses, backward, a zero
+    gradient for every parameter the loss does not reach, the config's
+    SGD step. Returns the log values with 'grad_norm'."""
+    from swindet_tpu_torch.engine import parse_losses
+    from swindet_tpu_torch.engine.optimizer import set_lr
+    model.train()
+    params = [p for p in model.parameters() if p.requires_grad]
+    iteration = [0]
+
+    def step(batch, gen):
+        set_lr(opt, schedule(iteration[0]))
+        opt.zero_grad(set_to_none=True)
+        losses = model.forward_train(
+            batch['img'], batch['img_shapes'], batch['pad_shapes'],
+            batch['gt_bboxes'], batch['gt_valid'], batch['gt_labels'],
+            batch['proposals'], batch['prop_valid'], gen=gen)
+        total, log_vars = parse_losses(losses)
+        total.backward()
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        log_vars['grad_norm'] = torch.nn.utils.get_total_norm(
+            [p.grad for p in params])
+        opt.step()
+        iteration[0] += 1
+        names = list(log_vars)
+        return dict(zip(names, torch.stack(
+            [log_vars[k].detach().float() for k in names]).tolist()))
+    return step
+
+
+def dense_train(name):
+    """1 + DENSE_STEPS training steps of a phase-17 config (its config in
+    bf16, SGD) at batch 2 on the 800x1344 canvas with 16 painted
+    rectangles an image: make_train_step for the RPN, FCOS and NAS-FCOS;
+    for Fast R-CNN _fast_rcnn_step on the FPN RPN's proposals of the
+    batch (bf16, seeded), padded to FAST_RCNN_SLOTS with invalid slots.
+    Each step's launches checked, the frozen BN buffers unmoved, a
+    profiled step (busy share), and for NAS-FCOS the plain deformable
+    convs' ms."""
+    phase = f'dense-{name}-train'
+    cfg = Config.fromfile(DENSE_CONFIGS[name])
+    cfg.merge_from_dict(RESNET_BF16)
+    model = _dense_model(name)
+    opt = build_optimizer(model, dict(cfg.optimizer))
+    if not isinstance(opt, torch.optim.SGD):
+        raise AssertionError(f'{name}: optimizer {type(opt).__name__}')
+    schedule = build_lr_schedule(dict(cfg.lr_config), cfg.optimizer['lr'],
+                                 ITERS_PER_EPOCH)
+    batch = synthetic_train_batch()
+    del batch['gt_masks']
+    if name == 'fast_rcnn':
+        rpn = _dense_model('rpn')
+        sf = torch.ones(2, 4, device=batch['img'].device)
+        batch['proposals'], batch['prop_valid'] = _rpn_proposals(
+            rpn, batch['img'], batch['img_shapes'], sf, FAST_RCNN_SLOTS)
+        del rpn
+        log(phase, f'the FPN RPN\'s proposals of the batch: '
+                   f'{batch["prop_valid"].sum(1).tolist()} valid of '
+                   f'{FAST_RCNN_SLOTS} slots an image')
+        step = _fast_rcnn_step(model, opt, schedule)
+    else:
+        step = make_train_step(model, opt, schedule,
+                               dict(cfg.optimizer_config).get('grad_clip'))
+    per = dense_launches(model, training=True)
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    stats = {k: v.clone() for k, v in model.named_buffers()}
+    t0 = time.perf_counter()
+    _check_log(step(batch, gen), 'warm-up step')
+    torch.cuda.synchronize()
+    log(phase, f'warm-up step {time.perf_counter() - t0:.3f} s; launches '
+               f'per step {_nonzero(per)}')
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times = []
+    for _ in range(DENSE_STEPS):
+        t0 = time.perf_counter()
+        out = step(batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        _check_log(out, 'timed step')
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    _check_launches(phase, launches, per, DENSE_STEPS)
+    tc = _check_tc(phase, launches, True,
+                   _launched(per, (conv3x3, conv3x3_dw)))
+    moved = [k for k, v in model.named_buffers()
+             if not torch.equal(v, stats[k])]
+    if moved:
+        raise AssertionError(f'{name}: frozen BN buffers moved: {moved[:4]}')
+    log(phase, 'per-step ms: ' + ', '.join(f'{t:.1f}' for t in times)
+               + f'; peak memory {peak / 2 ** 30:.2f} GiB; last step: '
+               + ', '.join(f'{k} {v:.4f}' for k, v in out.items())
+               + f'; launches {_nonzero(launches)}, as derived; '
+                 f'tensor-core {_nonzero(tc)}; {CARD}')
+    busy = _profile_steps(step, batch, gen, float(np.median(times)), phase,
+                          n=1)
+    deform_ms = _deform_ops_ms(model, batch, phase)[0] \
+        if name == 'nasfcos' else 0.0
+    return dict(train=launches, times=times, train_peak=peak, busy=busy,
+                deform_ms=deform_ms)
+
+
+def _dense_train_grads(model, batch, dev, names, keys=None):
+    """forward_train on ``dev`` (the RPN's sampler drawing ``keys``): its
+    losses and the gradients of ``names`` from their sum."""
+    model.train()
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()
+          if k != 'gt_masks'}
+    losses = model.forward_train(
+        tb['img'], tb['img_shapes'], tb['pad_shapes'], tb['gt_bboxes'],
+        tb['gt_valid'], tb['gt_labels'],
+        sampler_keys=None if keys is None else dict(rpn=_to(keys, dev)))
+    params = dict(model.named_parameters())
+    grads = torch.autograd.grad(sum(losses.values()),
+                                [params[n] for n in names])
+    return ({k: float(v.detach()) for k, v in losses.items()},
+            {n: g.detach().cpu() for n, g in zip(names, grads)})
+
+
+def dense_train_check(name, device='cuda'):
+    """Phase 7's check on the RPN and FCOS: forward_train in fp32 on phase
+    7's 224x320 batch, the card (kernels, no tensor-core launch) against
+    the CPU (plain versions), same seeded weights, batch and (the RPN's)
+    sampler keys: the losses at TOL_TRAIN_LOSS, the gradients of
+    DENSE_TRAIN_GRADS at RESNET_GRAD_LIMIT (DENSE_DEEP_GRADS) or phase 7's
+    RPN-group limit; a bf16 control on the card must exceed a loss limit
+    and a gradient limit."""
+    phase = f'dense-{name}-train-check'
+    names = DENSE_TRAIN_GRADS[name]
+    cpu = _dense_model(name, device='cpu', seed=1, opts={'bf16': False})
+    batch = train_check_batch()
+    keys = None
+    if name == 'rpn':
+        cpu.eval()
+        with torch.no_grad():
+            feats = cpu.extract_feat(torch.from_numpy(batch['img'][:1]))
+        n = sum(a * f.shape[1] * f.shape[2] for a, f in zip(
+            cpu.rpn_head.prior_generator.num_base_anchors, feats))
+        rs = np.random.RandomState(7)
+        keys = [tuple(rs.rand(n).astype(np.float32) for _ in range(2))
+                for _ in range(batch['img'].shape[0])]
+    gpu = build_detector(dict(cpu.cfg.model, dtype='float32'))
+    gpu.load_state_dict(cpu.state_dict())
+    ctl = build_detector(dict(cpu.cfg.model, dtype='bfloat16'))
+    ctl.load_state_dict(cpu.state_dict())
+    t0 = time.perf_counter()
+    ref = _dense_train_grads(cpu, batch, 'cpu', names, keys)
+    log(phase, f'the CPU run {time.perf_counter() - t0:.1f} s; losses '
+               + ', '.join(f'{k} {v:.5g}' for k, v in ref[0].items()))
+    reset_launch_counts()
+    sound = _rp_train_errors(ref, _dense_train_grads(gpu.to(device), batch,
+                                                     device, names, keys))
+    if device == 'cuda':
+        _check_launches(phase, launch_counts(),
+                        dense_launches(gpu, training=True), 1)
+        _check_tc(phase, launch_counts(), False, (conv3x3, conv3x3_dw))
+    control = _rp_train_errors(ref, _dense_train_grads(
+        ctl.to(device), batch, device, names, keys))
+    for what, (loss, grad) in (('fp32 card vs CPU', sound),
+                               ('control, bf16 card vs fp32 CPU', control)):
+        log(phase, f'224x320 {what}: relative loss |d| ' + ', '.join(
+            f'{k} {v:.3g}' for k, v in loss.items()))
+        log(phase, '  grad |d| / max: ' + ', '.join(
+            f'{n} {v:.3g}' for n, v in grad.items()))
+
+    def over(errs):
+        return [k for k, v in errs[0].items() if not v <= TOL_TRAIN_LOSS] \
+            + [n for n, v in errs[1].items() if not v <= (
+                RESNET_GRAD_LIMIT if n in DENSE_DEEP_GRADS
+                else TOL_TRAIN_GRAD['rpn'])]
+    if over(sound):
+        raise AssertionError(f'{name}: card vs CPU over the limits: '
+                             f'{over(sound)}')
+    if not any(k in over(control) for k in control[0]) \
+            or not any(n in over(control) for n in control[1]):
+        raise AssertionError(f'{name}: the bf16 control passes the loss or '
+                             f'the gradient limits')
+
+
+def dense_files():
+    """From files: the FPN RPN through train_detector for one epoch on 2
+    of phase 10's PNGs with the config's own pipeline (one iteration),
+    then tools.test on them with the trained checkpoint, --eval proposal:
+    AR@100, AR@300 and AR@1000 (useCats 0)."""
+    phase = 'dense-rpn-files'
+    build_dir = os.path.join(REPO, 'build')
+    os.makedirs(build_dir, exist_ok=True)
+    config = DENSE_CONFIGS['rpn']
+    with tempfile.TemporaryDirectory(dir=build_dir) as root:
+        ann_file, prefix = write_synthetic_coco(root, RESNET_LOOP_SIZES)
+        work = os.path.join(root, 'work')
+        cfg = loop_config(ann_file, prefix, work, config=config)
+        model = build_detector(dict(cfg.model, dtype='bfloat16'))
+        per = dense_launches(model, training=True)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        run = train_detector(model, build_dataset(cfg.data.train), cfg)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        log(phase, f'train_detector: {len(run.log_vars)} iterations in '
+                   f'{time.perf_counter() - t0:.1f} s, canvases '
+                   f'{run.canvases}; loss ' + ', '.join(
+                       f'{v["loss"]:.4g}' for v in run.log_vars))
+        bad = [v for v in run.log_vars
+               if not all(np.isfinite(x) for x in v.values())]
+        if len(run.log_vars) != 1 or bad or launches != per:
+            raise AssertionError(f'rpn: {len(run.log_vars)} iterations, '
+                                 f'non-finite {bad}, launches '
+                                 f'{_nonzero(launches)} (expected '
+                                 f'{_nonzero(per)})')
+        cfg_file = os.path.join(root, 'rpn_cfg.py')
+        eval_config(ann_file, prefix, config=config).dump(cfg_file)
+        ran, launches, dets = _cli_run(phase, [
+            cfg_file, os.path.join(work, 'epoch_1.pth'), '--samples-per-gpu',
+            '2', '--eval', 'proposal', '--cfg-options', 'bf16=True'], 'test')
+        want = dense_launches(model, training=False)
+        metrics = dict(ran['metrics'])
+        ar = {k: metrics.get(k) for k in ('AR@100', 'AR@300', 'AR@1000')}
+        if launches != want or not all(0 < d <= 1000 for d in dets) \
+                or not all(v is not None and np.isfinite(v)
+                           for v in ar.values()):
+            raise AssertionError(f'rpn test: proposals {dets}, launches '
+                                 f'{_nonzero(launches)} (expected '
+                                 f'{_nonzero(want)}), metrics {metrics}')
+        _check_tc(phase, launches, True, (conv3x3,))
+        log(phase, f'test --eval proposal: ' + ', '.join(
+            f'{k} {v}' for k, v in ar.items()) + f'; all metrics {metrics}')
+
+
+def phase_dense():
+    """Phase 17: the six configs serving and their fp32 serving checks;
+    all but the C4 RPN training, the RPN and FCOS with their fp32
+    training checks; the FPN RPN from files. Returns each config's
+    results and the phase's seconds."""
+    start = last = time.perf_counter()
+    laps = []
+
+    def lap(what):
+        nonlocal last
+        now = time.perf_counter()
+        laps.append(f'{what} {now - last:.1f} s')
+        log('time', f'dense (phase 17): {laps[-1]}')
+        last = now
+    out = {}
+    for name in DENSE_CONFIGS:
+        serve, lat, peak, counts = dense_serve(name)
+        lap(f'{name} serving')
+        dense_check(name)
+        lap(f'{name} serving check')
+        out[name] = dict(serve=serve, lat=lat, peak=peak, counts=counts)
+        if name in DENSE_TRAINED:
+            out[name].update(dense_train(name))
+            lap(f'{name} training')
+        if name in DENSE_TRAIN_GRADS:
+            dense_train_check(name)
+            lap(f'{name} training check')
+    dense_files()
+    lap('rpn files')
+    seconds = time.perf_counter() - start
+    log('time', 'dense (phase 17): ' + ', '.join(laps) + f'; {seconds:.1f} s')
+    return out, seconds
+
+
 # phase 3's further readings of a kernel's main row that the JSON line
 # carries: the kernel's own device ms (rows 1, 14 and 15), row 14's
 # head-major copy, row 1's first kernel off the vector path, row 15's
@@ -5471,6 +6116,8 @@ def main() -> int:
     lap('phase 15')
     backbones, phase16_s = phase_backbones()
     lap('phase 16')
+    dense, phase17_s = phase_dense()
+    lap('phase 17')
     for what, key, fmt in (('request latency (s)', 'lat', '.4f'),
                            ('training step (ms)', 'times', '.1f')):
         log('configs', f'{what}, median of the timed runs: ' + ', '.join(
@@ -5522,6 +6169,18 @@ def main() -> int:
                             f'{r["plugin_ms"][1]:.2f} ms of it')
                          + f'; {smi}')
     log('backbones', f'phase 16 {phase16_s:.1f} s')
+    for name, r in dense.items():
+        log('dense', f'{name}: request ms median '
+                     f'{np.median(r["lat"]) * 1e3:.1f}, serving peak '
+                     f'{r["peak"] / 2 ** 30:.2f} GiB'
+                     + ('' if 'times' not in r else
+                        f', training step median {np.median(r["times"]):.1f}'
+                        f' ms, peak {r["train_peak"] / 2 ** 30:.2f} GiB, '
+                        f'busy {r["busy"]:.3f}'
+                        + (f', plain deformable convs {r["deform_ms"]:.2f} '
+                           f'ms a step' if r['deform_ms'] else ''))
+                     + f'; {smi}')
+    log('dense', f'phase 17 {phase17_s:.1f} s')
     rows = []
     for fn in KERNEL_WRAPPERS:
         name = fn.__name__
@@ -5555,6 +6214,12 @@ def main() -> int:
             counts[f'{which}_serve_launches'] = r['serve'][name]
             if 'train' in r:
                 counts[f'{which}_train_launches'] = r['train'][name]
+        # phase 17's dense configs: 2 requests each, 3 steps of the five
+        # that train
+        for which, r in dense.items():
+            counts[f'dense_{which}_serve_launches'] = r['serve'][name]
+            if 'train' in r:
+                counts[f'dense_{which}_train_launches'] = r['train'][name]
         if tc:
             tc = dict(tc_launches=sum(tc.values()), **tc)
         if 'shapes' in main_row:

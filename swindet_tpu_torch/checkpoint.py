@@ -40,7 +40,7 @@ _RESNET_NORM = re.compile(r'^bn(\d)$')
 _INDEXED = re.compile(r'^(layers|blocks|lateral_convs|fpn_convs|bns|'
                       r'shared_convs|shared_fcs|convs|cls_convs|reg_convs|'
                       r'reppoints_cls_convs|reppoints_pts_convs|head_convs|'
-                      r'bbox_head|mask_head)(\d+)$')
+                      r'bbox_head|mask_head|neck)(\d+)$')
 # a ConvModule's anonymous flax norm -> mmcv's name for it
 _NORMS = {('norm', 'BatchNorm_0'): 'bn', ('norm', 'GroupNorm_0'): 'gn',
           ('norm', 'LayerNorm_0'): 'ln'}
@@ -92,6 +92,12 @@ _HR_FUSE = re.compile(r'^fuse(\d+)\.(\d+)\.(?:down(\d+)\.)?(conv|bn)$')
 _HR_TRANSITION = re.compile(r'^transition(\d+)\.(\d+)\.(conv|bn)$')
 _BARE_NECK_CONV = re.compile(r'^(reduction_conv|fpn_convs\d+)$')
 _SEQ_INDEX = {'conv': 0, 'bn': 1}
+# NASFCOS_FPN's flax names (dotted), and a ConcatCell's output norm and
+# conv: mmdet's ConvModules adapt_convs.{i}, extra_downsamples.{i} and
+# out_conv (its norm 'bn', its conv 'conv')
+_NAS_ADAPT = re.compile(r'^adapt_convs(\d+)\.(conv|bn)$')
+_NAS_EXTRA = re.compile(r'^extra_downsamples(\d+)$')
+_NAS_CELL = {'out_norm': 'out_conv.bn', 'out_conv': 'out_conv.conv'}
 
 
 def _mmdet_name(name: str, tree: dict, parent: dict) -> str:
@@ -116,6 +122,14 @@ def _mmdet_name(name: str, tree: dict, parent: dict) -> str:
         n, i, kind = m.groups()
         new = '.0' if int(i) >= int(n) else ''
         return f'transition{n}.{i}{new}.{_SEQ_INDEX[kind]}'
+    m = _NAS_ADAPT.match(name)
+    if m:
+        return f'adapt_convs.{m.group(1)}.{m.group(2)}'
+    m = _NAS_EXTRA.match(name)
+    if m:
+        return f'extra_downsamples.{m.group(1)}.conv'
+    if name in _NAS_CELL and 'out_norm' in parent:
+        return _NAS_CELL[name]
     return name
 
 
@@ -222,7 +236,15 @@ def state_dict_from_jax(params: Dict, batch_stats: Optional[Dict] = None,
       Sequential of one strided conv, norm and ReLU; HRNet's stage n has
       n branches in every config);
     - HRFPN's bare ``reduction_conv`` and ``fpn_convs{i}`` -> mmdet's
-      ConvModule names ``reduction_conv.conv`` and ``fpn_convs.{i}.conv``.
+      ConvModule names ``reduction_conv.conv`` and ``fpn_convs.{i}.conv``;
+    - a list of necks ``_neck{i}`` -> ``neck.{i}``;
+    - a dense head's per-level ``scales`` vector (L,) -> mmcv's ``Scale``
+      modules ``scales.{i}.scale``, each of shape () (the inverse of
+      ``swindet_tpu/checkpoint.py:405-408``);
+    - NASFCOS_FPN's ``adapt_convs{i}.conv`` / ``.bn`` ->
+      ``adapt_convs.{i}.conv`` / ``.bn``, ``extra_downsamples{i}`` ->
+      ``extra_downsamples.{i}.conv``, and a ConcatCell's ``out_norm`` /
+      ``out_conv`` -> ``out_conv.bn`` / ``out_conv.conv``.
     """
     params = _mmdet_tree(params)
     batch_stats = _mmdet_tree(batch_stats or {})
@@ -235,6 +257,11 @@ def state_dict_from_jax(params: Dict, batch_stats: Optional[Dict] = None,
                 torch.tensor(0, dtype=torch.long)
     for path, leaf in _flatten(params).items():
         a = np.asarray(leaf)
+        if path[-1] == 'scales' and a.ndim == 1:
+            prefix = flax_path_to_torch_key(path, resnet_gn)
+            for i, v in enumerate(np.array(a, np.float32)):
+                sd[f'{prefix}.{i}.scale'] = torch.tensor(v)
+            continue
         if path[-1] == 'kernel' and a.ndim == 4:
             if 'upsample' in path:
                 a = a[::-1, ::-1].transpose(2, 3, 0, 1)

@@ -1,5 +1,6 @@
 """Box coding (counterpart of ``swindet_tpu/core/bbox/coders.py``:
-``bbox2delta`` :21, ``delta2bbox`` :49, ``DeltaXYWHBBoxCoder`` :126)."""
+``bbox2delta`` :21, ``delta2bbox`` :49, ``distance2bbox`` :94,
+``DeltaXYWHBBoxCoder`` :126)."""
 from __future__ import annotations
 
 import math
@@ -70,6 +71,26 @@ def delta2bbox(rois: torch.Tensor, deltas: torch.Tensor,
         x2 = torch.minimum(x2.clamp(min=0), w)
         y2 = torch.minimum(y2.clamp(min=0), h)
     return torch.stack([x1, y1, x2, y2], dim=-1).reshape(deltas.shape)
+
+
+def distance2bbox(points: torch.Tensor, distance: torch.Tensor,
+                  max_shape: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Boxes from points (..., 2) and their (left, top, right, bottom)
+    distances (..., 4), each coordinate clipped to [0, W] or [0, H] of
+    ``max_shape`` ((..., 2) (H, W), broadcastable against the points'
+    leading dims) where given."""
+    x1 = points[..., 0] - distance[..., 0]
+    y1 = points[..., 1] - distance[..., 1]
+    x2 = points[..., 0] + distance[..., 2]
+    y2 = points[..., 1] + distance[..., 3]
+    if max_shape is not None:
+        h = max_shape[..., 0].to(x1.dtype)
+        w = max_shape[..., 1].to(x1.dtype)
+        x1 = torch.minimum(x1.clamp(min=0), w)
+        y1 = torch.minimum(y1.clamp(min=0), h)
+        x2 = torch.minimum(x2.clamp(min=0), w)
+        y2 = torch.minimum(y2.clamp(min=0), h)
+    return torch.stack([x1, y1, x2, y2], dim=-1)
 
 
 @BBOX_CODERS.register_module()

@@ -12,13 +12,21 @@ def bbox_area(boxes: torch.Tensor) -> torch.Tensor:
     return (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
 
 
+def clamp_min(x: torch.Tensor, lo: float) -> torch.Tensor:
+    """max(x, lo) with ``jnp.clip``'s gradient: half where x == lo (a
+    degenerate box, as FCOS's ReLU'd distances give), where
+    ``torch.clamp`` passes all of it."""
+    return torch.maximum(x, x.new_tensor(lo))
+
+
 def bbox_overlaps(bboxes1: torch.Tensor, bboxes2: torch.Tensor,
                   eps: float = 1e-6, mode: str = 'iou',
                   is_aligned: bool = False) -> torch.Tensor:
     """(..., M, 4) x (..., N, 4) -> (..., M, N) overlaps, or with
     ``is_aligned`` (M == N) the (..., M) overlaps of each pair. The union,
     and for 'giou' the enclosing box's area, are clamped at ``eps``, so
-    empty boxes give 0 IoU."""
+    empty boxes give 0 IoU; every clamp has ``jnp.clip``'s gradient
+    (:func:`clamp_min`)."""
     if mode not in ('iou', 'giou'):
         raise ValueError(f'bbox_overlaps: mode {mode}')
     area1, area2 = bbox_area(bboxes1), bbox_area(bboxes2)
@@ -29,14 +37,14 @@ def bbox_overlaps(bboxes1: torch.Tensor, bboxes2: torch.Tensor,
         area1, area2 = area1[..., :, None], area2[..., None, :]
     lt = torch.maximum(b1[..., :2], b2[..., :2])
     rb = torch.minimum(b1[..., 2:], b2[..., 2:])
-    wh = (rb - lt).clamp(min=0)
+    wh = clamp_min(rb - lt, 0.0)
     overlap = wh[..., 0] * wh[..., 1]
-    union = (area1 + area2 - overlap).clamp(min=eps)
+    union = clamp_min(area1 + area2 - overlap, eps)
     ious = overlap / union
     if mode == 'iou':
         return ious
     # GIoU: less the share of the smallest enclosing box outside the union
-    enclose = (torch.maximum(b1[..., 2:], b2[..., 2:])
-               - torch.minimum(b1[..., :2], b2[..., :2])).clamp(min=0)
-    enclose_area = (enclose[..., 0] * enclose[..., 1]).clamp(min=eps)
+    enclose = clamp_min(torch.maximum(b1[..., 2:], b2[..., 2:])
+                        - torch.minimum(b1[..., :2], b2[..., :2]), 0.0)
+    enclose_area = clamp_min(enclose[..., 0] * enclose[..., 1], eps)
     return ious - (enclose_area - union) / enclose_area

@@ -83,14 +83,19 @@ def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
 def multiclass_nms(multi_bboxes: torch.Tensor, multi_scores: torch.Tensor,
                    score_thr: float, nms_cfg: dict, max_per_img: int = -1,
                    valid: Optional[torch.Tensor] = None,
-                   pre_nms_cap: int = 2048) -> MulticlassNMSResult:
+                   pre_nms_cap: int = 2048,
+                   score_factors: Optional[torch.Tensor] = None
+                   ) -> MulticlassNMSResult:
     """Class-aware NMS over (B, N, #cls*4 or 4) boxes and (B, N, #cls+1)
-    scores, the last score column being background. Candidates over
-    ``score_thr``; the top ``pre_nms_cap`` (box, class) pairs enter one
-    batched NMS."""
+    scores, the last score column being background. ``score_factors``
+    (B, N) multiply each box's class scores first (FCOS's centerness).
+    Candidates over ``score_thr``; the top ``pre_nms_cap`` (box, class)
+    pairs enter one batched NMS."""
     b, n = multi_scores.shape[:2]
     num_classes = multi_scores.shape[2] - 1
     scores = multi_scores[..., :-1]
+    if score_factors is not None:
+        scores = scores * score_factors[..., None]
     if multi_bboxes.shape[-1] > 4:
         bboxes = multi_bboxes.reshape(b, n, num_classes, 4)
     else:

@@ -234,6 +234,34 @@ class LoadAnnotations:
 
 
 @PIPELINES.register_module()
+class LoadProposals:
+    """Proposals computed elsewhere, ``results['proposals']`` (n, 4) or
+    (n, 5) (the counterpart of
+    ``swindet_tpu/datasets/pipelines/extra_augs.py:687``; reference
+    pipelines/loading.py:388, Fast R-CNN's training): the boxes as fp32
+    (n, 4), the first ``num_max_proposals`` of them, one zero box for an
+    empty set, and 'proposals' appended to ``bbox_fields``."""
+
+    def __init__(self, num_max_proposals: Optional[int] = None):
+        self.num_max_proposals = num_max_proposals
+
+    def __call__(self, results):
+        proposals = np.asarray(results['proposals'], np.float32)
+        if proposals.shape[1] not in (4, 5):
+            raise AssertionError(
+                'proposals should have shapes (n, 4) or (n, 5), '
+                f'but found {proposals.shape}')
+        proposals = proposals[:, :4]
+        if self.num_max_proposals is not None:
+            proposals = proposals[:self.num_max_proposals]
+        if len(proposals) == 0:
+            proposals = np.array([[0, 0, 0, 0]], np.float32)
+        results['proposals'] = proposals
+        results.setdefault('bbox_fields', []).append('proposals')
+        return results
+
+
+@PIPELINES.register_module()
 class Resize:
     """keep_ratio (or exact) resize to ``results['scale']`` when a caller
     set it (the test scale), else to a scale drawn from ``img_scale``:

@@ -1,1 +1,2 @@
-from . import anchor_head, reppoints_head, retina_head, rpn_head  # noqa: F401
+from . import (anchor_head, fcos_head, nasfcos_head,  # noqa: F401
+               reppoints_head, retina_head, rpn_head)

@@ -1,13 +1,15 @@
 """Single-stage detector (counterpart of
 ``swindet_tpu/models/detectors/single_stage.py``: ``SingleStageDetector``
 :18 with ``aug_bbox_test`` :86, ``RetinaNet`` :113, ``RepPointsDetector``
-:119; reference mmdet/models/detectors/single_stage.py:10, retinanet.py,
-reppoints_detector.py:6).
+:119, ``FCOS`` :174, ``NASFCOS`` :198; reference
+mmdet/models/detectors/single_stage.py:10, retinanet.py,
+reppoints_detector.py:6, fcos.py, nasfcos.py).
 
-Backbone, neck and one dense head whose outputs go to its ``loss`` and
-``get_bboxes`` as they come. The ``state_dict`` uses mmdet's key names
-(``backbone.``, ``neck.``, ``bbox_head.``), so a released ``.pth`` loads
-as it is.
+Backbone, neck (one, or a list chained in order, as the JAX package
+chains them) and one dense head whose outputs go to its ``loss``
+and ``get_bboxes`` as they come. The ``state_dict`` uses mmdet's key
+names (``backbone.``, ``neck.``, a list's ``neck.{i}.``, ``bbox_head.``),
+so a released ``.pth`` loads as it is.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from ...registries import DETECTORS
 @DETECTORS.register_module()
 class SingleStageDetector(nn.Module):
 
-    def __init__(self, backbone: dict, neck: dict, bbox_head: dict,
+    def __init__(self, backbone: dict, neck, bbox_head: dict,
                  test_cfg: dict, train_cfg: Optional[dict] = None,
                  pretrained: Optional[str] = None, dtype=torch.float32):
         super().__init__()
@@ -37,7 +39,9 @@ class SingleStageDetector(nn.Module):
             return out
 
         self.backbone = build_backbone(with_dtype(backbone))
-        self.neck = build_neck(with_dtype(neck))
+        self.neck = nn.ModuleList([build_neck(with_dtype(n)) for n in neck]) \
+            if isinstance(neck, (list, tuple)) else build_neck(
+                with_dtype(neck))
         self.bbox_head = build_head(with_dtype(dict(
             bbox_head, train_cfg=train_cfg, test_cfg=test_cfg)))
         self.test_cfg = test_cfg
@@ -46,14 +50,22 @@ class SingleStageDetector(nn.Module):
     def init_weights(self, seed: int = 0) -> None:
         """Seeded random weights with the JAX package's init schemes."""
         gen = torch.Generator().manual_seed(seed)
-        for part in (self.backbone, self.neck, self.bbox_head):
+        for part in (self.backbone, *self._necks(), self.bbox_head):
             part.init_weights(gen)
+
+    def _necks(self):
+        return list(self.neck) if isinstance(self.neck, nn.ModuleList) \
+            else [self.neck]
 
     def extract_feat(self, img: torch.Tensor,
                      gen: Optional[torch.Generator] = None):
-        """img (B, H, W, 3) NHWC -> FPN levels (B, H_l, W_l, C); ``gen``
-        draws the backbone's stochastic depth in training mode."""
-        return self.neck(self.backbone(img, gen))
+        """img (B, H, W, 3) NHWC -> FPN levels (B, H_l, W_l, C), each neck
+        of a list taking the last one's levels; ``gen`` draws the
+        backbone's stochastic depth in training mode."""
+        x = self.backbone(img, gen)
+        for neck in self._necks():
+            x = neck(x)
+        return x
 
     def forward_train(self, img: torch.Tensor, img_shapes: torch.Tensor,
                       pad_shapes: torch.Tensor, gt_bboxes: torch.Tensor,
@@ -103,3 +115,21 @@ class RetinaNet(SingleStageDetector):
 class RepPointsDetector(SingleStageDetector):
     """(reference reppoints_detector.py:6): the head's three outputs go
     to its loss and get_bboxes as they come."""
+
+
+@DETECTORS.register_module()
+class FCOS(SingleStageDetector):
+    """(reference fcos.py): the head's three outputs (classes, box
+    distances, centerness), its training branch in ``forward_train``."""
+
+    def forward_train(self, img, img_shapes, pad_shapes, gt_bboxes,
+                      gt_valid, gt_labels, gt_masks=None, gen=None,
+                      sampler_keys=None):
+        outs = self.bbox_head(self.extract_feat(img, gen), train=True)
+        return self.bbox_head.loss(*outs, gt_bboxes, gt_valid, gt_labels,
+                                   img_shapes, pad_shapes)
+
+
+@DETECTORS.register_module()
+class NASFCOS(FCOS):
+    """(reference nasfcos.py): FCOS with the searched neck and head."""

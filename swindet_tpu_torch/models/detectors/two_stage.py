@@ -2,11 +2,15 @@
 ``swindet_tpu/models/detectors/two_stage.py``: ``forward_train`` :92,
 ``simple_test`` :127, the per-augmentation halves ``aug_rpn_test``,
 ``aug_bbox_test`` and ``aug_mask_test`` :144-162, ``CascadeRCNN`` :166,
-``MaskRCNN`` :171, ``FasterRCNN`` :175; reference
-mmdet/models/detectors/two_stage.py:10).
+``MaskRCNN`` :171, ``FasterRCNN`` :175, ``FastRCNN`` :208; reference
+mmdet/models/detectors/two_stage.py:10, fast_rcnn.py:6).
 
 The ``state_dict`` uses mmdet's key names (``backbone.``, ``neck.``,
 ``rpn_head.``, ``roi_head.``), so a released ``.pth`` loads as it is.
+A list of necks is refused: the JAX ``TwoStageDetector`` builds one
+(``two_stage.py:41-47``) but calls the list whole in ``extract_feat``
+(:73-75), which raises there (TypeError: 'tuple' object is not
+callable).
 """
 from __future__ import annotations
 
@@ -23,8 +27,9 @@ from ...registries import DETECTORS
 @DETECTORS.register_module()
 class TwoStageDetector(nn.Module):
 
-    def __init__(self, backbone: dict, rpn_head: dict, roi_head: dict,
-                 test_cfg: dict, neck: Optional[dict] = None,
+    def __init__(self, backbone: dict, roi_head: dict, test_cfg: dict,
+                 rpn_head: Optional[dict] = None,
+                 neck: Optional[dict] = None,
                  train_cfg: Optional[dict] = None,
                  pretrained: Optional[str] = None, dtype=torch.float32):
         super().__init__()
@@ -36,13 +41,17 @@ class TwoStageDetector(nn.Module):
             out.setdefault('dtype', dtype)
             return out
 
+        if isinstance(neck, (list, tuple)):
+            raise TypeError(f'{type(self).__name__}: a list of necks, which '
+                            f'the JAX two-stage detector cannot run either')
         self.backbone = build_backbone(with_dtype(backbone))
         # the C4 and DC5 configs feed the backbone's one map as it is
         self.neck = None if neck is None else build_neck(with_dtype(neck))
         train_cfg = dict(train_cfg) if train_cfg else {}
-        self.rpn_head = build_head(with_dtype(dict(
-            rpn_head, test_cfg=dict(test_cfg)['rpn'],
-            train_cfg=train_cfg.get('rpn'))))
+        # Fast R-CNN has no RPN: its proposals are handed in
+        self.rpn_head = None if rpn_head is None else build_head(with_dtype(
+            dict(rpn_head, test_cfg=dict(test_cfg)['rpn'],
+                 train_cfg=train_cfg.get('rpn'))))
         self.roi_head = build_head(with_dtype(dict(
             roi_head, test_cfg=dict(test_cfg)['rcnn'],
             train_cfg=train_cfg.get('rcnn'))))
@@ -150,3 +159,32 @@ class MaskRCNN(TwoStageDetector):
 @DETECTORS.register_module()
 class FasterRCNN(TwoStageDetector):
     """(reference faster_rcnn.py): a bbox-only ``StandardRoIHead``."""
+
+
+@DETECTORS.register_module()
+class FastRCNN(TwoStageDetector):
+    """(reference fast_rcnn.py:6): a two-stage detector without an RPN,
+    driven by proposals handed in (B, P, 4) with their validity (B, P):
+    static proposal slots, the padding masked by ``prop_valid``."""
+
+    def forward_train(self, img, img_shapes, pad_shapes, gt_bboxes,
+                      gt_valid, gt_labels, proposals, prop_valid,
+                      gt_masks=None, gen: Optional[torch.Generator] = None,
+                      sampler_keys: Optional[Dict[str, Sequence]] = None
+                      ) -> Dict[str, torch.Tensor]:
+        """The RoI head's losses on ``proposals``, in the JAX package's
+        argument order; ``sampler_keys['rcnn']`` gives the sampler's keys
+        per image (its G + P candidates: the gts, added as proposals
+        first, then the proposals)."""
+        feats = self.extract_feat(img, gen)
+        return dict(self.roi_head.forward_train(
+            feats, proposals, prop_valid, gt_bboxes, gt_valid, gt_labels,
+            gt_masks, gen, (sampler_keys or {}).get('rcnn'),
+            img_shapes=img_shapes))
+
+    def simple_test(self, img, img_shapes, scale_factors, proposals,
+                    prop_valid, rescale: bool = True):
+        """Padded dets / labels / det_valid (+ mask_probs) per image."""
+        return self.roi_head.simple_test(self.extract_feat(img), proposals,
+                                         prop_valid, img_shapes,
+                                         scale_factors, rescale=rescale)

@@ -293,11 +293,13 @@ def build_conv(conv_cfg: Optional[dict], in_channels: int,
 class ConvModule(nn.Module):
     """conv (+ norm) (+ ReLU) over NHWC with an mmcv ``ConvModule``
     state_dict (``conv.weight`` OIHW, ``conv.bias``, the norm under its
-    mmcv name, ``bn`` or ``gn``). A normed conv has no bias (mmcv's
-    bias='auto'). The order is conv -> norm (fp32) -> cast to ``dtype`` ->
-    ReLU, as swindet_tpu/models/layers.py:336-348. ``conv_cfg`` picks the
-    conv (:func:`build_conv`): weight-standardised or deformable
-    (``ModulatedDeformConvPack``, its offsets under ``conv.conv_offset``).
+    mmcv name, ``bn`` or ``gn``). ``bias`` 'auto' (mmcv's default) gives
+    a conv a bias where it has no norm; True or False sets it (FCOS's
+    ``conv_bias=True`` before a GN). The order is conv -> norm (fp32) ->
+    cast to ``dtype`` -> ReLU, as swindet_tpu/models/layers.py:336-348.
+    ``conv_cfg`` picks the conv (:func:`build_conv`): weight-standardised
+    or deformable (``ModulatedDeformConvPack``, its offsets under
+    ``conv.conv_offset``).
 
     A plain 3x3 / stride 1 / padding 1 conv with bias, no norm and no or
     ReLU activation, whose channel counts are multiples of 128, goes
@@ -312,12 +314,13 @@ class ConvModule(nn.Module):
                  kernel_size: int = 3, stride: int = 1, padding: int = 0,
                  conv_cfg: Optional[dict] = None,
                  norm_cfg: Optional[dict] = None,
-                 act_cfg: Optional[dict] = None, dtype=torch.float32):
+                 act_cfg: Optional[dict] = None, bias='auto',
+                 dtype=torch.float32):
         super().__init__()
         act = (act_cfg or {}).get('type')
         if act not in (None, 'ReLU'):
             raise NotImplementedError(f'ConvModule: activation {act}')
-        use_bias = norm_cfg is None
+        use_bias = norm_cfg is None if bias == 'auto' else bool(bias)
         self.conv = build_conv(conv_cfg, in_channels, out_channels,
                                kernel_size, stride=stride, padding=padding,
                                bias=use_bias, dtype=dtype)

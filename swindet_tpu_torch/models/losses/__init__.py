@@ -1,2 +1,3 @@
 from .losses import (CrossEntropyLoss, FocalLoss, GIoULoss,  # noqa: F401
-                     L1Loss, SmoothL1Loss, accuracy, weight_reduce_loss)
+                     IoULoss, L1Loss, SmoothL1Loss, accuracy,
+                     weight_reduce_loss)

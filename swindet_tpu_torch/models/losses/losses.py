@@ -2,7 +2,8 @@
 tensor ``avg_factor``s (counterpart of
 ``swindet_tpu/models/losses/losses.py``: ``weight_reduce_loss`` :20,
 ``CrossEntropyLoss`` :47, ``FocalLoss`` :94, ``L1Loss`` :126,
-``SmoothL1Loss`` :141, ``GIoULoss`` :190, ``accuracy`` :280; reference
+``SmoothL1Loss`` :141, ``IoULoss`` :160, ``GIoULoss`` :190, ``accuracy``
+:280; reference
 mmdet/models/losses/cross_entropy_loss.py, focal_loss.py, smooth_l1_loss.py,
 iou_loss.py). Padded entries carry weight 0."""
 from __future__ import annotations
@@ -12,7 +13,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ...core.bbox.iou import bbox_overlaps
+from ...core.bbox.iou import bbox_overlaps, clamp_min
 from ...registries import LOSSES
 
 
@@ -156,6 +157,41 @@ class SmoothL1Loss:
         b = self.beta
         diff = (pred.float() - target.float()).abs()
         loss = torch.where(diff < b, 0.5 * diff * diff / b, diff - 0.5 * b)
+        return self.loss_weight * weight_reduce_loss(loss, weight, reduction,
+                                                     avg_factor)
+
+
+@LOSSES.register_module()
+class IoULoss:
+    """IoU loss of aligned (N, 4) boxes, the IoU clipped at ``eps`` from
+    below: -log(IoU) (mode 'log'), 1 - IoU ('linear', or ``linear``
+    True) or 1 - IoU^2 ('square'); an (N, 4) weight is averaged over its
+    last axis (FCOS's box loss)."""
+
+    def __init__(self, linear: bool = False, mode: str = 'log',
+                 eps: float = 1e-6, reduction: str = 'mean',
+                 loss_weight: float = 1.0):
+        mode = 'linear' if linear else mode
+        if mode not in ('log', 'linear', 'square'):
+            raise ValueError(f'IoULoss: mode {mode}')
+        self.mode = mode
+        self.eps = eps
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, target, weight=None, avg_factor=None,
+                 reduction_override=None):
+        reduction = reduction_override or self.reduction
+        ious = clamp_min(bbox_overlaps(pred.float(), target.float(),
+                                       is_aligned=True), self.eps)
+        if self.mode == 'linear':
+            loss = 1 - ious
+        elif self.mode == 'square':
+            loss = 1 - ious ** 2
+        else:
+            loss = -torch.log(ious)
+        if weight is not None and weight.ndim == loss.ndim + 1:
+            weight = weight.mean(-1)
         return self.loss_weight * weight_reduce_loss(loss, weight, reduction,
                                                      avg_factor)
 

@@ -1,1 +1,1 @@
-from . import fpn, hrfpn  # noqa: F401
+from . import fpn, hrfpn, nasfcos_fpn  # noqa: F401

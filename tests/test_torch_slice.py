@@ -127,7 +127,11 @@ def test_port_imports_without_jax_flax_cv2():
         "             'swindet_tpu_torch.models.dense_heads.anchor_head',\n"
         "             'swindet_tpu_torch.models.dense_heads.retina_head',\n"
         "             'swindet_tpu_torch.ops.deform_roi_pool',\n"
-        "             'swindet_tpu_torch.models.roi_heads.shared_heads'):\n"
+        "             'swindet_tpu_torch.models.roi_heads.shared_heads',\n"
+        "             'swindet_tpu_torch.models.detectors.rpn',\n"
+        "             'swindet_tpu_torch.models.dense_heads.fcos_head',\n"
+        "             'swindet_tpu_torch.models.dense_heads.nasfcos_head',\n"
+        "             'swindet_tpu_torch.models.necks.nasfcos_fpn'):\n"
         "    assert name in names, name\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in banned\n"
         "       and sys.modules[m] is not None]\n"
