@@ -318,6 +318,18 @@ before the last line:
               checks with bf16 controls; the FPN RPN through
               train_detector and tools.test --eval proposal from files
               (AR@100/300/1000).
+18. atss  -- the ATSS line from its configs, bf16 set on top: ATSS R-50
+              (atss), GFL R-50 (gfl) and VFNet R-50 (vfnet: its plain
+              deformable star convs); each as a phase-17 FCOS config: a
+              warm-up and 2 requests at 800x1333 (the class bias shifted
+              so that 4,096 pairs clear score_thr), its fp32 serving
+              check with a bf16 control (ATSS' centerness zeroed), 1 + 3
+              training steps at batch 2 on 800x1344, launches checked,
+              BN buffers unmoved, a profiled step, VFNet's deformable
+              convs' ms; GFL's and VFNet's fp32 training checks with bf16
+              controls. Their GN towers run F.conv2d: the FPN's output
+              convs, the NMS and in training the filter gradients launch
+              the kernels.
 
 Each phase's wall time is logged under [time].
 
@@ -334,7 +346,9 @@ phase 13's as ``reppoints_serve_launches`` and
 ``retina_train_launches``, phase 15's and 16's as
 ``<config>_serve_launches`` and, for the four of each that train,
 ``<config>_train_launches``, phase 17's as ``dense_<config>_serve_launches``
-and ``dense_<config>_train_launches``; for the conv,
+and ``dense_<config>_train_launches``, phase 18's as
+``atss_<config>_serve_launches`` and ``atss_<config>_train_launches``; for
+the conv,
 fused-MLP and v1, v3,
 v4 and full-map attention rows also ``tc_launches``, counted the same
 way; ``shapes``, the bf16 readings at every main-path shape, for those,
@@ -5508,7 +5522,7 @@ def dense_launches(model, training):
     aligns = 0
     if hasattr(model, 'bbox_head'):
         head = model.bbox_head
-        convs += len(head.strides) * sum(
+        convs += len(_head_strides(head)) * sum(
             c.use_kernel for c in (*head.cls_convs, *head.reg_convs))
     elif model.rpn_head is not None:
         head = model.rpn_head
@@ -5524,6 +5538,18 @@ def dense_launches(model, training):
     return want
 
 
+def _head_strides(head):
+    """A dense head's level strides: an FCOS-style head's own, an anchor
+    head's its anchor generator's."""
+    return getattr(head, 'strides', None) or head.prior_generator.strides
+
+
+def _dense_phase(name):
+    """The log prefix of a phase-17 ('dense') or phase-18 ('atss')
+    config."""
+    return 'atss' if name in ATSS_CONFIGS else 'dense'
+
+
 def _launched(per, kernels):
     """The wrappers of ``kernels`` that the derived launches ``per``
     expect to run."""
@@ -5531,7 +5557,8 @@ def _launched(per, kernels):
 
 
 def _dense_model(name, device='cuda', seed=0, opts=RESNET_BF16):
-    return init_detector(DENSE_CONFIGS[name], device=device, seed=seed,
+    return init_detector({**DENSE_CONFIGS, **ATSS_CONFIGS}[name],
+                         device=device, seed=seed,
                          cfg_options=dict(opts))
 
 
@@ -5549,12 +5576,27 @@ def _check_proposals(res, h, w, max_n):
     return len(dets)
 
 
+def _cls_conv(head):
+    """A dense head's class output conv (FCOS', ATSS', GFL's, VFNet's)."""
+    for name in ('conv_cls', 'atss_cls', 'gfl_cls', 'vfnet_cls'):
+        if hasattr(head, name):
+            return getattr(head, name)
+    raise AttributeError(f'{type(head).__name__}: no class output')
+
+
+def _cness_conv(head):
+    """A dense head's centerness output conv (FCOS', ATSS'), or None."""
+    return getattr(head, 'conv_centerness',
+                   getattr(head, 'atss_centerness', None))
+
+
 def _shift_cls_bias(model, img, phase):
-    """Shift an FCOS head's class bias so that REPPOINTS_PAIRS (point,
-    class) pairs of ``img``'s candidates clear score_thr by score times
-    centerness (the multiclass NMS's cap full): seeded weights score every
-    pair at the 0.01 prior times ~0.5, under score_thr."""
-    head = model.bbox_head
+    """Shift a dense head's class bias so that REPPOINTS_PAIRS (point,
+    class) pairs of ``img``'s candidates clear score_thr by their score
+    (times centerness, where the head has one: FCOS, ATSS), the multiclass
+    NMS's cap full: seeded weights score every pair at the 0.01 prior
+    (times ~0.5), under score_thr."""
+    conv = _cls_conv(model.bbox_head)
     thr = dict(model.test_cfg)['score_thr']
 
     def candidates():
@@ -5566,19 +5608,21 @@ def _shift_cls_bias(model, img, phase):
                 torch.from_numpy(batch['img']).to(dev),
                 torch.from_numpy(batch['img_shapes']).to(dev))
         z = torch.logit(scores[0, :, :-1].double())
-        # the logit each pair must pass: thr over its centerness
+        # the logit each pair must pass: thr's, or thr over its centerness
+        if cness is None:
+            return z, torch.full_like(z[:, :1], float(np.log(thr / (1 - thr))))
         need = torch.logit((thr / cness[0].double()).clamp(max=1 - 1e-9))
         return z, need[:, None]
     z, need = candidates()
     shift = torch.kthvalue((need - z).flatten(),
                            REPPOINTS_PAIRS).values.item() + 1e-3
     with torch.no_grad():
-        head.conv_cls.bias.add_(shift)
+        conv.bias.add_(shift)
     z, need = candidates()
     pairs = int((z > need).sum())
-    log(phase, f'conv_cls bias shifted by {shift:.4f}: {pairs} of '
+    log(phase, f'class bias shifted by {shift:.4f}: {pairs} of '
                f'{z.numel()} candidate pairs of the warm-up request clear '
-               f'score_thr {thr} by score times centerness')
+               f'score_thr {thr} by score (times centerness)')
     if pairs < REPPOINTS_PAIRS // 2:
         raise AssertionError(f'{pairs} pairs clear score_thr: the NMS cap '
                              f'of {REPPOINTS_PAIRS // 2} is not full')
@@ -5635,7 +5679,7 @@ def dense_serve(name):
     requests): a warm-up, then DENSE_REQUESTS
     requests at 800x1333 with every launch count checked; an FCOS head's
     class bias shifted first so that its NMS cap is full."""
-    phase = f'dense-{name}'
+    phase = f'{_dense_phase(name)}-{name}'
     t0 = time.perf_counter()
     model = _dense_model(name)
     per = dense_launches(model, training=False)
@@ -5688,25 +5732,27 @@ def dense_serve(name):
 
 
 def _fcos_check_heads(model, img, phase):
-    """An FCOS head's centerness output set to 0 (a factor of 0.5 on every
-    score, a constant, so that the top-k and the NMS rank the class
-    logits alone) and its class logits to N(-14, 4^2) with every decision
-    of get_bboxes at least 2e-4 in logits from its boundary
-    (_set_class_logits at score_thr's double: the score is the class
+    """A dense head's centerness output (FCOS', ATSS') set to 0 (a factor of
+    0.5 on every score, a constant, so that the top-k and the NMS rank the
+    class logits alone) and its class logits to N(-14, 4^2) with every
+    decision of get_bboxes at least 2e-4 in logits from its boundary
+    (_set_class_logits, at score_thr's double where the score is the class
     score times 0.5)."""
     head = model.bbox_head
-    with torch.no_grad():
-        head.conv_centerness.weight.zero_()
-        head.conv_centerness.bias.zero_()
+    cness = _cness_conv(head)
     cfg = model.test_cfg
-    model.test_cfg = dict(cfg, score_thr=2 * cfg['score_thr'])
+    if cness is not None:
+        with torch.no_grad():
+            cness.weight.zero_()
+            cness.bias.zero_()
+        model.test_cfg = dict(cfg, score_thr=2 * cfg['score_thr'])
     try:
         scale, bias, margins = _set_class_logits(
-            model, torch.from_numpy(img), conv=head.conv_cls,
+            model, torch.from_numpy(img), conv=_cls_conv(head),
             candidates=False)
     finally:
         model.test_cfg = cfg
-    log(phase, f'conv_cls weight x{scale:.4g}, bias {bias:.4g}: '
+    log(phase, f'class output weight x{scale:.4g}, bias {bias:.4g}: '
                f'{margins[3]} candidate pairs clear score_thr; in logits, '
                f'the nearest to its {margins[0]:.3g} away, the smallest gap '
                f'at a level\'s top-k cut {margins[1]}, at the 2048-pair cap '
@@ -5729,7 +5775,7 @@ def dense_check(name, device='cuda', control=True):
     R-CNN, fc_cls spread, on the CPU's fp32 FPN RPN's proposals on both
     sides) or 1e-4 (FCOS and NAS-FCOS, _fcos_check_heads); features
     within 1e-3 of their largest entry."""
-    phase = f'dense-{name}-check'
+    phase = f'{_dense_phase(name)}-{name}-check'
     cpu = _dense_model(name, device='cpu', seed=1, opts={'bf16': False})
     img, shapes, sf = _zoo_check_inputs()
     extra = ()
@@ -5845,8 +5891,8 @@ def dense_train(name):
     Each step's launches checked, the frozen BN buffers unmoved, a
     profiled step (busy share), and for NAS-FCOS the plain deformable
     convs' ms."""
-    phase = f'dense-{name}-train'
-    cfg = Config.fromfile(DENSE_CONFIGS[name])
+    phase = f'{_dense_phase(name)}-{name}-train'
+    cfg = Config.fromfile({**DENSE_CONFIGS, **ATSS_CONFIGS}[name])
     cfg.merge_from_dict(RESNET_BF16)
     model = _dense_model(name)
     opt = build_optimizer(model, dict(cfg.optimizer))
@@ -5902,8 +5948,13 @@ def dense_train(name):
                  f'tensor-core {_nonzero(tc)}; {CARD}')
     busy = _profile_steps(step, batch, gen, float(np.median(times)), phase,
                           n=1)
-    deform_ms = _deform_ops_ms(model, batch, phase)[0] \
-        if name == 'nasfcos' else 0.0
+    deform_ms = 0.0
+    if name == 'nasfcos':
+        deform_ms = _deform_ops_ms(model, batch, phase)[0]
+    elif name == 'vfnet':
+        from swindet_tpu_torch.ops.deform_conv import DeformConv2d
+        deform_ms = _module_ms(model, batch, phase, 'deformable convs',
+                               (DeformConv2d,))[0]
     return dict(train=launches, times=times, train_peak=peak, busy=busy,
                 deform_ms=deform_ms)
 
@@ -5926,15 +5977,16 @@ def _dense_train_grads(model, batch, dev, names, keys=None):
 
 
 def dense_train_check(name, device='cuda'):
-    """Phase 7's check on the RPN and FCOS: forward_train in fp32 on phase
-    7's 224x320 batch, the card (kernels, no tensor-core launch) against
-    the CPU (plain versions), same seeded weights, batch and (the RPN's)
-    sampler keys: the losses at TOL_TRAIN_LOSS, the gradients of
-    DENSE_TRAIN_GRADS at RESNET_GRAD_LIMIT (DENSE_DEEP_GRADS) or phase 7's
+    """Phase 7's check on the RPN and FCOS (and phase 18's GFL and VFNet):
+    forward_train in fp32 on phase 7's 224x320 batch, the card (kernels,
+    no tensor-core launch) against the CPU (plain versions), same seeded
+    weights, batch and (the RPN's) sampler keys: the losses at
+    TOL_TRAIN_LOSS, the gradients of DENSE_TRAIN_GRADS (ATSS_TRAIN_GRADS)
+    at RESNET_GRAD_LIMIT (DENSE_DEEP_GRADS, ATSS_DEEP_GRADS) or phase 7's
     RPN-group limit; a bf16 control on the card must exceed a loss limit
     and a gradient limit."""
-    phase = f'dense-{name}-train-check'
-    names = DENSE_TRAIN_GRADS[name]
+    phase = f'{_dense_phase(name)}-{name}-train-check'
+    names = {**DENSE_TRAIN_GRADS, **ATSS_TRAIN_GRADS}[name]
     cpu = _dense_model(name, device='cpu', seed=1, opts={'bf16': False})
     batch = train_check_batch()
     keys = None
@@ -5971,11 +6023,12 @@ def dense_train_check(name, device='cuda'):
         log(phase, '  grad |d| / max: ' + ', '.join(
             f'{n} {v:.3g}' for n, v in grad.items()))
 
+    deep = ATSS_DEEP_GRADS if name in ATSS_CONFIGS else DENSE_DEEP_GRADS
+
     def over(errs):
         return [k for k, v in errs[0].items() if not v <= TOL_TRAIN_LOSS] \
             + [n for n, v in errs[1].items() if not v <= (
-                RESNET_GRAD_LIMIT if n in DENSE_DEEP_GRADS
-                else TOL_TRAIN_GRAD['rpn'])]
+                RESNET_GRAD_LIMIT if n in deep else TOL_TRAIN_GRAD['rpn'])]
     if over(sound):
         raise AssertionError(f'{name}: card vs CPU over the limits: '
                              f'{over(sound)}')
@@ -6069,6 +6122,78 @@ def phase_dense():
     return out, seconds
 
 
+# ------------------------------------------------------------ phase 18
+ATSS_CONFIGS = {
+    'atss': 'configs/atss/atss_r50_fpn_1x_coco.py',
+    'gfl': 'configs/gfl/gfl_r50_fpn_1x_coco.py',
+    'vfnet': 'configs/vfnet/vfnet_r50_fpn_1x_coco.py',
+}
+ATSS_CONFIGS = {k: os.path.join(REPO, v) for k, v in ATSS_CONFIGS.items()}
+# the gradients GFL's and VFNet's fp32 training checks hold, at phase 17's
+# limits (ATSS_DEEP_GRADS at RESNET_GRAD_LIMIT)
+ATSS_TRAIN_GRADS = {
+    'gfl': RESNET_BACKBONE_GRADS + (
+        'neck.fpn_convs.0.conv.weight', 'neck.fpn_convs.2.conv.weight',
+        'bbox_head.cls_convs.0.conv.weight',
+        'bbox_head.reg_convs.3.conv.weight', 'bbox_head.gfl_cls.weight',
+        'bbox_head.gfl_reg.weight', 'bbox_head.scales.0.scale'),
+    'vfnet': RESNET_BACKBONE_GRADS + (
+        'neck.fpn_convs.0.conv.weight', 'neck.fpn_convs.2.conv.weight',
+        'bbox_head.cls_convs.0.conv.weight',
+        'bbox_head.reg_convs.2.conv.weight',
+        'bbox_head.vfnet_reg_conv.conv.weight', 'bbox_head.vfnet_reg.weight',
+        'bbox_head.vfnet_reg_refine_dconv.weight',
+        'bbox_head.vfnet_reg_refine.weight',
+        'bbox_head.vfnet_cls_dconv.weight', 'bbox_head.vfnet_cls.weight',
+        'bbox_head.scales.0.scale', 'bbox_head.scales_refine.0.scale'),
+}
+# the convs whose gradients come through the heads' GN + ReLU towers
+# (the FPN's last output conv, on which the extra levels build too, and
+# VFNet's last regression tower conv) move by more than 1e-4 of their
+# largest entry under 1e-7 input noise on the CPU alone, as the ResNet's
+# and the first tower conv's do: they are held at RESNET_GRAD_LIMIT
+ATSS_DEEP_GRADS = DENSE_DEEP_GRADS + ('neck.fpn_convs.2.conv.weight',
+                                      'bbox_head.reg_convs.2.conv.weight')
+
+
+def phase_atss():
+    """Phase 18: the three configs serving with their fp32 serving checks
+    and training, GFL's and VFNet's fp32 training checks. Returns each
+    config's results and the phase's seconds."""
+    start = last = time.perf_counter()
+    laps = []
+
+    def lap(what):
+        nonlocal last
+        now = time.perf_counter()
+        laps.append(f'{what} {now - last:.1f} s')
+        log('time', f'atss (phase 18): {laps[-1]}')
+        last = now
+    out = {}
+    for name in ATSS_CONFIGS:
+        serve, lat, peak, counts = dense_serve(name)
+        lap(f'{name} serving')
+        dense_check(name)
+        lap(f'{name} serving check')
+        out[name] = dict(serve=serve, lat=lat, peak=peak, counts=counts,
+                         **dense_train(name))
+        lap(f'{name} training')
+        # the FPN's output convs and the NMS in serving, the convs and
+        # their filter gradients in training
+        for key, kernels in (('serve', (conv3x3, nms_sorted)),
+                             ('train', (conv3x3, conv3x3_dw))):
+            idle = [fn.__name__ for fn in kernels
+                    if not out[name][key][fn.__name__]]
+            if idle:
+                raise AssertionError(f'{name}: no {key} launch of {idle}')
+        if name in ATSS_TRAIN_GRADS:
+            dense_train_check(name)
+            lap(f'{name} training check')
+    seconds = time.perf_counter() - start
+    log('time', 'atss (phase 18): ' + ', '.join(laps) + f'; {seconds:.1f} s')
+    return out, seconds
+
+
 # phase 3's further readings of a kernel's main row that the JSON line
 # carries: the kernel's own device ms (rows 1, 14 and 15), row 14's
 # head-major copy, row 1's first kernel off the vector path, row 15's
@@ -6118,6 +6243,8 @@ def main() -> int:
     lap('phase 16')
     dense, phase17_s = phase_dense()
     lap('phase 17')
+    atss, phase18_s = phase_atss()
+    lap('phase 18')
     for what, key, fmt in (('request latency (s)', 'lat', '.4f'),
                            ('training step (ms)', 'times', '.1f')):
         log('configs', f'{what}, median of the timed runs: ' + ', '.join(
@@ -6181,6 +6308,16 @@ def main() -> int:
                            f'ms a step' if r['deform_ms'] else ''))
                      + f'; {smi}')
     log('dense', f'phase 17 {phase17_s:.1f} s')
+    for name, r in atss.items():
+        log('atss', f'{name}: request ms median '
+                    f'{np.median(r["lat"]) * 1e3:.1f}, serving peak '
+                    f'{r["peak"] / 2 ** 30:.2f} GiB, training step median '
+                    f'{np.median(r["times"]):.1f} ms, peak '
+                    f'{r["train_peak"] / 2 ** 30:.2f} GiB, busy '
+                    f'{r["busy"]:.3f}'
+                    + (f', plain deformable convs {r["deform_ms"]:.2f} ms '
+                       f'a step' if r['deform_ms'] else '') + f'; {smi}')
+    log('atss', f'phase 18 {phase18_s:.1f} s')
     rows = []
     for fn in KERNEL_WRAPPERS:
         name = fn.__name__
@@ -6220,6 +6357,10 @@ def main() -> int:
             counts[f'dense_{which}_serve_launches'] = r['serve'][name]
             if 'train' in r:
                 counts[f'dense_{which}_train_launches'] = r['train'][name]
+        # phase 18's ATSS line: 2 requests and 3 steps each
+        for which, r in atss.items():
+            counts[f'atss_{which}_serve_launches'] = r['serve'][name]
+            counts[f'atss_{which}_train_launches'] = r['train'][name]
         if tc:
             tc = dict(tc_launches=sum(tc.values()), **tc)
         if 'shapes' in main_row:

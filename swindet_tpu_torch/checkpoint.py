@@ -238,9 +238,11 @@ def state_dict_from_jax(params: Dict, batch_stats: Optional[Dict] = None,
     - HRFPN's bare ``reduction_conv`` and ``fpn_convs{i}`` -> mmdet's
       ConvModule names ``reduction_conv.conv`` and ``fpn_convs.{i}.conv``;
     - a list of necks ``_neck{i}`` -> ``neck.{i}``;
-    - a dense head's per-level ``scales`` vector (L,) -> mmcv's ``Scale``
-      modules ``scales.{i}.scale``, each of shape () (the inverse of
-      ``swindet_tpu/checkpoint.py:405-408``);
+    - a dense head's per-level ``scales`` vector (L,) (and VFNet's
+      ``scales_refine``) -> mmcv's ``Scale`` modules ``scales.{i}.scale``,
+      each of shape () (the inverse of ``swindet_tpu/checkpoint.py:405-414``);
+    - a GFL head gains mmdet's ``integral.project`` buffer, the bins
+      0..reg_max, which the JAX converter skips (:560);
     - NASFCOS_FPN's ``adapt_convs{i}.conv`` / ``.bn`` ->
       ``adapt_convs.{i}.conv`` / ``.bn``, ``extra_downsamples{i}`` ->
       ``extra_downsamples.{i}.conv``, and a ConcatCell's ``out_norm`` /
@@ -257,7 +259,7 @@ def state_dict_from_jax(params: Dict, batch_stats: Optional[Dict] = None,
                 torch.tensor(0, dtype=torch.long)
     for path, leaf in _flatten(params).items():
         a = np.asarray(leaf)
-        if path[-1] == 'scales' and a.ndim == 1:
+        if path[-1] in ('scales', 'scales_refine') and a.ndim == 1:
             prefix = flax_path_to_torch_key(path, resnet_gn)
             for i, v in enumerate(np.array(a, np.float32)):
                 sd[f'{prefix}.{i}.scale'] = torch.tensor(v)
@@ -280,6 +282,13 @@ def state_dict_from_jax(params: Dict, batch_stats: Optional[Dict] = None,
                     .transpose(0, 3, 1, 2).reshape(out_dim, in_dim)
         sd[flax_path_to_torch_key(path, resnet_gn)] = torch.from_numpy(
             np.ascontiguousarray(a))
+        if path[-2:] == ('gfl_reg', 'bias'):
+            # mmdet's Integral buffer of the bins 0..reg_max, which the JAX
+            # package rebuilds at trace time
+            n = a.shape[0] // 4
+            sd[flax_path_to_torch_key(path[:-2] + ('integral', 'project'),
+                                      resnet_gn)] = torch.linspace(0, n - 1,
+                                                                   n)
     return sd
 
 

@@ -169,3 +169,105 @@ class PointAssigner:
         return AssignResult(gt_inds=gt_inds,
                             max_overlaps=(gt_inds > 0).to(points.dtype),
                             labels=labels.to(torch.int32))
+
+
+def smallest_k(d: torch.Tensor, k: int) -> torch.Tensor:
+    """The indices (G, k) of each row's ``k`` smallest entries of ``d``
+    (G, N), ascending, the lower index first among equal entries: the
+    order of ``jax.lax.top_k(-d, k)``. ``torch.topk`` leaves the order of
+    ties unspecified, and on an anchor grid symmetric anchors sit at equal
+    distance from a gt's centre, so it would pick other candidates."""
+    return torch.sort(d, dim=1, stable=True).indices[:, :k]
+
+
+@BBOX_ASSIGNERS.register_module()
+class ATSSAssigner:
+    """Adaptive Training Sample Selection over the full, level-concatenated
+    anchor set. Each gt takes as candidates the ``topk`` anchors of each
+    level whose centres lie closest to its centre (anchors outside
+    ``bbox_valid`` or in an ignore region at +INF distance, and not
+    candidates); its IoU threshold is the candidates' mean IoU plus their
+    standard deviation (Bessel's, over the valid candidates); a candidate
+    over the threshold whose centre lies inside the gt is positive. An
+    anchor claimed by several gts takes the one of largest IoU, the first
+    on a tie (``jnp.argmax``)."""
+
+    INF = 1e8
+
+    def __init__(self, topk: int, ignore_iof_thr: float = -1, **kwargs):
+        self.topk = int(topk)
+        self.ignore_iof_thr = ignore_iof_thr
+
+    def assign(self, bboxes: torch.Tensor, num_level_bboxes,
+               gt_bboxes: torch.Tensor, gt_valid: torch.Tensor,
+               gt_labels: Optional[torch.Tensor] = None,
+               bbox_valid: Optional[torch.Tensor] = None,
+               gt_bboxes_ignore: Optional[torch.Tensor] = None,
+               gt_ignore_valid: Optional[torch.Tensor] = None
+               ) -> AssignResult:
+        """bboxes (N, 4) concatenated over the levels of
+        ``num_level_bboxes`` anchors each, gt_bboxes (G, 4) padded with
+        gt_valid (G,), gt_labels (G,) or None, bbox_valid (N,) (the inside
+        flags) or None; ignore regions (I, 4) with their validity (I,)
+        take part where ``ignore_iof_thr`` > 0."""
+        n, g = bboxes.shape[0], gt_bboxes.shape[0]
+        dev = bboxes.device
+        if bbox_valid is None:
+            bbox_valid = torch.ones((n,), dtype=torch.bool, device=dev)
+        overlaps = bbox_overlaps(bboxes, gt_bboxes)                 # (N, G)
+        cx = (bboxes[:, 0] + bboxes[:, 2]) / 2.0
+        cy = (bboxes[:, 1] + bboxes[:, 3]) / 2.0
+        gcx = (gt_bboxes[:, 0] + gt_bboxes[:, 2]) / 2.0
+        gcy = (gt_bboxes[:, 1] + gt_bboxes[:, 3]) / 2.0
+        dist = torch.sqrt((cx[:, None] - gcx[None]) ** 2
+                          + (cy[:, None] - gcy[None]) ** 2)        # (N, G)
+        ignored = torch.zeros((n,), dtype=torch.bool, device=dev)
+        if self.ignore_iof_thr > 0 and gt_bboxes_ignore is not None \
+                and gt_ignore_valid is not None:
+            iof = bbox_overlaps(bboxes, gt_bboxes_ignore, mode='iof')
+            iof = torch.where(gt_ignore_valid[None], iof, 0.0)
+            ignored = iof.amax(1) > self.ignore_iof_thr
+        dist = torch.where((bbox_valid & ~ignored)[:, None], dist, self.INF)
+
+        # each level's topk closest candidates of every gt: (K, G)
+        cand_idx, start = [], 0
+        for lvl_n in num_level_bboxes:
+            k = min(self.topk, int(lvl_n))
+            cand_idx.append(smallest_k(dist[start:start + lvl_n].T, k).T
+                            + start)
+            start += lvl_n
+        cand_idx = torch.cat(cand_idx)
+        cand_ok = torch.gather(dist, 0, cand_idx) < self.INF
+
+        cand_ovr = torch.gather(overlaps, 0, cand_idx)
+        cnt = cand_ok.sum(0).float().clamp(min=1.0)
+        mean = torch.where(cand_ok, cand_ovr, 0.0).sum(0) / cnt
+        var = torch.where(cand_ok, (cand_ovr - mean[None]) ** 2, 0.0) \
+            .sum(0) / (cnt - 1.0).clamp(min=1.0)
+        is_pos = cand_ovr >= (mean + torch.sqrt(var))[None]
+
+        # the candidates' centres inside their gt
+        ccx, ccy = cx[cand_idx], cy[cand_idx]
+        in_gt = torch.minimum(
+            torch.minimum(ccx - gt_bboxes[None, :, 0],
+                          ccy - gt_bboxes[None, :, 1]),
+            torch.minimum(gt_bboxes[None, :, 2] - ccx,
+                          gt_bboxes[None, :, 3] - ccy)) > 0.01
+        is_pos = is_pos & in_gt & cand_ok & gt_valid[None]
+
+        pos_mask = torch.zeros((n, g), dtype=torch.uint8, device=dev) \
+            .scatter_reduce(0, cand_idx, is_pos.to(torch.uint8), 'amax') \
+            .bool()
+        claimed = torch.where(pos_mask, overlaps, -self.INF)
+        max_ovr, argmax = claimed.amax(1), claimed.argmax(1)
+        has_pos = max_ovr > -self.INF
+        gt_inds = torch.where(has_pos, argmax + 1, 0)
+        gt_inds = torch.where(ignored | ~bbox_valid, -1, gt_inds)
+        if gt_labels is not None:
+            labels = torch.where(has_pos & bbox_valid,
+                                 gt_labels.long()[argmax], -1)
+        else:
+            labels = torch.full((n,), -1, device=dev)
+        return AssignResult(gt_inds=gt_inds.to(torch.int32),
+                            max_overlaps=torch.where(has_pos, max_ovr, 0.0),
+                            labels=labels.to(torch.int32))

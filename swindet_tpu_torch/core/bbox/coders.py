@@ -1,6 +1,6 @@
 """Box coding (counterpart of ``swindet_tpu/core/bbox/coders.py``:
 ``bbox2delta`` :21, ``delta2bbox`` :49, ``distance2bbox`` :94,
-``DeltaXYWHBBoxCoder`` :126)."""
+``bbox2distance`` :111, ``DeltaXYWHBBoxCoder`` :126)."""
 from __future__ import annotations
 
 import math
@@ -91,6 +91,21 @@ def distance2bbox(points: torch.Tensor, distance: torch.Tensor,
         x2 = torch.minimum(x2.clamp(min=0), w)
         y2 = torch.minimum(y2.clamp(min=0), h)
     return torch.stack([x1, y1, x2, y2], dim=-1)
+
+
+def bbox2distance(points: torch.Tensor, bbox: torch.Tensor,
+                  max_dis: Optional[float] = None,
+                  eps: float = 0.1) -> torch.Tensor:
+    """The (left, top, right, bottom) distances (..., 4) from points
+    (..., 2) to boxes (..., 4), clipped to [0, ``max_dis`` - ``eps``]
+    where ``max_dis`` is given (GFL's DFL targets, in bins)."""
+    d = torch.stack([points[..., 0] - bbox[..., 0],
+                     points[..., 1] - bbox[..., 1],
+                     bbox[..., 2] - points[..., 0],
+                     bbox[..., 3] - points[..., 1]], dim=-1)
+    if max_dis is not None:
+        d = d.clamp(0, max_dis - eps)
+    return d
 
 
 @BBOX_CODERS.register_module()

@@ -90,10 +90,16 @@ class FCOSHead(nn.Module):
             type='IoULoss', loss_weight=1.0)))
         self.loss_centerness = build_loss(dict(loss_centerness or dict(
             type='CrossEntropyLoss', use_sigmoid=True, loss_weight=1.0)))
+        self._init_layers()
+
+    def _init_layers(self):
+        """The towers, the three outputs and the scales; VFNetHead
+        replaces them by its own."""
         self.cls_convs, self.reg_convs = self._build_towers()
-        self.conv_cls = nn.Conv2d(feat_channels, num_classes, 3, padding=1)
-        self.conv_reg = nn.Conv2d(feat_channels, 4, 3, padding=1)
-        self.conv_centerness = nn.Conv2d(feat_channels, 1, 3, padding=1)
+        c = self.feat_channels
+        self.conv_cls = nn.Conv2d(c, self.num_classes, 3, padding=1)
+        self.conv_reg = nn.Conv2d(c, 4, 3, padding=1)
+        self.conv_centerness = nn.Conv2d(c, 1, 3, padding=1)
         self.scales = nn.ModuleList([Scale(1.0) for _ in self.strides])
 
     def _build_towers(self):

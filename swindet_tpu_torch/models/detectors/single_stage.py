@@ -1,9 +1,10 @@
 """Single-stage detector (counterpart of
 ``swindet_tpu/models/detectors/single_stage.py``: ``SingleStageDetector``
 :18 with ``aug_bbox_test`` :86, ``RetinaNet`` :113, ``RepPointsDetector``
-:119, ``FCOS`` :174, ``NASFCOS`` :198; reference
-mmdet/models/detectors/single_stage.py:10, retinanet.py,
-reppoints_detector.py:6, fcos.py, nasfcos.py).
+:119, ``ATSS`` :143, ``GFL`` :168, ``FCOS`` :174, ``NASFCOS`` :198,
+``VFNet`` :226; reference mmdet/models/detectors/single_stage.py:10,
+retinanet.py, reppoints_detector.py:6, atss.py, gfl.py, fcos.py,
+nasfcos.py, vfnet.py).
 
 Backbone, neck (one, or a list chained in order, as the JAX package
 chains them) and one dense head whose outputs go to its ``loss``
@@ -133,3 +134,21 @@ class FCOS(SingleStageDetector):
 @DETECTORS.register_module()
 class NASFCOS(FCOS):
     """(reference nasfcos.py): FCOS with the searched neck and head."""
+
+
+@DETECTORS.register_module()
+class ATSS(SingleStageDetector):
+    """(reference atss.py): the head's three outputs (classes, box deltas,
+    centerness)."""
+
+
+@DETECTORS.register_module()
+class GFL(SingleStageDetector):
+    """(reference gfl.py): the head's two outputs (class-quality scores,
+    box-side bins)."""
+
+
+@DETECTORS.register_module()
+class VFNet(SingleStageDetector):
+    """(reference vfnet.py): the head's three outputs (classes, initial and
+    refined box distances)."""

@@ -1,3 +1,4 @@
-from .losses import (CrossEntropyLoss, FocalLoss, GIoULoss,  # noqa: F401
-                     IoULoss, L1Loss, SmoothL1Loss, accuracy,
+from .losses import (CrossEntropyLoss, DistributionFocalLoss,  # noqa: F401
+                     FocalLoss, GIoULoss, IoULoss, L1Loss,
+                     QualityFocalLoss, SmoothL1Loss, VarifocalLoss, accuracy,
                      weight_reduce_loss)

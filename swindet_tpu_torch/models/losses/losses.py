@@ -2,10 +2,12 @@
 tensor ``avg_factor``s (counterpart of
 ``swindet_tpu/models/losses/losses.py``: ``weight_reduce_loss`` :20,
 ``CrossEntropyLoss`` :47, ``FocalLoss`` :94, ``L1Loss`` :126,
-``SmoothL1Loss`` :141, ``IoULoss`` :160, ``GIoULoss`` :190, ``accuracy``
-:280; reference
+``SmoothL1Loss`` :141, ``IoULoss`` :160, ``GIoULoss`` :190,
+``QualityFocalLoss`` :214, ``DistributionFocalLoss`` :252, ``accuracy``
+:280, ``VarifocalLoss`` :450; reference
 mmdet/models/losses/cross_entropy_loss.py, focal_loss.py, smooth_l1_loss.py,
-iou_loss.py). Padded entries carry weight 0."""
+iou_loss.py, gfocal_loss.py, varifocal_loss.py). Padded entries carry
+weight 0."""
 from __future__ import annotations
 
 from typing import Optional
@@ -214,6 +216,106 @@ class GIoULoss:
                                  mode='giou', is_aligned=True)
         if weight is not None and weight.ndim == loss.ndim + 1:
             weight = weight.mean(-1)
+        return self.loss_weight * weight_reduce_loss(loss, weight, reduction,
+                                                     avg_factor)
+
+
+@LOSSES.register_module()
+class QualityFocalLoss:
+    """Quality focal loss (reference gfocal_loss.py:11, arXiv:2006.04388):
+    ``target`` is (labels (N,), quality scores (N,)). Every logit is
+    pulled toward 0 by BCE times sigmoid^beta; a positive's own class
+    (label in [0, C)) toward its quality score by BCE times
+    |quality - sigmoid|^beta. Summed over the classes."""
+
+    def __init__(self, use_sigmoid: bool = True, beta: float = 2.0,
+                 reduction: str = 'mean', loss_weight: float = 1.0):
+        if not use_sigmoid:
+            raise NotImplementedError('QualityFocalLoss: only the sigmoid '
+                                      'form is ported')
+        self.beta = beta
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, target, weight=None, avg_factor=None,
+                 reduction_override=None):
+        reduction = reduction_override or self.reduction
+        label, score = target
+        pred = pred.float()
+        sig = torch.sigmoid(pred)
+        loss = _bce_with_logits(pred, torch.zeros_like(pred)) \
+            * sig.pow(self.beta)
+        score_b = score.float()[..., None].expand_as(pred)
+        pos_loss = _bce_with_logits(pred, score_b) \
+            * (score_b - sig).abs().pow(self.beta)
+        own = _expand_onehot(label, pred.shape[-1]).bool()
+        loss = torch.where(own, pos_loss, loss).sum(-1)
+        return self.loss_weight * weight_reduce_loss(loss, weight, reduction,
+                                                     avg_factor)
+
+
+@LOSSES.register_module()
+class DistributionFocalLoss:
+    """Distribution focal loss (reference gfocal_loss.py:55): the
+    cross-entropy of the bins' softmax (N, n_bins) toward the two integer
+    bins around the continuous label (N,), each weighted by its nearness;
+    the label is clipped to [0, n_bins - 1 - 1e-6] first, so the right bin
+    exists."""
+
+    def __init__(self, reduction: str = 'mean', loss_weight: float = 1.0):
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, label, weight=None, avg_factor=None,
+                 reduction_override=None):
+        reduction = reduction_override or self.reduction
+        pred = pred.float()
+        n_bins = pred.shape[-1]
+        label = label.float().clamp(0, n_bins - 1 - 1e-6)
+        left = torch.floor(label).long()
+        right = left + 1
+        logp = torch.log_softmax(pred, dim=-1)
+        loss = -logp.gather(-1, left[..., None])[..., 0] \
+            * (right.float() - label) \
+            - logp.gather(-1, right.clamp(max=n_bins - 1)[..., None])[..., 0] \
+            * (label - left.float())
+        return self.loss_weight * weight_reduce_loss(loss, weight, reduction,
+                                                     avg_factor)
+
+
+@LOSSES.register_module()
+class VarifocalLoss:
+    """Varifocal loss (reference varifocal_loss.py:10, arXiv:2008.13367):
+    BCE toward the IoU-aware targets (N, C), a positive (target > 0)
+    weighted by its target (by 1 without ``iou_weighted``), a negative by
+    alpha |sigmoid - target|^gamma; an (N,) weight is broadcast over the
+    classes."""
+
+    def __init__(self, use_sigmoid: bool = True, alpha: float = 0.75,
+                 gamma: float = 2.0, iou_weighted: bool = True,
+                 reduction: str = 'mean', loss_weight: float = 1.0):
+        if not use_sigmoid:
+            raise NotImplementedError('VarifocalLoss: only the sigmoid form '
+                                      'is ported')
+        self.alpha = alpha
+        self.gamma = gamma
+        self.iou_weighted = iou_weighted
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, target, weight=None, avg_factor=None,
+                 reduction_override=None):
+        reduction = reduction_override or self.reduction
+        pred, target = pred.float(), target.float()
+        sig = torch.sigmoid(pred)
+        pos = (target > 0.0).float()
+        neg_weight = self.alpha * (sig - target).abs().pow(self.gamma) \
+            * (1 - pos)
+        focal_weight = (target * pos if self.iou_weighted else pos) \
+            + neg_weight
+        loss = _bce_with_logits(pred, target) * focal_weight
+        if weight is not None and weight.ndim < loss.ndim:
+            weight = weight[..., None]
         return self.loss_weight * weight_reduce_loss(loss, weight, reduction,
                                                      avg_factor)
 

@@ -28,12 +28,16 @@ from swindet_tpu.ops.swin_attention import \
 from swindet_tpu.ops.window_attention import \
     window_attention as jax_window_attention
 
+from tests.torch_threads import cap_torch_threads
+
 from swindet_tpu_torch.models.backbones.swin import window_gather_indices
 from swindet_tpu_torch.ops import (shifted_window_attn_mask,
                                    swin_attention_kernel_form,
                                    swin_attention_reference,
                                    swin_window_attention, window_attention,
                                    window_attention_reference)
+
+cap_torch_threads()
 
 
 def _mask(nw, n):

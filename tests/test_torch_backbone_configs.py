@@ -22,6 +22,9 @@ import pytest
 from tests.test_torch_backbones import (CONFIGS, check_forward_train,
                                         check_round_trip, check_simple_test,
                                         detector_case, tiny_cfg)
+from tests.torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 
 @pytest.fixture(scope='module', params=[c for c in CONFIGS if c != 'regnet'])

@@ -57,12 +57,15 @@ from tests.test_torch_checkpoint import numpy_params
 from tests.test_torch_dcn import _perturbed
 from tests.test_torch_train import make_batch, sampler_keys
 from tests.test_torch_zoo import _det_errors, _fc_cls_leaves, _test_inputs
+from tests.torch_threads import cap_torch_threads
 
 from swindet_tpu_torch.checkpoint import state_dict_from_jax
 from swindet_tpu_torch.models import build_detector
 from swindet_tpu_torch.models.backbones import hrnet, regnet, res2net, resnest
 from swindet_tpu_torch.models.necks.hrfpn import HRFPN, resize_bilinear
 from swindet_tpu_torch.utils.config import Config
+
+cap_torch_threads()
 
 TOL_MODULE = 1e-5
 TOL_MODULE_GRAD = 1e-4

@@ -45,6 +45,7 @@ from swindet_tpu.utils import Config as JaxConfig
 from tests.test_models.test_cascade import tiny_cascade_cfg
 from tests.test_torch_checkpoint import numpy_params
 from tests.test_torch_train import make_batch
+from tests.torch_threads import cap_torch_threads
 
 from swindet_tpu_torch.apis.aug_test import aug_test_two_stage
 from swindet_tpu_torch.checkpoint import (resume, save_checkpoint,
@@ -55,6 +56,8 @@ from swindet_tpu_torch.models import build_detector
 from swindet_tpu_torch.models.builder import build_head, build_loss
 from swindet_tpu_torch.models.detectors import CascadeRCNN
 from swindet_tpu_torch.models.layers import ConvModule, Norm, build_norm
+
+cap_torch_threads()
 
 H, W = 64, 96
 TOL_MODULE = 1e-5

@@ -13,10 +13,13 @@ from swindet_tpu.checkpoint import (_flatten, convert_torch_state_dict,
 from swindet_tpu.models import build_detector as jax_build_detector
 from swindet_tpu.models.builder import build_backbone as jax_build_backbone
 from tests.test_models.test_forward import tiny_maskrcnn_cfg
+from tests.torch_threads import cap_torch_threads
 
 from swindet_tpu_torch.checkpoint import load_checkpoint, state_dict_from_jax
 from swindet_tpu_torch.models import build_detector
 from swindet_tpu_torch.models.builder import build_backbone
+
+cap_torch_threads()
 
 SWIN_T = dict(type='SwinTransformer', embed_dim=96, depths=[2, 2, 6, 2],
               num_heads=[3, 6, 12, 24], window_size=7, drop_path_rate=0.0)

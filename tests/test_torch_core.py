@@ -18,6 +18,8 @@ from swindet_tpu.core.nms import (batched_nms as jax_batched_nms,
 from swindet_tpu.datasets.pipelines.transforms import rescale_size \
     as jax_rescale_size
 
+from tests.torch_threads import cap_torch_threads
+
 from swindet_tpu_torch.core.anchors import AnchorGenerator
 from swindet_tpu_torch.core.bbox import bbox2result, delta2bbox
 from swindet_tpu_torch.core.masks import paste_masks
@@ -26,6 +28,8 @@ from swindet_tpu_torch.core.nms import (batched_nms, fast_topk,
 from swindet_tpu_torch.ops.nms import greedy_keep, pairwise_iou
 from swindet_tpu_torch.datasets.pipelines import (imresize_bilinear,
                                                   rescale_size)
+
+cap_torch_threads()
 
 T = torch.from_numpy
 

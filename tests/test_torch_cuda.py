@@ -34,6 +34,8 @@ plain version with one 64-row tile of g zeroed must exceed.
 import pytest
 import torch
 
+from tests.torch_threads import cap_torch_threads
+
 from swindet_tpu_torch.ops import (conv3x3, conv3x3_dw, conv3x3_dw_reference,
                                    conv3x3_op, conv3x3_reference, fused_mlp,
                                    fused_mlp_bwd, fused_mlp_bwd_limits,
@@ -69,6 +71,8 @@ from chip_smoke import (CASCADE_CONFIG, LN_SHAPES, REPPOINTS_CONFIG,
                         _matched_errors, _set_class_logits, _spread_heads,
                         cascade_launches, reppoints_launches,
                         resnet_launches, zoo_launches)
+
+cap_torch_threads()
 
 pytestmark = pytest.mark.cuda
 DTYPES = [torch.float32, torch.bfloat16]

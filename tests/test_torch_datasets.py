@@ -25,6 +25,8 @@ from swindet_tpu.datasets.builder import derive_canvas as jax_derive_canvas
 from swindet_tpu.datasets.pipelines import Compose as JaxCompose
 from swindet_tpu.utils import Config as JaxConfig
 
+from tests.torch_threads import cap_torch_threads
+
 from swindet_tpu_torch.checkpoint import interp_bias_table
 from swindet_tpu_torch.core.masks import poly2mask, rle_to_mask
 from swindet_tpu_torch.datasets import (CocoDataset, GroupBatchSampler,
@@ -33,6 +35,8 @@ from swindet_tpu_torch.datasets.image_io import imread, unfilter
 from swindet_tpu_torch.datasets.pipelines import Compose, imresize_nearest
 
 from chip_smoke import png_bytes
+
+cap_torch_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(

@@ -46,6 +46,7 @@ from swindet_tpu.ops.deform_roi_pool import \
     multilevel_deform_roi_pool as jax_deform_roi_pool
 
 from tests.test_torch_cascade import _draw_stats, numpy_params_from
+from tests.torch_threads import cap_torch_threads
 
 from swindet_tpu_torch.checkpoint import state_dict_from_jax
 from swindet_tpu_torch.models.backbones.resnet import Bottleneck, ResNet
@@ -57,6 +58,8 @@ from swindet_tpu_torch.models.roi_heads.shared_heads import ResLayer
 from swindet_tpu_torch.ops.deform_conv import (DeformConv2d,
                                                ModulatedDeformConvPack)
 from swindet_tpu_torch.ops.deform_roi_pool import multilevel_deform_roi_pool
+
+cap_torch_threads()
 
 TOL_MODULE = 1e-5
 TOL_MODULE_GRAD = 1e-4

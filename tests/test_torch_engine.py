@@ -26,11 +26,15 @@ from swindet_tpu.engine.optimizer import (build_multiplier_trees,
 from swindet_tpu.engine.schedules import build_lr_schedule as jax_schedule
 from swindet_tpu.models import build_detector as jax_build_detector
 
+from tests.torch_threads import cap_torch_threads
+
 from swindet_tpu_torch.engine import (build_lr_schedule, build_optimizer,
                                       param_multipliers)
 from swindet_tpu_torch.engine.optimizer import set_lr
 from swindet_tpu_torch.models import build_detector
 from swindet_tpu_torch.utils import Config
+
+cap_torch_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = os.path.join(REPO, 'configs/swin/mask_rcnn_swin_tiny_patch4_'

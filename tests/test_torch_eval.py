@@ -19,10 +19,13 @@ from swindet_tpu.datasets.api import COCO as JaxCOCO
 from swindet_tpu.datasets.api import COCOeval as JaxCOCOeval
 
 from tests.test_data.test_coco_dataset import _dummy_coco_json
+from tests.torch_threads import cap_torch_threads
 
 from swindet_tpu_torch.core import host_ops, masks, rle
 from swindet_tpu_torch.datasets import CocoDataset
 from swindet_tpu_torch.datasets.api import COCO, COCOeval
+
+cap_torch_threads()
 
 
 def _mask(kind, h, w, rs):

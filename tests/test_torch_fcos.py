@@ -64,6 +64,7 @@ from tests.test_torch_backbones import (_plain, check_full_width_names,
                                         jax_readable, jit_o0)
 from tests.test_torch_cascade import _draw_stats, numpy_params_from
 from tests.test_torch_train import make_batch
+from tests.torch_threads import cap_torch_threads
 
 from swindet_tpu_torch.checkpoint import state_dict_from_jax
 from swindet_tpu_torch.core.bbox import distance2bbox
@@ -73,6 +74,8 @@ from swindet_tpu_torch.models.losses import IoULoss
 from swindet_tpu_torch.models.necks.nasfcos_fpn import (
     NASFCOS_FPN, resize_bilinear_aa, resize_nearest_half_pixel)
 from swindet_tpu_torch.utils.config import Config
+
+cap_torch_threads()
 
 TOL_HEAD_LOSS = 1e-6
 TOL_HEAD_OUT = 1e-5

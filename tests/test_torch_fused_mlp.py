@@ -22,6 +22,7 @@ import torch
 from swindet_tpu.models.layers import Mlp as JaxMlp
 from swindet_tpu.ops.fused_mlp import fused_mlp as jax_fused_mlp
 from tests.test_torch_checkpoint import jax_backbone_params
+from tests.torch_threads import cap_torch_threads
 
 from swindet_tpu_torch.checkpoint import state_dict_from_jax
 from swindet_tpu_torch.models.builder import build_backbone
@@ -31,6 +32,8 @@ from swindet_tpu_torch.ops import (fused_mlp, fused_mlp_bwd,
                                    fused_mlp_bwd_reference,
                                    fused_mlp_bwd_reference_f64, fused_mlp_op,
                                    fused_mlp_reference)
+
+cap_torch_threads()
 
 TINY_SWIN = dict(type='SwinTransformer', embed_dim=32, depths=[2, 2, 2, 1],
                  num_heads=[1, 2, 4, 8], window_size=7, drop_path_rate=0.0)

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from tests.test_models.test_forward import tiny_maskrcnn_cfg
+from tests.torch_threads import cap_torch_threads
 
 from swindet_tpu_torch.apis import set_random_seed, train_detector
 from swindet_tpu_torch.checkpoint import interp_bias_table, load_weights
@@ -34,6 +35,8 @@ from swindet_tpu_torch.models import build_detector
 from swindet_tpu_torch.utils import Config
 
 from chip_smoke import write_synthetic_coco
+
+cap_torch_threads()
 
 CLASSES = ('a', 'b', 'c', 'd')
 SIZES = ((60, 90), (72, 100), (90, 60), (100, 72))
@@ -84,11 +87,14 @@ def loop_cfg(root, work_dir, max_epochs, resume_from=None):
         workflow=[('train', 1)]))
 
 
-def _train(root, work_dir, max_epochs, resume_from=None):
+def _train(root, work_dir, max_epochs, timestamp, resume_from=None):
+    """A run whose logs are named by ``timestamp``: the runner names them to
+    the second, and two runs that share a work_dir and start within one
+    second would append to the same files."""
     cfg = loop_cfg(root, work_dir, max_epochs, resume_from)
     dataset = build_dataset(cfg.data.train)
     return train_detector(build_detector(dict(cfg.model)), dataset, cfg,
-                          device='cpu'), cfg, dataset
+                          timestamp=timestamp, device='cpu'), cfg, dataset
 
 
 @pytest.fixture(scope='module')
@@ -98,10 +104,10 @@ def runs(tmp_path_factory):
     write_synthetic_coco(root, SIZES, seed=0, class_names=CLASSES)
     set_random_seed(0)
     split = os.path.join(root, 'split')
-    first, cfg, dataset = _train(root, split, 1)
-    resumed, _, _ = _train(root, split, 2, os.path.join(split,
-                                                        'epoch_1.pth'))
-    whole, _, _ = _train(root, os.path.join(root, 'whole'), 2)
+    first, cfg, dataset = _train(root, split, 1, 'first')
+    resumed, _, _ = _train(root, split, 2, 'resumed',
+                           os.path.join(split, 'epoch_1.pth'))
+    whole, _, _ = _train(root, os.path.join(root, 'whole'), 2, 'whole')
     return dict(root=root, cfg=cfg, dataset=dataset, first=first,
                 resumed=resumed, whole=whole, split=split)
 

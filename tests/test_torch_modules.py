@@ -13,10 +13,13 @@ import torch
 from tests.test_models.test_forward import tiny_maskrcnn_cfg
 from tests.test_torch_checkpoint import (SWIN_T, jax_backbone_params,
                                          jax_detector_params)
+from tests.torch_threads import cap_torch_threads
 
 from swindet_tpu_torch.checkpoint import state_dict_from_jax
 from swindet_tpu_torch.models import build_detector
 from swindet_tpu_torch.models.builder import build_backbone
+
+cap_torch_threads()
 
 T = torch.from_numpy
 

@@ -12,7 +12,11 @@ import torch
 
 from swindet_tpu.ops.nms_pallas import nms_pallas_sorted
 
+from tests.torch_threads import cap_torch_threads
+
 from swindet_tpu_torch.ops import nms_sorted, nms_sorted_reference
+
+cap_torch_threads()
 
 
 def _random_boxes(rs, n, offset=False):

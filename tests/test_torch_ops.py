@@ -24,6 +24,8 @@ from swindet_tpu.ops.window_attention_v3 import (_wattn3_fwd_impl,
 from swindet_tpu.models.backbones.swin import (relative_position_index,
                                                shifted_window_attn_mask)
 
+from tests.torch_threads import cap_torch_threads
+
 from swindet_tpu_torch.ops import (conv3x3, conv3x3_reference, layer_norm,
                                    layer_norm_reference,
                                    multilevel_roi_align, roi_align,
@@ -44,6 +46,8 @@ from swindet_tpu_torch.ops.window_attention_v4 import (
     tc_fwd_smem as v4_fwd_smem, uses_tensor_cores as v4_uses_tensor_cores)
 
 from chip_smoke import LN_SHAPES
+
+cap_torch_threads()
 
 T = torch.from_numpy
 

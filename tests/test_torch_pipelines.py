@@ -10,10 +10,14 @@ import pytest
 from swindet_tpu.apis.inference import preprocess_images as jax_preprocess
 from swindet_tpu.utils import Config as JaxConfig
 
+from tests.torch_threads import cap_torch_threads
+
 from swindet_tpu_torch.apis.inference import preprocess_images
 from swindet_tpu_torch.datasets.pipelines import (imresize_bilinear,
                                                   rescale_size)
 from swindet_tpu_torch.utils import Config
+
+cap_torch_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(

@@ -40,10 +40,13 @@ from tests.test_torch_backbones import (INVARIANT, PLUGIN_CONFIGS,
                                         check_simple_test, detector_case,
                                         full_cfg, jit_o0, shrink_heads)
 from tests.test_torch_cascade import _draw_stats, numpy_params_from
+from tests.torch_threads import cap_torch_threads
 
 from swindet_tpu_torch.checkpoint import state_dict_from_jax
 from swindet_tpu_torch.models.backbones.resnet import ResNet
 from swindet_tpu_torch.ops import plugins
+
+cap_torch_threads()
 
 def _plugin_sd(params, stats):
     """A bare plugin's state_dict: its tree under a ResNet block's

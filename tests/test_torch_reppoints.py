@@ -43,6 +43,7 @@ from swindet_tpu.utils import Config as JaxConfig
 from tests.test_models.test_single_stage import tiny_reppoints_cfg
 from tests.test_torch_cascade import numpy_params_from
 from tests.test_torch_checkpoint import numpy_params
+from tests.torch_threads import cap_torch_threads
 
 from swindet_tpu_torch.apis.aug_test import aug_test_single_stage
 from swindet_tpu_torch.apis.test import eval_batches
@@ -58,6 +59,8 @@ from swindet_tpu_torch.models.detectors import RepPointsDetector
 from swindet_tpu_torch.models.necks.fpn import FPN
 from swindet_tpu_torch.ops.deform_conv import DeformConv2d
 from swindet_tpu_torch.utils import Config
+
+cap_torch_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, 'configs/reppoints/'

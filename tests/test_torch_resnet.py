@@ -53,6 +53,7 @@ from tests.test_torch_checkpoint import jax_detector_params
 from tests.test_torch_engine import (CUSTOM_KEYS, LR_CONFIG, NAMES,
                                      _by_name, _flax_tree)
 from tests.test_torch_train import make_batch, sampler_keys
+from tests.torch_threads import cap_torch_threads
 
 from swindet_tpu_torch.checkpoint import state_dict_from_jax
 from swindet_tpu_torch.core.anchors import AnchorGenerator
@@ -63,6 +64,8 @@ from swindet_tpu_torch.engine.optimizer import set_lr
 from swindet_tpu_torch.models import build_detector
 from swindet_tpu_torch.models.backbones.resnet import ResNet, ResNeXt
 from swindet_tpu_torch.models.detectors import FasterRCNN
+
+cap_torch_threads()
 
 TOL_MODULE = 1e-5
 TOL_MODULE_GRAD = 1e-4

@@ -36,12 +36,15 @@ from swindet_tpu.models.builder import build_head as jax_build_head
 from tests.test_models.test_single_stage import tiny_retinanet_cfg
 from tests.test_torch_cascade import _draw_stats, numpy_params_from
 from tests.test_torch_checkpoint import numpy_params
+from tests.torch_threads import cap_torch_threads
 
 from swindet_tpu_torch.checkpoint import state_dict_from_jax
 from swindet_tpu_torch.models import build_detector
 from swindet_tpu_torch.models.builder import build_head
 from swindet_tpu_torch.models.dense_heads.retina_head import RetinaHead
 from swindet_tpu_torch.models.detectors import RetinaNet
+
+cap_torch_threads()
 
 H, W = 128, 192
 SIZES = [(H // s, -(-W // s)) for s in (8, 16, 32, 64, 128)]

@@ -61,6 +61,7 @@ from tests.test_torch_test_api import eval_pipeline
 from tests.test_torch_train import make_batch, sampler_keys
 from tests.test_torch_cascade import _draw_stats
 from tests.test_torch_checkpoint import numpy_params
+from tests.torch_threads import cap_torch_threads
 
 from swindet_tpu_torch.apis import format_results, single_gpu_test
 from swindet_tpu_torch.checkpoint import state_dict_from_jax
@@ -70,6 +71,8 @@ from swindet_tpu_torch.models import build_detector
 from swindet_tpu_torch.utils.config import Config
 
 from chip_smoke import write_synthetic_coco
+
+cap_torch_threads()
 
 TOL_LOSS = 1e-4
 TOL_GRAD = 1e-3

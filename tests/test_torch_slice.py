@@ -15,11 +15,14 @@ import torch
 
 from tests.test_models.test_forward import tiny_maskrcnn_cfg
 from tests.test_torch_checkpoint import jax_detector_params
+from tests.torch_threads import cap_torch_threads
 
 from swindet_tpu_torch import inference_detector, init_detector
 from swindet_tpu_torch.checkpoint import state_dict_from_jax
 from swindet_tpu_torch.models import build_detector
 from swindet_tpu_torch.utils import Config
+
+cap_torch_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -131,7 +134,12 @@ def test_port_imports_without_jax_flax_cv2():
         "             'swindet_tpu_torch.models.detectors.rpn',\n"
         "             'swindet_tpu_torch.models.dense_heads.fcos_head',\n"
         "             'swindet_tpu_torch.models.dense_heads.nasfcos_head',\n"
-        "             'swindet_tpu_torch.models.necks.nasfcos_fpn'):\n"
+        "             'swindet_tpu_torch.models.necks.nasfcos_fpn',\n"
+        "             'swindet_tpu_torch.core.bbox.assigners',\n"
+        "             'swindet_tpu_torch.models.dense_heads.atss_head',\n"
+        "             'swindet_tpu_torch.models.dense_heads.gfl_head',\n"
+        "             'swindet_tpu_torch.models.dense_heads.vfnet_head',\n"
+        "             'swindet_tpu_torch.tools.junit_times'):\n"
         "    assert name in names, name\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in banned\n"
         "       and sys.modules[m] is not None]\n"

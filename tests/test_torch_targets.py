@@ -27,6 +27,7 @@ from swindet_tpu.models.losses.losses import (CrossEntropyLoss as JaxCE,
                                               accuracy as jax_accuracy)
 from swindet_tpu.models.roi_heads.mask_heads import FCNMaskHead as JaxMask
 from tests.test_models.test_forward import tiny_maskrcnn_cfg
+from tests.torch_threads import cap_torch_threads
 
 from swindet_tpu_torch.core.anchors import (AnchorGenerator,
                                             anchor_inside_flags)
@@ -36,6 +37,8 @@ from swindet_tpu_torch.models.builder import build_head
 from swindet_tpu_torch.models.losses import (CrossEntropyLoss, L1Loss,
                                              accuracy)
 from swindet_tpu_torch.models.roi_heads.mask_heads import FCNMaskHead
+
+cap_torch_threads()
 
 T = torch.from_numpy
 J = jnp.asarray

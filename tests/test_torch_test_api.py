@@ -26,6 +26,7 @@ from swindet_tpu.utils import Config as JaxConfig
 from tests.test_models.test_forward import tiny_maskrcnn_cfg
 from tests.test_torch_checkpoint import jax_detector_params
 from tests.test_torch_loop import loop_cfg
+from tests.torch_threads import cap_torch_threads, default_threads
 
 from swindet_tpu_torch.apis import (inference_detector, init_detector,
                                     single_gpu_test, train_detector)
@@ -41,6 +42,8 @@ from swindet_tpu_torch.tools import train as train_cli
 from swindet_tpu_torch.utils import Config
 
 from chip_smoke import write_synthetic_coco
+
+cap_torch_threads()
 
 CLASSES = ('a', 'b', 'c', 'd')
 # 2 landscape, 2 portrait images
@@ -144,7 +147,16 @@ def test_multi_scale_flip_aug_matches_jax(setup, flip):
 
 def test_single_gpu_test_matches_jax(setup, monkeypatch):
     """Results and canvases: portrait group (1 batch on 128x96), then
-    landscape (96x128), each its largest padded image rounded to 32."""
+    landscape (96x128), each its largest padded image rounded to 32. The
+    masks must be bit-equal, and a mask pixel on the 0.5 threshold flips
+    with torch's summation order, which follows its thread count: the
+    port runs at torch's default count here, as before the tests' cap
+    (ROADMAP §3 item 4)."""
+    with default_threads():
+        _single_gpu_test_matches_jax(setup, monkeypatch)
+
+
+def _single_gpu_test_matches_jax(setup, monkeypatch):
     monkeypatch.setattr(jax_native, 'available', lambda: False)
     handle = setup['handle']
     run = handle.jitted_simple_test()
@@ -218,10 +230,12 @@ def _val_cfg(setup, work_dir, max_epochs, resume_from=None):
     return cfg
 
 
-def _train(cfg):
+def _train(cfg, timestamp):
+    """A run whose logs are named by ``timestamp`` (the runner names them to
+    the second; runs that share a work_dir must not share a log)."""
     return train_detector(build_detector(dict(cfg.model)),
                           build_dataset(cfg.data.train), cfg,
-                          validate=True, device='cpu')
+                          validate=True, timestamp=timestamp, device='cpu')
 
 
 def test_train_detector_validates_and_resumes(setup):
@@ -231,7 +245,7 @@ def test_train_detector_validates_and_resumes(setup):
     for bit, and evaluate alike."""
     root = setup['root']
     split = os.path.join(root, 'val_split')
-    first = _train(_val_cfg(setup, split, 1))
+    first = _train(_val_cfg(setup, split, 1), 'first')
     assert len(first.log_vars) == 2
     with open(first.json_log) as f:
         lines = [json.loads(line) for line in f]
@@ -244,8 +258,9 @@ def test_train_detector_validates_and_resumes(setup):
     assert os.readlink(os.path.join(split, 'best_bbox_mAP')) == \
         'best_bbox_mAP_epoch_1.pth'
     resumed = _train(_val_cfg(setup, split, 2,
-                              os.path.join(split, 'epoch_1.pth')))
-    whole = _train(_val_cfg(setup, os.path.join(root, 'val_whole'), 2))
+                              os.path.join(split, 'epoch_1.pth')), 'resumed')
+    whole = _train(_val_cfg(setup, os.path.join(root, 'val_whole'), 2),
+                   'whole')
     assert resumed.log_vars == whole.log_vars[2:]
     assert resumed.eval_results == whole.eval_results[1:]
     a = torch.load(os.path.join(split, 'epoch_2.pth'), weights_only=True)

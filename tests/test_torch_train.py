@@ -28,12 +28,15 @@ from swindet_tpu.core.bbox.samplers import RandomSampler as JaxSampler
 from swindet_tpu.engine.train_step import parse_losses as jax_parse_losses
 from tests.test_models.test_forward import tiny_maskrcnn_cfg
 from tests.test_torch_checkpoint import jax_detector_params
+from tests.torch_threads import cap_torch_threads
 
 from swindet_tpu_torch.checkpoint import state_dict_from_jax
 from swindet_tpu_torch.engine import (build_lr_schedule, build_optimizer,
                                       make_train_step)
 from swindet_tpu_torch.models import build_detector
 from swindet_tpu_torch.models.layers import Mlp
+
+cap_torch_threads()
 
 H, W = 64, 96
 GRAD_PARAMS = (

@@ -32,6 +32,8 @@ from swindet_tpu.ops.window_attention_v3 import (_wattn3_bwd_impl,
                                                  window_attention_v3
                                                  as jax_wattn)
 
+from tests.torch_threads import cap_torch_threads
+
 from swindet_tpu_torch.ops import (conv3x3_dw, conv3x3_dw_reference,
                                    conv3x3_op, layer_norm_op,
                                    multilevel_roi_align_backward,
@@ -46,6 +48,8 @@ from chip_smoke import _crowded_rois
 
 from .test_torch_ops import (SEP_ROIS, SEP_STRIP_EXACT, SEP_VALID,
                              separable_matrices)
+
+cap_torch_threads()
 
 T = torch.from_numpy
 

@@ -24,6 +24,7 @@ from swindet_tpu.ops.window_attention_v4 import (
     _wattn4_bwd_impl, window_attention_v4 as jax_window_attention_v4,
     window_attention_v4_reference as jax_window_attention_v4_reference)
 from tests.test_torch_checkpoint import jax_backbone_params
+from tests.torch_threads import cap_torch_threads
 
 import torch.nn.functional as F
 
@@ -39,6 +40,8 @@ from swindet_tpu_torch.ops import (window_attention_v4,
                                    window_attention_v4_op,
                                    window_attention_v4_reference)
 from swindet_tpu_torch.ops.window_attention import attention_probs
+
+cap_torch_threads()
 
 TINY_SWIN = dict(type='SwinTransformer', embed_dim=32, depths=[2, 2, 2, 1],
                  num_heads=[1, 2, 4, 8], window_size=7, drop_path_rate=0.0)

@@ -27,6 +27,7 @@ boxes within 1e-3 px and scores and mask probabilities within 1e-4, losses
 at rel 1e-4, gradients at 1e-3 of each tensor's largest entry.
 """
 import copy
+import functools
 
 import numpy as np
 import jax
@@ -44,10 +45,13 @@ from tests.test_torch_cascade import _draw_stats
 from tests.test_torch_checkpoint import numpy_params
 from tests.test_torch_dcn import _perturbed
 from tests.test_torch_train import make_batch, sampler_keys
+from tests.torch_threads import cap_torch_threads
 
 from swindet_tpu_torch.checkpoint import state_dict_from_jax
 from swindet_tpu_torch.models import build_detector
 from swindet_tpu_torch.utils.config import Config
+
+cap_torch_threads()
 
 TOL_LOSS = 1e-4
 TOL_GRAD = 1e-3
@@ -157,10 +161,12 @@ def _fc_cls_leaves(params):
             if k.startswith('_bbox_head')]
 
 
+@functools.lru_cache(maxsize=None)
 def _zoo(name, stages=4):
     """A shrunk config's JAX detector, numpy params (rpn_cls and the
     fc_cls kernels drawn with std 1) and batch statistics, and the port's
-    detector on them (eval mode)."""
+    detector on them (eval mode); built once per module, as the serving
+    and the training tests share it (none of them changes it)."""
     cfg = tiny_zoo_cfg(name, stages)
     jm = jax_build_detector(copy.deepcopy(cfg))
     params = numpy_params(jm, 0, method='forward_dummy')
