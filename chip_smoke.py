@@ -189,14 +189,17 @@ before the last line:
               built model (a request: LayerNorm 56, attention 24, conv3x3
               21, RoIAlign 4, NMS 2; the bbox heads' normed convs run
               F.conv2d); phase 5's fp32 card-vs-CPU check on it with all
-              three fc_cls spread and a bf16 control that must fail it;
+              three fc_cls spread and a bf16 control that must fail it,
+              at two blocks a stage (CASCADE_CHECK_OPTS);
               1 + 5 make_train_step steps at batch 2 on 800x1344 (a step:
               LayerNorm 56, attention forward-with-P and backward 24
               each, conv3x3 42, its filter gradient 21, RoIAlign forward
               and backward 6 each, NMS 1), the BN running statistics
               moved by a step and left by a validation pass, 2 profiled
               steps; phase 7's fp32 check with pinned proposals, its
-              sampler keys per stage, gradients of CASCADE_TRAIN_GRADS;
+              sampler keys per stage, gradients of CASCADE_TRAIN_GRADS,
+              at two blocks a stage and 128 rois a stage an image
+              (CASCADE_TRAIN_CHECK_OPTS);
               then train_detector for 2 iterations on 4 of phase 10's
               PNGs with the config's own train pipeline, and tools.test
               with the trained checkpoint on 2 of them, plain and with
@@ -274,7 +277,8 @@ before the last line:
               mdpool also 1 + 3 make_train_step steps at batch 2 on
               800x1344 (launches checked, frozen BN buffers unmoved, a
               profiled step, the plain deformable ops' ms) and phase 7's
-              fp32 training check, proposals pinned; mdconv also
+              fp32 training check, proposals pinned, 128 rois an image
+              (CHECK_ROI_CUT; phase 16's too, gn_ws's not); mdconv also
               train_detector and tools.test from files. Phase 3 holds
               rows 3, 8, 4 and 9 at these configs' new widths too: the
               conv and its filter gradient at 1x50x84 and 2x50x84 with
@@ -330,6 +334,20 @@ before the last line:
               controls. Their GN towers run F.conv2d: the FPN's output
               convs, the NMS and in training the filter gradients launch
               the kernels.
+19. paa-ld -- PAA R-50 (paa) and LD (ld: a ResNet-18 GFL student of a
+              GFL R-50 teacher) from their configs, bf16 set on top, each
+              as a phase-18 config: a warm-up and 2 requests, the fp32
+              serving check with a bf16 control (PAA's IoU branch zeroed,
+              at its sqrt score's threshold), 1 + 3 training steps with
+              PAA's EM ms and host reads a step and LD's teacher held
+              bit-equal in eval mode; PAA's fp32 training check in two
+              parts (the CPU's float64 EM on the card's candidate losses
+              selects what the card's selected; the step with the
+              assignment pinned to the card's keep mask), LD's as GFL's,
+              loss_ld among the losses; both with bf16 controls. The
+              FPN's output convs (LD's teacher's too, forward only, in
+              training), the NMS and the filter gradients launch the
+              kernels.
 
 Each phase's wall time is logged under [time].
 
@@ -347,7 +365,9 @@ phase 13's as ``reppoints_serve_launches`` and
 ``<config>_serve_launches`` and, for the four of each that train,
 ``<config>_train_launches``, phase 17's as ``dense_<config>_serve_launches``
 and ``dense_<config>_train_launches``, phase 18's as
-``atss_<config>_serve_launches`` and ``atss_<config>_train_launches``; for
+``atss_<config>_serve_launches`` and ``atss_<config>_train_launches``,
+phase 19's as ``paa_ld_<config>_serve_launches`` and
+``paa_ld_<config>_train_launches``; for
 the conv,
 fused-MLP and v1, v3,
 v4 and full-map attention rows also ``tc_launches``, counted the same
@@ -1873,14 +1893,15 @@ def _serve_outputs(model, dev, img, shapes, sf):
 
 def phase_check(device: str = 'cuda', phase: str = 'check',
                 fused: bool = False, v4: bool = False, config=CONFIG,
-                control: bool = False):
+                control: bool = False, cfg_options=None):
     """fp32 Mask R-CNN (``config``) on a 224x320 canvas, on the card
     (kernels) and on the CPU (plain versions), same seeded weights; rpn_cls
     and fc_cls are scaled to std 1 so no top-k or NMS boundary sits within
     fp32 noise. With ``control``, the same detector in bf16 on the card,
-    held to the same CPU run, must exceed the limits."""
+    held to the same CPU run, must exceed the limits. ``cfg_options``:
+    further config options of the three runs (the cascade's cut depths)."""
     opts = {'bf16': False, 'model.test_cfg.rpn.nms_pre': 1000,
-            'model.test_cfg.rpn.max_per_img': 1000}
+            'model.test_cfg.rpn.max_per_img': 1000, **(cfg_options or {})}
     cpu = init_detector(config, device='cpu', cfg_options=opts, seed=1)
     _spread_heads(cpu)
     gpu = build_detector(dict(cpu.cfg.model, dtype='float32'))
@@ -3365,6 +3386,22 @@ CASCADE_TRAIN_GRADS = TRAIN_GRADS[:5] + (
 # moves them by 1e-2 in float64, tests/test_torch_cascade.py).
 CASCADE_TRAIN_LIMITS = ({f's{i}.loss_bbox': 1e-4 for i in range(3)},
                         dict(TOL_TRAIN_GRAD, bbox=2e-2))
+# The cuts of the cascade's two fp32 card-vs-CPU checks, whose CPU side
+# took 73 s of phase 12's 122 s (NVIDIA H100 80GB HBM3's host, 700.00 W):
+# Swin-B's widths with two blocks a stage, where the config has (2, 2, 18,
+# 2); the serving and training timings keep the full depth, and phase 3
+# holds the LayerNorm and attention kernels at every Swin-B shape. At
+# that depth the training check's CPU run still took 37.0 s, 36 s of it
+# (on this repo's CPU profile) in the plain RoIAlign forward and
+# backward, so it also samples CHECK_ROIS rois a stage an image where the
+# config samples 512; its proposals stay pinned, so no boundary moves
+CASCADE_CHECK_DEPTHS = [2, 2, 2, 2]
+CHECK_ROIS = 128
+CASCADE_CHECK_OPTS = {'model.backbone.depths': CASCADE_CHECK_DEPTHS}
+CASCADE_TRAIN_CHECK_OPTS = {
+    **CASCADE_CHECK_OPTS,
+    **{f'model.train_cfg.rcnn.{i}.sampler.num': CHECK_ROIS
+       for i in range(3)}}
 # the cascade's loop: 2 landscape and 2 portrait PNGs of phase 10's sizes,
 # 2 iterations of 2 images; its test run takes the first 2
 CASCADE_LOOP_SIZES = LOOP_SIZES[:2] + LOOP_SIZES[4:6]
@@ -3594,8 +3631,9 @@ def cascade_files(phase='cascade-files'):
 
 def phase_cascade():
     """Phase 12: Cascade Mask R-CNN Swin-B serving, its fp32 serving check,
-    training, its fp32 training check and the loop and test tool from
-    files. Returns the serving and training launches."""
+    training, its fp32 training check (both checks cut:
+    CASCADE_CHECK_OPTS, CASCADE_TRAIN_CHECK_OPTS) and the loop and test
+    tool from files. Returns the serving and training launches."""
     start = last = time.perf_counter()
     laps = []
 
@@ -3607,12 +3645,16 @@ def phase_cascade():
         last = now
     serve, lat = cascade_serve()
     lap('serving')
-    phase_check(phase='cascade-check', config=CASCADE_CONFIG, control=True)
+    phase_check(phase='cascade-check', config=CASCADE_CONFIG, control=True,
+                cfg_options=CASCADE_CHECK_OPTS)
     lap('serving check')
     train, times, peak, busy = cascade_train()
     lap('training')
     phase_train_check(config=CASCADE_CONFIG, names=CASCADE_TRAIN_GRADS,
-                      pin_proposals=True, limits=CASCADE_TRAIN_LIMITS)
+                      pin_proposals=True, limits=CASCADE_TRAIN_LIMITS,
+                      opts=(('bf16', False),
+                            ('model.backbone.drop_path_rate', 0.0),
+                            *CASCADE_TRAIN_CHECK_OPTS.items()))
     lap('training check')
     cascade_files()
     lap('files')
@@ -4925,6 +4967,17 @@ ZOO_TRAIN_LIMITS = {'gn_ws': dict(
              'roi_head.bbox_head.fc_cls.weight': TOL_TRAIN_GRAD['bbox'],
              **{n: 0.4 for n in ZOO_BACKBONE_GRADS['gn_ws']}}),
     rpn_tol=1e-3, min_share=0.5)}
+# The cut of the fp32 training checks of phases 15 and 16, whose CPU side
+# runs the RoI head's backward on every sampled roi (the plain RoIAlign
+# backward, C4's res5, the plain deformable RoI pooling; c4's check took
+# 21.1 s and mdpool's 16.8 s of phase 15's 166.8 s): CHECK_ROIS rois an
+# image where the configs sample 512, the proposals pinned. The serving
+# checks keep the configs' 1,000 proposals: a cap of 300 cuts the RPN's
+# NMS output among near-tied scores, and mdconv's card and CPU detections
+# parted there. gn_ws keeps its sizes, at which its fixed limits were
+# read; the cascade serves only
+CHECK_ROI_CUT = {'model.train_cfg.rcnn.sampler.num': CHECK_ROIS}
+ZOO_CHECK_CUTS = {'gn_ws': {}, 'cascade_r50': {}}
 # requests a config serves, steps a config trains (after a warm-up each)
 ZOO_REQUESTS = 2
 ZOO_STEPS = 3
@@ -5072,10 +5125,12 @@ def _zoo_check_inputs():
 
 
 def _zoo_check_model(name):
-    """The CPU model of a zoo config's fp32 checks: seed 1, rpn_cls and
-    fc_cls spread (_spread_heads), the plugins drawn (_draw_plugins) and,
-    for HRNet, the neck scaled (_unit_neck)."""
-    cpu = _zoo_model(name, device='cpu', seed=1, opts={'bf16': False})
+    """The CPU model of a zoo config's fp32 checks: seed 1, cut to
+    CHECK_ROI_CUT (ZOO_CHECK_CUTS where it says otherwise), rpn_cls and fc_cls spread
+    (_spread_heads), the plugins drawn (_draw_plugins) and, for HRNet, the
+    neck scaled (_unit_neck)."""
+    cuts = ZOO_CHECK_CUTS.get(name, CHECK_ROI_CUT)
+    cpu = _zoo_model(name, device='cpu', seed=1, opts={'bf16': False, **cuts})
     _spread_heads(cpu)
     _draw_plugins(cpu)
     if BACKBONE_TYPES.get(name) == 'HRNet':
@@ -5517,7 +5572,9 @@ def dense_launches(model, training):
     GN towers and its 3x3 outputs run F.conv2d); Fast R-CNN's bbox
     RoIAlign once a request and once a step with its backward; the NMS
     once a request (the RPN's proposals, the dense heads' and Fast
-    R-CNN's multiclass) and never in training (no proposal step)."""
+    R-CNN's multiclass) and never in training (no proposal step). A
+    distilling detector's teacher (LD) runs its kernel convs forward in
+    every training step, and not at all in serving."""
     convs = sum(c.use_kernel for c in getattr(model.neck, 'fpn_convs', ()))
     aligns = 0
     if hasattr(model, 'bbox_head'):
@@ -5531,8 +5588,11 @@ def dense_launches(model, training):
         aligns = 1
     want = {fn.__name__: 0 for fn in KERNEL_WRAPPERS}
     if training:
-        want.update(conv3x3=2 * convs, conv3x3_dw=convs, roi_align=aligns,
-                    roi_align_bwd=aligns)
+        teacher = getattr(model, 'teacher_model', None)
+        forward_only = 0 if teacher is None else dense_launches(
+            teacher, training=False)['conv3x3']
+        want.update(conv3x3=2 * convs + forward_only, conv3x3_dw=convs,
+                    roi_align=aligns, roi_align_bwd=aligns)
     else:
         want.update(conv3x3=convs, roi_align=aligns, nms_sorted=1)
     return want
@@ -5545,8 +5605,10 @@ def _head_strides(head):
 
 
 def _dense_phase(name):
-    """The log prefix of a phase-17 ('dense') or phase-18 ('atss')
-    config."""
+    """The log prefix of a phase-17 ('dense'), phase-18 ('atss') or
+    phase-19 ('paa-ld') config."""
+    if name in PAA_LD_CONFIGS:
+        return 'paa-ld'
     return 'atss' if name in ATSS_CONFIGS else 'dense'
 
 
@@ -5557,9 +5619,14 @@ def _launched(per, kernels):
 
 
 def _dense_model(name, device='cuda', seed=0, opts=RESNET_BF16):
-    return init_detector({**DENSE_CONFIGS, **ATSS_CONFIGS}[name],
+    return init_detector(_dense_config(name),
                          device=device, seed=seed,
                          cfg_options=dict(opts))
+
+
+def _dense_config(name):
+    """The config file of a phase-17, 18 or 19 config."""
+    return {**DENSE_CONFIGS, **ATSS_CONFIGS, **PAA_LD_CONFIGS}[name]
 
 
 def _check_proposals(res, h, w, max_n):
@@ -5732,12 +5799,13 @@ def dense_serve(name):
 
 
 def _fcos_check_heads(model, img, phase):
-    """A dense head's centerness output (FCOS', ATSS') set to 0 (a factor of
-    0.5 on every score, a constant, so that the top-k and the NMS rank the
-    class logits alone) and its class logits to N(-14, 4^2) with every
-    decision of get_bboxes at least 2e-4 in logits from its boundary
-    (_set_class_logits, at score_thr's double where the score is the class
-    score times 0.5)."""
+    """A dense head's centerness output (FCOS', ATSS', PAA's IoU) set to 0
+    (a factor of 0.5 on every score, a constant, so that the top-k and the
+    NMS rank the class logits alone) and its class logits to N(-14, 4^2)
+    with every decision of get_bboxes at least 2e-4 in logits from its
+    boundary (_set_class_logits, at score_thr's double where the score is
+    the class score times 0.5, at 2 score_thr^2 where it is PAA's
+    sqrt(class score x 0.5))."""
     head = model.bbox_head
     cness = _cness_conv(head)
     cfg = model.test_cfg
@@ -5745,7 +5813,10 @@ def _fcos_check_heads(model, img, phase):
         with torch.no_grad():
             cness.weight.zero_()
             cness.bias.zero_()
-        model.test_cfg = dict(cfg, score_thr=2 * cfg['score_thr'])
+        thr = cfg['score_thr']
+        paa = type(head).__name__ == 'PAAHead'
+        model.test_cfg = dict(cfg, score_thr=2 * thr ** 2 if paa
+                              else 2 * thr)
     try:
         scale, bias, margins = _set_class_logits(
             model, torch.from_numpy(img), conv=_cls_conv(head),
@@ -5892,7 +5963,7 @@ def dense_train(name):
     profiled step (busy share), and for NAS-FCOS the plain deformable
     convs' ms."""
     phase = f'{_dense_phase(name)}-{name}-train'
-    cfg = Config.fromfile({**DENSE_CONFIGS, **ATSS_CONFIGS}[name])
+    cfg = Config.fromfile(_dense_config(name))
     cfg.merge_from_dict(RESNET_BF16)
     model = _dense_model(name)
     opt = build_optimizer(model, dict(cfg.optimizer))
@@ -5918,6 +5989,14 @@ def dense_train(name):
     per = dense_launches(model, training=True)
     gen = torch.Generator(device='cuda').manual_seed(0)
     stats = {k: v.clone() for k, v in model.named_buffers()}
+    teacher = getattr(model, 'teacher_model', None)
+    if teacher is not None:
+        frozen = {k: v.clone() for k, v in teacher.state_dict().items()}
+        if any(p.requires_grad for p in teacher.parameters()) or any(
+                n.startswith('teacher_model.') for g in opt.param_groups
+                for n in g['names']):
+            raise AssertionError(f'{name}: the teacher takes gradients or '
+                                 f'sits in the optimizer')
     t0 = time.perf_counter()
     _check_log(step(batch, gen), 'warm-up step')
     torch.cuda.synchronize()
@@ -5948,15 +6027,25 @@ def dense_train(name):
                  f'tensor-core {_nonzero(tc)}; {CARD}')
     busy = _profile_steps(step, batch, gen, float(np.median(times)), phase,
                           n=1)
-    deform_ms = 0.0
+    deform_ms, em = 0.0, None
     if name == 'nasfcos':
         deform_ms = _deform_ops_ms(model, batch, phase)[0]
     elif name == 'vfnet':
         from swindet_tpu_torch.ops.deform_conv import DeformConv2d
         deform_ms = _module_ms(model, batch, phase, 'deformable convs',
                                (DeformConv2d,))[0]
+    elif name == 'paa':
+        em = _em_ms(model, batch, phase)
+    if teacher is not None:
+        moved = [k for k, v in teacher.state_dict().items()
+                 if not torch.equal(v, frozen[k])]
+        if moved or teacher.training:
+            raise AssertionError(f'{name}: the teacher moved ({moved[:4]}) '
+                                 f'or left eval mode')
+        log(phase, f'the teacher\'s {len(frozen)} parameters and buffers '
+                   f'bit-equal after {DENSE_STEPS + 2} steps, eval mode')
     return dict(train=launches, times=times, train_peak=peak, busy=busy,
-                deform_ms=deform_ms)
+                deform_ms=deform_ms, em=em)
 
 
 def _dense_train_grads(model, batch, dev, names, keys=None):
@@ -5986,7 +6075,8 @@ def dense_train_check(name, device='cuda'):
     RPN-group limit; a bf16 control on the card must exceed a loss limit
     and a gradient limit."""
     phase = f'{_dense_phase(name)}-{name}-train-check'
-    names = {**DENSE_TRAIN_GRADS, **ATSS_TRAIN_GRADS}[name]
+    names = {**DENSE_TRAIN_GRADS, **ATSS_TRAIN_GRADS,
+             **PAA_LD_TRAIN_GRADS}[name]
     cpu = _dense_model(name, device='cpu', seed=1, opts={'bf16': False})
     batch = train_check_batch()
     keys = None
@@ -6016,6 +6106,13 @@ def dense_train_check(name, device='cuda'):
         _check_tc(phase, launch_counts(), False, (conv3x3, conv3x3_dw))
     control = _rp_train_errors(ref, _dense_train_grads(
         ctl.to(device), batch, device, names, keys))
+    _check_dense_train_errors(name, phase, sound, control)
+
+
+def _check_dense_train_errors(name, phase, sound, control):
+    """Log a dense config's fp32 card-vs-CPU training errors and its bf16
+    control's; fail where the first exceed TOL_TRAIN_LOSS and the gradient
+    limits, or the control passes a loss limit or a gradient limit."""
     for what, (loss, grad) in (('fp32 card vs CPU', sound),
                                ('control, bf16 card vs fp32 CPU', control)):
         log(phase, f'224x320 {what}: relative loss |d| ' + ', '.join(
@@ -6023,7 +6120,8 @@ def dense_train_check(name, device='cuda'):
         log(phase, '  grad |d| / max: ' + ', '.join(
             f'{n} {v:.3g}' for n, v in grad.items()))
 
-    deep = ATSS_DEEP_GRADS if name in ATSS_CONFIGS else DENSE_DEEP_GRADS
+    deep = PAA_LD_DEEP_GRADS if name in PAA_LD_CONFIGS else \
+        ATSS_DEEP_GRADS if name in ATSS_CONFIGS else DENSE_DEEP_GRADS
 
     def over(errs):
         return [k for k, v in errs[0].items() if not v <= TOL_TRAIN_LOSS] \
@@ -6194,6 +6292,194 @@ def phase_atss():
     return out, seconds
 
 
+# ------------------------------------------------------------ phase 19
+PAA_LD_CONFIGS = {
+    'paa': 'configs/paa/paa_r50_fpn_1x_coco.py',
+    # its teacher_config: configs/gfl/gfl_r50_fpn_1x_coco.py, read from the
+    # working directory, the checkout's root
+    'ld': 'configs/ld/ld_r18_gflv1_r101_fpn_coco_1x.py',
+}
+PAA_LD_CONFIGS = {k: os.path.join(REPO, v) for k, v in PAA_LD_CONFIGS.items()}
+# the LD student's ResNet-18: a conv of each unfrozen stage's first and
+# last block, a BN scale
+LD_BACKBONE_GRADS = (
+    'backbone.layer2.0.conv1.weight',
+    'backbone.layer3.1.conv2.weight',
+    'backbone.layer4.1.conv2.weight',
+    'backbone.layer4.1.bn2.weight')
+# the gradients the fp32 training checks hold (LD: the student's), at
+# phase 17's limits (PAA_LD_DEEP_GRADS at RESNET_GRAD_LIMIT)
+PAA_LD_TRAIN_GRADS = {
+    'paa': RESNET_BACKBONE_GRADS + (
+        'neck.fpn_convs.0.conv.weight', 'neck.fpn_convs.2.conv.weight',
+        'bbox_head.cls_convs.0.conv.weight',
+        'bbox_head.reg_convs.3.conv.weight', 'bbox_head.atss_cls.weight',
+        'bbox_head.atss_reg.weight', 'bbox_head.atss_centerness.weight',
+        'bbox_head.scales.0.scale'),
+    'ld': LD_BACKBONE_GRADS + (
+        'neck.fpn_convs.0.conv.weight', 'neck.fpn_convs.2.conv.weight',
+        'bbox_head.cls_convs.0.conv.weight',
+        'bbox_head.reg_convs.3.conv.weight', 'bbox_head.gfl_cls.weight',
+        'bbox_head.gfl_reg.weight', 'bbox_head.scales.0.scale'),
+}
+# behind the ReLU path, as phase 18's (ATSS_DEEP_GRADS)
+PAA_LD_DEEP_GRADS = ATSS_DEEP_GRADS + LD_BACKBONE_GRADS
+
+
+@contextlib.contextmanager
+def paa_hooks(record=None, keep=None, em=None):
+    """Patch the port's PAA head module for a block: ``record``, a dict,
+    receives the sorted candidate losses and validity that the EM fits
+    ('cl', 'cv'), the selection ('sel') and the keep mask (B, N) ('keep');
+    ``keep`` replaces the keep mask PAA computes (pinning the assignment
+    to another run's); ``em`` replaces gmm_em_1d."""
+    from swindet_tpu_torch.models.dense_heads import paa_head as mod
+    select, keep_fn, gmm = mod.paa_select, mod.paa_keep, mod.gmm_em_1d
+
+    def paa_select(cl, cv, em_fn=gmm):
+        sel, reads = select(cl, cv, em_fn)
+        if record is not None:
+            record.update(cl=cl.clone(), cv=cv.clone(), sel=sel.clone())
+        return sel, reads
+
+    def paa_keep(ci, sel, n):
+        out = keep_fn(ci, sel, n)
+        if record is not None:
+            record['keep'] = out.clone()
+        return out if keep is None else keep.to(out.device)
+    mod.paa_select, mod.paa_keep = paa_select, paa_keep
+    if em is not None:
+        mod.gmm_em_1d = em
+    try:
+        yield
+    finally:
+        mod.paa_select, mod.paa_keep, mod.gmm_em_1d = select, keep_fn, gmm
+
+
+def _em_ms(model, batch, phase):
+    """The PAA EM's host-clock ms in one training forward of ``batch``
+    (synchronized before and after, under no_grad), its host reads and the
+    shape of the candidate rows it fits."""
+    from swindet_tpu_torch.models.dense_heads.paa_head import gmm_em_1d
+    runs = []
+
+    def timed(x, valid):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gmm_em_1d(x, valid)
+        torch.cuda.synchronize()
+        runs.append(((time.perf_counter() - t0) * 1e3, out[2],
+                     tuple(x.shape)))
+        return out
+    model.train()
+    with paa_hooks(em=timed), torch.no_grad():
+        model.forward_train(batch['img'], batch['img_shapes'],
+                            batch['pad_shapes'], batch['gt_bboxes'],
+                            batch['gt_valid'], batch['gt_labels'])
+    ms, reads, rows = (sum(r[0] for r in runs), sum(r[1] for r in runs),
+                       [r[2] for r in runs])
+    log(phase, f'the EM (float64, on the card): {ms:.2f} ms a step (host '
+               f'clock, synchronized), {reads} host reads, candidate rows '
+               f'{rows}')
+    return dict(ms=ms, reads=reads, rows=rows)
+
+
+def paa_train_check(device='cuda'):
+    """PAA's fp32 training check, in two parts, on phase 7's 224x320 batch
+    with the same seeded weights on the card (kernels) and the CPU (plain
+    versions). 1: the EM alone: the CPU's float64 EM on the candidate
+    losses the card's run fitted, copied from the card, selects the same
+    candidates as the card's EM did. 2: the whole step with the
+    assignment pinned to the card's keep mask on every side (fp32 rounding
+    of near-tied candidate losses could otherwise flip a row, as the
+    proposals of pin_proposals=True): the losses at TOL_TRAIN_LOSS and the
+    gradients of PAA_LD_TRAIN_GRADS at their limits; a bf16 control on the
+    card, pinned alike, must exceed a loss limit and a gradient limit."""
+    from swindet_tpu_torch.models.dense_heads.paa_head import paa_select
+    name, phase = 'paa', 'paa-ld-paa-train-check'
+    names = PAA_LD_TRAIN_GRADS[name]
+    cpu = _dense_model(name, device='cpu', seed=1, opts={'bf16': False})
+    batch = train_check_batch()
+    gpu = build_detector(dict(cpu.cfg.model, dtype='float32'))
+    gpu.load_state_dict(cpu.state_dict())
+    ctl = build_detector(dict(cpu.cfg.model, dtype='bfloat16'))
+    ctl.load_state_dict(cpu.state_dict())
+    seen = {}
+    reset_launch_counts()
+    with paa_hooks(record=seen):
+        got = _dense_train_grads(gpu.to(device), batch, device, names)
+    if device == 'cuda':
+        _check_launches(phase, launch_counts(),
+                        dense_launches(gpu, training=True), 1)
+        _check_tc(phase, launch_counts(), False, (conv3x3, conv3x3_dw))
+    cl, cv, sel = (seen[k].cpu() for k in ('cl', 'cv', 'sel'))
+    t0 = time.perf_counter()
+    cpu_sel = paa_select(cl, cv)[0]
+    log(phase, f'the EM alone: the card\'s {tuple(cl.shape)} candidate '
+               f'losses ({int(cv.sum())} valid), fitted on the CPU in '
+               f'{time.perf_counter() - t0:.2f} s: {int(cpu_sel.sum())} '
+               f'selected, the card {int(sel.sum())}; equal '
+               f'{torch.equal(cpu_sel, sel)}')
+    if not torch.equal(cpu_sel, sel) or not sel.any():
+        raise AssertionError('paa: the CPU\'s EM selects other candidates '
+                             'than the card\'s, or none')
+    keep = seen['keep']
+    t0 = time.perf_counter()
+    with paa_hooks(keep=keep.cpu()):
+        ref = _dense_train_grads(cpu, batch, 'cpu', names)
+    log(phase, f'the CPU run, assignment pinned to the card\'s '
+               f'({int(keep.sum())} positives), '
+               f'{time.perf_counter() - t0:.1f} s; losses '
+               + ', '.join(f'{k} {v:.5g}' for k, v in ref[0].items()))
+    sound = _rp_train_errors(ref, got)
+    with paa_hooks(keep=keep):
+        control = _rp_train_errors(ref, _dense_train_grads(
+            ctl.to(device), batch, device, names))
+    _check_dense_train_errors(name, phase, sound, control)
+
+
+def phase_paa_ld():
+    """Phase 19: PAA and LD serving with their fp32 serving checks,
+    training (PAA with its EM's ms, LD with its teacher held bit-equal)
+    and their fp32 training checks. Returns each config's results and the
+    phase's seconds."""
+    start = last = time.perf_counter()
+    laps = []
+
+    def lap(what):
+        nonlocal last
+        now = time.perf_counter()
+        laps.append(f'{what} {now - last:.1f} s')
+        log('time', f'paa-ld (phase 19): {laps[-1]}')
+        last = now
+    out = {}
+    for name in PAA_LD_CONFIGS:
+        serve, lat, peak, counts = dense_serve(name)
+        lap(f'{name} serving')
+        dense_check(name)
+        lap(f'{name} serving check')
+        out[name] = dict(serve=serve, lat=lat, peak=peak, counts=counts,
+                         **dense_train(name))
+        lap(f'{name} training')
+        # the FPN's output convs and the NMS in serving, the convs and
+        # their filter gradients in training
+        for key, kernels in (('serve', (conv3x3, nms_sorted)),
+                             ('train', (conv3x3, conv3x3_dw))):
+            idle = [fn.__name__ for fn in kernels
+                    if not out[name][key][fn.__name__]]
+            if idle:
+                raise AssertionError(f'{name}: no {key} launch of {idle}')
+        if name == 'paa':
+            paa_train_check()
+        else:
+            dense_train_check(name)
+        lap(f'{name} training check')
+    seconds = time.perf_counter() - start
+    log('time', 'paa-ld (phase 19): ' + ', '.join(laps)
+                + f'; {seconds:.1f} s')
+    return out, seconds
+
+
 # phase 3's further readings of a kernel's main row that the JSON line
 # carries: the kernel's own device ms (rows 1, 14 and 15), row 14's
 # head-major copy, row 1's first kernel off the vector path, row 15's
@@ -6245,6 +6531,8 @@ def main() -> int:
     lap('phase 17')
     atss, phase18_s = phase_atss()
     lap('phase 18')
+    paa_ld, phase19_s = phase_paa_ld()
+    lap('phase 19')
     for what, key, fmt in (('request latency (s)', 'lat', '.4f'),
                            ('training step (ms)', 'times', '.1f')):
         log('configs', f'{what}, median of the timed runs: ' + ', '.join(
@@ -6318,6 +6606,17 @@ def main() -> int:
                     + (f', plain deformable convs {r["deform_ms"]:.2f} ms '
                        f'a step' if r['deform_ms'] else '') + f'; {smi}')
     log('atss', f'phase 18 {phase18_s:.1f} s')
+    for name, r in paa_ld.items():
+        log('paa-ld', f'{name}: request ms median '
+                      f'{np.median(r["lat"]) * 1e3:.1f}, serving peak '
+                      f'{r["peak"] / 2 ** 30:.2f} GiB, training step median '
+                      f'{np.median(r["times"]):.1f} ms, peak '
+                      f'{r["train_peak"] / 2 ** 30:.2f} GiB, busy '
+                      f'{r["busy"]:.3f}'
+                      + ('' if r['em'] is None else
+                         f', the EM {r["em"]["ms"]:.2f} ms a step with '
+                         f'{r["em"]["reads"]} host reads') + f'; {smi}')
+    log('paa-ld', f'phase 19 {phase19_s:.1f} s')
     rows = []
     for fn in KERNEL_WRAPPERS:
         name = fn.__name__
@@ -6361,6 +6660,10 @@ def main() -> int:
         for which, r in atss.items():
             counts[f'atss_{which}_serve_launches'] = r['serve'][name]
             counts[f'atss_{which}_train_launches'] = r['train'][name]
+        # phase 19's PAA and LD: 2 requests and 3 steps each
+        for which, r in paa_ld.items():
+            counts[f'paa_ld_{which}_serve_launches'] = r['serve'][name]
+            counts[f'paa_ld_{which}_train_launches'] = r['train'][name]
         if tc:
             tc = dict(tc_launches=sum(tc.values()), **tc)
         if 'shapes' in main_row:

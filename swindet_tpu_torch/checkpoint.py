@@ -28,7 +28,7 @@ _NAME_MAP = {
     '_backbone': 'backbone', '_neck': 'neck', '_rpn_head': 'rpn_head',
     '_roi_head': 'roi_head', '_bbox_head': 'bbox_head',
     '_mask_head': 'mask_head', '_bbox_extractor': 'bbox_roi_extractor',
-    '_mask_extractor': 'mask_roi_extractor',
+    '_mask_extractor': 'mask_roi_extractor', '_teacher': 'teacher_model',
 }
 # a deformable RoI pool pack's layers, flat in the JAX package
 # (roi_layers{l}_{offset|mask}_{fc1|fc2|out}), mmcv's Sequential indices
@@ -241,6 +241,8 @@ def state_dict_from_jax(params: Dict, batch_stats: Optional[Dict] = None,
     - a dense head's per-level ``scales`` vector (L,) (and VFNet's
       ``scales_refine``) -> mmcv's ``Scale`` modules ``scales.{i}.scale``,
       each of shape () (the inverse of ``swindet_tpu/checkpoint.py:405-414``);
+    - a distilling detector's ``_teacher`` (params and batch statistics)
+      -> mmdet's ``teacher_model.`` before the teacher's own names;
     - a GFL head gains mmdet's ``integral.project`` buffer, the bins
       0..reg_max, which the JAX converter skips (:560);
     - NASFCOS_FPN's ``adapt_convs{i}.conv`` / ``.bn`` ->

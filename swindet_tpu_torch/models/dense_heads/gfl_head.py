@@ -103,6 +103,13 @@ class GFLHead(ATSSHead):
         (over the four sides), both weighted by the detached best class
         score of each positive and divided by its sum (four times it for
         the DFL)."""
+        return self.gfl_loss(cls_scores, bbox_preds, gt_bboxes, gt_valid,
+                             gt_labels, img_shapes, pad_shapes)[0]
+
+    def gfl_loss(self, cls_scores, bbox_preds, gt_bboxes, gt_valid,
+                 gt_labels, img_shapes, pad_shapes):
+        """:meth:`loss`'s dict and each anchor's weight (B, N): a
+        positive's detached best class score, 0 off the positives."""
         featmap_sizes = [tuple(s.shape[1:3]) for s in cls_scores]
         flat, labels, label_weights, pos, bbox_t = self.atss_targets(
             featmap_sizes, gt_bboxes, gt_valid, gt_labels, img_shapes,
@@ -139,7 +146,7 @@ class GFLHead(ATSSHead):
             weight=weight_t[..., None].expand(-1, -1, 4).reshape(-1),
             avg_factor=4.0 * avg)
         return dict(loss_cls=loss_cls, loss_bbox=loss_bbox,
-                    loss_dfl=loss_dfl)
+                    loss_dfl=loss_dfl), weight_t
 
     # -------------------------------------------------------------- boxes
     def get_bboxes(self, cls_scores, bbox_preds, img_shapes, scale_factors,

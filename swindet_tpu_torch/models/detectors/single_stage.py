@@ -2,9 +2,10 @@
 ``swindet_tpu/models/detectors/single_stage.py``: ``SingleStageDetector``
 :18 with ``aug_bbox_test`` :86, ``RetinaNet`` :113, ``RepPointsDetector``
 :119, ``ATSS`` :143, ``GFL`` :168, ``FCOS`` :174, ``NASFCOS`` :198,
-``VFNet`` :226; reference mmdet/models/detectors/single_stage.py:10,
-retinanet.py, reppoints_detector.py:6, atss.py, gfl.py, fcos.py,
-nasfcos.py, vfnet.py).
+``VFNet`` :226, ``PAA`` :274, ``KnowledgeDistillationSingleStageDetector``
+:290; reference mmdet/models/detectors/single_stage.py:10, retinanet.py,
+reppoints_detector.py:6, atss.py, gfl.py, fcos.py, nasfcos.py, vfnet.py,
+paa.py, kd_one_stage.py:11).
 
 Backbone, neck (one, or a list chained in order, as the JAX package
 chains them) and one dense head whose outputs go to its ``loss``
@@ -19,9 +20,11 @@ from typing import Dict, Optional, Sequence
 import torch
 import torch.nn as nn
 
-from ..builder import build_backbone, build_head, build_neck
+from ..builder import (build_backbone, build_detector, build_head,
+                       build_neck)
 from ..layers import resolve_dtype
 from ...registries import DETECTORS
+from ...utils.config import Config
 
 
 @DETECTORS.register_module()
@@ -152,3 +155,58 @@ class GFL(SingleStageDetector):
 class VFNet(SingleStageDetector):
     """(reference vfnet.py): the head's three outputs (classes, initial and
     refined box distances)."""
+
+
+@DETECTORS.register_module()
+class PAA(SingleStageDetector):
+    """(reference paa.py:6): the head's three outputs (classes, box deltas,
+    IoU)."""
+
+
+@DETECTORS.register_module()
+class KnowledgeDistillationSingleStageDetector(SingleStageDetector):
+    """(reference kd_one_stage.py:11): a student single-stage detector and
+    a teacher, ``teacher_model``, built from ``teacher_config`` (a model
+    dict, or a config file's path, read relative to the working directory
+    as the JAX package reads it) in the student's dtype. In training the
+    teacher's head outputs, under ``torch.no_grad()``, give the student's
+    head its soft targets (LD: the teacher's box-side bin logits). The
+    teacher's parameters take no gradient, so ``build_optimizer`` leaves
+    them out; with ``eval_teacher`` it stays in eval mode whatever
+    ``train()`` is given. ``teacher_ckpt`` is taken and ignored, as in the
+    JAX package. Testing runs the student alone."""
+
+    def __init__(self, backbone: dict, neck, bbox_head: dict, test_cfg: dict,
+                 teacher_config, teacher_ckpt: Optional[str] = None,
+                 eval_teacher: bool = True, train_cfg: Optional[dict] = None,
+                 pretrained: Optional[str] = None, dtype=torch.float32):
+        super().__init__(backbone, neck, bbox_head, test_cfg, train_cfg,
+                         pretrained, dtype)
+        if isinstance(teacher_config, str):
+            teacher_config = Config.fromfile(teacher_config).model
+        self.teacher_model = build_detector(dict(teacher_config,
+                                                 dtype=self.dtype))
+        self.teacher_model.requires_grad_(False)
+        self.eval_teacher = eval_teacher
+
+    def init_weights(self, seed: int = 0) -> None:
+        """The student's seeded weights, and the teacher's from seed + 1."""
+        super().init_weights(seed)
+        self.teacher_model.init_weights(seed + 1)
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        if self.eval_teacher:
+            self.teacher_model.train(False)
+        return self
+
+    def forward_train(self, img, img_shapes, pad_shapes, gt_bboxes,
+                      gt_valid, gt_labels, gt_masks=None, gen=None,
+                      sampler_keys=None):
+        outs = self.bbox_head(self.extract_feat(img, gen))
+        with torch.no_grad():
+            teacher = self.teacher_model
+            soft = teacher.bbox_head(teacher.extract_feat(img))[1]
+        return self.bbox_head.loss(*outs, gt_bboxes, gt_valid, gt_labels,
+                                   img_shapes, pad_shapes,
+                                   soft_targets=soft)

@@ -4,10 +4,10 @@ tensor ``avg_factor``s (counterpart of
 ``CrossEntropyLoss`` :47, ``FocalLoss`` :94, ``L1Loss`` :126,
 ``SmoothL1Loss`` :141, ``IoULoss`` :160, ``GIoULoss`` :190,
 ``QualityFocalLoss`` :214, ``DistributionFocalLoss`` :252, ``accuracy``
-:280, ``VarifocalLoss`` :450; reference
-mmdet/models/losses/cross_entropy_loss.py, focal_loss.py, smooth_l1_loss.py,
-iou_loss.py, gfocal_loss.py, varifocal_loss.py). Padded entries carry
-weight 0."""
+:280, ``VarifocalLoss`` :450, ``KnowledgeDistillationKLDivLoss`` :595;
+reference mmdet/models/losses/cross_entropy_loss.py, focal_loss.py,
+smooth_l1_loss.py, iou_loss.py, gfocal_loss.py, varifocal_loss.py,
+kd_loss.py). Padded entries carry weight 0."""
 from __future__ import annotations
 
 from typing import Optional
@@ -316,6 +316,34 @@ class VarifocalLoss:
         loss = _bce_with_logits(pred, target) * focal_weight
         if weight is not None and weight.ndim < loss.ndim:
             weight = weight[..., None]
+        return self.loss_weight * weight_reduce_loss(loss, weight, reduction,
+                                                     avg_factor)
+
+
+@LOSSES.register_module()
+class KnowledgeDistillationKLDivLoss:
+    """Temperature-scaled KL divergence (reference kd_loss.py:39,
+    arXiv:1503.02531, LD arXiv:2102.12252): with p = softmax(pred / T) and
+    q = softmax(soft_label / T) (detached), q (log max(q, 1e-12) - log p)
+    where q > 0 and 0 elsewhere, averaged over the last axis, times T^2."""
+
+    def __init__(self, reduction: str = 'mean', loss_weight: float = 1.0,
+                 T: float = 10.0):
+        if T < 1:
+            raise ValueError(f'KnowledgeDistillationKLDivLoss: T {T} < 1')
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+        self.T = float(T)
+
+    def __call__(self, pred, soft_label, weight=None, avg_factor=None,
+                 reduction_override=None):
+        reduction = reduction_override or self.reduction
+        t = self.T
+        logp = torch.log_softmax(pred.float() / t, dim=-1)
+        q = torch.softmax(soft_label.detach().float() / t, dim=-1)
+        kl = torch.where(q > 0, q * (torch.log(q.clamp(min=1e-12)) - logp),
+                         0.0)
+        loss = kl.mean(-1) * (t * t)
         return self.loss_weight * weight_reduce_loss(loss, weight, reduction,
                                                      avg_factor)
 
