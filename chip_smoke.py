@@ -348,6 +348,33 @@ before the last line:
               FPN's output convs (LD's teacher's too, forward only, in
               training), the NMS and the filter gradients launch the
               kernels.
+20. htc   -- Hybrid Task Cascade R-50 from its configs, bf16 set on top:
+              first rows 4 and 9 against their plain versions at the
+              semantic branch's shapes (one stride-8 level of
+              100x168x256, 14x14 bins: 3 stages of 2 x 512 training rois
+              forward and backward, serving's 1,000 proposals and 100
+              detections), bf16 and fp32; then htc (with the fused
+              semantic branch): a warm-up and 2 requests at 800x1333, ms
+              a request and peak memory, every launch equal to what
+              htc_launches derives (a request: conv3x3 25 -- the FPN's
+              4, the RPN conv on 5 levels, the semantic tower's 4, each
+              stage's mask head's 4 --, RoIAlign 8 -- 3 bbox stages and
+              the mask branch, each also on the semantic embedding --,
+              NMS 2); phase 12's fp32 serving check with a bf16 control;
+              1 + 3 make_train_step steps at batch 2 on 800x1344 with a
+              1/8-scale stuff map an image (a step: conv3x3 74 and its
+              filter gradient 37 -- the mask flow runs heads 0..i at
+              stage i, 24 mask-head conv passes --, RoIAlign forward and
+              backward 12 each, NMS 1), frozen BN buffers unmoved, a
+              profiled step; phase 7's fp32 training check with the
+              semantic loss's gradients as their own group, sampler keys
+              by call order (the interleaved mask sample after each
+              stage's bbox sample), 128 rois a stage an image, proposals
+              pinned, with a bf16 control; train_detector and tools.test
+              --eval bbox segm from PNG images and grayscale stuff-map
+              PNGs written here (LoadAnnotations with_seg, SegRescale);
+              then htc_without_semantic serving and its fp32 serving
+              check.
 
 Each phase's wall time is logged under [time].
 
@@ -367,7 +394,8 @@ phase 13's as ``reppoints_serve_launches`` and
 and ``dense_<config>_train_launches``, phase 18's as
 ``atss_<config>_serve_launches`` and ``atss_<config>_train_launches``,
 phase 19's as ``paa_ld_<config>_serve_launches`` and
-``paa_ld_<config>_train_launches``; for
+``paa_ld_<config>_train_launches``, phase 20's as
+``htc_<config>_serve_launches`` and ``htc_htc_train_launches``; for
 the conv,
 fused-MLP and v1, v3,
 v4 and full-map attention rows also ``tc_launches``, counted the same
@@ -1915,7 +1943,9 @@ def phase_check(device: str = 'cuda', phase: str = 'check',
     reset_launch_counts()
     want = _serve_outputs(cpu, 'cpu', img, shapes, sf)
     got = _serve_outputs(gpu, device, img, shapes, sf)
-    if device == 'cuda' and (
+    # a CNN backbone (phase 20's HTC) runs no attention kernel
+    swin = any(isinstance(m, WindowAttention) for m in gpu.modules())
+    if device == 'cuda' and swin and (
             bool(fused_mlp.launches) != fused
             or bool(window_attention_v4.launches) != v4
             or bool(window_attention_v3.launches) == v4):
@@ -1923,7 +1953,7 @@ def phase_check(device: str = 'cuda', phase: str = 'check',
                              f'{launch_counts()}')
     if device == 'cuda':
         _check_tc(phase, launch_counts(), False,
-                  _tc_kernels(fused, False, v4))
+                  _tc_kernels(fused, False, v4) if swin else (conv3x3,))
     feat_err, errs = _serve_errors(want, got)
     if errs is None:
         raise AssertionError('detections differ between card and CPU')
@@ -2182,7 +2212,8 @@ def train_check_batch(b=2, h=224, w=320, g=4, seed=2):
 # the groups of loss terms whose gradients the check holds apart, by the
 # terms' names (a cascade's are 's0.loss_cls' and so on)
 LOSS_PARTS = {'rpn': ('loss_rpn_cls', 'loss_rpn_bbox'),
-              'bbox': ('loss_cls', 'loss_bbox'), 'mask': ('loss_mask',)}
+              'bbox': ('loss_cls', 'loss_bbox'), 'mask': ('loss_mask',),
+              'semantic': ('loss_semantic_seg',)}
 
 
 def _part_terms(losses, part):
@@ -2203,7 +2234,10 @@ def _part_terms(losses, part):
 # such units too, but its losses send gradient only to the pixels of the
 # 256 anchors sampled per image.
 TOL_TRAIN_LOSS = 2e-6
-TOL_TRAIN_GRAD = {'rpn': 1e-4, 'bbox': 6e-3, 'mask': 6e-3}
+# HTC's semantic loss (phase 20) takes the bbox and mask groups' limit: its
+# gradient passes back through the semantic head's ReLU convs over whole
+# maps, as theirs through the RoI heads' (set before its first card run)
+TOL_TRAIN_GRAD = {'rpn': 1e-4, 'bbox': 6e-3, 'mask': 6e-3, 'semantic': 6e-3}
 # The portrait check's proposal chain: the card's RPN scores and deltas
 # against the CPU's, max |d| over the largest entry (fp32 sums in another
 # order; the bf16 control reads 1e-3 and more); and the card's proposal
@@ -2308,11 +2342,13 @@ def _train_grads(model, batch, keys, dev, names=TRAIN_GRADS):
     seen, undo = _record(model)
     model.train()
     tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    seg = {} if 'gt_semantic_seg' not in tb \
+        else dict(gt_semantic_seg=tb['gt_semantic_seg'])
     try:
         losses = model.forward_train(
             tb['img'], tb['img_shapes'], tb['pad_shapes'], tb['gt_bboxes'],
             tb['gt_valid'], tb['gt_labels'], tb['gt_masks'],
-            sampler_keys=_to(keys, dev))
+            sampler_keys=_to(keys, dev), **seg)
     finally:
         undo()
     params = dict(model.named_parameters())
@@ -2580,10 +2616,18 @@ def phase_train_check(device: str = 'cuda', fused: bool = False,
                 for _ in range(b)]
     keys = dict(rpn=draw(n_rpn))
     if isinstance(rcnn, (list, tuple)):
-        # a cascade's stages: G + P candidates, then G + num
-        keys['rcnn'] = [draw(g + (n_props if i == 0 else
-                                  rcnn[i - 1]['sampler']['num']))
-                        for i in range(len(rcnn))]
+        # a cascade's stages: G + P candidates, then G + num; an HTC's
+        # interleaved mask branch samples again after each stage's bbox
+        # sample, over the G + num boxes that stage refined
+        resample = getattr(cpu.roi_head, 'interleaved', False) \
+            and cpu.roi_head.with_mask
+        keys['rcnn'] = []
+        cand = g + n_props
+        for stage in rcnn:
+            keys['rcnn'].append(draw(cand))
+            cand = g + stage['sampler']['num']
+            if resample:
+                keys['rcnn'].append(draw(cand))
     else:
         keys['rcnn'] = draw(g + n_props)
 
@@ -2672,12 +2716,15 @@ def _run_config(name, **flags):
 # ------------------------------------------------------------- phase 10
 def png_bytes(bgr: np.ndarray, filter_type: Optional[int] = None,
               level: int = 1) -> bytes:
-    """A BGR uint8 (H, W, 3) image as an 8-bit RGB PNG, deflated at zlib
-    ``level``: an encoder for the card's machine, which has neither cv2
-    nor PIL. Every row takes PNG filter ``filter_type`` (0 None, 1 Sub, 2
-    Up, 3 Average, 4 Paeth), or with None the filter libpng's encoder
-    picks for it: the least sum of the filtered bytes read as signed."""
-    rgb = np.ascontiguousarray(bgr[..., ::-1]).astype(np.int16)
+    """A BGR uint8 (H, W, 3) image as an 8-bit RGB PNG (a (H, W) one as an
+    8-bit grayscale PNG), deflated at zlib ``level``: an encoder for the
+    card's machine, which has neither cv2 nor PIL. Every row takes PNG
+    filter ``filter_type`` (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth), or
+    with None the filter libpng's encoder picks for it: the least sum of
+    the filtered bytes read as signed."""
+    gray = bgr.ndim == 2
+    rgb = np.ascontiguousarray(bgr[..., None] if gray else bgr[..., ::-1]) \
+        .astype(np.int16)
     h, w, _ = rgb.shape
     a = np.zeros_like(rgb)          # the left pixel
     a[:, 1:] = rgb[:, :-1]
@@ -2705,7 +2752,8 @@ def png_bytes(bgr: np.ndarray, filter_type: Optional[int] = None,
         return (struct.pack('>I', len(body)) + kind + body
                 + struct.pack('>I', zlib.crc32(kind + body)))
     return (b'\x89PNG\r\n\x1a\n'
-            + chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, 2, 0, 0, 0))
+            + chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8,
+                                         0 if gray else 2, 0, 0, 0))
             + chunk(b'IDAT', zlib.compress(raw.tobytes(), level))
             + chunk(b'IEND', b''))
 
@@ -6480,6 +6528,363 @@ def phase_paa_ld():
     return out, seconds
 
 
+# ------------------------------------------------------------ phase 20
+# Hybrid Task Cascade R-50, with the fused semantic branch and without
+HTC_CONFIGS = {
+    'htc': 'configs/htc/htc_r50_fpn_1x_coco.py',
+    'htc_without_semantic':
+        'configs/htc/htc_without_semantic_r50_fpn_1x_coco.py',
+}
+HTC_CONFIGS = {k: os.path.join(REPO, v) for k, v in HTC_CONFIGS.items()}
+HTC_REQUESTS = 2
+HTC_STEPS = 3
+# the training check's cut (phase 12's): CHECK_ROIS rois a stage an image,
+# its CPU side the plain RoIAlign backward of every sampled roi
+HTC_CHECK_CUTS = {f'model.train_cfg.rcnn.{i}.sampler.num': CHECK_ROIS
+                  for i in range(3)}
+# the gradients its fp32 training check holds: the ResNet's behind the
+# ReLU path (RESNET_GRAD_LIMIT), the neck, the RPN conv, the semantic
+# branch (its laterals, tower and logits take the semantic loss, its
+# embedding the bbox and mask losses through the fusion), a bbox head of
+# the first and the last stage, the first mask head and the last one's
+# conv_res (the information flow)
+HTC_TRAIN_GRADS = RESNET_BACKBONE_GRADS + (
+    'neck.fpn_convs.0.conv.weight', 'rpn_head.rpn_conv.weight',
+    'roi_head.semantic_head.lateral_convs.0.conv.weight',
+    'roi_head.semantic_head.convs.3.conv.weight',
+    'roi_head.semantic_head.conv_logits.weight',
+    'roi_head.semantic_head.conv_embedding.conv.weight',
+    'roi_head.bbox_head.0.fc_cls.weight',
+    'roi_head.bbox_head.2.shared_fcs.1.weight',
+    'roi_head.mask_head.0.convs.0.conv.weight',
+    'roi_head.mask_head.2.conv_res.conv.weight')
+# the semantic RoIAlign's shapes: one stride-8 level, an 800x1344
+# canvas's P3, 14x14 bins
+HTC_SEM_LEVEL = (100, 168)
+HTC_STUFF_CLASSES = 183
+
+
+def htc_launches(model, training):
+    """Each kernel's launches that one request (serving) or one step
+    (training) of an HTC makes, derived from the built model: a conv3x3
+    launch per kernel ConvModule of the FPN, per RPN level, per semantic
+    tower conv and per mask-head conv pass -- serving runs each stage's
+    mask head once (the chain hands each its predecessor's tower output);
+    in training, stage i's mask branch runs heads 0..i with the
+    information flow, head i alone without -- and in training one more
+    each for dx and a filter-gradient launch each; a RoIAlign launch per
+    stage's bbox extractor call and per mask extractor call (one when
+    serving, shared by the stages; one a stage in training), each with a
+    second one on the semantic embedding where that branch is fused, in
+    training each with its backward; NMS twice a request, once a step."""
+    roi = model.roi_head
+    n = roi.num_stages
+    head = [sum(c.use_kernel for c in h.convs) for h in roi.mask_head]
+    passes = sum(sum(head[:i + 1]) if roi.mask_info_flow else head[i]
+                 for i in range(n)) if training else sum(head)
+    convs = model.rpn_head.conv_uses_kernel \
+        * len(model.rpn_head.prior_generator.strides) \
+        + sum(c.use_kernel for c in model.neck.fpn_convs) + passes
+    fused = set(roi.semantic_fusion) if roi.with_semantic else set()
+    if roi.with_semantic:
+        convs += sum(c.use_kernel for c in roi.semantic_head.convs)
+    mask_calls = n if training else 1
+    aligns = n * (1 + ('bbox' in fused)) + mask_calls * (1 + ('mask' in fused))
+    want = {fn.__name__: 0 for fn in KERNEL_WRAPPERS}
+    if training:
+        want.update(conv3x3=2 * convs, conv3x3_dw=convs, roi_align=aligns,
+                    roi_align_bwd=aligns, nms_sorted=1)
+    else:
+        want.update(conv3x3=convs, roi_align=aligns, nms_sorted=2)
+    return want
+
+
+def _htc_model(name, device='cuda', seed=0, opts=RESNET_BF16):
+    model = init_detector(HTC_CONFIGS[name], device=device, seed=seed,
+                          cfg_options=dict(opts))
+    if type(model).__name__ != 'HybridTaskCascade' \
+            or model.roi_head.with_semantic != (name == 'htc'):
+        raise AssertionError(f'{name}: not the configured HTC')
+    return model
+
+
+def stuff_maps(n, canvas, img_hw, seed=0, stride=8):
+    """Synthetic stuff maps of ``n`` images at 1/``stride`` of ``canvas``,
+    as the HTC pipeline's Pad and SegRescale leave them: a 4 x 6 grid of
+    blocks of labels 0-182 over the image (``img_hw``), 255 (ignored) on
+    the padding."""
+    rs = np.random.RandomState(seed + 200)
+    sh, sw = canvas[0] // stride, canvas[1] // stride
+    h, w = (int(v / stride + 0.5) for v in img_hw)
+    blocks = rs.randint(0, HTC_STUFF_CLASSES, (n, 4, 6))
+    rows = np.minimum(np.arange(sh) * 4 // sh, 3)
+    cols = np.minimum(np.arange(sw) * 6 // sw, 5)
+    seg = blocks[:, rows][:, :, cols].astype(np.uint8)
+    seg[:, h:], seg[:, :, w:] = 255, 255
+    return seg
+
+
+def htc_kernel_checks(gen, randn):
+    """Rows 4 and 9 at the semantic branch's shape, each against its plain
+    version with its bound, in bf16 and fp32: RoIAlign of the stride-8
+    embedding of an 800x1344 canvas (one level of 100x168x256) at 14x14,
+    the pattern of a training step -- each of the 3 stages pools its 512
+    rois an image of a batch of 2 -- forward and backward, and serving's
+    1,000 proposals (the bbox fusion) and 100 detections (the mask
+    fusion) of one image; each case's rois and the work they need, drawn
+    and counted once, serve both dtypes. The backward must repeat bit for
+    bit. Returns per dtype the forward's and the backward's rows."""
+    c, size, strides = 256, 14, (8,)
+    cases = []
+    for n, b, what in ((1000, 1, 'serving, bbox fusion'),
+                       (100, 1, 'serving, mask fusion'),
+                       *((1024, 2, f'training, stage {i}')
+                         for i in range(3))):
+        rois = _rois(gen, n, batch=b)
+        cases.append((n, b, rois, _roi_work([HTC_SEM_LEVEL], rois, strides,
+                                            size),
+                      f'{n} rois {size}x{size}x{c}, one level at stride 8, '
+                      f'{HTC_SEM_LEVEL[0]}x{HTC_SEM_LEVEL[1]}, batch {b} '
+                      f'({what})'))
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        el = torch.finfo(dtype).bits // 8
+        fwd, bwd = [], []
+        for n, b, rois, (touched, samples), note in cases:
+            feats = [randn(b, *HTC_SEM_LEVEL, c).to(dtype)]
+            fwd.append(_compare(
+                'roi_align', dtype,
+                lambda: roi_align(feats, rois, strides, size),
+                lambda: multilevel_roi_align(feats, rois, strides, size),
+                note, work=(touched * c * el + _nbytes(rois)
+                            + n * size * size * c * el,
+                            samples * c * 4 * 2.0), plain_iters=2))
+            if b == 1:
+                continue
+            shapes = [tuple(feats[0].shape)]
+            g = randn(n, size, size, c).to(dtype)
+            bwd.append(_compare(
+                'roi_align_bwd', dtype,
+                lambda: roi_align_bwd(shapes, dtype, rois, g, strides, size),
+                lambda: multilevel_roi_align_backward(shapes, dtype, rois, g,
+                                                      strides, size),
+                note, summed=True,
+                work=(_nbytes(g, rois) + _nbytes(feats[0]),
+                      samples * c * 4 * 2.0), plain_iters=2))
+            _check_repeats(shapes, dtype, rois, g, strides, size)
+        out[dtype] = (fwd, bwd)
+    torch.cuda.empty_cache()
+    return out
+
+
+def htc_serve(name):
+    """An HTC config in bf16 through init_detector and inference_detector:
+    a warm-up, then HTC_REQUESTS requests at 800x1333, ms a request, peak
+    memory, every launch count checked."""
+    phase = f'htc-{name}'
+    t0 = time.perf_counter()
+    model = _htc_model(name)
+    per = htc_launches(model, training=False)
+    log(phase, f'init_detector: {type(model).__name__} '
+               f'{sum(p.numel() for p in model.parameters())} params, '
+               f'compute {model.dtype}, {time.perf_counter() - t0:.1f} s; '
+               f'launches per request {_nonzero(per)}')
+    return _timed_requests(phase, model,
+                           synthetic_images(HTC_REQUESTS + 1, seed=9), per,
+                           lambda img: inference_detector(model, img),
+                           lambda res: _check_result(res, 800, 1333))
+
+
+def htc_train(name='htc'):
+    """1 + HTC_STEPS make_train_step steps (the config in bf16, SGD) at
+    batch 2 on the 800x1344 canvas with 16 painted rectangles an image and
+    a 1/8-scale stuff map (stuff_maps), each step's launches checked, the
+    frozen BN buffers unmoved, a profiled step (busy share)."""
+    phase = f'htc-{name}-train'
+    cfg = Config.fromfile(HTC_CONFIGS[name])
+    cfg.merge_from_dict(RESNET_BF16)
+    model = _htc_model(name)
+    opt = build_optimizer(model, dict(cfg.optimizer))
+    if not isinstance(opt, torch.optim.SGD):
+        raise AssertionError(f'{name}: optimizer {type(opt).__name__}')
+    step = make_train_step(model, opt, build_lr_schedule(
+        dict(cfg.lr_config), cfg.optimizer['lr'], ITERS_PER_EPOCH),
+        dict(cfg.optimizer_config).get('grad_clip'))
+    per = htc_launches(model, training=True)
+    batch = synthetic_train_batch()
+    batch['gt_semantic_seg'] = torch.from_numpy(stuff_maps(
+        2, (800, 1344), (800, 1333))).cuda()
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    stats = {k: v.clone() for k, v in model.named_buffers()}
+    t0 = time.perf_counter()
+    out = step(batch, gen)
+    _check_log(out, 'warm-up step')
+    torch.cuda.synchronize()
+    if 'loss_semantic_seg' not in out:
+        raise AssertionError(f'{name}: no semantic loss in {sorted(out)}')
+    log(phase, f'warm-up step {time.perf_counter() - t0:.3f} s; launches '
+               f'per step {_nonzero(per)}')
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times = []
+    for _ in range(HTC_STEPS):
+        t0 = time.perf_counter()
+        out = step(batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        _check_log(out, 'timed step')
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    _check_launches(phase, launches, per, HTC_STEPS)
+    tc = _check_tc(phase, launches, True, (conv3x3, conv3x3_dw))
+    moved = [k for k, v in model.named_buffers()
+             if not torch.equal(v, stats[k])]
+    if moved:
+        raise AssertionError(f'{name}: frozen BN buffers moved: {moved[:4]}')
+    log(phase, 'per-step ms: ' + ', '.join(f'{t:.1f}' for t in times)
+               + f'; peak memory {peak / 2 ** 30:.2f} GiB; last step: '
+               + ', '.join(f'{k} {v:.4f}' for k, v in out.items())
+               + f'; launches {_nonzero(launches)}, as derived; '
+                 f'tensor-core {_nonzero(tc)}; {CARD}')
+    busy = _profile_steps(step, batch, gen, float(np.median(times)), phase,
+                          n=1)
+    return dict(train=launches, times=times, train_peak=peak, busy=busy)
+
+
+def htc_train_check(device='cuda'):
+    """Phase 7's check through phase_train_check on the HTC with its
+    semantic branch: fp32 on phase 7's 224x320 batch with a 1/8-scale
+    stuff map, the card against the CPU, same seeded weights, batch and
+    sampler keys (by call order: each stage's bbox sample, then its
+    interleaved mask sample), proposals pinned, CHECK_ROIS rois a stage
+    an image; the losses loss_semantic_seg and s{i}.loss_cls, loss_bbox,
+    loss_mask, the gradients of HTC_TRAIN_GRADS (the backbone's at
+    RESNET_GRAD_LIMIT), each group of loss terms on its own; the bf16
+    control must exceed them."""
+    batch = train_check_batch()
+    batch['gt_semantic_seg'] = stuff_maps(2, (224, 320), (224, 320), seed=2)
+    phase_train_check(
+        device=device, config=HTC_CONFIGS['htc'], batch=batch,
+        names=HTC_TRAIN_GRADS, pin_proposals=True,
+        opts=(('bf16', False), *HTC_CHECK_CUTS.items()),
+        limits=({}, dict(TOL_TRAIN_GRAD, **{n: RESNET_GRAD_LIMIT
+                                            for n in RESNET_BACKBONE_GRADS})))
+
+
+def write_stuff_maps(root, ann_file):
+    """A grayscale PNG stuff map beside each image of ``ann_file``, named
+    as the image (CocoDataset's seg_map), in ``root``/stuff: a 4 x 6 grid
+    of blocks of labels 0-182 at the image's size. Returns the folder."""
+    seg_dir = os.path.join(root, 'stuff')
+    os.makedirs(seg_dir, exist_ok=True)
+    with open(ann_file) as f:
+        images = json.load(f)['images']
+    for i, im in enumerate(images):
+        h, w = im['height'], im['width']
+        seg = stuff_maps(1, (h, w), (h, w), seed=i, stride=1)[0]
+        with open(os.path.join(seg_dir, im['file_name']), 'wb') as f:
+            f.write(png_bytes(seg))
+    return seg_dir + os.sep
+
+
+def htc_files(name='htc'):
+    """From files: train_detector for one epoch (one iteration) on 2 of
+    phase 10's PNGs and their grayscale stuff-map PNGs with the config's
+    own pipeline (LoadAnnotations with_seg, SegRescale 1/8), then
+    tools.test on them with the trained checkpoint, --eval bbox segm,
+    score_thr 0: 100 detections an image."""
+    phase = f'htc-{name}-files'
+    build_dir = os.path.join(REPO, 'build')
+    os.makedirs(build_dir, exist_ok=True)
+    config = HTC_CONFIGS[name]
+    with tempfile.TemporaryDirectory(dir=build_dir) as root:
+        ann_file, prefix = write_synthetic_coco(root, RESNET_LOOP_SIZES)
+        work = os.path.join(root, 'work')
+        cfg = loop_config(ann_file, prefix, work, config=config)
+        cfg.data.train.seg_prefix = write_stuff_maps(root, ann_file)
+        cfg.model.pretrained = None
+        model = build_detector(dict(cfg.model, dtype='bfloat16'))
+        per = htc_launches(model, training=True)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        run = train_detector(model, build_dataset(cfg.data.train), cfg)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        log(phase, f'train_detector: {len(run.log_vars)} iterations in '
+                   f'{time.perf_counter() - t0:.1f} s, canvases '
+                   f'{run.canvases}; ' + '; '.join(
+                       f'loss {v["loss"]:.4g}, loss_semantic_seg '
+                       f'{v.get("loss_semantic_seg", float("nan")):.4g}'
+                       for v in run.log_vars))
+        bad = [v for v in run.log_vars
+               if not all(np.isfinite(x) for x in v.values())
+               or 'loss_semantic_seg' not in v]
+        if len(run.log_vars) != 1 or bad or launches != per:
+            raise AssertionError(f'{name}: {len(run.log_vars)} iterations, '
+                                 f'non-finite or no semantic loss {bad}, '
+                                 f'launches {_nonzero(launches)} (expected '
+                                 f'{_nonzero(per)})')
+        cfg_file = os.path.join(root, f'{name}_cfg.py')
+        eval_config(ann_file, prefix, config=config).dump(cfg_file)
+        ran, launches, dets = _cli_run(phase, [
+            cfg_file, os.path.join(work, 'epoch_1.pth'), '--samples-per-gpu',
+            '2', '--eval', 'bbox', 'segm', '--cfg-options', 'bf16=True',
+            'model.test_cfg.rcnn.score_thr=0.0'], 'test')
+        want = htc_launches(model, training=False)
+        if dets != [100, 100] or launches != want or not all(
+                np.isfinite(v) for v in ran['metrics'].values()
+                if isinstance(v, float)):
+            raise AssertionError(f'{name} test: detections {dets}, launches '
+                                 f'{_nonzero(launches)} (expected '
+                                 f'{_nonzero(want)}), metrics '
+                                 f'{ran["metrics"]}')
+        _check_tc(phase, launches, True, (conv3x3,))
+        log(phase, f'test: metrics {dict(ran["metrics"])}')
+
+
+def phase_htc():
+    """Phase 20: rows 4 and 9 at the semantic branch's shapes, in bf16 and
+    fp32; the HTC with its semantic branch serving, its fp32 serving check
+    (phase 12's, a bf16 control), training, its fp32 training check and
+    train_detector and tools.test from files; the HTC without it serving
+    and its fp32 serving check. Returns each config's results, the kernel
+    rows and the phase's seconds."""
+    start = last = time.perf_counter()
+    laps = []
+
+    def lap(what):
+        nonlocal last
+        now = time.perf_counter()
+        laps.append(f'{what} {now - last:.1f} s')
+        log('time', f'htc (phase 20): {laps[-1]}')
+        last = now
+    gen = torch.Generator().manual_seed(20)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).cuda()
+    rows = htc_kernel_checks(gen, randn)
+    lap('rows 4 and 9 at the semantic shapes')
+    out = {}
+    for name in HTC_CONFIGS:
+        serve, lat, peak, counts = htc_serve(name)
+        out[name] = dict(serve=serve, lat=lat, peak=peak, counts=counts)
+        lap(f'{name} serving')
+        phase_check(phase=f'htc-{name}-check', config=HTC_CONFIGS[name],
+                    control=True)
+        lap(f'{name} serving check')
+        if name != 'htc':
+            continue
+        out[name].update(htc_train(name))
+        lap(f'{name} training')
+        htc_train_check()
+        lap(f'{name} training check')
+        htc_files(name)
+        lap(f'{name} files')
+    seconds = time.perf_counter() - start
+    log('time', 'htc (phase 20): ' + ', '.join(laps) + f'; {seconds:.1f} s')
+    return out, rows, seconds
+
+
 # phase 3's further readings of a kernel's main row that the JSON line
 # carries: the kernel's own device ms (rows 1, 14 and 15), row 14's
 # head-major copy, row 1's first kernel off the vector path, row 15's
@@ -6533,6 +6938,13 @@ def main() -> int:
     lap('phase 18')
     paa_ld, phase19_s = phase_paa_ld()
     lap('phase 19')
+    htc, htc_rows, phase20_s = phase_htc()
+    lap('phase 20')
+    # phase 20's readings of rows 4 and 9 at the semantic branch's shapes
+    for dtype, (fwd, bwd) in htc_rows.items():
+        for key, new in (('roi_align', fwd), ('roi_align_bwd', bwd)):
+            kernels[key][dtype]['shapes'] = \
+                kernels[key][dtype].get('shapes', []) + new
     for what, key, fmt in (('request latency (s)', 'lat', '.4f'),
                            ('training step (ms)', 'times', '.1f')):
         log('configs', f'{what}, median of the timed runs: ' + ', '.join(
@@ -6617,6 +7029,15 @@ def main() -> int:
                          f', the EM {r["em"]["ms"]:.2f} ms a step with '
                          f'{r["em"]["reads"]} host reads') + f'; {smi}')
     log('paa-ld', f'phase 19 {phase19_s:.1f} s')
+    for name, r in htc.items():
+        log('htc', f'{name}: request ms median '
+                   f'{np.median(r["lat"]) * 1e3:.1f}, serving peak '
+                   f'{r["peak"] / 2 ** 30:.2f} GiB'
+                   + ('' if 'times' not in r else
+                      f', training step median {np.median(r["times"]):.1f}'
+                      f' ms, peak {r["train_peak"] / 2 ** 30:.2f} GiB, '
+                      f'busy {r["busy"]:.3f}') + f'; {smi}')
+    log('htc', f'phase 20 {phase20_s:.1f} s')
     rows = []
     for fn in KERNEL_WRAPPERS:
         name = fn.__name__
@@ -6664,6 +7085,12 @@ def main() -> int:
         for which, r in paa_ld.items():
             counts[f'paa_ld_{which}_serve_launches'] = r['serve'][name]
             counts[f'paa_ld_{which}_train_launches'] = r['train'][name]
+        # phase 20's HTCs: 2 requests each, 3 steps of the one with the
+        # semantic branch
+        for which, r in htc.items():
+            counts[f'htc_{which}_serve_launches'] = r['serve'][name]
+            if 'train' in r:
+                counts[f'htc_{which}_train_launches'] = r['train'][name]
         if tc:
             tc = dict(tc_launches=sum(tc.values()), **tc)
         if 'shapes' in main_row:

@@ -186,9 +186,13 @@ def collate_detection(samples: List[dict], canvas: Tuple[int, int],
                       with_mask: bool = True) -> Dict[str, np.ndarray]:
     """Pad pipeline outputs onto one static (H, W) canvas: the train
     batch dict (img, img_shapes, pad_shapes, gt_bboxes, gt_valid,
-    gt_labels[, gt_masks], img_metas). A batch that does not fit
-    ``canvas`` (AutoAugment's crop branch can turn a sample's orientation
-    round) goes on the square max(H, W) canvas."""
+    gt_labels[, gt_masks][, gt_semantic_seg], img_metas). A batch that
+    does not fit ``canvas`` (AutoAugment's crop branch can turn a
+    sample's orientation round) goes on the square max(H, W) canvas.
+    Semantic label maps (HTC) go on a uint8 canvas of 255 (ignored) at
+    the canvas size over their stride, the ratio of the first sample's
+    image height to its map's, as the JAX package's collate does
+    (``swindet_tpu/datasets/builder.py:255-269``)."""
     b = len(samples)
     ch, cw = canvas
     if max(s['img'].shape[0] for s in samples) > ch \
@@ -220,6 +224,17 @@ def collate_detection(samples: List[dict], canvas: Tuple[int, int],
                  gt_labels=gt_labels)
     if with_mask:
         batch['gt_masks'] = gt_masks
+    seg_samples = [s for s in samples if 'gt_semantic_seg' in s]
+    if seg_samples:
+        stride = max(round(samples[0]['img'].shape[0]
+                           / seg_samples[0]['gt_semantic_seg'].shape[0]), 1)
+        sh, sw = ch // stride, cw // stride
+        seg = np.full((b, sh, sw), 255, np.uint8)
+        for i, s in enumerate(samples):
+            if 'gt_semantic_seg' in s:
+                g = s['gt_semantic_seg'][:sh, :sw]
+                seg[i, :g.shape[0], :g.shape[1]] = g
+        batch['gt_semantic_seg'] = seg
     batch['img_metas'] = [s['img_metas'] for s in samples]
     return batch
 

@@ -1,14 +1,15 @@
 """Pipeline steps (counterparts of
 ``swindet_tpu/datasets/pipelines/transforms.py``), numpy and torch only:
 loading, the train-time Resize, RandomFlip, RandomCrop and AutoAugment,
-Normalize, Pad, the format steps, FilterAnnotations and the test-time
-fan-out MultiScaleFlipAug.
+Normalize, Pad, SegRescale, the format steps, FilterAnnotations and the
+test-time fan-out MultiScaleFlipAug.
 
 The image resize is cv2's INTER_LINEAR: bilinear with half-pixel centres
 and no antialiasing. A uint8 image goes through cv2's fixed-point
 arithmetic (11-bit weights, its rounding and its border rules), so it
 equals ``cv2.resize`` bit for bit; any other dtype is resized in float by
-``F.interpolate``. Masks are resized as cv2's INTER_NEAREST, bit for bit.
+``F.interpolate``. Masks and semantic label maps (``seg_fields``) are
+resized as cv2's INTER_NEAREST, bit for bit.
 
 Every random step draws from ``results['_rng']``, the sample's own
 ``np.random.RandomState`` (``datasets/custom.py`` ``sample_rng``), as the
@@ -192,17 +193,21 @@ class LoadImageFromWebcam(LoadImageFromFile):
 @PIPELINES.register_module()
 class LoadAnnotations:
     """Boxes, labels and masks of ``results['ann_info']``; polygons and
-    RLE are rasterised at once to (G, H, W) uint8."""
+    RLE are rasterised at once to (G, H, W) uint8. ``with_seg`` reads the
+    semantic label map ``seg_prefix`` / ``ann_info['seg_map']`` as the
+    JAX package does (``transforms.py:166-170``): channel 0 of the image
+    decoded as BGR, (H, W) uint8, into ``seg_fields``. A grayscale map
+    (COCO's stuffthingmaps) reads its labels; on a palette or RGB map
+    channel 0 is the blue component, where mmdet reads the file
+    unchanged."""
 
     def __init__(self, with_bbox: bool = True, with_label: bool = True,
                  with_mask: bool = False, with_seg: bool = False,
                  poly2mask: bool = True, **kwargs):
-        if with_seg:
-            raise NotImplementedError('LoadAnnotations: with_seg is not '
-                                      'ported (ROADMAP §1 item 8)')
         self.with_bbox = with_bbox
         self.with_label = with_label
         self.with_mask = with_mask
+        self.with_seg = with_seg
 
     def __call__(self, results):
         ann = results['ann_info']
@@ -230,6 +235,11 @@ class LoadAnnotations:
                                    if masks else
                                    np.zeros((0, h, w), np.uint8))
             results['mask_fields'] = ['gt_masks']
+        if self.with_seg:
+            seg = imread(osp.join(results.get('seg_prefix') or '',
+                                  ann['seg_map']))
+            results['gt_semantic_seg'] = np.ascontiguousarray(seg[..., 0])
+            results['seg_fields'] = ['gt_semantic_seg']
         return results
 
 
@@ -269,7 +279,7 @@ class Resize:
     from the list's ranges ('range'), or the first scale times a ratio
     from ``ratio_range``; ``override`` draws again over an earlier
     Resize's scale. Boxes scale (clipped to the image with
-    ``bbox_clip_border``), masks resize nearest."""
+    ``bbox_clip_border``), masks and label maps resize nearest."""
 
     def __init__(self, img_scale=None, multiscale_mode: str = 'range',
                  ratio_range=None, keep_ratio: bool = True,
@@ -341,6 +351,8 @@ class Resize:
             results[key] = (imresize_nearest(m, (new_w, new_h))
                             if m.shape[0] else
                             np.zeros((0, new_h, new_w), m.dtype))
+        for key in results.get('seg_fields', []):
+            results[key] = imresize_nearest(results[key], (new_w, new_h))
         return results
 
 
@@ -357,7 +369,7 @@ def _flip(img: np.ndarray, direction: str, axes=(0, 1)) -> np.ndarray:
 
 @PIPELINES.register_module()
 class RandomFlip:
-    """Flip image, boxes and masks with probability
+    """Flip image, boxes, masks and label maps with probability
     ``flip_ratio`` (drawn only where the caller did not set
     ``results['flip']``; the inference path sets it False)."""
 
@@ -390,6 +402,8 @@ class RandomFlip:
             results[key] = b
         for key in results.get('mask_fields', []):
             results[key] = _flip(results[key], d, axes=(1, 2))
+        for key in results.get('seg_fields', []):
+            results[key] = _flip(results[key], d)
         return results
 
 
@@ -398,8 +412,8 @@ class RandomCrop:
     """Crop at a random offset, of size 'absolute' (crop_size, at most the
     image), 'absolute_range' (h and w drawn in [crop_size[0],
     crop_size[1]]), 'relative' or 'relative_range' (fractions of the
-    image); boxes shift and clip, and gts left empty are dropped with
-    their labels and masks. A crop that keeps no box returns None, which
+    image); boxes shift and clip, gts left empty are dropped with their
+    labels and masks, and label maps are cropped. A crop that keeps no box returns None, which
     makes the dataset draw another sample, unless
     ``allow_negative_crop``."""
 
@@ -457,6 +471,8 @@ class RandomCrop:
             if 'gt_masks' in results:
                 results['gt_masks'] = results['gt_masks'][
                     valid, off_h:off_h + ch, off_w:off_w + cw]
+        for key in results.get('seg_fields', []):
+            results[key] = results[key][off_h:off_h + ch, off_w:off_w + cw]
         return results
 
 
@@ -496,8 +512,9 @@ class Normalize:
 
 @PIPELINES.register_module()
 class Pad:
-    """Zero-pad image and masks at the bottom and right, to ``size`` or
-    to a multiple of ``size_divisor``."""
+    """Pad image and masks with zeros, label maps with 255 (ignored), at
+    the bottom and right, to ``size`` or to a multiple of
+    ``size_divisor``."""
 
     def __init__(self, size=None, size_divisor: Optional[int] = None,
                  pad_val: float = 0):
@@ -520,9 +537,32 @@ class Pad:
         for key in results.get('mask_fields', []):
             results[key] = np.pad(results[key],
                                   ((0, 0), (0, th - h), (0, tw - w)))
+        for key in results.get('seg_fields', []):
+            results[key] = np.pad(results[key], ((0, th - h), (0, tw - w)),
+                                  constant_values=255)
         results['pad_shape'] = results['img'].shape
         results['pad_fixed_size'] = self.size
         results['pad_size_divisor'] = self.size_divisor
+        return results
+
+
+@PIPELINES.register_module()
+class SegRescale:
+    """Label maps scaled by ``scale_factor`` to int(h * s + 0.5) x int(w *
+    s + 0.5), nearest as cv2's INTER_NEAREST (the counterpart of
+    ``swindet_tpu/datasets/pipelines/extra_augs.py:559``; HTC trains its
+    semantic branch at 1/8 of the padded image)."""
+
+    def __init__(self, scale_factor: float = 1):
+        self.scale_factor = scale_factor
+
+    def __call__(self, results):
+        if self.scale_factor != 1:
+            for key in results.get('seg_fields', []):
+                h, w = results[key].shape[:2]
+                results[key] = imresize_nearest(
+                    results[key], (int(w * self.scale_factor + 0.5),
+                                   int(h * self.scale_factor + 0.5)))
         return results
 
 

@@ -43,7 +43,8 @@ def make_train_step(model: torch.nn.Module,
     """Build ``step(batch, gen, sampler_keys=None) -> log_vars``.
 
     ``batch`` holds img, img_shapes, pad_shapes, gt_bboxes, gt_valid,
-    gt_labels and gt_masks, statically shaped and on the model's device;
+    gt_labels and gt_masks (and, for HTC's semantic branch,
+    gt_semantic_seg), statically shaped and on the model's device;
     ``gen`` is a ``torch.Generator`` on that device for stochastic depth
     and sampling; ``sampler_keys`` injects the samplers' keys (see
     ``TwoStageDetector.forward_train``). ``log_vars`` maps 'loss', each
@@ -64,10 +65,13 @@ def make_train_step(model: torch.nn.Module,
              ) -> Dict[str, float]:
         set_lr(optimizer, schedule(iteration[0]))
         optimizer.zero_grad(set_to_none=True)
+        seg = {} if 'gt_semantic_seg' not in batch \
+            else dict(gt_semantic_seg=batch['gt_semantic_seg'])
         losses = model.forward_train(
             batch['img'], batch['img_shapes'], batch['pad_shapes'],
             batch['gt_bboxes'], batch['gt_valid'], batch['gt_labels'],
-            batch.get('gt_masks'), gen=gen, sampler_keys=sampler_keys)
+            batch.get('gt_masks'), gen=gen, sampler_keys=sampler_keys,
+            **seg)
         total, log_vars = parse_losses(losses)
         total.backward()
         for p in params:

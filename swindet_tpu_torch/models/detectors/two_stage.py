@@ -2,8 +2,9 @@
 ``swindet_tpu/models/detectors/two_stage.py``: ``forward_train`` :92,
 ``simple_test`` :127, the per-augmentation halves ``aug_rpn_test``,
 ``aug_bbox_test`` and ``aug_mask_test`` :144-162, ``CascadeRCNN`` :166,
-``MaskRCNN`` :171, ``FasterRCNN`` :175, ``FastRCNN`` :208; reference
-mmdet/models/detectors/two_stage.py:10, fast_rcnn.py:6).
+``MaskRCNN`` :171, ``FasterRCNN`` :175, ``HybridTaskCascade`` :181,
+``FastRCNN`` :208; reference mmdet/models/detectors/two_stage.py:10,
+htc.py:6, fast_rcnn.py:6).
 
 The ``state_dict`` uses mmdet's key names (``backbone.``, ``neck.``,
 ``rpn_head.``, ``roi_head.``), so a released ``.pth`` loads as it is.
@@ -79,11 +80,14 @@ class TwoStageDetector(nn.Module):
                       gt_valid: torch.Tensor, gt_labels: torch.Tensor,
                       gt_masks: Optional[torch.Tensor] = None,
                       gen: Optional[torch.Generator] = None,
-                      sampler_keys: Optional[Dict[str, Sequence]] = None
+                      sampler_keys: Optional[Dict[str, Sequence]] = None,
+                      gt_semantic_seg: Optional[torch.Tensor] = None
                       ) -> Dict[str, torch.Tensor]:
         """The loss dict of one batch. img (B, H, W, 3); img / pad_shapes
         (B, 2); gt_bboxes (B, G, 4); gt_valid (B, G); gt_labels (B, G);
-        gt_masks (B, G, H, W) or None. ``gen`` (on the data's device)
+        gt_masks (B, G, H, W) or None; gt_semantic_seg (B, H', W') uint8
+        or None, handed to the RoI head where given (HTC's semantic
+        branch). ``gen`` (on the data's device)
         draws stochastic depth and the samplers' keys; ``sampler_keys``
         {'rpn': ..., 'rcnn': ...} gives the keys per image instead (for a
         cascade, 'rcnn' holds them per stage, then per image).
@@ -101,9 +105,12 @@ class TwoStageDetector(nn.Module):
             proposals, _, prop_valid = self.rpn_head.get_proposals(
                 [s.detach() for s in cls_scores],
                 [p.detach() for p in bbox_preds], img_shapes, proposal_cfg)
+        roi_kwargs = {} if gt_semantic_seg is None \
+            else dict(gt_semantic_seg=gt_semantic_seg)
         losses.update(self.roi_head.forward_train(
             feats, proposals, prop_valid, gt_bboxes, gt_valid, gt_labels,
-            gt_masks, gen, keys.get('rcnn'), img_shapes=img_shapes))
+            gt_masks, gen, keys.get('rcnn'), img_shapes=img_shapes,
+            **roi_kwargs))
         return losses
 
     def simple_test(self, img: torch.Tensor, img_shapes: torch.Tensor,
@@ -159,6 +166,12 @@ class MaskRCNN(TwoStageDetector):
 @DETECTORS.register_module()
 class FasterRCNN(TwoStageDetector):
     """(reference faster_rcnn.py): a bbox-only ``StandardRoIHead``."""
+
+
+@DETECTORS.register_module()
+class HybridTaskCascade(CascadeRCNN):
+    """(reference htc.py:6): a ``HybridTaskCascadeRoIHead``, its semantic
+    branch trained on ``gt_semantic_seg``."""
 
 
 @DETECTORS.register_module()

@@ -1,2 +1,2 @@
-from . import (bbox_heads, cascade_roi_head, mask_heads,  # noqa: F401
-               roi_extractor, shared_heads, standard_roi_head)
+from . import (bbox_heads, cascade_roi_head, htc_roi_head,  # noqa: F401
+               mask_heads, roi_extractor, shared_heads, standard_roi_head)

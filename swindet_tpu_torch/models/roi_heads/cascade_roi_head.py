@@ -97,7 +97,6 @@ class CascadeRoIHead(nn.Module):
         stage, per image the sampler's (keys_pos, keys_neg) over that
         stage's candidates (G + P at stage 0, G + num after), or None to
         draw them from ``gen``."""
-        b = proposals.shape[0]
         losses: Dict[str, torch.Tensor] = {}
         cur_props, cur_valid = proposals, proposal_valid
         for stage in range(self.num_stages):
@@ -129,27 +128,40 @@ class CascadeRoIHead(nn.Module):
                 losses[f's{stage}.loss_mask'] = mloss['loss_mask'] * lw
 
             if stage < self.num_stages - 1:
-                with torch.no_grad():
-                    cls_arg = cls_score[:, :-1].argmax(-1)
-                    roi_labels = torch.where(labels == head.num_classes,
-                                             cls_arg, labels)
-                    new_rois = head.regress_by_class(
-                        rois, roi_labels, bbox_pred,
-                        img_shapes.repeat_interleave(num, 0))
-                cur_props = new_rois[:, 1:].reshape(b, num, 4)
-                is_gt = samp.is_pos & (samp.inds < gt_bboxes.shape[1]) \
-                    if sampler.add_gt_as_proposals \
-                    else torch.zeros_like(samp.is_pos)
-                cur_valid = samp.valid & ~is_gt
+                cur_props, cur_valid = self._refine(
+                    stage, samp, rois, labels, cls_score, bbox_pred,
+                    img_shapes, gt_bboxes.shape[1])
         return losses
 
-    def _ms_bbox_forward(self, feats, rois, img_shapes):
+    def _refine(self, stage, samp, rois, labels, cls_score, bbox_pred,
+                img_shapes, num_gts):
+        """A stage's sampled slots regressed by their class (the argmax
+        class on background slots), detached: the next candidates (B,
+        num, 4) and their validity, the gt-sourced positives dropped."""
+        head = self.bbox_head[stage]
+        b, num = samp.valid.shape
+        with torch.no_grad():
+            cls_arg = cls_score[:, :-1].argmax(-1)
+            roi_labels = torch.where(labels == head.num_classes, cls_arg,
+                                     labels)
+            new_rois = head.regress_by_class(
+                rois, roi_labels, bbox_pred,
+                img_shapes.repeat_interleave(num, 0))
+        is_gt = samp.is_pos & (samp.inds < num_gts) \
+            if self.samplers[stage].add_gt_as_proposals \
+            else torch.zeros_like(samp.is_pos)
+        return new_rois[:, 1:].reshape(b, num, 4), samp.valid & ~is_gt
+
+    def _ms_bbox_forward(self, feats, rois, img_shapes, fuse=None):
         """The stages on rois (R, 5) whose images are (R, 2)
         ``img_shapes``: (stage-averaged scores, softmax after the mean of
-        the logits; the last stage's rois; its deltas)."""
+        the logits; the last stage's rois; its deltas). ``fuse`` maps
+        (roi features, rois) to a stage's head input, where the roi
+        features are not that input as they are."""
         ms_scores = []
         for stage, head in enumerate(self.bbox_head):
-            cls_score, bbox_pred = head(self.bbox_roi_extractor(feats, rois))
+            x = self.bbox_roi_extractor(feats, rois)
+            cls_score, bbox_pred = head(x if fuse is None else fuse(x, rois))
             ms_scores.append(cls_score.float())
             if stage < self.num_stages - 1:
                 rois = head.regress_by_class(

@@ -87,9 +87,14 @@ class FCNMaskHead(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(R, 14, 14, C) -> (R, 28, 28, num_classes) logits."""
-        d = self.compute_dtype
         for conv in self.convs:
             x = conv(x)
+        return self.upsample_logits(x)
+
+    def upsample_logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The conv tower's output (R, 14, 14, C) -> the logits (R, 28, 28,
+        num_classes): the deconv, its ReLU and the 1x1 logits conv."""
+        d = self.compute_dtype
         r, h, w, _ = x.shape
         wt = self.upsample.weight                      # (in, out, 2, 2)
         co = wt.shape[1]

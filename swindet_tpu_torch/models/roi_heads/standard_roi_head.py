@@ -56,12 +56,14 @@ def sample_batch(assigner, sampler, proposals, proposal_valid, gt_bboxes,
 
 
 def mask_losses(mask_head, extract, feats, samp, m: int, gt_masks,
-                size: int) -> Dict[str, torch.Tensor]:
+                size: int, predict=None) -> Dict[str, torch.Tensor]:
     """The mask head's loss on the first ``m`` slots of a stacked
     sampling result, where the sampler packs the positives; ``extract``
-    maps (feats, rois) to the mask head's input."""
+    maps (feats, rois) to the mask head's input, ``predict`` that input
+    to the logits (the mask head itself by default)."""
     pos_boxes = samp.bboxes[:, :m]
-    mask_pred = mask_head(extract(feats, boxes_to_rois(pos_boxes)))
+    mask_pred = (predict or mask_head)(
+        extract(feats, boxes_to_rois(pos_boxes)))
     targets = torch.stack([
         mask_head.get_targets(gt_masks[i], pos_boxes[i],
                               samp.pos_gt_inds[i, :m], size)

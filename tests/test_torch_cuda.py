@@ -65,9 +65,10 @@ from swindet_tpu_torch.ops import (conv3x3, conv3x3_dw, conv3x3_dw_reference,
                                    window_attention_v4_reference)
 from swindet_tpu_torch.models.backbones.swin import shifted_window_attn_mask
 
-from chip_smoke import (CASCADE_CONFIG, LN_SHAPES, REPPOINTS_CONFIG,
-                        RESNET_CONFIGS, SWINB_ATTN_STAGES, SWINB_LN_SHAPES,
-                        ZOO_CONFIGS, ZOO_TRAINED, _crowded_rois,
+from chip_smoke import (CASCADE_CONFIG, HTC_SEM_LEVEL, LN_SHAPES,
+                        REPPOINTS_CONFIG, RESNET_CONFIGS, SWINB_ATTN_STAGES,
+                        SWINB_LN_SHAPES, ZOO_CONFIGS, ZOO_TRAINED,
+                        _crowded_rois, _rois,
                         _matched_errors, _set_class_logits, _spread_heads,
                         cascade_launches, reppoints_launches,
                         resnet_launches, zoo_launches)
@@ -439,6 +440,24 @@ def test_roi_align_bwd(gen, dtype, out_size, ratio):
                                          out_size, ratio, roi_valid=valid)
     for a, b in zip(got, want):
         _close_summed(a, b, dtype, tol32=1e-3)
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_roi_align_on_the_semantic_level(gen, dtype):
+    """Rows 4 and 9 as HTC's semantic fusion runs them: one stride-8 level
+    of 100 x 168 x 256 (an 800 x 1344 canvas's P3), 14 x 14 bins, a
+    training stage's 2 x 512 rois; the backward twice, bit-equal."""
+    shapes = [(2, *HTC_SEM_LEVEL, 256)]
+    feats = [_randn(gen, *shapes[0], dtype=dtype)]
+    rois = _rois(gen, 1024, batch=2)
+    _close(roi_align(feats, rois, (8,), 14),
+           multilevel_roi_align(feats, rois, (8,), 14), dtype, atol32=1e-3)
+    g = _randn(gen, 1024, 14, 14, 256, dtype=dtype)
+    got = roi_align_bwd(shapes, dtype, rois, g, (8,), 14)
+    _close_summed(got[0], multilevel_roi_align_backward(
+        shapes, dtype, rois, g, (8,), 14)[0], dtype, tol32=1e-3)
+    again = roi_align_bwd(shapes, dtype, rois, g, (8,), 14)
+    assert torch.equal(got[0], again[0])
 
 
 def test_autograd_ops_on_the_card_match_the_cpu(gen):
