@@ -110,7 +110,8 @@ before the last line:
               inference kernels and no training kernel.
 7. train-check -- forward_train and its gradients in fp32 on a 224x320
               canvas, on the card and on the CPU, with the same weights,
-              batch and sampler keys, must agree (the fp32 run launches
+              batch and sampler keys and CHECK_ROIS (128) rois an image,
+              must agree (the fp32 run launches
               no tensor-core kernel); a bf16 control run on the card is
               held to the same CPU run and logged.
 8. fused   -- phases 4 to 7 again in the fused-MLP configuration, the JAX
@@ -174,7 +175,8 @@ before the last line:
               augmentation, flip and the scales (1333, 800) and (1333,
               640): 4 augmentations, NMS 6 times a batch (4 RPN, the
               merged proposals, the final one). Last, fp32 with phase
-              5's spread heads on 4 PNGs at test scale (320, 224) and
+              5's spread heads on 2 PNGs (a landscape and a portrait) at
+              test scale (320, 224) and
               with augmentation (flip, (320, 224) and (320, 192)): the
               card (kernels, no tensor-core launch) against the CPU
               (plain versions), labels equal, boxes within 1e-2 px,
@@ -351,7 +353,7 @@ before the last line:
 20. htc   -- Hybrid Task Cascade R-50 from its configs, bf16 set on top:
               first rows 4 and 9 against their plain versions at the
               semantic branch's shapes (one stride-8 level of
-              100x168x256, 14x14 bins: 3 stages of 2 x 512 training rois
+              100x168x256, 14x14 bins: a stage's 2 x 512 training rois
               forward and backward, serving's 1,000 proposals and 100
               detections), bf16 and fp32; then htc (with the fused
               semantic branch): a warm-up and 2 requests at 800x1333, ms
@@ -375,6 +377,27 @@ before the last line:
               PNGs written here (LoadAnnotations with_seg, SegRescale);
               then htc_without_semantic serving and its fp32 serving
               check.
+21. roi   -- the RoI-head variants from their configs, bf16 set on top:
+              first rows 4 and 9 against their plain versions at GRoIE's
+              shapes (every roi pooled on every level; on the finest,
+              200x336x256: a step's 2 x 512 rois at 7x7 and 512 at 14x14,
+              forward and backward, serving's 1,000 proposals and 100
+              detections), bf16 and fp32; then Mask Scoring R-CNN
+              (ms_rcnn), GRoIE Mask R-CNN (groie), Double-Head Faster
+              R-CNN (dh) and Dynamic R-CNN (dynamic), all R-50 FPN, each:
+              a warm-up and 2 requests at 800x1333, ms a request and peak
+              memory, every launch equal to what roi_launches derives (a
+              request: conv3x3 17 / 13 / 9 / 9, RoIAlign 3 / 8 / 2 / 1 --
+              ms_rcnn's mask branch runs twice, GRoIE pools once a level,
+              the Double-Head's rois twice --, NMS 2); phase 12's fp32
+              serving check with a bf16 control (mask scores held with
+              the masks, GRoIE's attention drawn); 1 + 3 make_train_step
+              steps at batch 2 on 800x1344, the frozen BN buffers
+              unmoved, the Double-Head's BN statistics moved, Dynamic
+              R-CNN's values advanced once a step, a profiled step and
+              GRoIE's attention's ms; phase 7's fp32 training check with
+              CHECK_ROIS rois an image, proposals pinned, the MaskIoU
+              loss's gradients as their own group, with a bf16 control.
 
 Each phase's wall time is logged under [time].
 
@@ -395,7 +418,9 @@ and ``dense_<config>_train_launches``, phase 18's as
 ``atss_<config>_serve_launches`` and ``atss_<config>_train_launches``,
 phase 19's as ``paa_ld_<config>_serve_launches`` and
 ``paa_ld_<config>_train_launches``, phase 20's as
-``htc_<config>_serve_launches`` and ``htc_htc_train_launches``; for
+``htc_<config>_serve_launches`` and ``htc_htc_train_launches``, phase
+21's as ``roi_<config>_serve_launches`` and
+``roi_<config>_train_launches``; for
 the conv,
 fused-MLP and v1, v3,
 v4 and full-map attention rows also ``tc_launches``, counted the same
@@ -898,7 +923,7 @@ def roi_checks(dtype, gen, randn):
             lambda: multilevel_roi_align(feats[b], rois, strides, size),
             note, work=(touched * 256 * el + _nbytes(rois)
                         + n * size * size * 256 * el,
-                        samples * 256 * 4 * 2.0)))
+                        samples * 256 * 4 * 2.0), plain_iters=2))
         if b == 1:
             continue
         g = randn(n, size, size, 256).to(dtype)
@@ -908,7 +933,8 @@ def roi_checks(dtype, gen, randn):
             lambda: multilevel_roi_align_backward(shapes, dtype, rois, g,
                                                   strides, size),
             note, summed=True,
-            work=(_nbytes(g, rois) + level_bytes, samples * 256 * 4 * 2.0)))
+            work=(_nbytes(g, rois) + level_bytes, samples * 256 * 4 * 2.0),
+            plain_iters=2))
         _check_repeats(shapes, dtype, rois, g, strides, size)
     edge = torch.tensor(ROI_EDGE_CASES, dtype=torch.float32).cuda()
     valid = torch.ones(len(edge), dtype=torch.bool).cuda()
@@ -923,14 +949,15 @@ def roi_checks(dtype, gen, randn):
                                        roi_valid=valid),
                      lambda: multilevel_roi_align(feats[2], rois, strides,
                                                   size, roi_valid=valid),
-                     f'{note} {size}x{size}x256, batch 2')
+                     f'{note} {size}x{size}x256, batch 2', plain_iters=2)
             _compare('roi_align_bwd', dtype,
                      lambda: roi_align_bwd(shapes, dtype, rois, g, strides,
                                            size, roi_valid=valid),
                      lambda: multilevel_roi_align_backward(
                          shapes, dtype, rois, g, strides, size,
                          roi_valid=valid),
-                     f'{note} {size}x{size}x256, batch 2', summed=True)
+                     f'{note} {size}x{size}x256, batch 2', summed=True,
+                     plain_iters=2)
             _check_repeats(shapes, dtype, rois, g, strides, size, valid)
     return dict(fwd[0], shapes=fwd), dict(bwd[0], shapes=bwd)
 
@@ -1350,7 +1377,7 @@ def zoo_kernel_checks(dtype, gen, randn):
                 lambda: multilevel_roi_align(feats, rois, (16,), size),
                 note, work=(touched * c * el + _nbytes(rois)
                             + n * size * size * c * el,
-                            samples * c * 4 * 2.0), plain_iters=2))
+                            samples * c * 4 * 2.0), plain_iters=1))
             if b == 1:
                 continue
             shapes = [tuple(feats[0].shape)]
@@ -1362,7 +1389,7 @@ def zoo_kernel_checks(dtype, gen, randn):
                                                       (16,), size),
                 note, summed=True,
                 work=(_nbytes(g, rois) + _nbytes(feats[0]),
-                      samples * c * 4 * 2.0), plain_iters=2))
+                      samples * c * 4 * 2.0), plain_iters=1))
             _check_repeats(shapes, dtype, rois, g, (16,), size)
     torch.cuda.empty_cache()
     return conv, dw, fwd, bwd
@@ -1885,6 +1912,16 @@ def phase_main(phase='main', fused=False, v4=False):
 
 
 # ------------------------------------------------------------- phase 5
+def _copy_model(cpu, dtype, device):
+    """A detector of the CPU model's config computing in ``dtype``, with
+    its weights, on ``device``: built there, so that its parameters are
+    not drawn on the host first only to be overwritten."""
+    with torch.device(device):
+        model = build_detector(dict(cpu.cfg.model, dtype=dtype))
+    model.load_state_dict(cpu.state_dict())
+    return model.to(device)
+
+
 def _spread_heads(model):
     """Scale rpn_cls and every bbox head's fc_cls to std 1, so no top-k or
     NMS boundary sits within fp32 noise (the cascade has three)."""
@@ -1896,18 +1933,35 @@ def _spread_heads(model):
             head.fc_cls.weight.mul_(100.0)
 
 
+def _draw_roi_plugins(model, seed=4):
+    """Draw each RoI extractor's GeneralizedAttention ``gamma`` (zero at
+    init, which makes the attention the identity and leaves its convs
+    without gradient) from a seeded generator, as _draw_plugins draws a
+    backbone's; both sides of a check load the drawn CPU model."""
+    from swindet_tpu_torch.ops.plugins import GeneralizedAttention
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.roi_head.modules():
+            if isinstance(m, GeneralizedAttention):
+                m.gamma.copy_(torch.randn(1, generator=gen))
+
+
 def _serve_errors(cpu_out, out):
     """FPN features' relative max |d|, and None where the detections or
-    labels differ, else (box, mask max |d|, detections)."""
+    labels differ, else (box, mask max |d|, detections); the mask |d| is
+    the larger of the mask probabilities' and Mask Scoring R-CNN's mask
+    scores', 0 for a detector without masks."""
     (f_cpu, o_cpu), (f_gpu, o_gpu) = cpu_out, out
     feat_err = max((a - b).abs().max().item() / max(a.abs().max().item(), 1)
                    for a, b in zip(f_cpu, f_gpu))
     if not torch.equal(o_cpu['det_valid'], o_gpu['det_valid']) \
             or not torch.equal(o_cpu['labels'], o_gpu['labels']):
         return feat_err, None
+    mask_err = max(((o_cpu[k] - o_gpu[k]).abs().max().item()
+                    for k in ('mask_probs', 'mask_scores') if k in o_cpu),
+                   default=0.0)
     return feat_err, ((o_cpu['dets'] - o_gpu['dets']).abs().max().item(),
-                      (o_cpu['mask_probs'] - o_gpu['mask_probs']).abs()
-                      .max().item(), int(o_cpu['det_valid'].sum()))
+                      mask_err, int(o_cpu['det_valid'].sum()))
 
 
 def _serve_outputs(model, dev, img, shapes, sf):
@@ -1925,20 +1979,22 @@ def phase_check(device: str = 'cuda', phase: str = 'check',
     """fp32 Mask R-CNN (``config``) on a 224x320 canvas, on the card
     (kernels) and on the CPU (plain versions), same seeded weights; rpn_cls
     and fc_cls are scaled to std 1 so no top-k or NMS boundary sits within
-    fp32 noise. With ``control``, the same detector in bf16 on the card,
-    held to the same CPU run, must exceed the limits. ``cfg_options``:
-    further config options of the three runs (the cascade's cut depths)."""
+    fp32 noise, and a RoI extractor's attention is drawn
+    (_draw_roi_plugins). With ``control``, the same detector in bf16 on
+    the card, held to the same CPU run, must exceed the limits.
+    ``cfg_options``: further config options of the three runs (the
+    cascade's cut depths)."""
     opts = {'bf16': False, 'model.test_cfg.rpn.nms_pre': 1000,
             'model.test_cfg.rpn.max_per_img': 1000, **(cfg_options or {})}
     cpu = init_detector(config, device='cpu', cfg_options=opts, seed=1)
     _spread_heads(cpu)
-    gpu = build_detector(dict(cpu.cfg.model, dtype='float32'))
-    gpu.load_state_dict(cpu.state_dict())
-    gpu = gpu.to(device).eval()
+    _draw_roi_plugins(cpu)
     rs = np.random.RandomState(1)
     img = rs.randn(1, 224, 320, 3).astype(np.float32)
     shapes = np.array([[224, 320]], np.int32)
     sf = np.ones((1, 4), np.float32)
+    gpu = _copy_model(cpu, 'float32', device)
+    gpu = gpu.to(device).eval()
     _check_blocks(gpu, fused, v4)
     reset_launch_counts()
     want = _serve_outputs(cpu, 'cpu', img, shapes, sf)
@@ -1967,8 +2023,7 @@ def phase_check(device: str = 'cuda', phase: str = 'check',
                  f'{box_err:.3g} px, mask max|d| {mask_err:.3g}')
     if not control:
         return
-    ctl = build_detector(dict(cpu.cfg.model, dtype='bfloat16'))
-    ctl.load_state_dict(cpu.state_dict())
+    ctl = _copy_model(cpu, 'bfloat16', device)
     feat_err, errs = _serve_errors(want, _serve_outputs(
         ctl.to(device).eval(), device, img, shapes, sf))
     log(phase, f'bf16 control vs the fp32 CPU run: features rel max|d| '
@@ -2213,7 +2268,8 @@ def train_check_batch(b=2, h=224, w=320, g=4, seed=2):
 # terms' names (a cascade's are 's0.loss_cls' and so on)
 LOSS_PARTS = {'rpn': ('loss_rpn_cls', 'loss_rpn_bbox'),
               'bbox': ('loss_cls', 'loss_bbox'), 'mask': ('loss_mask',),
-              'semantic': ('loss_semantic_seg',)}
+              'semantic': ('loss_semantic_seg',),
+              'mask_iou': ('loss_mask_iou',)}
 
 
 def _part_terms(losses, part):
@@ -2234,10 +2290,19 @@ def _part_terms(losses, part):
 # such units too, but its losses send gradient only to the pixels of the
 # 256 anchors sampled per image.
 TOL_TRAIN_LOSS = 2e-6
+# The rois a training check samples an image where a config samples 512:
+# its CPU side runs the RoI heads' backward, the plain RoIAlign backward
+# most of it, on every sampled roi (phase 12's note below): the checks
+# of phases 7, 10, 12, 15, 16, 20 and 21
+CHECK_ROIS = 128
 # HTC's semantic loss (phase 20) takes the bbox and mask groups' limit: its
 # gradient passes back through the semantic head's ReLU convs over whole
 # maps, as theirs through the RoI heads' (set before its first card run)
-TOL_TRAIN_GRAD = {'rpn': 1e-4, 'bbox': 6e-3, 'mask': 6e-3, 'semantic': 6e-3}
+# Mask Scoring R-CNN's MaskIoU loss (phase 21) takes it too: its gradient
+# passes back through the MaskIoU head's ReLU convs and fcs into the mask
+# head's (set before its first card run)
+TOL_TRAIN_GRAD = {'rpn': 1e-4, 'bbox': 6e-3, 'mask': 6e-3, 'semantic': 6e-3,
+                  'mask_iou': 6e-3}
 # The portrait check's proposal chain: the card's RPN scores and deltas
 # against the CPU's, max |d| over the largest entry (fp32 sums in another
 # order; the bf16 control reads 1e-3 and more); and the card's proposal
@@ -2553,7 +2618,9 @@ def phase_train_check(device: str = 'cuda', fused: bool = False,
                       pin_proposals: bool = False, config=CONFIG,
                       names=TRAIN_GRADS, limits=None,
                       opts=(('bf16', False),
-                            ('model.backbone.drop_path_rate', 0.0)),
+                            ('model.backbone.drop_path_rate', 0.0),
+                            ('model.train_cfg.rcnn.sampler.num',
+                             CHECK_ROIS)),
                       rpn_tol=TOL_RPN_OUT, min_share=MIN_PROPOSAL_SHARE,
                       cpu=None):
     """forward_train of the full-width detector (``config``) in fp32 on a
@@ -2579,7 +2646,8 @@ def phase_train_check(device: str = 'cuda', fused: bool = False,
     them against the plain step (check_proposal_chain), and the card's
     own proposals against the CPU run's as sets (MIN_PROPOSAL_SHARE).
     ``opts``: the config options of the three runs (a ResNet has no
-    stochastic depth to turn off). ``rpn_tol`` and ``min_share``: the
+    stochastic depth to turn off; the default samples CHECK_ROIS rois an
+    image). ``rpn_tol`` and ``min_share``: the
     limits of the RPN outputs and of the share of proposals matched.
     ``cpu``: the CPU model of a serving check of the same config, seed and
     options (its heads already spread), used as it is instead of a new
@@ -2589,11 +2657,9 @@ def phase_train_check(device: str = 'cuda', fused: bool = False,
     if cpu is None:
         cpu = init_detector(config, device='cpu', cfg_options=opts, seed=1)
         _spread_heads(cpu)
-    gpu = build_detector(dict(cpu.cfg.model, dtype='float32'))
-    gpu.load_state_dict(cpu.state_dict())
+    gpu = _copy_model(cpu, 'float32', device)
     gpu = gpu.to(device)
-    ctl = build_detector(dict(cpu.cfg.model, dtype='bfloat16'))
-    ctl.load_state_dict(cpu.state_dict())
+    ctl = _copy_model(cpu, 'bfloat16', device)
     ctl = ctl.to(device)
     _check_blocks(gpu, fused, v4)
     _check_blocks(ctl, fused, v4)
@@ -3280,13 +3346,14 @@ def _scored_against(ds, truth, results):
 
 
 def eval_card_check(phase, root):
-    """fp32 Mask R-CNN Swin-T with phase 5's spread heads on 4 of the PNGs
-    at a 320x224 test scale, single_gpu_test's batches and the
+    """fp32 Mask R-CNN Swin-T with phase 5's spread heads on 2 of the PNGs
+    (one landscape, one portrait: the CPU side of 4 took 69 of the
+    phase's 89 s) at a 320x224 test scale, single_gpu_test's batches and the
     4-augmentation test's on the card (kernels) and on the CPU (plain
     versions): equal labels, boxes within TOL_EVAL_BOX, masks equal off
     the pixels near the threshold, metrics within TOL_EVAL_METRIC; a bf16
     control on the card must exceed the box limit."""
-    sizes = LOOP_SIZES[:2] + LOOP_SIZES[4:6]
+    sizes = LOOP_SIZES[:1] + LOOP_SIZES[4:5]
     ann_file, prefix = write_synthetic_coco(os.path.join(root, 'check'),
                                             sizes)
     opts = {'bf16': False, 'model.test_cfg.rpn.nms_pre': 1000,
@@ -3444,7 +3511,6 @@ CASCADE_TRAIN_LIMITS = ({f's{i}.loss_bbox': 1e-4 for i in range(3)},
 # backward, so it also samples CHECK_ROIS rois a stage an image where the
 # config samples 512; its proposals stay pinned, so no boundary moves
 CASCADE_CHECK_DEPTHS = [2, 2, 2, 2]
-CHECK_ROIS = 128
 CASCADE_CHECK_OPTS = {'model.backbone.depths': CASCADE_CHECK_DEPTHS}
 CASCADE_TRAIN_CHECK_OPTS = {
     **CASCADE_CHECK_OPTS,
@@ -3992,8 +4058,7 @@ def reppoints_check(device='cuda', phase='reppoints-check', control=True):
                f'to score_thr\'s {thr_gap:.3g} away, the smallest gap at a '
                f'level\'s top-{dict(cpu.test_cfg)["nms_pre"]} cut '
                f'{cut_gap}, at the 2048-pair cap {cap_gap}')
-    gpu = build_detector(dict(cpu.cfg.model, dtype='float32'))
-    gpu.load_state_dict(cpu.state_dict())
+    gpu = _copy_model(cpu, 'float32', device)
     gpu = gpu.to(device).eval()
     want = _rp_outputs(cpu, 'cpu', img, shapes, sf)
     reset_launch_counts()
@@ -4023,8 +4088,7 @@ def reppoints_check(device='cuda', phase='reppoints-check', control=True):
                              'boxes 1e-2 px, scores 1e-4')
     if not control:
         return
-    ctl = build_detector(dict(cpu.cfg.model, dtype='bfloat16'))
-    ctl.load_state_dict(cpu.state_dict())
+    ctl = _copy_model(cpu, 'bfloat16', device)
     feat_err, errs = _rp_errors(want, _rp_outputs(ctl.to(device).eval(),
                                                   device, img, shapes, sf))
     log(phase, f'bf16 control vs the fp32 CPU run: features rel max|d| '
@@ -4220,8 +4284,7 @@ def reppoints_train_check(device='cuda', phase='reppoints-train-check',
     start = time.perf_counter()
     cpu = init_detector(REPPOINTS_CONFIG, device='cpu', cfg_options=opts,
                         seed=1)
-    gpu = build_detector(dict(cpu.cfg.model, dtype='float32'))
-    gpu.load_state_dict(cpu.state_dict())
+    gpu = _copy_model(cpu, 'float32', device)
     gpu = gpu.to(device)
     batch = train_check_batch()
     seen = []
@@ -4264,8 +4327,7 @@ def reppoints_train_check(device='cuda', phase='reppoints-train-check',
         finally:
             undo()
     sound = _rp_train_errors(ref, got)
-    ctl = build_detector(dict(cpu.cfg.model, dtype='bfloat16'))
-    ctl.load_state_dict(cpu.state_dict())
+    ctl = _copy_model(cpu, 'bfloat16', device)
     undo = _refine_targets(ctl.to(device), replay=seen[1] if pinned
                            else None)
     try:
@@ -4630,8 +4692,7 @@ def resnet_check(which, device='cuda', phase=None, control=True):
                    f'away, the smallest gap at a level\'s top-k cut '
                    f'{margins[1]}, at the 2048-pair cap {margins[2]}')
         score_limit = 1e-4
-    gpu = build_detector(dict(cpu.cfg.model, dtype='float32'))
-    gpu.load_state_dict(cpu.state_dict())
+    gpu = _copy_model(cpu, 'float32', device)
     gpu = gpu.to(device).eval()
     want = _resnet_outputs(cpu, 'cpu', img, shapes, sf)
     reset_launch_counts()
@@ -4652,8 +4713,7 @@ def resnet_check(which, device='cuda', phase=None, control=True):
                              f'boxes 1e-2 px, scores {score_limit}')
     if not control:
         return
-    ctl = build_detector(dict(cpu.cfg.model, dtype='bfloat16'))
-    ctl.load_state_dict(cpu.state_dict())
+    ctl = _copy_model(cpu, 'bfloat16', device)
     feat_err, errs = _matched_errors(want, _resnet_outputs(
         ctl.to(device).eval(), device, img, shapes, sf))
     log(phase, f'bf16 control vs the fp32 CPU run: features rel max|d| '
@@ -4782,8 +4842,7 @@ def resnet_train_check(which, device='cuda'):
         return
     phase = 'retina-train-check'
     cpu = _resnet_model(which, device='cpu', seed=1, opts={'bf16': False})
-    gpu = build_detector(dict(cpu.cfg.model, dtype='float32'))
-    gpu.load_state_dict(cpu.state_dict())
+    gpu = _copy_model(cpu, 'float32', device)
     gpu = gpu.to(device)
     batch = train_check_batch()
     relus, towers = ([], []), ([], [])
@@ -4815,8 +4874,7 @@ def resnet_train_check(which, device='cuda'):
         _check_launches(phase, launch_counts(),
                         resnet_launches(gpu, training=True), 1)
         _check_tc(phase, launch_counts(), False, (conv3x3, conv3x3_dw))
-    ctl = build_detector(dict(cpu.cfg.model, dtype='bfloat16'))
-    ctl.load_state_dict(cpu.state_dict())
+    ctl = _copy_model(cpu, 'bfloat16', device)
     control = _rp_train_errors(ref, _rp_train_grads(
         ctl.to(device), batch, device, RETINA_TRAIN_GRADS))
     for what, (loss, grad) in (('fp32 card vs CPU', sound),
@@ -5128,8 +5186,7 @@ def zoo_check(name, device='cuda', control=True):
     phase = f'zoo-{name}-check'
     cpu = _zoo_check_model(name)
     img, shapes, sf = _zoo_check_inputs()
-    gpu = build_detector(dict(cpu.cfg.model, dtype='float32'))
-    gpu.load_state_dict(cpu.state_dict())
+    gpu = _copy_model(cpu, 'float32', device)
     gpu = gpu.to(device).eval()
     want = _resnet_outputs(cpu, 'cpu', img, shapes, sf)
     reset_launch_counts()
@@ -5149,8 +5206,7 @@ def zoo_check(name, device='cuda', control=True):
                              f'features 1e-3, boxes 1e-2 px, scores 1e-2')
     if not control:
         return
-    ctl = build_detector(dict(cpu.cfg.model, dtype='bfloat16'))
-    ctl.load_state_dict(cpu.state_dict())
+    ctl = _copy_model(cpu, 'bfloat16', device)
     feat_err, errs = _matched_errors(want, _resnet_outputs(
         ctl.to(device).eval(), device, img, shapes, sf))
     log(phase, f'bf16 control vs the fp32 CPU run: features rel max|d| '
@@ -5939,8 +5995,7 @@ def dense_check(name, device='cuda', control=True):
         return e is None or feat_err > 1e-3 or e[0] > 1e-2 \
             or e[1] > score_limit or e[2] == 0
     score_limit = 1e-2 if name == 'fast_rcnn' else 1e-4
-    gpu = build_detector(dict(cpu.cfg.model, dtype='float32'))
-    gpu.load_state_dict(cpu.state_dict())
+    gpu = _copy_model(cpu, 'float32', device)
     gpu = gpu.to(device).eval()
     want = outputs(cpu, 'cpu')
     reset_launch_counts()
@@ -5957,8 +6012,7 @@ def dense_check(name, device='cuda', control=True):
         raise AssertionError(f'{name}: card vs CPU over the limits')
     if not control:
         return
-    ctl = build_detector(dict(cpu.cfg.model, dtype='bfloat16'))
-    ctl.load_state_dict(cpu.state_dict())
+    ctl = _copy_model(cpu, 'bfloat16', device)
     control = errors(outputs(ctl.to(device).eval(), device))
     log(phase, f'bf16 control vs the fp32 CPU run: features rel max|d| '
                f'{control[0]:.3g}; {what}: {control[1]}')
@@ -6137,10 +6191,8 @@ def dense_train_check(name, device='cuda'):
         rs = np.random.RandomState(7)
         keys = [tuple(rs.rand(n).astype(np.float32) for _ in range(2))
                 for _ in range(batch['img'].shape[0])]
-    gpu = build_detector(dict(cpu.cfg.model, dtype='float32'))
-    gpu.load_state_dict(cpu.state_dict())
-    ctl = build_detector(dict(cpu.cfg.model, dtype='bfloat16'))
-    ctl.load_state_dict(cpu.state_dict())
+    gpu = _copy_model(cpu, 'float32', device)
+    ctl = _copy_model(cpu, 'bfloat16', device)
     t0 = time.perf_counter()
     ref = _dense_train_grads(cpu, batch, 'cpu', names, keys)
     log(phase, f'the CPU run {time.perf_counter() - t0:.1f} s; losses '
@@ -6448,10 +6500,8 @@ def paa_train_check(device='cuda'):
     names = PAA_LD_TRAIN_GRADS[name]
     cpu = _dense_model(name, device='cpu', seed=1, opts={'bf16': False})
     batch = train_check_batch()
-    gpu = build_detector(dict(cpu.cfg.model, dtype='float32'))
-    gpu.load_state_dict(cpu.state_dict())
-    ctl = build_detector(dict(cpu.cfg.model, dtype='bfloat16'))
-    ctl.load_state_dict(cpu.state_dict())
+    gpu = _copy_model(cpu, 'float32', device)
+    ctl = _copy_model(cpu, 'bfloat16', device)
     seen = {}
     reset_launch_counts()
     with paa_hooks(record=seen):
@@ -6629,7 +6679,8 @@ def htc_kernel_checks(gen, randn):
     version with its bound, in bf16 and fp32: RoIAlign of the stride-8
     embedding of an 800x1344 canvas (one level of 100x168x256) at 14x14,
     the pattern of a training step -- each of the 3 stages pools its 512
-    rois an image of a batch of 2 -- forward and backward, and serving's
+    rois an image of a batch of 2; one stage's rois, as the three share
+    the shape -- forward and backward, and serving's
     1,000 proposals (the bbox fusion) and 100 detections (the mask
     fusion) of one image; each case's rois and the work they need, drawn
     and counted once, serve both dtypes. The backward must repeat bit for
@@ -6638,8 +6689,7 @@ def htc_kernel_checks(gen, randn):
     cases = []
     for n, b, what in ((1000, 1, 'serving, bbox fusion'),
                        (100, 1, 'serving, mask fusion'),
-                       *((1024, 2, f'training, stage {i}')
-                         for i in range(3))):
+                       (1024, 2, 'training, a stage')):
         rois = _rois(gen, n, batch=b)
         cases.append((n, b, rois, _roi_work([HTC_SEM_LEVEL], rois, strides,
                                             size),
@@ -6885,6 +6935,354 @@ def phase_htc():
     return out, rows, seconds
 
 
+# ------------------------------------------------------------ phase 21
+# the RoI-head variants, part 1: Mask Scoring R-CNN, GRoIE, Double-Head
+# and Dynamic R-CNN, each a ResNet-50 FPN detector from its config
+ROI_CONFIGS = {
+    'ms_rcnn': 'configs/ms_rcnn/ms_rcnn_r50_fpn_1x_coco.py',
+    'groie': 'configs/groie/mask_rcnn_r50_fpn_groie_1x_coco.py',
+    'dh': 'configs/double_heads/dh_faster_rcnn_r50_fpn_1x_coco.py',
+    'dynamic': 'configs/dynamic_rcnn/dynamic_rcnn_r50_fpn_1x.py',
+}
+ROI_CONFIGS = {k: os.path.join(REPO, v) for k, v in ROI_CONFIGS.items()}
+ROI_HEADS = {'ms_rcnn': 'MaskScoringRoIHead', 'groie': 'StandardRoIHead',
+             'dh': 'DoubleHeadRoIHead', 'dynamic': 'DynamicRoIHead'}
+ROI_REQUESTS = 2
+ROI_STEPS = 3
+# the training checks' cut (phase 15's): CHECK_ROIS rois an image
+ROI_CHECK_CUTS = {'model.train_cfg.rcnn.sampler.num': CHECK_ROIS}
+# the gradients the fp32 training checks hold: the ResNet's behind the
+# ReLU path (RESNET_GRAD_LIMIT), the neck, the RPN conv and each variant's
+# own parts -- the MaskIoU head's conv, first fc and output; GRoIE's
+# shared pre conv and attention of both extractors; the Double-Head's
+# residual block, a bottleneck's conv and BN and its fc branch; Dynamic
+# R-CNN's heads under its adaptive threshold and beta
+ROI_HEAD_GRADS = {
+    'ms_rcnn': ('roi_head.bbox_head.shared_fcs.0.weight',
+                'roi_head.bbox_head.fc_cls.weight',
+                'roi_head.mask_head.convs.0.conv.weight',
+                'roi_head.mask_iou_head.convs.0.weight',
+                'roi_head.mask_iou_head.fcs.0.weight',
+                'roi_head.mask_iou_head.fc_mask_iou.weight'),
+    'groie': ('roi_head.bbox_roi_extractor.pre_module.conv.weight',
+              'roi_head.bbox_roi_extractor.post_module.query_conv.weight',
+              'roi_head.bbox_roi_extractor.post_module.proj_conv.weight',
+              'roi_head.mask_roi_extractor.pre_module.conv.weight',
+              'roi_head.mask_roi_extractor.post_module.value_conv.weight',
+              'roi_head.bbox_head.shared_fcs.0.weight',
+              'roi_head.mask_head.convs.0.conv.weight'),
+    'dh': ('roi_head.bbox_head.res_block.conv1.conv.weight',
+           'roi_head.bbox_head.res_block.conv_identity.conv.weight',
+           'roi_head.bbox_head.conv_branch.3.conv3.weight',
+           'roi_head.bbox_head.conv_branch.0.bn2.weight',
+           'roi_head.bbox_head.fc_branch.0.weight',
+           'roi_head.bbox_head.fc_cls.weight',
+           'roi_head.bbox_head.fc_reg.weight'),
+    'dynamic': ('roi_head.bbox_head.shared_fcs.0.weight',
+                'roi_head.bbox_head.fc_cls.weight',
+                'roi_head.bbox_head.fc_reg.weight'),
+}
+ROI_TRAIN_GRADS = {name: RESNET_BACKBONE_GRADS + (
+    'neck.fpn_convs.0.conv.weight', 'rpn_head.rpn_conv.weight') + heads
+    for name, heads in ROI_HEAD_GRADS.items()}
+# Limit of the Double-Head's conv-branch gradients in its fp32 training
+# check. Its last ReLU, relu(bottleneck + x), over 2 x 128 rois of 7 x 7 x
+# 1024 units, holds units within fp32 rounding of zero, and only the
+# positives' box loss reaches the branch. On the CPU alone, noise of 1e-7
+# of the input moves conv_branch.3.conv3's gradient by 1.58e-2 of its
+# largest entry, res_block's by 3.4e-3-5.0e-3; noise of 1e-5 (the card's
+# fp32 FPN features differ from the CPU's by 3e-6) moves them by
+# 1.5e-2-1.8e-2. The card read 1.58e-2 at conv3, the bf16 control
+# 8.7e-2-0.45 (NVIDIA H100 80GB HBM3, 700.00 W). The limit is about twice
+# the CPU's own largest movement
+ROI_DH_GRAD_LIMIT = 4e-2
+ROI_DH_BRANCH = ('roi_head.bbox_head.res_block.',
+                 'roi_head.bbox_head.conv_branch.')
+# GRoIE's shapes of rows 4 and 9: every roi pooled on every level, the
+# finest (P2 of an 800x1344 canvas) the largest
+ROI_GROIE_LEVEL = FPN_SHAPES[0]
+
+
+def _extractor_calls(ext):
+    """RoIAlign launches of one call of an extractor: one for a
+    SingleRoIExtractor (the levels routed in one launch), one a level for
+    GRoIE's."""
+    from swindet_tpu_torch.models.roi_heads.roi_extractor import \
+        GenericRoIExtractor
+    return len(ext.featmap_strides) \
+        if isinstance(ext, GenericRoIExtractor) else 1
+
+
+def roi_launches(model, training):
+    """Each kernel's launches that one request (serving) or one step
+    (training) of a phase-21 detector makes, derived from the built model:
+    a conv3x3 launch per kernel ConvModule of the FPN, per RPN level and
+    per mask-head conv pass -- Mask Scoring R-CNN's serving runs its mask
+    head twice, the second time for the MaskIoU head --, in training one
+    more each for dx and a filter-gradient launch each (GRoIE's 5x5 pre
+    convs, the MaskIoU head's convs and the Double-Head's conv branch run
+    F.conv2d, as the JAX package runs them outside its kernel); a
+    RoIAlign launch per extractor call, GRoIE's one a level, the
+    Double-Head's bbox extractor called twice (the rois as they are and
+    enlarged), Mask Scoring R-CNN's mask extractor twice a request, in
+    training each with its backward; the NMS twice a request and once a
+    step."""
+    from swindet_tpu_torch.models.roi_heads.double_roi_head import \
+        DoubleHeadRoIHead
+    from swindet_tpu_torch.models.roi_heads.mask_scoring_roi_head import \
+        MaskScoringRoIHead
+    roi = model.roi_head
+    scoring = isinstance(roi, MaskScoringRoIHead) and not training
+    convs = model.rpn_head.conv_uses_kernel \
+        * len(model.rpn_head.prior_generator.strides) \
+        + sum(c.use_kernel for c in model.neck.fpn_convs)
+    aligns = _extractor_calls(roi.bbox_roi_extractor) \
+        * (2 if isinstance(roi, DoubleHeadRoIHead) else 1)
+    if roi.with_mask:
+        convs += sum(c.use_kernel for c in roi.mask_head.convs) \
+            * (2 if scoring else 1)
+        aligns += _extractor_calls(roi.mask_roi_extractor) \
+            * (2 if scoring else 1)
+    want = {fn.__name__: 0 for fn in KERNEL_WRAPPERS}
+    if training:
+        want.update(conv3x3=2 * convs, conv3x3_dw=convs, roi_align=aligns,
+                    roi_align_bwd=aligns, nms_sorted=1)
+    else:
+        want.update(conv3x3=convs, roi_align=aligns, nms_sorted=2)
+    return want
+
+
+def _roi_model(name, device='cuda', seed=0, opts=RESNET_BF16):
+    model = init_detector(ROI_CONFIGS[name], device=device, seed=seed,
+                          cfg_options=dict(opts))
+    if type(model.roi_head).__name__ != ROI_HEADS[name] \
+            or type(model.backbone).__name__ != 'ResNet':
+        raise AssertionError(f'{name}: not the configured detector')
+    return model
+
+
+def roi_kernel_checks(gen, randn):
+    """Rows 4 and 9 at GRoIE's shapes, each against its plain version
+    with its bound, in bf16 and fp32: RoIAlign of one level of 200x336x256
+    (P2 of an 800x1344 canvas, the largest of the four each roi is pooled
+    on) for a training step's 2 x 512 bbox rois at 7x7 and 512 mask rois
+    at 14x14 at batch 2, forward and backward, and serving's 1,000
+    proposals at 7x7 and 100 detections at 14x14 of one image; each
+    case's rois and the work they need, drawn and counted once, serve both
+    dtypes. The backward must repeat bit for bit. Returns per dtype the
+    forward's and the backward's rows."""
+    c, strides = 256, (4,)
+    cases = []
+    for n, b, size, what in ((1000, 1, 7, 'serving, bbox'),
+                             (100, 1, 14, 'serving, mask'),
+                             (1024, 2, 7, 'training, bbox'),
+                             (512, 2, 14, 'training, mask')):
+        rois = _rois(gen, n, batch=b)
+        cases.append((n, b, size, rois,
+                      _roi_work([ROI_GROIE_LEVEL], rois, strides, size),
+                      f'{n} rois {size}x{size}x{c}, one level at stride 4, '
+                      f'{ROI_GROIE_LEVEL[0]}x{ROI_GROIE_LEVEL[1]}, batch '
+                      f'{b} (GRoIE {what})'))
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        el = torch.finfo(dtype).bits // 8
+        fwd, bwd = [], []
+        for n, b, size, rois, (touched, samples), note in cases:
+            feats = [randn(b, *ROI_GROIE_LEVEL, c).to(dtype)]
+            fwd.append(_compare(
+                'roi_align', dtype,
+                lambda: roi_align(feats, rois, strides, size),
+                lambda: multilevel_roi_align(feats, rois, strides, size),
+                note, work=(touched * c * el + _nbytes(rois)
+                            + n * size * size * c * el,
+                            samples * c * 4 * 2.0), plain_iters=2))
+            if b == 1:
+                continue
+            shapes = [tuple(feats[0].shape)]
+            g = randn(n, size, size, c).to(dtype)
+            bwd.append(_compare(
+                'roi_align_bwd', dtype,
+                lambda: roi_align_bwd(shapes, dtype, rois, g, strides, size),
+                lambda: multilevel_roi_align_backward(shapes, dtype, rois, g,
+                                                      strides, size),
+                note, summed=True,
+                work=(_nbytes(g, rois) + _nbytes(feats[0]),
+                      samples * c * 4 * 2.0), plain_iters=2))
+            _check_repeats(shapes, dtype, rois, g, strides, size)
+        out[dtype] = (fwd, bwd)
+    torch.cuda.empty_cache()
+    return out
+
+
+def roi_serve(name):
+    """A phase-21 config in bf16 through init_detector and
+    inference_detector: a warm-up, then ROI_REQUESTS requests at
+    800x1333, ms a request, peak memory, every launch count checked."""
+    phase = f'roi-{name}'
+    t0 = time.perf_counter()
+    model = _roi_model(name)
+    per = roi_launches(model, training=False)
+    log(phase, f'init_detector: {type(model).__name__} with a '
+               f'{type(model.roi_head).__name__}, '
+               f'{sum(p.numel() for p in model.parameters())} params, '
+               f'compute {model.dtype}, {time.perf_counter() - t0:.1f} s; '
+               f'launches per request {_nonzero(per)}')
+    if model.roi_head.with_mask:
+        def check(res):
+            return _check_result(res, 800, 1333)
+    else:
+        def check(res):
+            return _check_bbox_result(res, 800, 1344)
+    return _timed_requests(phase, model,
+                           synthetic_images(ROI_REQUESTS + 1, seed=9), per,
+                           lambda img: inference_detector(model, img), check)
+
+
+def roi_check(name, device='cuda', control=True):
+    """Phase 12's fp32 serving check (phase_check) on a phase-21 config,
+    with a bf16 control: features, detections, mask probabilities and
+    Mask Scoring R-CNN's mask scores, the CPU model's RoI extractors'
+    attention drawn (GRoIE)."""
+    phase_check(device=device, phase=f'roi-{name}-check',
+                config=ROI_CONFIGS[name], control=control)
+
+
+def roi_train(name):
+    """1 + ROI_STEPS make_train_step steps of a phase-21 config (in bf16,
+    SGD) at batch 2 on the 800x1344 canvas, each step's launches checked;
+    the frozen BN buffers unmoved, the Double-Head's BN running statistics
+    moved; Dynamic R-CNN's values advanced once a step; a profiled step
+    (busy share) and GRoIE's attention's ms."""
+    phase = f'roi-{name}-train'
+    cfg = Config.fromfile(ROI_CONFIGS[name])
+    cfg.merge_from_dict(RESNET_BF16)
+    model = _roi_model(name)
+    opt = build_optimizer(model, dict(cfg.optimizer))
+    if not isinstance(opt, torch.optim.SGD):
+        raise AssertionError(f'{name}: optimizer {type(opt).__name__}')
+    step = make_train_step(model, opt, build_lr_schedule(
+        dict(cfg.lr_config), cfg.optimizer['lr'], ITERS_PER_EPOCH),
+        dict(cfg.optimizer_config).get('grad_clip'))
+    per = roi_launches(model, training=True)
+    batch = synthetic_train_batch()
+    if not model.roi_head.with_mask:
+        del batch['gt_masks']
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    kept = set(model.state_dict())
+    stats = {k: v.clone() for k, v in model.named_buffers() if k in kept}
+    dynamic = hasattr(model.roi_head, 'iou_hist')
+    t0 = time.perf_counter()
+    out = step(batch, gen)
+    _check_log(out, 'warm-up step')
+    torch.cuda.synchronize()
+    log(phase, f'warm-up step {time.perf_counter() - t0:.3f} s; launches '
+               f'per step {_nonzero(per)}')
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times = []
+    for _ in range(ROI_STEPS):
+        t0 = time.perf_counter()
+        out = step(batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        _check_log(out, 'timed step')
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    _check_launches(phase, launches, per, ROI_STEPS)
+    tc = _check_tc(phase, launches, True, (conv3x3, conv3x3_dw))
+    moved = {k for k, v in model.named_buffers()
+             if k in kept and not torch.equal(v, stats[k])}
+    head_bn = {k for k in stats if k.startswith('roi_head.bbox_head.')
+               and k.endswith(('running_mean', 'running_var',
+                               'num_batches_tracked'))}
+    if moved != head_bn or (name == 'dh') != bool(head_bn):
+        raise AssertionError(f'{name}: buffers moved {sorted(moved)[:4]}, '
+                             f'expected the RoI head\'s BN statistics '
+                             f'{sorted(head_bn)[:4]}')
+    if dynamic:
+        count = int(model.roi_head.count)
+        if count != 1 + ROI_STEPS or 'dynamic_beta' not in out:
+            raise AssertionError(f'{name}: dynamic count {count} after '
+                                 f'{1 + ROI_STEPS} steps; log {sorted(out)}')
+    log(phase, 'per-step ms: ' + ', '.join(f'{t:.1f}' for t in times)
+               + f'; peak memory {peak / 2 ** 30:.2f} GiB; last step: '
+               + ', '.join(f'{k} {v:.4f}' for k, v in out.items())
+               + f'; launches {_nonzero(launches)}, as derived; '
+                 f'tensor-core {_nonzero(tc)}; {CARD}')
+    busy = _profile_steps(step, batch, gen, float(np.median(times)), phase,
+                          n=1)
+    if dynamic and int(model.roi_head.count) != 2 + ROI_STEPS:
+        raise AssertionError(f'{name}: the profiled step did not advance '
+                             f'the dynamic values once')
+    plugin_ms = _plugin_ms(model, batch, phase)
+    return dict(train=launches, times=times, train_peak=peak, busy=busy,
+                plugin_ms=plugin_ms)
+
+
+def roi_train_check(name, device='cuda'):
+    """Phase 7's check through phase_train_check on a phase-21 config:
+    fp32 on phase 7's 224x320 batch, the card against the CPU, same seeded weights (GRoIE's attention drawn),
+    batch and sampler keys, proposals pinned, CHECK_ROIS rois an image;
+    the losses (loss_mask_iou, its own gradient group; Dynamic R-CNN's
+    logged threshold and beta, both sides at their initial values) and
+    the gradients of ROI_TRAIN_GRADS, the backbone's at
+    RESNET_GRAD_LIMIT, the Double-Head's conv branch's at
+    ROI_DH_GRAD_LIMIT; the bf16 control must exceed them."""
+    opts = {'bf16': False, **ROI_CHECK_CUTS}
+    cpu = _roi_model(name, device='cpu', seed=1, opts=opts)
+    _spread_heads(cpu)
+    _draw_roi_plugins(cpu)
+    batch = train_check_batch()
+    names = ROI_TRAIN_GRADS[name]
+    phase_train_check(
+        device=device, config=ROI_CONFIGS[name], cpu=cpu, batch=batch,
+        names=names, pin_proposals=True, opts=tuple(opts.items()),
+        limits=({}, dict(TOL_TRAIN_GRAD, **{n: RESNET_GRAD_LIMIT
+                                            for n in RESNET_BACKBONE_GRADS},
+                         **{n: ROI_DH_GRAD_LIMIT for n in names
+                            if n.startswith(ROI_DH_BRANCH)})))
+    if hasattr(cpu.roi_head, 'iou_hist') and int(cpu.roi_head.count) != 1:
+        raise AssertionError(f'{name}: the CPU run advanced the dynamic '
+                             f'values {int(cpu.roi_head.count)} times')
+
+
+def phase_roi():
+    """Phase 21: rows 4 and 9 at GRoIE's shapes, in bf16 and fp32; then
+    each of the four RoI-head variants serving, its fp32 serving check
+    (phase 12's, a bf16 control), training and its fp32 training check.
+    Returns each config's results, the kernel rows and the phase's
+    seconds."""
+    start = last = time.perf_counter()
+    laps = []
+
+    def lap(what):
+        nonlocal last
+        now = time.perf_counter()
+        laps.append(f'{what} {now - last:.1f} s')
+        log('time', f'roi (phase 21): {laps[-1]}')
+        last = now
+    gen = torch.Generator().manual_seed(21)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).cuda()
+    rows = roi_kernel_checks(gen, randn)
+    lap('rows 4 and 9 at GRoIE\'s shapes')
+    out = {}
+    for name in ROI_CONFIGS:
+        serve, lat, peak, counts = roi_serve(name)
+        out[name] = dict(serve=serve, lat=lat, peak=peak, counts=counts)
+        lap(f'{name} serving')
+        roi_check(name)
+        lap(f'{name} serving check')
+        out[name].update(roi_train(name))
+        lap(f'{name} training')
+        roi_train_check(name)
+        lap(f'{name} training check')
+    seconds = time.perf_counter() - start
+    log('time', 'roi (phase 21): ' + ', '.join(laps) + f'; {seconds:.1f} s')
+    return out, rows, seconds
+
+
 # phase 3's further readings of a kernel's main row that the JSON line
 # carries: the kernel's own device ms (rows 1, 14 and 15), row 14's
 # head-major copy, row 1's first kernel off the vector path, row 15's
@@ -6940,11 +7338,15 @@ def main() -> int:
     lap('phase 19')
     htc, htc_rows, phase20_s = phase_htc()
     lap('phase 20')
-    # phase 20's readings of rows 4 and 9 at the semantic branch's shapes
-    for dtype, (fwd, bwd) in htc_rows.items():
-        for key, new in (('roi_align', fwd), ('roi_align_bwd', bwd)):
-            kernels[key][dtype]['shapes'] = \
-                kernels[key][dtype].get('shapes', []) + new
+    roi, roi_rows, phase21_s = phase_roi()
+    lap('phase 21')
+    # phase 20's readings of rows 4 and 9 at the semantic branch's shapes,
+    # phase 21's at GRoIE's
+    for rows_ in (htc_rows, roi_rows):
+        for dtype, (fwd, bwd) in rows_.items():
+            for key, new in (('roi_align', fwd), ('roi_align_bwd', bwd)):
+                kernels[key][dtype]['shapes'] = \
+                    kernels[key][dtype].get('shapes', []) + new
     for what, key, fmt in (('request latency (s)', 'lat', '.4f'),
                            ('training step (ms)', 'times', '.1f')):
         log('configs', f'{what}, median of the timed runs: ' + ', '.join(
@@ -7038,6 +7440,18 @@ def main() -> int:
                       f' ms, peak {r["train_peak"] / 2 ** 30:.2f} GiB, '
                       f'busy {r["busy"]:.3f}') + f'; {smi}')
     log('htc', f'phase 20 {phase20_s:.1f} s')
+    for name, r in roi.items():
+        log('roi', f'{name}: request ms median '
+                   f'{np.median(r["lat"]) * 1e3:.1f}, serving peak '
+                   f'{r["peak"] / 2 ** 30:.2f} GiB, training step median '
+                   f'{np.median(r["times"]):.1f} ms, peak '
+                   f'{r["train_peak"] / 2 ** 30:.2f} GiB, busy '
+                   f'{r["busy"]:.3f}'
+                   + (f', RoI extractors\' attention (plain torch) '
+                      f'{r["plugin_ms"][0]:.2f} ms a step, kernels '
+                      f'{r["plugin_ms"][1]:.2f} ms of it'
+                      if r['plugin_ms'][0] else '') + f'; {smi}')
+    log('roi', f'phase 21 {phase21_s:.1f} s')
     rows = []
     for fn in KERNEL_WRAPPERS:
         name = fn.__name__
@@ -7091,6 +7505,10 @@ def main() -> int:
             counts[f'htc_{which}_serve_launches'] = r['serve'][name]
             if 'train' in r:
                 counts[f'htc_{which}_train_launches'] = r['train'][name]
+        # phase 21's RoI-head variants: 2 requests and 3 steps each
+        for which, r in roi.items():
+            counts[f'roi_{which}_serve_launches'] = r['serve'][name]
+            counts[f'roi_{which}_train_launches'] = r['train'][name]
         if tc:
             tc = dict(tc_launches=sum(tc.values()), **tc)
         if 'shapes' in main_row:

@@ -40,7 +40,8 @@ _RESNET_NORM = re.compile(r'^bn(\d)$')
 _INDEXED = re.compile(r'^(layers|blocks|lateral_convs|fpn_convs|bns|'
                       r'shared_convs|shared_fcs|convs|cls_convs|reg_convs|'
                       r'reppoints_cls_convs|reppoints_pts_convs|head_convs|'
-                      r'bbox_head|mask_head|neck)(\d+)$')
+                      r'bbox_head|mask_head|neck|fcs|conv_branch|'
+                      r'fc_branch)(\d+)$')
 # a ConvModule's anonymous flax norm -> mmcv's name for it
 _NORMS = {('norm', 'BatchNorm_0'): 'bn', ('norm', 'GroupNorm_0'): 'gn',
           ('norm', 'LayerNorm_0'): 'ln'}
@@ -98,6 +99,9 @@ _SEQ_INDEX = {'conv': 0, 'bn': 1}
 _NAS_ADAPT = re.compile(r'^adapt_convs(\d+)\.(conv|bn)$')
 _NAS_EXTRA = re.compile(r'^extra_downsamples(\d+)$')
 _NAS_CELL = {'out_norm': 'out_conv.bn', 'out_conv': 'out_conv.conv'}
+# a Double-Head conv branch's bottleneck: the JAX ConvModules conv{k}
+# (conv, norm) -> a ResNet Bottleneck's conv{k} and bn{k}
+_BOTTLENECK = re.compile(r'^conv_branch\d+$')
 
 
 def _mmdet_name(name: str, tree: dict, parent: dict) -> str:
@@ -148,8 +152,15 @@ def _mmdet_tree(tree: dict) -> dict:
         if 'norm0' in v and name == 'conv2':
             v = {{'norm0': 'bn0', 'norm1': 'bn1'}.get(k, k): t
                  for k, t in v.items()}
-        if _PLUGIN.match(name):
+        if _PLUGIN.match(name) or (name == 'post_module'
+                                   and 'value_conv' in v):
             v = _mmdet_plugin(v)
+        if _BOTTLENECK.match(name):
+            v = {f'{kind}{k[4:]}': part for k, t in v.items()
+                 for kind, part in (('conv', t.get('conv')),
+                                    ('bn', t.get('norm', {})
+                                     .get('BatchNorm_0')))
+                 if part is not None}
         if avg_down and name.startswith('downsample.'):
             name = f'downsample.{int(name.split(".")[1]) + 1}'
         out[_mmdet_name(name, v, tree)] = v
@@ -185,6 +196,20 @@ def _flatten(tree, prefix=()):
     return out
 
 
+def _mask_iou_grid(flat: dict) -> Optional[int]:
+    """The side of the roi grid a MaskIoU head's first fc reads: its fcs0
+    input over the channels of its last conv."""
+    convs = sorted((int(p[-2][5:]), leaf) for p, leaf in flat.items()
+                   if '_mask_iou_head' in p and p[-1] == 'kernel'
+                   and re.match(r'^convs\d+$', p[-2]))
+    fc = [leaf for p, leaf in flat.items()
+          if '_mask_iou_head' in p and p[-2:] == ('fcs0', 'kernel')]
+    if not convs or not fc:
+        return None
+    return int(round((np.shape(fc[0])[0] / np.shape(convs[-1][1])[-1])
+                     ** 0.5))
+
+
 def state_dict_from_jax(params: Dict, batch_stats: Optional[Dict] = None,
                         roi_feat_size: int = 7,
                         resnet_gn: bool = False) -> Dict[str, torch.Tensor]:
@@ -197,9 +222,17 @@ def state_dict_from_jax(params: Dict, batch_stats: Optional[Dict] = None,
     - a deformable conv's tap-major ``weight`` (K, in, out) -> mmcv's
       (out, in, kh, kw), kh = kw = sqrt(K) (the inverse of
       ``swindet_tpu/checkpoint.py:496-500``);
-    - the first FC of a bbox head (a cascade's too), which reads the
-      (s, s, C) roi features flattened HWC in JAX, reads them CHW as in
-      mmdet (s = ``roi_feat_size``);
+    - the first FC of a bbox head (a cascade's too; a Double-Head's
+      ``fc_branch0``), which reads the (s, s, C) roi features flattened
+      HWC in JAX, reads them CHW as in mmdet (s = ``roi_feat_size``), and
+      so does a MaskIoU head's ``fcs0`` (s its stride-2 grid, from the
+      tree);
+    - a Double-Head's ``conv_branch{i}`` bottlenecks: each ConvModule
+      ``conv{k}`` (conv, norm) -> mmdet's ``conv_branch.{i}.conv{k}`` and
+      ``bn{k}`` (a ResNet Bottleneck's); ``fc_branch{i}`` ->
+      ``fc_branch.{i}``; a MaskIoU head's ``fcs{i}`` -> ``fcs.{i}``;
+    - GRoIE's ``post_module`` GeneralizedAttention takes the plugins'
+      mmcv shapes (below);
     - norm ``scale`` -> ``weight``; a BN's ``mean`` / ``var`` ->
       ``running_mean`` / ``running_var``, with ``num_batches_tracked`` 0;
     - a deformable pack's ``conv`` child (weight, bias) -> mmcv's names
@@ -252,6 +285,7 @@ def state_dict_from_jax(params: Dict, batch_stats: Optional[Dict] = None,
     """
     params = _mmdet_tree(params)
     batch_stats = _mmdet_tree(batch_stats or {})
+    iou_grid = _mask_iou_grid(_flatten(params))
     sd = {}
     for path, leaf in _flatten(batch_stats).items():
         key = flax_path_to_torch_key(path, resnet_gn)
@@ -276,9 +310,13 @@ def state_dict_from_jax(params: Dict, batch_stats: Optional[Dict] = None,
             a = a.reshape(k, k, *a.shape[1:]).transpose(3, 2, 0, 1)
         elif path[-1] == 'kernel' and a.ndim == 2:
             a = a.T
-            if path[-2] == 'shared_fcs0' and any(
+            s = None
+            if path[-2] in ('shared_fcs0', 'fc_branch0') and any(
                     p.startswith('_bbox_head') for p in path):
                 s = roi_feat_size
+            elif path[-2] == 'fcs0' and '_mask_iou_head' in path:
+                s = iou_grid
+            if s is not None:
                 out_dim, in_dim = a.shape
                 a = a.reshape(out_dim, s, s, in_dim // (s * s)) \
                     .transpose(0, 3, 1, 2).reshape(out_dim, in_dim)

@@ -52,10 +52,17 @@ class MaxIoUAssigner:
     def assign(self, bboxes: torch.Tensor, gt_bboxes: torch.Tensor,
                gt_valid: torch.Tensor,
                gt_labels: Optional[torch.Tensor] = None,
-               bbox_valid: Optional[torch.Tensor] = None) -> AssignResult:
+               bbox_valid: Optional[torch.Tensor] = None,
+               pos_iou_thr=None, neg_iou_thr=None,
+               min_pos_iou=None) -> AssignResult:
         """bboxes (N, 4), gt_bboxes (G, 4), gt_valid (G,) bool, gt_labels
         (G,) or None, bbox_valid (N,) bool or None (invalid candidates
-        stay at -1)."""
+        stay at -1). ``pos_iou_thr``, ``neg_iou_thr`` and ``min_pos_iou``,
+        floats or 0-d tensors (Dynamic R-CNN's adaptive threshold), take
+        the place of the configured ones where given."""
+        p_thr = self.pos_iou_thr if pos_iou_thr is None else pos_iou_thr
+        n_thr = self.neg_iou_thr if neg_iou_thr is None else neg_iou_thr
+        m_thr = self.min_pos_iou if min_pos_iou is None else min_pos_iou
         n = bboxes.shape[0]
         g = gt_bboxes.shape[0]
         overlaps = bbox_overlaps(bboxes, gt_bboxes)
@@ -68,16 +75,16 @@ class MaxIoUAssigner:
 
         gt_inds = torch.full((n,), -1, dtype=torch.int32,
                              device=bboxes.device)
-        neg = (max_overlaps >= 0) & (max_overlaps < self.neg_iou_thr)
+        neg = (max_overlaps >= 0) & (max_overlaps < n_thr)
         gt_inds = torch.where(neg, 0, gt_inds)
-        pos = max_overlaps >= self.pos_iou_thr
+        pos = max_overlaps >= p_thr
         gt_inds = torch.where(pos, (argmax_gt + 1).to(torch.int32), gt_inds)
 
         if self.match_low_quality:
             gt_max = torch.cat([overlaps, overlaps.new_full((1, g), -1.0)],
                                0).max(0).values
             eligible = ((overlaps == gt_max[None, :])
-                        & (gt_max[None, :] >= self.min_pos_iou)
+                        & (gt_max[None, :] >= m_thr)
                         & (gt_max[None, :] > -1.0) & gt_valid[None, :])
             # last eligible gt wins (the reference's in-order overwrite)
             last_g = g - 1 - eligible.flip(1).to(torch.uint8).argmax(1)

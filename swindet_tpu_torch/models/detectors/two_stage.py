@@ -3,8 +3,9 @@
 ``simple_test`` :127, the per-augmentation halves ``aug_rpn_test``,
 ``aug_bbox_test`` and ``aug_mask_test`` :144-162, ``CascadeRCNN`` :166,
 ``MaskRCNN`` :171, ``FasterRCNN`` :175, ``HybridTaskCascade`` :181,
-``FastRCNN`` :208; reference mmdet/models/detectors/two_stage.py:10,
-htc.py:6, fast_rcnn.py:6).
+``MaskScoringRCNN`` :186, ``FastRCNN`` :208; reference
+mmdet/models/detectors/two_stage.py:10, htc.py:6, fast_rcnn.py:6,
+mask_scoring_rcnn.py:6).
 
 The ``state_dict`` uses mmdet's key names (``backbone.``, ``neck.``,
 ``rpn_head.``, ``roi_head.``), so a released ``.pth`` loads as it is.
@@ -172,6 +173,12 @@ class FasterRCNN(TwoStageDetector):
 class HybridTaskCascade(CascadeRCNN):
     """(reference htc.py:6): a ``HybridTaskCascadeRoIHead``, its semantic
     branch trained on ``gt_semantic_seg``."""
+
+
+@DETECTORS.register_module()
+class MaskScoringRCNN(TwoStageDetector):
+    """(reference mask_scoring_rcnn.py:6): its RoI head is a
+    MaskScoringRoIHead."""
 
 
 @DETECTORS.register_module()

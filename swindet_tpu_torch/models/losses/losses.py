@@ -2,11 +2,11 @@
 tensor ``avg_factor``s (counterpart of
 ``swindet_tpu/models/losses/losses.py``: ``weight_reduce_loss`` :20,
 ``CrossEntropyLoss`` :47, ``FocalLoss`` :94, ``L1Loss`` :126,
-``SmoothL1Loss`` :141, ``IoULoss`` :160, ``GIoULoss`` :190,
+``SmoothL1Loss`` :141, ``IoULoss`` :160, ``MSELoss`` :295, ``GIoULoss`` :190,
 ``QualityFocalLoss`` :214, ``DistributionFocalLoss`` :252, ``accuracy``
 :280, ``VarifocalLoss`` :450, ``KnowledgeDistillationKLDivLoss`` :595;
 reference mmdet/models/losses/cross_entropy_loss.py, focal_loss.py,
-smooth_l1_loss.py, iou_loss.py, gfocal_loss.py, varifocal_loss.py,
+smooth_l1_loss.py, mse_loss.py, iou_loss.py, gfocal_loss.py, varifocal_loss.py,
 kd_loss.py). Padded entries carry weight 0."""
 from __future__ import annotations
 
@@ -145,7 +145,9 @@ class L1Loss:
 
 @LOSSES.register_module()
 class SmoothL1Loss:
-    """0.5 d^2 / beta where |d| < beta, else |d| - 0.5 beta."""
+    """0.5 d^2 / beta where |d| < beta, else |d| - 0.5 beta. A ``beta``
+    given to the call (a float or a 0-d tensor: Dynamic R-CNN's adaptive
+    one) takes the place of the configured one."""
 
     def __init__(self, beta: float = 1.0, reduction: str = 'mean',
                  loss_weight: float = 1.0):
@@ -154,11 +156,30 @@ class SmoothL1Loss:
         self.loss_weight = loss_weight
 
     def __call__(self, pred, target, weight=None, avg_factor=None,
-                 reduction_override=None):
+                 reduction_override=None, beta=None):
         reduction = reduction_override or self.reduction
-        b = self.beta
+        b = self.beta if beta is None else beta
         diff = (pred.float() - target.float()).abs()
         loss = torch.where(diff < b, 0.5 * diff * diff / b, diff - 0.5 * b)
+        return self.loss_weight * weight_reduce_loss(loss, weight, reduction,
+                                                     avg_factor)
+
+
+@LOSSES.register_module()
+class MSELoss:
+    """(pred - target)^2 in fp32; a weight of fewer dimensions than the
+    loss gains a trailing one."""
+
+    def __init__(self, reduction: str = 'mean', loss_weight: float = 1.0):
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, target, weight=None, avg_factor=None,
+                 reduction_override=None):
+        reduction = reduction_override or self.reduction
+        loss = (pred.float() - target.float()) ** 2
+        if weight is not None and weight.dim() < loss.dim():
+            weight = weight[..., None]
         return self.loss_weight * weight_reduce_loss(loss, weight, reduction,
                                                      avg_factor)
 

@@ -119,12 +119,13 @@ class ConvFCBBoxHead(nn.Module):
                 pos.float().expand_as(bt))
 
     def loss(self, cls_score, bbox_pred, rois, labels, label_weights,
-             bbox_targets, bbox_weights):
+             bbox_targets, bbox_weights, loss_bbox_kwargs=None):
         """Losses over the flattened (B * num) slots, rois (B * num, 5);
         both averaged over the sampled slots (the count of non-zero label
         weights), as the reference averages over the sampled rois. With
         ``reg_decoded_bbox`` the predicted deltas are decoded on the rois
-        first."""
+        first. ``loss_bbox_kwargs`` go to the box loss's call (Dynamic
+        R-CNN's ``beta``)."""
         avg = (label_weights > 0).float().sum().clamp(min=1.0)
         losses = dict(
             loss_cls=self.loss_cls(cls_score, labels, weight=label_weights,
@@ -140,7 +141,8 @@ class ConvFCBBoxHead(nn.Module):
                 1, safe[:, None, None].expand(-1, 1, 4))[:, 0]
         losses['loss_bbox'] = self.loss_bbox(pred, bbox_targets,
                                              weight=bbox_weights,
-                                             avg_factor=avg)
+                                             avg_factor=avg,
+                                             **(loss_bbox_kwargs or {}))
         return losses
 
     def decode(self, rois, cls_score, bbox_pred, img_shapes):

@@ -1,10 +1,22 @@
-"""SingleRoIExtractor (counterpart of
-``swindet_tpu/models/roi_heads/roi_extractor.py:24``; reference
-mmdet/models/roi_heads/roi_extractors/single_level_roi_extractor.py:9):
-FPN level routing and RoIAlign through the RoIAlign kernels (forward, and
-backward into the features in training). A deformable RoI pool layer
-(``DeformRoIPoolPack``, ``ModulatedDeformRoIPoolPack``) builds a
-:class:`DeformRoIExtractor` instead, as the JAX ``__new__`` does (:26-37).
+"""RoI extractors (counterpart of
+``swindet_tpu/models/roi_heads/roi_extractor.py``: ``SingleRoIExtractor``
+:24 with ``roi_rescale`` :56, ``DeformRoIExtractor`` :93,
+``GenericRoIExtractor`` :179; reference
+mmdet/models/roi_heads/roi_extractors/single_level_roi_extractor.py:9,
+generic_roi_extractor.py:9, base_roi_extractor.py:57).
+
+SingleRoIExtractor: FPN level routing and RoIAlign through the RoIAlign
+kernels (forward, and backward into the features in training). A
+deformable RoI pool layer (``DeformRoIPoolPack``,
+``ModulatedDeformRoIPoolPack``) builds a :class:`DeformRoIExtractor`
+instead, as the JAX ``__new__`` does (:26-37). A ``roi_scale_factor``
+rescales the rois about their centres *before* the level mapping, as the
+JAX package does (:74-75); mmdet maps the levels first, so an enlarged
+roi can move to a coarser level here and not there.
+
+GenericRoIExtractor (GRoIE): every roi is aligned on every level, each
+level through the RoIAlign kernels with that one level, then one shared
+``pre`` module, a sum (or concat) over the levels, and a ``post`` module.
 """
 from __future__ import annotations
 
@@ -13,12 +25,25 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
-from ..layers import normal_
+from ..layers import ConvModule, normal_
 from ...ops.deform_roi_pool import multilevel_deform_roi_pool
+from ...ops.plugins import build_plugin
 from ...ops.roi_align import map_roi_levels, roi_align_op
 from ...registries import ROI_EXTRACTORS
 
 _DEFORM_LAYERS = ('DeformRoIPoolPack', 'ModulatedDeformRoIPoolPack')
+
+
+def roi_rescale(rois: torch.Tensor, scale_factor: float) -> torch.Tensor:
+    """(R, 5) rois with their widths and heights scaled by
+    ``scale_factor`` about their centres (Double-Head's larger regression
+    field; ``roi_extractor.py:56``)."""
+    cx = (rois[:, 1] + rois[:, 3]) * 0.5
+    cy = (rois[:, 2] + rois[:, 4]) * 0.5
+    w = (rois[:, 3] - rois[:, 1]) * scale_factor
+    h = (rois[:, 4] - rois[:, 2]) * scale_factor
+    return torch.stack([rois[:, 0], cx - w * 0.5, cy - h * 0.5,
+                        cx + w * 0.5, cy + h * 0.5], -1)
 
 
 @ROI_EXTRACTORS.register_module()
@@ -48,9 +73,13 @@ class SingleRoIExtractor:
         return len(self.featmap_strides)
 
     def __call__(self, feats: Sequence[torch.Tensor], rois: torch.Tensor,
-                 roi_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """feats: per-level NHWC; rois (R, 5) with the batch column.
+                 roi_valid: Optional[torch.Tensor] = None,
+                 roi_scale_factor: Optional[float] = None) -> torch.Tensor:
+        """feats: per-level NHWC; rois (R, 5) with the batch column, scaled
+        by ``roi_scale_factor`` about their centres first where given.
         Returns (R, out, out, C) in the features' dtype."""
+        if roi_scale_factor is not None:
+            rois = roi_rescale(rois, roi_scale_factor)
         return roi_align_op([f.contiguous() for f in feats[:self.num_inputs]],
                             rois.float().contiguous(), self.featmap_strides,
                             self.out_size, self.sampling_ratio,
@@ -132,10 +161,14 @@ class DeformRoIExtractor(nn.Module):
             1, -1, outs.shape[-1]))[0]
 
     def forward(self, feats: Sequence[torch.Tensor], rois: torch.Tensor,
-                roi_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """feats: per-level NHWC; rois (R, 5) with the batch column.
-        Returns (R, out, out, C) in the features' dtype."""
+                roi_valid: Optional[torch.Tensor] = None,
+                roi_scale_factor: Optional[float] = None) -> torch.Tensor:
+        """feats: per-level NHWC; rois (R, 5) with the batch column, scaled
+        by ``roi_scale_factor`` first where given. Returns (R, out, out, C)
+        in the features' dtype."""
         feats = [f.contiguous() for f in feats[:self.num_inputs]]
+        if roi_scale_factor is not None:
+            rois = roi_rescale(rois, roi_scale_factor)
         rois = rois.float().contiguous()
         s = self.out_size
         base = roi_align_op(feats, rois, self.featmap_strides, s,
@@ -154,3 +187,88 @@ class DeformRoIExtractor(nn.Module):
             mask = torch.sigmoid(self._per_level('mask_fc', flat, lvl))
             out = out * mask.reshape(n, s, s, 1)
         return out.to(feats[0].dtype)
+
+
+@ROI_EXTRACTORS.register_module()
+class GenericRoIExtractor(nn.Module):
+    """GRoIE (arXiv:2004.13665): each roi aligned on every level through
+    the RoIAlign kernels with that one level (no routing), each level's
+    features through the one ``pre`` module shared by the levels, summed
+    (``aggregation`` 'sum') or concatenated ('concat'), then the ``post``
+    module; the result zeroed where ``roi_valid`` is False.
+
+    ``pre_cfg`` is a ``ConvModule`` (the configs': 5x5, no norm and, as
+    the JAX ConvModule's default, no activation, where mmcv's default adds
+    a ReLU), ``post_cfg`` a plugin (``GeneralizedAttention``). Both compute
+    in fp32, as the JAX modules, built without a ``dtype``, do; the
+    features enter them cast up. mmdet's names: ``pre_module.conv.*``,
+    ``post_module.*``."""
+
+    def __init__(self, roi_layer: dict, out_channels: int,
+                 featmap_strides: Sequence[int], aggregation: str = 'sum',
+                 pre_cfg: Optional[dict] = None,
+                 post_cfg: Optional[dict] = None):
+        super().__init__()
+        if aggregation not in ('sum', 'concat'):
+            raise ValueError(f'GenericRoIExtractor: aggregation '
+                             f'{aggregation!r}')
+        if roi_layer.get('type', 'RoIAlign') != 'RoIAlign':
+            raise NotImplementedError(f'GenericRoIExtractor: roi layer '
+                                      f'{roi_layer.get("type")}')
+        self.out_size = roi_layer['output_size']
+        self.sampling_ratio = roi_layer.get('sampling_ratio', 0)
+        self.out_channels = out_channels
+        self.featmap_strides = list(featmap_strides)
+        self.aggregation = aggregation
+        self.pre_module = None if pre_cfg is None \
+            else self._processor(pre_cfg)
+        self.post_module = None if post_cfg is None \
+            else self._processor(post_cfg)
+
+    def _processor(self, cfg: dict) -> nn.Module:
+        cfg = dict(cfg)
+        kind = cfg.pop('type')
+        cfg.pop('inplace', None)
+        if kind == 'ConvModule':
+            return ConvModule(cfg.pop('in_channels', self.out_channels),
+                              cfg.pop('out_channels'), **cfg)
+        cfg.pop('in_channels', None)
+        return build_plugin(dict(cfg, type=kind), self.out_channels)[1]
+
+    @property
+    def num_inputs(self) -> int:
+        return len(self.featmap_strides)
+
+    def init_weights(self, gen: torch.Generator) -> None:
+        for mod in (self.pre_module, self.post_module):
+            if mod is not None:
+                mod.init_weights(gen)
+
+    def forward(self, feats: Sequence[torch.Tensor], rois: torch.Tensor,
+                roi_valid: Optional[torch.Tensor] = None,
+                roi_scale_factor: Optional[float] = None) -> torch.Tensor:
+        """feats: per-level NHWC; rois (R, 5) with the batch column, scaled
+        by ``roi_scale_factor`` first where given. Returns (R, out, out, C)
+        (C times the levels for 'concat'): fp32 after a ``pre`` or
+        ``post`` module, else the features' dtype."""
+        if roi_scale_factor is not None:
+            rois = roi_rescale(rois, roi_scale_factor)
+        rois = rois.float().contiguous()
+        parts = []
+        for feat, stride in zip(feats, self.featmap_strides):
+            x = roi_align_op([feat.contiguous()], rois, [stride],
+                             self.out_size, self.sampling_ratio)
+            if self.pre_module is not None:
+                x = self.pre_module(x)
+            parts.append(x)
+        if self.aggregation == 'sum':
+            out = parts[0]
+            for x in parts[1:]:
+                out = out + x
+        else:
+            out = torch.cat(parts, -1)
+        if self.post_module is not None:
+            out = self.post_module(out)
+        if roi_valid is not None:
+            out = out * roi_valid.reshape(-1, 1, 1, 1).to(out.dtype)
+        return out

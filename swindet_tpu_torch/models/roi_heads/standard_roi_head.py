@@ -1,8 +1,9 @@
 """StandardRoIHead (counterpart of
 ``swindet_tpu/models/roi_heads/standard_roi_head.py``: ``_bbox_forward``
 :62, ``_mask_feats`` :72, ``forward_train`` / ``_forward_train_impl``
-:223-316, ``bbox_test`` :319, ``mask_test`` :337, ``simple_test`` :349;
-reference mmdet/models/roi_heads/standard_roi_head.py:10).
+:223-316 with ``return_mask_aux``, ``bbox_test`` :319, ``mask_test``
+:337, ``simple_test`` :349; reference
+mmdet/models/roi_heads/standard_roi_head.py:10).
 
 A ``shared_head`` (the C4 configs' ResLayer) runs on the roi features of
 both branches, after each branch's extractor: with no
@@ -21,7 +22,7 @@ batched over images; test-time augmentation runs the two halves apart.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -40,14 +41,21 @@ def boxes_to_rois(boxes: torch.Tensor) -> torch.Tensor:
 
 
 def sample_batch(assigner, sampler, proposals, proposal_valid, gt_bboxes,
-                 gt_valid, gt_labels, gen=None, keys=None):
+                 gt_valid, gt_labels, gen=None, keys=None,
+                 assign_kwargs: Optional[dict] = None, assigns=None):
     """Per-image assignment and sampling of (B, P, 4) proposals into the
     sampler's fixed slots, stacked over the batch; ``keys`` per image the
-    sampler's (keys_pos, keys_neg), or None to draw them from ``gen``."""
+    sampler's (keys_pos, keys_neg), or None to draw them from ``gen``.
+    ``assign_kwargs`` go to each assignment (Dynamic R-CNN's thresholds);
+    each image's AssignResult is appended to the list ``assigns`` where
+    one is given."""
     samples = []
     for i in range(proposals.shape[0]):
         assign = assigner.assign(proposals[i], gt_bboxes[i], gt_valid[i],
-                                 gt_labels[i], bbox_valid=proposal_valid[i])
+                                 gt_labels[i], bbox_valid=proposal_valid[i],
+                                 **(assign_kwargs or {}))
+        if assigns is not None:
+            assigns.append(assign)
         samples.append(sampler.sample(
             assign, proposals[i], gt_bboxes[i], gt_valid[i], gt_labels[i],
             bbox_valid=proposal_valid[i], gen=gen,
@@ -55,22 +63,45 @@ def sample_batch(assigner, sampler, proposals, proposal_valid, gt_bboxes,
     return type(samples[0])(*[torch.stack(t) for t in zip(*samples)])
 
 
+class MaskAux(NamedTuple):
+    """What the mask branch of a training step computed, for a head that
+    trains more on it (Mask Scoring R-CNN; the JAX package's
+    ``return_mask_aux``): the mask head's input (B * m, s, s, C), its
+    logits (B * m, 2s, 2s, K), the targets (B, m, S, S), and per image the
+    positive slots' boxes (B, m, 4), gt indices (B, m), mask (B, m) and
+    labels (B, m), clamped at 0."""
+    feats: torch.Tensor
+    pred: torch.Tensor
+    targets: torch.Tensor
+    pos_boxes: torch.Tensor
+    pos_inds: torch.Tensor
+    pos_mask: torch.Tensor
+    pos_labels: torch.Tensor
+
+
 def mask_losses(mask_head, extract, feats, samp, m: int, gt_masks,
-                size: int, predict=None) -> Dict[str, torch.Tensor]:
+                size: int, predict=None, return_aux: bool = False):
     """The mask head's loss on the first ``m`` slots of a stacked
     sampling result, where the sampler packs the positives; ``extract``
     maps (feats, rois) to the mask head's input, ``predict`` that input
-    to the logits (the mask head itself by default)."""
+    to the logits (the mask head itself by default). With ``return_aux``
+    (losses, :class:`MaskAux`)."""
     pos_boxes = samp.bboxes[:, :m]
-    mask_pred = (predict or mask_head)(
-        extract(feats, boxes_to_rois(pos_boxes)))
+    x = extract(feats, boxes_to_rois(pos_boxes))
+    mask_pred = (predict or mask_head)(x)
     targets = torch.stack([
         mask_head.get_targets(gt_masks[i], pos_boxes[i],
                               samp.pos_gt_inds[i, :m], size)
         for i in range(pos_boxes.shape[0])])
-    return mask_head.loss(mask_pred, targets.reshape(-1, size, size),
-                          samp.pos_gt_labels[:, :m].clamp(min=0).reshape(-1),
-                          samp.is_pos[:, :m].reshape(-1).float())
+    labels = samp.pos_gt_labels[:, :m].clamp(min=0)
+    losses = mask_head.loss(mask_pred, targets.reshape(-1, size, size),
+                            labels.reshape(-1),
+                            samp.is_pos[:, :m].reshape(-1).float())
+    if not return_aux:
+        return losses
+    return losses, MaskAux(x, mask_pred, targets, pos_boxes,
+                           samp.pos_gt_inds[:, :m], samp.is_pos[:, :m],
+                           labels)
 
 
 @HEADS.register_module()
@@ -122,6 +153,11 @@ class StandardRoIHead(nn.Module):
         x = self.mask_roi_extractor(feats, rois)
         return x if self.shared_head is None else self.shared_head(x)
 
+    def _bbox_forward(self, feats, rois):
+        """(cls_score, bbox_pred) of (R, 5) rois: the one override point of
+        the variants (Double-Head pools the regression rois enlarged)."""
+        return self.bbox_head(self._bbox_feats(feats, rois))
+
     def forward_train(self, feats, proposals, proposal_valid, gt_bboxes,
                       gt_valid, gt_labels, gt_masks,
                       gen: Optional[torch.Generator] = None,
@@ -133,23 +169,38 @@ class StandardRoIHead(nn.Module):
         ``keys``: per image the sampler's (keys_pos, keys_neg), or None to
         draw them from ``gen``. ``img_shapes`` is the cascade's argument
         and unused here."""
+        return self._forward_train(feats, proposals, proposal_valid,
+                                   gt_bboxes, gt_valid, gt_labels, gt_masks,
+                                   gen, keys)[0]
+
+    def _forward_train(self, feats, proposals, proposal_valid, gt_bboxes,
+                       gt_valid, gt_labels, gt_masks, gen=None, keys=None,
+                       return_mask_aux: bool = False
+                       ) -> Tuple[Dict[str, torch.Tensor], Optional[MaskAux]]:
+        """forward_train's (losses, the mask branch's :class:`MaskAux` where
+        ``return_mask_aux`` and the branch ran, else None)."""
         samp = sample_batch(self.assigner, self.sampler, proposals,
                             proposal_valid, gt_bboxes, gt_valid, gt_labels,
                             gen, keys)
         rois = boxes_to_rois(samp.bboxes)
-        cls_score, bbox_pred = self.bbox_head(self._bbox_feats(feats, rois))
+        cls_score, bbox_pred = self._bbox_forward(feats, rois)
         labels, label_weights, bbox_targets, bbox_weights = \
             self.bbox_head.get_targets(samp, self.train_cfg)
         losses = self.bbox_head.loss(
             cls_score, bbox_pred, rois, labels.reshape(-1),
             label_weights.reshape(-1), bbox_targets.reshape(-1, 4),
             bbox_weights.reshape(-1, 4))
+        aux = None
         if self.with_mask and gt_masks is not None:
-            losses.update(mask_losses(
+            mask = mask_losses(
                 self.mask_head, self._mask_feats, feats, samp,
                 int(self.sampler.num * self.sampler.pos_fraction), gt_masks,
-                self.train_cfg.get('mask_size', 28)))
-        return losses
+                self.train_cfg.get('mask_size', 28),
+                return_aux=return_mask_aux)
+            if return_mask_aux:
+                mask, aux = mask
+            losses.update(mask)
+        return losses, aux
 
     def bbox_test(self, feats, proposals, img_shapes):
         """Per-proposal class scores (B, P, K+1) (softmax, fp32) and boxes
@@ -157,7 +208,7 @@ class StandardRoIHead(nn.Module):
         rescale: the per-augmentation half of test-time augmentation."""
         b, p = proposals.shape[:2]
         rois = boxes_to_rois(proposals)
-        cls_score, bbox_pred = self.bbox_head(self._bbox_feats(feats, rois))
+        cls_score, bbox_pred = self._bbox_forward(feats, rois)
         return self.bbox_head.decode(rois.view(b, p, 5),
                                      cls_score.view(b, p, -1),
                                      bbox_pred.view(b, p, -1), img_shapes)
